@@ -1,0 +1,57 @@
+"""Whole-model conversion to the DeMM packed serving form.
+
+``pack_tree(model)`` walks the module tree and replaces every sparse linear
+(a :class:`~repro_torch.core.sparse_linear.SparseLinear` that carries a
+pattern) by a :class:`~repro_torch.core.sparsity.PackedWeight`, **in place**:
+each dense weight is dropped as soon as it is packed, so a full-width model
+never holds both forms.  ``quantize="int8"`` additionally quantizes every
+packed node (``repro_torch.quant``): int8 values + scales + the ``qdtype``
+tag, served by the w8a16 kernel.  Only the ``xwT`` layout is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from torch import nn
+
+from repro_torch.core import sparse_linear as sl
+from repro_torch.core.sparsity import LAYOUT_XWT, LAYOUTS, PackedWeight
+
+
+def pack_tree(module: nn.Module, layout: str = LAYOUT_XWT, *,
+              quantize: Optional[str] = None, granularity: str = "per_row"):
+    """Convert every sparse linear under ``module`` to a PackedWeight.
+
+    ``quantize`` (e.g. ``"int8"``) quantizes each packed node on the fly and
+    ``granularity`` picks the scale unit (``per_row`` | ``per_group``).
+    Already-packed nodes pass through (and are quantized if requested).
+    Returns ``module`` (or its packed replacement when ``module`` itself is a
+    sparse linear).
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected {LAYOUTS}")
+    if layout != LAYOUT_XWT:
+        raise NotImplementedError(
+            f"layout {layout!r} is not ported yet (it comes with the "
+            "block-spmm kernel slice); use layout='xwT'")
+
+    def q(pw: PackedWeight) -> PackedWeight:
+        if quantize is None or pw.qdtype is not None:
+            return pw
+        from repro_torch.quant import quantize_packed
+        return quantize_packed(pw, quantize, granularity=granularity)
+
+    def convert(node: nn.Module) -> nn.Module:
+        if isinstance(node, PackedWeight):
+            return q(node)
+        if isinstance(node, sl.SparseLinear):
+            cfg = sl.node_sparsity(node)
+            return node if cfg is None else q(sl.pack_params(node, cfg))
+        for name, child in list(node.named_children()):
+            new = convert(child)
+            if new is not child:
+                setattr(node, name, new)
+        return node
+
+    return convert(module)

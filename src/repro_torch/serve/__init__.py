@@ -1,0 +1,49 @@
+"""``repro_torch.serve`` — the serving engine behind one protocol + factory.
+
+:class:`ServeEngine` (dense per-slot KV caches, continuous batching) speaks
+the protocol surface ``submit`` / ``step`` / ``run_until_drained`` (aliases
+``tick``/``drain`` — see :mod:`repro_torch.serve.protocol`).
+:func:`make_engine` is the one construction path; the paged engine, replica
+routing, sharding plans and speculative decoding are not ported yet and are
+refused by name.
+"""
+
+from __future__ import annotations
+
+from repro_torch.serve.protocol import Engine, EngineBase
+from repro_torch.serve.serve_loop import Request, ServeConfig, ServeEngine
+
+__all__ = ["Engine", "EngineBase", "Request", "ServeConfig", "ServeEngine",
+           "make_engine"]
+
+
+def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
+                plan=None, replicas: int = 1, spec=None):
+    """Build a serving engine for ``config`` on ``device``.
+
+    * ``config`` — :class:`ServeConfig` selects the dense-cache
+      :class:`ServeEngine`.
+    * ``device`` — defaults to ``"cuda"`` and raises when no CUDA device is
+      present; the CPU is used only when asked for by name.
+    * ``plan`` / ``replicas`` > 1 / ``spec`` and a ``PagedServeConfig`` name
+      parts of the system that are not ported yet.
+    """
+    from repro_torch.core.sparse_linear import resolve_policy
+
+    policy = resolve_policy(policy, None, None)
+    for name, given in (("plan", plan is not None),
+                        ("replicas > 1", replicas > 1),
+                        ("spec", spec is not None)):
+        if given:
+            raise NotImplementedError(
+                f"make_engine({name}) is not ported yet; only the "
+                "single-device dense-cache engine is")
+    if type(config).__name__ == "PagedServeConfig":
+        raise NotImplementedError(
+            "the paged serving engine is not ported yet; pass a ServeConfig")
+    if not isinstance(config, ServeConfig):
+        raise TypeError(
+            f"make_engine: unknown config type {type(config).__name__!r} "
+            "(expected ServeConfig)")
+    return ServeEngine(model, config, policy=policy, metrics=metrics,
+                       device=device)

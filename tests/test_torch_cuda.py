@@ -1,0 +1,92 @@
+"""The port's CUDA kernels on the card (marker ``cuda``).
+
+A CUDA kernel has no interpret mode, so these run only where there is a GPU
+and ``nvcc``:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Elsewhere the ``card`` fixture skips them with a reason.  Tolerances: float32
+rtol/atol 1e-4 (summation order), bfloat16 rtol/atol 2e-2.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_arch
+from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
+from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+from repro_torch.launch.serve import run_serve
+from repro_torch.models.families import build_model
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(card, n, m, o, g, bx, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    scores = torch.rand((o, g, m), generator=gen, device=card)
+    idx = scores.topk(n, dim=-1).indices.sort(dim=-1).values.to(torch.int32)
+    vals = torch.randn((o, g, n), generator=gen, device=card)
+    x = torch.randn((bx, g * m), generator=gen, device=card).to(dtype)
+    return x, vals.contiguous(), idx.contiguous(), gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,o,g,bx", [(2, 16, 256, 8, 4), (5, 80, 100, 4, 1),
+                                        (3, 48, 77, 9, 37), (8, 128, 64, 130, 9)])
+def test_kernels_match_plain_versions(card, n, m, o, g, bx, dtype):
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed=n * m)
+    before = demm_xwT.launches
+    got = demm_xwT(x, vals, idx, cfg)
+    torch.cuda.synchronize()
+    assert demm_xwT.launches == before + 1
+    torch.testing.assert_close(got, demm_xwT_plain(x, vals, idx, cfg),
+                               **TOL[dtype])
+    q = torch.randint(-127, 128, vals.shape, generator=gen, device=card,
+                      dtype=torch.int32).to(torch.int8)
+    for shape in ((o,), (o, g)):
+        scales = torch.rand(shape, generator=gen, device=card) * 0.02 + 1e-3
+        before = demm_xwT_q8.launches
+        got = demm_xwT_q8(x, q, idx, scales, cfg)
+        torch.cuda.synchronize()
+        assert demm_xwT_q8.launches == before + 1
+        torch.testing.assert_close(
+            got, demm_xwT_q8_plain(x, q, idx, scales, cfg), **TOL[dtype])
+
+
+def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    cfg = SparsityConfig(2, 16)
+    x, vals, idx, _ = _inputs(card, 2, 16, 32, 4, 3, torch.float32, seed=0)
+    with pytest.raises(TypeError):
+        demm_xwT(x.to(torch.float16), vals, idx, cfg)
+    with pytest.raises(ValueError):
+        demm_xwT(x, vals.cpu(), idx, cfg)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_reduced_serving_cuda_equals_reference(card, quantize):
+    cfg = dataclasses.replace(get_arch("stablelm_3b").reduced(),
+                              compute_dtype="float32")
+    outs = {}
+    for backend in ("cuda", "reference"):
+        model = build_model(cfg, device=card, seed=0)
+        eng = run_serve(model, cfg.vocab_size, packed=True, quantize=quantize,
+                        backend=backend, requests=3, slots=2, max_new=5,
+                        max_len=32, seed=0, device=card)
+        outs[backend] = {r.uid: r.output for r in eng.completed}
+        assert np.isfinite(eng.last_logits[:, :cfg.vocab_size]).all()
+    assert outs["cuda"] == outs["reference"]
