@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase below, about two minutes
     python3 chip_smoke.py --sweep    # also time the kernels' one tunable
+    python3 chip_smoke.py --compare-with DIR   # K1/K3 here against DIR's
 
 Needs a CUDA device and ``nvcc``; imports only ``repro_torch`` (from ``src/``
 beside this file).  Each phase raises on failure, so the exit code is non-zero
@@ -10,37 +11,58 @@ unless all of them held:
 
 1. device   — require CUDA; print the card's name and power limit.
 2. build    — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-              and load the library.
-3. kernels  — ``demm_xwT`` and ``demm_xwT_q8`` (per-row and per-group scales)
-              against their plain PyTorch versions on the card, at the three
-              projection shapes of full-width stablelm_3b and the reduced 2:16
-              shape, Bx in {1, 4, 37, 256}, x in float32 and bfloat16, plus
-              duplicate indices, an all-padded row, a contraction dim that
-              needs several shared-memory chunks, non-default tiles and
-              bfloat16 packed values.
+              (one nvcc per source, all started together) and load the
+              library.
+3. kernels  — all five kernels against their plain PyTorch versions on the
+              card, x / B in float32 and bfloat16, Bx (or Cd) in {1, 4, 37,
+              256}:
+              * ``demm_xwT`` and ``demm_xwT_q8`` (per-row and per-group
+                scales) at the three projection shapes of full-width
+                stablelm_3b and the reduced 2:16 shape, as the main path
+                launches them (``duplicates=False``), plus duplicate indices
+                with non-quarter-integer values (the summing instantiation),
+                an all-padded row, a contraction dim that needs several
+                shared-memory chunks, non-default tiles and bfloat16 packed
+                values;
+              * ``demm_block_spmm``, ``demm_block_spmm_q8`` (serving
+                orientation, B = xᵀ) at the same shapes with the block
+                geometry of ``pack_block``, plus weights with inactive
+                (row-block, group) tiles (a_max < G) and an all-zero row
+                block, ``a_max > G`` padding, duplicate indices with
+                non-quarter-integer values, and B stored (K, Cd);
+              * ``demm_spmm`` (paper orientation, B (K, Cd)) at the same
+                shapes, plus duplicate indices.
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
               backend ``cuda``: 4 requests x 8 new tokens on 4 slots; every
               request completes inside the true vocab and the float kernel was
-              launched exactly 7 x 32 x ticks times.
+              launched exactly 7 x 32 x ticks times, no other kernel.
 5. serve q8 — the same with int8 values (per-row scales) and the int8 kernel.
-6. agree    — full width, 2 layers, float32 compute: backend ``cuda`` and
-              backend ``reference`` give allclose logits on every tick (rtol
-              1e-3) and identical greedy token streams.
+   4b/5b    — the same two with ``--layout block`` on a fresh model of the
+              same seed: float through ``demm_block_spmm``, int8 through
+              ``demm_block_spmm_q8``.
+   5c spmm  — ``ops.demm_spmm`` (the paper orientation's entry point),
+              backend ``cuda``, on the seven projection shapes of one layer
+              with B of 4 and of 256 columns: exactly 14 launches of
+              ``demm_spmm`` and results equal to backend ``reference``.
+6. agree    — full width, 2 layers, float32 compute, per layout: backend
+              ``cuda`` and backend ``reference`` give allclose logits on every
+              tick (rtol 1e-3) and identical greedy token streams; the xwT and
+              block layouts give the same greedy tokens through their kernels.
 7. times    — per kernel and shape at Bx = 4 with bfloat16 activations (what
-              the main path launches): CUDA-event medians of the kernel over a
-              ring of weight copies larger than L2 (so every launch reads its
-              weights from device memory, as a decode step does), replayed
-              from a CUDA graph so that device time is measured and not the
-              time Python takes to issue a launch (that is ``eager_ms``); the
-              byte / operation bound, the plain version, and ``torch.matmul``
-              against the dense weight in the same dtype as a yardstick the
-              port never calls.
+              the main path launches; K5 at Cd = 4 and 256): CUDA-event
+              medians of the kernel over a ring of weight copies larger than
+              L2 (so every launch reads its weights from device memory, as a
+              decode step does), replayed from a CUDA graph so that device
+              time is measured and not the time Python takes to issue a launch
+              (that is ``eager_ms``); the byte / operation bound, the plain
+              version, and ``torch.matmul`` against the dense weight in the
+              same dtype as a yardstick the port never calls.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}}`` (per kernel: launches on
-the main path, error, times, bound; per serve run: ticks, decode-step time,
+its path, error, times, bound; per serve run: ticks, decode-step time,
 tokens/s), and one JSON object ``{"ok": true, "device": ...}``.
 """
 
@@ -62,6 +84,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50e6
+DEVICE = "cuda"
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -90,19 +113,38 @@ def nvidia_smi_line() -> str:
 # inputs
 # ---------------------------------------------------------------------------
 
+KERNELS = ("demm_xwT", "demm_xwT_q8", "demm_block_spmm", "demm_block_spmm_q8",
+           "demm_spmm")
+
+
+def kernel_fns():
+    """name -> (kernel wrapper, plain version)."""
+    from repro_torch.kernels import demm_block_spmm as kb
+    from repro_torch.kernels import demm_q8 as kq
+    from repro_torch.kernels import demm_spmm as ks
+    from repro_torch.kernels import demm_xwT as kx
+    return {
+        "demm_xwT": (kx.demm_xwT, kx.demm_xwT_plain),
+        "demm_xwT_q8": (kq.demm_xwT_q8, kq.demm_xwT_q8_plain),
+        "demm_block_spmm": (kb.demm_block_spmm, kb.demm_block_spmm_plain),
+        "demm_block_spmm_q8": (kq.demm_block_spmm_q8,
+                               kq.demm_block_spmm_q8_plain),
+        "demm_spmm": (ks.demm_spmm, ks.demm_spmm_plain),
+    }
+
+
 def make_packed(o, k, n, m, gen, *, duplicates=False):
     """Random packed weight on the card: distinct sorted indices per group
     (or, with ``duplicates``, every slot of a group on one column, values
-    quarter-integers, row 0 all padded)."""
+    standard normal — their sums are not exact in bfloat16 — row 0 all
+    padded)."""
     import torch
     g = k // m
     dev = gen.device
     if duplicates:
         idx = torch.randint(0, m, (o, g, 1), generator=gen, device=dev)
         idx = idx.expand(o, g, n).contiguous()
-        vals = torch.randint(1, 9, (o, g, n), generator=gen, device=dev) / 4.0
-        vals = vals * (torch.randint(0, 2, (o, g, n), generator=gen,
-                                     device=dev) * 2 - 1)
+        vals = torch.randn((o, g, n), generator=gen, device=dev)
         vals[0] = 0
         idx[0] = 0
     else:
@@ -110,6 +152,13 @@ def make_packed(o, k, n, m, gen, *, duplicates=False):
         idx = scores.topk(n, dim=-1).indices.sort(dim=-1).values
         vals = torch.randn((o, g, n), generator=gen, device=dev)
     return vals.to(torch.float32).contiguous(), idx.to(torch.int32).contiguous()
+
+
+def make_dense(o, k, n, m, gen):
+    """A random dense (O, K) weight on the card that satisfies n:m."""
+    from repro_torch.core.sparsity import SparsityConfig, unpack
+    vals, idx = make_packed(o, k, n, m, gen)
+    return unpack(vals, idx, SparsityConfig(n, m), (o, k))
 
 
 def make_q8(o, g, n, per_group, gen):
@@ -128,11 +177,11 @@ def make_q8(o, g, n, per_group, gen):
 
 def check_kernels(gen):
     import torch
-    from repro_torch.core.sparsity import SparsityConfig
-    from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
-    from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+    from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.quant import quantize_packed
 
-    err = {"demm_xwT": 0.0, "demm_xwT_q8": 0.0}
+    fns = kernel_fns()
+    err = {name: 0.0 for name in KERNELS}
     n_cases = 0
 
     def compare(name, got, want, dtype, what, main):
@@ -147,10 +196,12 @@ def check_kernels(gen):
             err[name] = max(err[name], float((got - want).abs().max()))
         n_cases += 1
 
-    def run_shape(label, o, k, n, m, batches, *, duplicates=False, main=False,
-                  rows_per_block=None, values_dtype=torch.float32):
+    def run_xwt(label, o, k, n, m, batches, *, duplicates=False, main=False,
+                rows_per_block=None, values_dtype=torch.float32):
         cfg = SparsityConfig(n, m)
         g = k // m
+        kern, plain = fns["demm_xwT"]
+        kern_q, plain_q = fns["demm_xwT_q8"]
         vals, idx = make_packed(o, k, n, m, gen, duplicates=duplicates)
         vals = vals.to(values_dtype)
         for bx in batches:
@@ -161,40 +212,112 @@ def check_kernels(gen):
                         + (" duplicates" if duplicates else "")
                         + (f" rows_per_block={rows_per_block}"
                            if rows_per_block else ""))
+                # the main path says duplicates=False; duplicates take the
+                # instantiation that sums them
                 compare("demm_xwT",
-                        demm_xwT(x, vals, idx, cfg,
-                                 rows_per_block=rows_per_block),
-                        demm_xwT_plain(x, vals, idx, cfg), dtype, what, main)
+                        kern(x, vals, idx, cfg, duplicates=duplicates,
+                             rows_per_block=rows_per_block),
+                        plain(x, vals, idx, cfg), dtype, what, main)
                 for per_group in (False, True):
                     q, scales = make_q8(o, g, n, per_group, gen)
                     if duplicates:
                         q[0] = 0
                     compare("demm_xwT_q8",
-                            demm_xwT_q8(x, q, idx, scales, cfg,
-                                        rows_per_block=rows_per_block),
-                            demm_xwT_q8_plain(x, q, idx, scales, cfg), dtype,
+                            kern_q(x, q, idx, scales, cfg,
+                                   duplicates=duplicates,
+                                   rows_per_block=rows_per_block),
+                            plain_q(x, q, idx, scales, cfg), dtype,
                             what + (" per_group" if per_group else " per_row"),
                             main)
 
-    for shape in MAIN_SHAPES:
-        run_shape(*shape, BATCHES, main=True)
-    run_shape(*REDUCED_SHAPE, BATCHES, main=True)
+    def run_block(what, pw, batches, main=False, paper_b=False):
+        """K2 and K4 on one block packing, B = xᵀ (or B (K, Cd))."""
+        o, k = pw.dense_shape
+        kern, plain = fns["demm_block_spmm"]
+        kern_q, plain_q = fns["demm_block_spmm_q8"]
+        qw = quantize_packed(pw)
+        for bx in batches:
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn((bx, k), generator=gen, device=gen.device)
+                b = (x.T.contiguous() if paper_b else x.T).to(
+                    getattr(torch, dtype))
+                tag = (f"{what} O={o} K={k} {pw.cfg.pattern_name()} "
+                       f"block_geom={pw.block_geom} Cd={bx} B={dtype}")
+                compare("demm_block_spmm",
+                        kern(pw.active_groups, pw.values, pw.indices, b,
+                             pw.cfg, r=o, duplicates=pw.has_duplicates),
+                        plain(pw.active_groups, pw.values, pw.indices, b,
+                              pw.cfg, r=o), dtype, tag, main)
+                compare("demm_block_spmm_q8",
+                        kern_q(qw.active_groups, qw.values, qw.indices,
+                               qw.scales, b, qw.cfg, r=o,
+                               duplicates=qw.has_duplicates),
+                        plain_q(qw.active_groups, qw.values, qw.indices,
+                                qw.scales, b, qw.cfg, r=o), dtype, tag, main)
+
+    def run_spmm(label, o, k, n, m, batches, *, duplicates=False, main=False):
+        cfg = SparsityConfig(n, m)
+        kern, plain = fns["demm_spmm"]
+        vals, idx = make_packed(o, k, n, m, gen, duplicates=duplicates)
+        for cd in batches:
+            for dtype in ("float32", "bfloat16"):
+                b = torch.randn((k, cd), generator=gen, device=gen.device)
+                b = b.to(getattr(torch, dtype))
+                compare("demm_spmm",
+                        kern(vals, idx, b, cfg, duplicates=duplicates),
+                        plain(vals, idx, b, cfg), dtype,
+                        f"{label} R={o} K={k} {n}:{m} Cd={cd} B={dtype}"
+                        + (" duplicates" if duplicates else ""), main)
+
+    for shape in MAIN_SHAPES + [REDUCED_SHAPE]:
+        run_xwt(*shape, BATCHES, main=True)
     # K = 128 projections of the reduced config come out as 1:8
-    run_shape("reduced 1:8", 384, 128, 1, 8, (4, 37))
+    run_xwt("reduced 1:8", 384, 128, 1, 8, (4, 37))
     # duplicate indices and an all-padded row
-    run_shape(*REDUCED_SHAPE, (4, 37), duplicates=True)
-    run_shape(*MAIN_SHAPES[2], (4,), duplicates=True)
+    run_xwt(*REDUCED_SHAPE, (4, 37), duplicates=True)
+    run_xwt(*MAIN_SHAPES[2], (4,), duplicates=True)
     # x tile larger than a block's shared memory: the group loop runs in chunks
-    run_shape("chunked", 520, 16384, 8, 128, (8, 13))
+    run_xwt("chunked", 520, 16384, 8, 128, (8, 13))
     # non-default tiles, ragged against O
-    run_shape("tiles", 1000, 2560, 5, 80, (4,), rows_per_block=8)
-    run_shape("tiles", 1000, 2560, 5, 80, (3,), rows_per_block=72)
+    run_xwt("tiles", 1000, 2560, 5, 80, (4,), rows_per_block=8)
+    run_xwt("tiles", 1000, 2560, 5, 80, (3,), rows_per_block=72)
     # packed values already in bfloat16
-    run_shape("bf16 values", 300, 2560, 5, 80, (4,),
-              values_dtype=torch.bfloat16)
+    run_xwt("bf16 values", 300, 2560, 5, 80, (4,), values_dtype=torch.bfloat16)
     # 8:16-style override pattern (dense-ish groups), tiny M
-    run_shape("8:16", 384, 256, 8, 16, (2, 5))
-    run_shape("1:1", 64, 32, 1, 1, (2,))
+    run_xwt("8:16", 384, 256, 8, 16, (2, 5))
+    run_xwt("1:1", 64, 32, 1, 1, (2,))
+
+    # the block layout: the main-path shapes as pack_block packs them, then
+    # inactive tiles with an all-zero row block, a_max > G and duplicates
+    for label, o, k, n, m in MAIN_SHAPES + [REDUCED_SHAPE]:
+        cfg = SparsityConfig(n, m)
+        g = k // m
+        dense = make_dense(o, k, n, m, gen)
+        pw = pack_block(dense, cfg)
+        run_block(label, pw, BATCHES, main=True)
+        br = pw.block_geom[0]
+        keep = torch.rand((o // br, 1, g, 1), generator=gen,
+                          device=gen.device) > 0.3
+        keep[:, :, 1] = False            # at least one inactive group
+        sparse = (dense.reshape(o // br, br, g, m) * keep).reshape(o, k)
+        sparse[br:2 * br] = 0
+        inactive = pack_block(sparse, cfg)
+        if inactive.block_geom[1] >= g:
+            raise AssertionError(f"{label}: no inactive group left")
+        run_block(label + " inactive tiles + all-zero row block", inactive,
+                  (4, 37))
+        run_block(label + " a_max > G", pack_block(dense, cfg, a_max=g + 3),
+                  (4,))
+        run_block(label + " B (K, Cd)", pw, (37,), paper_b=True)
+        dv = torch.randn(pw.values.shape, generator=gen, device=gen.device)
+        di = pw.indices[..., :1].expand(pw.indices.shape).contiguous()
+        dv[0, :, 0] = 0
+        dup = pw.replace(values=dv, indices=di)
+        if not dup.has_duplicates:
+            raise AssertionError("duplicate case holds no duplicates")
+        run_block(label + " duplicates", dup, (4,))
+        run_spmm(label, o, k, n, m, BATCHES, main=True)
+        run_spmm(label, o, k, n, m, (4,), duplicates=True)
     return err, n_cases
 
 
@@ -203,19 +326,15 @@ def check_kernels(gen):
 # ---------------------------------------------------------------------------
 
 def reset_counts():
-    from repro_torch.kernels.demm_q8 import demm_xwT_q8
-    from repro_torch.kernels.demm_xwT import demm_xwT
-    demm_xwT.launches = 0
-    demm_xwT_q8.launches = 0
+    for kern, _ in kernel_fns().values():
+        kern.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.demm_q8 import demm_xwT_q8
-    from repro_torch.kernels.demm_xwT import demm_xwT
-    return {"demm_xwT": demm_xwT.launches, "demm_xwT_q8": demm_xwT_q8.launches}
+    return {name: kern.launches for name, (kern, _) in kernel_fns().items()}
 
 
-def serve_full_width(model, cfg, *, quantize, expect):
+def serve_full_width(model, cfg, *, layout, quantize, expect):
     """Drive run_serve once; check the outputs and the launch counts."""
     import torch
     from repro_torch import obs
@@ -224,10 +343,10 @@ def serve_full_width(model, cfg, *, quantize, expect):
     requests, max_new = 4, 8
     torch.cuda.synchronize()
     reset_counts()                       # just before the main path ...
-    engine = run_serve(model, cfg.vocab_size, packed=True, quantize=quantize,
-                       backend="cuda", requests=requests, slots=4,
-                       max_new=max_new, max_len=64, seed=0, device="cuda",
-                       metrics=obs.MetricsRegistry())
+    engine = run_serve(model, cfg.vocab_size, packed=True, layout=layout,
+                       quantize=quantize, backend="cuda", requests=requests,
+                       slots=4, max_new=max_new, max_len=64, seed=0,
+                       device=DEVICE, metrics=obs.MetricsRegistry())
     counts = read_counts()               # ... and just after
     ticks = engine.drain_ticks
     if len(engine.completed) != requests:
@@ -242,22 +361,59 @@ def serve_full_width(model, cfg, *, quantize, expect):
     import numpy as np
     if not np.isfinite(engine.last_logits[:, :cfg.vocab_size]).all():
         raise AssertionError("non-finite logits")
-    want = 7 * cfg.num_layers * ticks
-    other = ({"demm_xwT", "demm_xwT_q8"} - {expect}).pop()
-    if counts[expect] != want or counts[other] != 0:
+    want = {name: 0 for name in KERNELS}
+    want[expect] = 7 * cfg.num_layers * ticks
+    if counts != want:
         raise AssertionError(
-            f"launch counts {counts} after {ticks} ticks: expected "
-            f"{expect}={want} (7 x {cfg.num_layers} x ticks), {other}=0")
+            f"launch counts {counts} after {ticks} ticks: expected {want} "
+            f"(7 x {cfg.num_layers} x ticks of {expect}, nothing else)")
     tokens = sum(len(r.output) for r in engine.completed)
     return {
-        "quantize": quantize, "ticks": ticks, "tokens": tokens,
-        "drain_s": engine.drain_seconds,
+        "layout": layout, "quantize": quantize, "ticks": ticks,
+        "tokens": tokens, "drain_s": engine.drain_seconds,
         "tick_ms_mean": 1e3 * engine.drain_seconds / ticks,
         "decode_step_ms_p50": 1e3 * engine._sk_tok.quantile(0.5),
         "tokens_per_s": tokens / engine.drain_seconds,
         "launches": counts[expect],
         "first_output": engine.completed[0].output,
     }
+
+
+def spmm_path(gen):
+    """Phase 5c: the paper orientation's entry point, ``ops.demm_spmm``,
+    backend ``cuda``, on the seven projection shapes of one layer with B of
+    4 and of 256 columns; the launch count and backend ``reference``."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels import ops
+
+    problems = []
+    for label, o, k, n, m in MAIN_SHAPES:
+        for _ in range(LAYER_MIX[label]):
+            vals, idx = make_packed(o, k, n, m, gen)
+            for cd in (4, 256):
+                b = torch.randn((k, cd), generator=gen, device=gen.device)
+                problems.append((vals, idx, b.to(torch.bfloat16),
+                                 SparsityConfig(n, m), (o, k)))
+    torch.cuda.synchronize()
+    reset_counts()                       # just before the path ...
+    outs = [ops.demm_spmm(v, i, b, cfg, shape, backend="cuda",
+                          duplicates=False)
+            for v, i, b, cfg, shape in problems]
+    torch.cuda.synchronize()
+    counts = read_counts()               # ... and just after
+    want = {name: 0 for name in KERNELS}
+    want["demm_spmm"] = len(problems)
+    if counts != want:
+        raise AssertionError(f"ops.demm_spmm launch counts {counts}, "
+                             f"expected {want}")
+    worst = 0.0
+    for out, (v, i, b, cfg, shape) in zip(outs, problems):
+        ref = ops.demm_spmm(v, i, b, cfg, shape, backend="reference")
+        torch.testing.assert_close(out, ref, **TOL["bfloat16"])
+        worst = max(worst, float((out - ref).abs().max()))
+    return {"calls": len(problems), "launches": counts["demm_spmm"],
+            "max_abs_err_vs_reference": worst}
 
 
 def serve_collect(model, cfg, backend):
@@ -269,7 +425,7 @@ def serve_collect(model, cfg, backend):
 
     engine = make_engine(model, ServeConfig(num_slots=2, max_len=48),
                          policy=ExecPolicy(mode="packed", backend=backend),
-                         device="cuda", metrics=obs.MetricsRegistry())
+                         device=DEVICE, metrics=obs.MetricsRegistry())
     rng = np.random.default_rng(1)
     for i in range(3):
         prompt = rng.integers(0, cfg.vocab_size, rng.integers(4, 9),
@@ -288,22 +444,34 @@ def check_backends_agree(cfg_full):
     from repro_torch.models.families import build_model
 
     cfg = dataclasses.replace(cfg_full, num_layers=2, compute_dtype="float32")
-    model = pack_tree(build_model(cfg, device="cuda", seed=1))
-    la, ta = serve_collect(model, cfg, "cuda")
-    lb, tb = serve_collect(model, cfg, "reference")
-    if len(la) != len(lb):
-        raise AssertionError(f"tick counts differ: {len(la)} vs {len(lb)}")
-    worst = 0.0
-    for t, (a, b) in enumerate(zip(la, lb)):
-        a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
-        if not np.allclose(a, b, rtol=1e-3, atol=1e-3):
-            raise AssertionError(
-                f"tick {t}: logits differ between backends, max abs "
-                f"{np.abs(a - b).max()}")
-        worst = max(worst, float(np.abs(a - b).max()))
-    if ta != tb:
-        raise AssertionError(f"token streams differ: {ta} vs {tb}")
-    return {"ticks": len(la), "max_abs_logit_diff": worst, "streams": len(ta)}
+    report, tokens = {}, {}
+    for layout in ("xwT", "block"):
+        model = pack_tree(build_model(cfg, device=DEVICE, seed=1),
+                          layout=layout)
+        la, ta = serve_collect(model, cfg, "cuda")
+        lb, tb = serve_collect(model, cfg, "reference")
+        if len(la) != len(lb):
+            raise AssertionError(f"{layout}: tick counts differ: {len(la)} vs "
+                                 f"{len(lb)}")
+        worst = 0.0
+        for t, (a, b) in enumerate(zip(la, lb)):
+            a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+            if not np.allclose(a, b, rtol=1e-3, atol=1e-3):
+                raise AssertionError(
+                    f"{layout} tick {t}: logits differ between backends, max "
+                    f"abs {np.abs(a - b).max()}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        if ta != tb:
+            raise AssertionError(f"{layout}: token streams differ: {ta} vs "
+                                 f"{tb}")
+        report[layout] = {"ticks": len(la), "max_abs_logit_diff": worst,
+                          "streams": len(ta)}
+        tokens[layout] = ta
+    if tokens["xwT"] != tokens["block"]:
+        raise AssertionError(f"xwT and block layouts give different tokens: "
+                             f"{tokens['xwT']} vs {tokens['block']}")
+    report["xwT_tokens_equal_block_tokens"] = True
+    return report
 
 
 def profile_ticks(model, cfg, ticks=5):
@@ -319,7 +487,7 @@ def profile_ticks(model, cfg, ticks=5):
 
     engine = make_engine(model, ServeConfig(num_slots=4, max_len=64),
                          policy=ExecPolicy(mode="packed", backend="cuda"),
-                         device="cuda", metrics=obs.MetricsRegistry())
+                         device=DEVICE, metrics=obs.MetricsRegistry())
     rng = np.random.default_rng(0)
     for i in range(4):
         engine.submit(Request(uid=i, max_new_tokens=50, prompt=rng.integers(
@@ -404,88 +572,173 @@ def ring_size(nbytes, target=4 * L2_BYTES, lo=4, hi=128):
     return int(min(hi, max(lo, -(-target // nbytes))))
 
 
-def time_shape(label, o, k, n, m, gen, *, rows_sweep=()):
-    """Times of K1 and K3 at one shape, Bx = 4, bfloat16 activations."""
-    import torch
-    from repro_torch.core.sparsity import SparsityConfig, unpack
-    from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
-    from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+def timed_entry(meta, kern, plain, nbytes, ops, *, sweep=()):
+    """One timing row: the kernel over its ring (graph replay and eager),
+    the plain version over the first copies, and the bound from the bytes
+    each input and output must cross once and the operations at the bf16
+    peak."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S["bfloat16"]
+    ms, eager_ms = time_ring(kern)
+    entry = {**meta, "ring_copies": len(kern), "bytes": nbytes, "ms": ms,
+             "eager_ms": eager_ms,
+             "plain_ms": time_ring(plain[:8], passes=3)[0],
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "achieved_GBps": nbytes / ms / 1e6}
+    if sweep:
+        entry["rows_per_block_ms"] = {
+            str(r): time_ring([lambda c=c, r=r: c(rows_per_block=r)
+                               for c in kern], passes=5)[0]
+            for r in sweep}
+    return entry
 
-    bx, cfg, g = 4, SparsityConfig(n, m), k // m
+
+def ring(tensors, nbytes):
+    """Copies of ``tensors`` (a tuple) enough to exceed L2 several times."""
+    copies = ring_size(nbytes)
+    return list(zip(*(t.repeat(copies, *([1] * t.ndim)).unbind(0)
+                      for t in tensors)))
+
+
+def shape_inputs(label, o, k, n, m, gen):
+    """The Bx = 4 bf16 activations and one random packed weight (float and
+    int8 per-row) of a projection shape, with the timing rows' metadata."""
+    import torch
+    bx, g = 4, k // m
     x = torch.randn((bx, k), generator=gen, device=gen.device).to(torch.bfloat16)
     vals, idx = make_packed(o, k, n, m, gen)
     q, scales = make_q8(o, g, n, False, gen)
+    meta = {"shape": label, "O": o, "K": k, "pattern": f"{n}:{m}", "Bx": bx,
+            "x_dtype": "bfloat16"}
+    return x, vals, idx, q, scales, meta
+
+
+def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
+    """K1 and K3 as the main path launches them.  (A checkout from before
+    the duplicate repair has no ``duplicates`` flag: its one instantiation
+    is the main path's.)"""
+    import inspect
+    from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
+    from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+
+    main = ({"duplicates": False}
+            if "duplicates" in inspect.signature(demm_xwT).parameters else {})
+    bx, o = x.shape[0], vals.shape[0]
     nnz = int((vals != 0).sum())
     y_bytes = bx * o * 4
     out = {}
-    for name in ("demm_xwT", "demm_xwT_q8"):
-        if name == "demm_xwT":
-            w_bytes = vals.nbytes + idx.nbytes
-            copies = ring_size(w_bytes)
-            vr = list(vals.repeat(copies, 1, 1, 1).unbind(0))
-            ir = list(idx.repeat(copies, 1, 1, 1).unbind(0))
-            kern = [lambda v=v, i=i, **kw: demm_xwT(x, v, i, cfg, **kw)
-                    for v, i in zip(vr, ir)]
-            plain = [lambda v=v, i=i: demm_xwT_plain(x, v, i, cfg)
-                     for v, i in list(zip(vr, ir))[:8]]
-        else:
-            w_bytes = q.nbytes + idx.nbytes + scales.nbytes
-            copies = ring_size(w_bytes)
-            vr = list(q.repeat(copies, 1, 1, 1).unbind(0))
-            ir = list(idx.repeat(copies, 1, 1, 1).unbind(0))
-            sr = list(scales.repeat(copies, 1).unbind(0))
-            kern = [lambda v=v, i=i, sc=sc, **kw:
-                    demm_xwT_q8(x, v, i, sc, cfg, **kw)
-                    for v, i, sc in zip(vr, ir, sr)]
-            plain = [lambda v=v, i=i, sc=sc:
-                     demm_xwT_q8_plain(x, v, i, sc, cfg)
-                     for v, i, sc in list(zip(vr, ir, sr))[:8]]
-        nbytes = x.nbytes + w_bytes + y_bytes
-        ops = 2 * bx * nnz
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * ops / PEAK_OPS_PER_S["bfloat16"]
-        ms, eager_ms = time_ring(kern)
-        entry = {
-            "shape": label, "O": o, "K": k, "pattern": f"{n}:{m}", "Bx": bx,
-            "x_dtype": "bfloat16", "ring_copies": copies, "bytes": nbytes,
-            "ms": ms, "eager_ms": eager_ms,
-            "plain_ms": time_ring(plain, passes=3)[0],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "achieved_GBps": nbytes / ms / 1e6,
-        }
-        if rows_sweep:
-            entry["rows_per_block_ms"] = {
-                str(r): time_ring([lambda c=c, r=r: c(rows_per_block=r)
-                                   for c in kern], passes=5)[0]
-                for r in rows_sweep}
-        out[name] = entry
-        del vr, ir, kern, plain
-    # yardstick: one dense matmul against the unpacked weight, x's dtype
-    w = unpack(vals, idx, cfg, (o, k)).to(torch.bfloat16)
-    copies = ring_size(w.nbytes, lo=4, hi=32)
-    wr = [wt.T for wt in w.repeat(copies, 1, 1).unbind(0)]
+    w_bytes = vals.nbytes + idx.nbytes
+    r = ring((vals, idx), w_bytes)
+    out["demm_xwT"] = [timed_entry(
+        meta,
+        [lambda v=v, i=i, **kw: demm_xwT(x, v, i, cfg, **main, **kw)
+         for v, i in r],
+        [lambda v=v, i=i: demm_xwT_plain(x, v, i, cfg) for v, i in r],
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=sweep)]
+    w_bytes = q.nbytes + idx.nbytes + scales.nbytes
+    r = ring((q, idx, scales), w_bytes)
+    out["demm_xwT_q8"] = [timed_entry(
+        meta,
+        [lambda v=v, i=i, sc=sc, **kw:
+         demm_xwT_q8(x, v, i, sc, cfg, **main, **kw) for v, i, sc in r],
+        [lambda v=v, i=i, sc=sc: demm_xwT_q8_plain(x, v, i, sc, cfg)
+         for v, i, sc in r],
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=sweep)]
+    return out
+
+
+def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
+    """Times of the five kernels at one projection shape: K1-K4 at Bx = 4
+    with bfloat16 activations, as the main path launches them; K5 at
+    Cd = 4 and 256 with B (K, Cd) bfloat16."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
+    from repro_torch.quant import quantize_packed
+
+    fns = kernel_fns()
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
+    bx = x.shape[0]
+    nnz = int((vals != 0).sum())
+    y_bytes = bx * o * 4
+    out = time_xwt(x, vals, idx, q, scales, cfg, meta, sweep=sweep)
+
+    # the block layout of the same weight: every group is active, a_max = G
+    dense = unpack(vals, idx, cfg, (o, k))
+    pw = pack_block(dense, cfg)
+    bmeta = {**meta, "block_geom": list(pw.block_geom)}
+    xt = x.T
+    kern, plain = fns["demm_block_spmm"]
+    w_bytes = pw.values.nbytes + pw.indices.nbytes + pw.active_groups.nbytes
+    r = ring((pw.active_groups, pw.values, pw.indices), w_bytes)
+    out["demm_block_spmm"] = [timed_entry(
+        bmeta,
+        [lambda a=a, v=v, i=i, **kw:
+         kern(a, v, i, xt, cfg, r=o, duplicates=False, **kw) for a, v, i in r],
+        [lambda a=a, v=v, i=i: plain(a, v, i, xt, cfg, r=o) for a, v, i in r],
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=block_sweep)]
+    qw = quantize_packed(pw)
+    kern, plain = fns["demm_block_spmm_q8"]
+    w_bytes = (qw.values.nbytes + qw.indices.nbytes + qw.active_groups.nbytes
+               + qw.scales.nbytes)
+    r = ring((qw.active_groups, qw.values, qw.indices, qw.scales), w_bytes)
+    out["demm_block_spmm_q8"] = [timed_entry(
+        bmeta,
+        [lambda a=a, v=v, i=i, sc=sc, **kw:
+         kern(a, v, i, sc, xt, cfg, r=o, duplicates=False, **kw)
+         for a, v, i, sc in r],
+        [lambda a=a, v=v, i=i, sc=sc: plain(a, v, i, sc, xt, cfg, r=o)
+         for a, v, i, sc in r],
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=block_sweep)]
+    del r, pw, qw
+
+    # yardstick of K1-K4: one dense matmul against the unpacked weight
+    w = dense.to(torch.bfloat16)
+    wr = [wt.T for wt in w.repeat(ring_size(w.nbytes, hi=32), 1, 1).unbind(0)]
     lib = time_ring([lambda wt=wt: torch.matmul(x, wt) for wt in wr])[0]
-    for e in out.values():
-        e["library_ms"] = lib
+    for entries in out.values():
+        entries[0]["library_ms"] = lib
     del wr
+
+    # K5, the paper orientation C = A @ B, with B of 4 and 256 columns; its
+    # yardstick is the dense bf16 product A @ B
+    kern, plain = fns["demm_spmm"]
+    w_bytes = vals.nbytes + idx.nbytes
+    r = ring((vals, idx), w_bytes)
+    wr = list(w.repeat(ring_size(w.nbytes, hi=32), 1, 1).unbind(0))
+    out["demm_spmm"] = []
+    for cd in (4, 256):
+        b = torch.randn((k, cd), generator=gen, device=gen.device)
+        b = b.to(torch.bfloat16)
+        e = timed_entry(
+            {**meta, "Bx": cd, "Cd": cd, "B_dtype": "bfloat16"},
+            [lambda v=v, i=i, b=b, **kw:
+             kern(v, i, b, cfg, duplicates=False, **kw)
+             for v, i in r],
+            [lambda v=v, i=i, b=b: plain(v, i, b, cfg) for v, i in r],
+            b.nbytes + w_bytes + o * cd * 4, 2 * cd * nnz, sweep=block_sweep)
+        e["library_ms"] = time_ring(
+            [lambda wt=wt, b=b: torch.matmul(wt, b) for wt in wr])[0]
+        out["demm_spmm"].append(e)
+    del r, wr, w, dense
     torch.cuda.empty_cache()
     return out
 
 
-def layer_entry(name, source, replaces, per_shape, launches, max_abs_err):
+def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
+                work):
     """One line of the ``kernels`` report: the seven launches of one decoder
-    layer (4 + 2 + 1 over the three shapes) summed, per-shape rows beside."""
+    layer (4 + 2 + 1 over the three shapes) at Bx (Cd) = 4 summed, every
+    per-shape row beside."""
+    rows = [e for e in per_shape if e["Bx"] == 4]
+
     def total(key):
-        return sum(LAYER_MIX[e["shape"]] * e[key] for e in per_shape)
-    bound_by = {e["bound_by"] for e in per_shape}
+        return sum(LAYER_MIX[e["shape"]] * e[key] for e in rows)
+    bound_by = {e["bound_by"] for e in rows}
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": max_abs_err,
-        "work": "the 7 packed projections of one stablelm_3b decoder layer "
-                "(4 x 2560x2560 5:80, 2 x 6912x2560 5:80, 1 x 2560x6912 "
-                "3:48), Bx=4, bfloat16 activations, weights read from "
-                "device memory",
+        "launches": launches, "max_abs_err": max_abs_err, "work": work,
         "ms": total("ms"), "eager_ms": total("eager_ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
@@ -497,10 +750,48 @@ def layer_entry(name, source, replaces, per_shape, launches, max_abs_err):
 
 # ---------------------------------------------------------------------------
 
+def xwt_times_of(src: str) -> dict:
+    """``--xwt-times-of SRC`` (one process per checkout): K1 and K3 per
+    layer, built and imported from the checkout whose ``src/`` is SRC."""
+    sys.path.insert(0, os.path.abspath(src))
+    sys.path.remove(os.path.join(HERE, "src"))
+    import torch
+    import repro_torch
+    from repro_torch.core.sparsity import SparsityConfig
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    per = {"demm_xwT": [], "demm_xwT_q8": []}
+    for label, o, k, n, m in MAIN_SHAPES:
+        x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
+        for name, entries in time_xwt(x, vals, idx, q, scales,
+                                      SparsityConfig(n, m), meta).items():
+            per[name] += entries
+    return {"package": repro_torch.__file__,
+            **{name: sum(LAYER_MIX[e["shape"]] * e["ms"] for e in rows)
+               for name, rows in per.items()}}
+
+
+def compare_xwt(other: str):
+    """``--compare-with DIR``: K1 and K3 per layer of the checkout at DIR and
+    of this one, each in its own process (its own build), in the turns DIR,
+    this, this, DIR; prints one JSON line."""
+    runs = []
+    for root in (other, HERE, HERE, other):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--xwt-times-of",
+             os.path.join(root, "src")],
+            capture_output=True, text=True, timeout=600, check=True).stdout
+        runs.append({"root": root,
+                     **json.loads(out.strip().splitlines()[-1])})
+    log(f"[compare] K1/K3 ms per layer, in turns: {json.dumps(runs)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
                     help="also time rows_per_block in {8, 16, 24, 32, 48, 64} "
+                         "(xwT kernels) and {8, 16, 32, 64} (block kernels) "
                          "for every kernel and shape")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
@@ -508,8 +799,16 @@ def main(argv=None) -> int:
     ap.add_argument("--stop-after", type=int, default=None, metavar="PHASE",
                     help="development aid: stop after this phase (3: build "
                          "and check the kernels only); prints no result line")
+    ap.add_argument("--compare-with", default=None, metavar="DIR",
+                    help="development aid: time K1 and K3 of the checkout at "
+                         "DIR against this one's, in turns, and stop; prints "
+                         "no result line")
+    ap.add_argument("--xwt-times-of", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.time()
+    if args.xwt_times_of:
+        print(json.dumps(xwt_times_of(args.xwt_times_of)), flush=True)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -527,7 +826,7 @@ def main(argv=None) -> int:
     log(f"[1 device] {kind} x{torch.cuda.device_count()}; nvidia-smi "
         f"name, power.limit: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
 
     # 2. build
@@ -544,29 +843,48 @@ def main(argv=None) -> int:
         f"(f32 {TOL['float32']}, bf16 {TOL['bfloat16']}); max abs err at the "
         f"main-path shapes: {errs}; {time.time() - t0:.1f} s")
 
+    if args.compare_with:
+        compare_xwt(args.compare_with)
+        log(f"stopped after the comparison as asked "
+            f"({time.time() - t_start:.1f} s)")
+        return 0
+
     if args.stop_after is not None and args.stop_after <= 3:
         log(f"stopped after phase 3 as asked ({time.time() - t_start:.1f} s)")
         return 0
 
-    # 4./5. serve at full width
+    # 4./5. serve at full width, xwT layout; 4b/5b block layout on a fresh
+    # model of the same seed (packing is in place)
     cfg = get_arch("stablelm_3b")
-    t0 = time.time()
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device="cuda", seed=0)
-    torch.cuda.synchronize()
-    log(f"[4 serve] built {cfg.name} ({cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}) in "
-        f"{time.time() - t0:.1f} s; "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
-    serve_f = serve_full_width(model, cfg, quantize=None, expect="demm_xwT")
-    log(f"[4 serve] packed, backend cuda: {json.dumps(serve_f)}")
-    if args.profile:
-        profile_ticks(model, cfg)
-    serve_q = serve_full_width(model, cfg, quantize="int8",
-                               expect="demm_xwT_q8")
-    log(f"[5 serve q8] packed+int8, backend cuda: {json.dumps(serve_q)}")
-    del model
-    torch.cuda.empty_cache()
+    serve = {}
+    for layout in ("xwT", "block"):
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=DEVICE, seed=0)
+        torch.cuda.synchronize()
+        log(f"[4 serve] built {cfg.name} ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}) in "
+            f"{time.time() - t0:.1f} s; "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak")
+        float_kernel, q8_kernel = (("demm_xwT", "demm_xwT_q8")
+                                   if layout == "xwT" else
+                                   ("demm_block_spmm", "demm_block_spmm_q8"))
+        t0 = time.time()
+        serve[float_kernel] = serve_full_width(
+            model, cfg, layout=layout, quantize=None, expect=float_kernel)
+        log(f"[4 serve] packed --layout {layout}, backend cuda "
+            f"({time.time() - t0:.1f} s with packing): "
+            f"{json.dumps(serve[float_kernel])}")
+        if args.profile:
+            profile_ticks(model, cfg)
+        serve[q8_kernel] = serve_full_width(
+            model, cfg, layout=layout, quantize="int8", expect=q8_kernel)
+        log(f"[5 serve q8] packed+int8 --layout {layout}, backend cuda: "
+            f"{json.dumps(serve[q8_kernel])}")
+        del model
+        torch.cuda.empty_cache()
+    spmm = spmm_path(gen)
+    log(f"[5c spmm] ops.demm_spmm, backend cuda: {json.dumps(spmm)}")
 
     # 6. backends agree end to end
     agree = check_backends_agree(get_arch("stablelm_3b"))
@@ -574,27 +892,44 @@ def main(argv=None) -> int:
 
     # 7. times
     sweep = (8, 16, 24, 32, 48, 64) if args.sweep else ()
-    per_kernel = {"demm_xwT": [], "demm_xwT_q8": []}
+    block_sweep = (8, 16, 32, 64) if args.sweep else ()
+    per_kernel = {name: [] for name in KERNELS}
     for shape in MAIN_SHAPES:
-        timed = time_shape(*shape, gen, rows_sweep=sweep)
-        for name, entry in timed.items():
-            per_kernel[name].append(entry)
-            log(f"[7 times] {name} {json.dumps(entry)}")
+        timed = time_shape(*shape, gen, sweep=sweep, block_sweep=block_sweep)
+        for name, entries in timed.items():
+            for entry in entries:
+                per_kernel[name].append(entry)
+                log(f"[7 times] {name} {json.dumps(entry)}")
     csrc = "src/repro_torch/kernels/csrc/"
-    kernels = [
-        layer_entry("demm_xwT", csrc + "demm_xwt.cu",
-                    "src/repro/kernels/demm_spmm.py:180",
-                    per_kernel["demm_xwT"], serve_f["launches"],
-                    errs["demm_xwT"]),
-        layer_entry("demm_xwT_q8", csrc + "demm_xwt_q8.cu",
-                    "src/repro/kernels/demm_q8.py:79",
-                    per_kernel["demm_xwT_q8"], serve_q["launches"],
-                    errs["demm_xwT_q8"]),
-    ]
+    layer = ("the 7 packed projections of one stablelm_3b decoder layer "
+             "(4 x 2560x2560 5:80, 2 x 6912x2560 5:80, 1 x 2560x6912 3:48), "
+             "{}, weights read from device memory")
+    serving = layer.format("Bx=4, bfloat16 activations")
+    launches = {name: run["launches"] for name, run in serve.items()}
+    launches["demm_spmm"] = spmm["launches"]
+    sources = {
+        "demm_xwT": (csrc + "demm_xwt.cu",
+                     "src/repro/kernels/demm_spmm.py:180", serving),
+        "demm_xwT_q8": (csrc + "demm_xwt_q8.cu",
+                        "src/repro/kernels/demm_q8.py:79", serving),
+        "demm_block_spmm": (csrc + "demm_block_spmm.cu",
+                            "src/repro/kernels/demm_block_spmm.py:85",
+                            serving + ", block layout"),
+        "demm_block_spmm_q8": (csrc + "demm_block_spmm_q8.cu",
+                               "src/repro/kernels/demm_q8.py:162",
+                               serving + ", block layout"),
+        "demm_spmm": (csrc + "demm_block_spmm.cu",
+                      "src/repro/kernels/demm_spmm.py:111",
+                      layer.format("C = A @ B with B (K, 4) bfloat16 "
+                                   "(rows with Cd = 256 beside)")),
+    }
+    kernels = [layer_entry(name, src, replaces, per_kernel[name],
+                           launches[name], errs[name], work=work)
+               for name, (src, replaces, work) in sources.items()]
     log(f"[done] {time.time() - t_start:.1f} s in all")
     log(smi)
-    log(json.dumps({"kernels": kernels, "serve": [serve_f, serve_q],
-                    "agree": agree}))
+    log(json.dumps({"kernels": kernels, "serve": list(serve.values()),
+                    "spmm": spmm, "agree": agree}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

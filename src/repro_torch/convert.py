@@ -9,15 +9,18 @@ package:
   arrives as ``"sparsity": (n, m, k)`` (or any object with ``n``/``m``/``k``
   attributes);
 * a packed weight arrives as a dict ``{"values", "indices", "cfg": (n, m, k),
-  "dense_shape": (O, K), "layout": "xwT", "qdtype": None | "int8",
-  "scales": array | None}``.
+  "dense_shape": (O, K), "layout": "xwT" | "block", "qdtype": None | "int8",
+  "scales": array | None}``, a block weight also with ``"active_groups"``
+  and ``"block_geom": (block_r, a_max)``.
 
 The JAX package stacks the layers on a leading axis — ``w (L, O, K)``,
-``values (L, O, G, Ne)`` — for its layer scan; this un-stacks that axis into
-the port's per-layer ``nn.ModuleList``.  Dense, masked, packed and
-packed+int8 trees are handled.  It is how tests give both packages the same
-weights (the port's own ``torch.Generator`` init cannot reproduce
-``jax.random``).
+``values (L, O, G, Ne)`` or ``(L, RB, A_max, block_r, Ne)``,
+``active_groups (L, RB, A_max)`` — for its layer scan; this un-stacks that
+axis into the port's per-layer ``nn.ModuleList``.  A stacked block weight
+keeps the stack's shared ``a_max`` in every layer.  Dense, masked, packed
+(both layouts) and packed+int8 trees are handled.  It is how tests give both
+packages the same weights (the port's own ``torch.Generator`` init cannot
+reproduce ``jax.random``).
 """
 
 from __future__ import annotations
@@ -56,11 +59,16 @@ def _linear(node, device, layer=None):
     """One linear node of layer ``layer`` (None: the node is not stacked)."""
     if _is_packed(node):
         scales = node.get("scales")
+        ag = node.get("active_groups")
+        geom = node.get("block_geom")
         return PackedWeight(
             _tensor(node["values"], device, layer),
             _tensor(node["indices"], device, layer).to(torch.int32),
             cfg=_sparsity(node["cfg"]), dense_shape=node["dense_shape"],
             layout=node.get("layout", "xwT"),
+            active_groups=(None if ag is None else
+                           _tensor(ag, device, layer).to(torch.int32)),
+            block_geom=None if geom is None else tuple(geom),
             scales=None if scales is None else _tensor(scales, device, layer),
             qdtype=node.get("qdtype"))
     sp = node.get("sparsity")

@@ -31,10 +31,12 @@ from torch import nn
 
 from repro_torch.core.pruning import masked_weight
 from repro_torch.core.sparsity import (
+    LAYOUT_BLOCK,
     LAYOUT_XWT,
     PackedWeight,
     SparsityConfig,
     pack,
+    pack_block,
     prune,
 )
 
@@ -179,7 +181,8 @@ def apply_masked(node: SparseLinear, x: torch.Tensor,
 def _reconfigure(pw: PackedWeight, cfg: SparsityConfig) -> PackedWeight:
     """Re-tag a packed weight with ``cfg``, allowing only layout-preserving
     (same n_effective, same m) reconfigurations — the packed array shape is
-    fixed at pack time."""
+    fixed at pack time.  Both layouts: the block geometry and address stream
+    are carried over unchanged."""
     if cfg == pw.cfg:
         return pw
     if cfg.n_effective != pw.cfg.n_effective or cfg.m != pw.cfg.m:
@@ -205,12 +208,24 @@ def _apply_packed(pw: PackedWeight, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def pack_params(node: SparseLinear,
-                cfg: Optional[SparsityConfig] = None) -> PackedWeight:
-    """Convert a masked layer to the packed DeMM serving form."""
+                cfg: Optional[SparsityConfig] = None,
+                layout: str = LAYOUT_XWT, *, block_r: Optional[int] = None,
+                a_max: Optional[int] = None) -> PackedWeight:
+    """Convert a masked layer to the packed DeMM serving form.
+
+    ``layout="block"`` runs the two-level conversion
+    (``core.sparsity.pack_block``, which selects the top-``n_effective`` of
+    every (row, group) itself, as the JAX package's block packer does) with
+    ``block_r`` rows per row block and ``a_max`` list slots (both derived
+    from the weight when left open)."""
     cfg = cfg or node_sparsity(node)
     if cfg is None:
         raise ValueError("pack_params needs a SparsityConfig (node carries "
                          "no sparsity metadata and none was passed)")
+    if layout == LAYOUT_BLOCK:
+        return pack_block(node.w.data, cfg, block_r=block_r, a_max=a_max)
+    if layout != LAYOUT_XWT:
+        raise ValueError(f"unknown layout {layout!r}")
     w = prune(node.w.data, cfg)
     packed = pack(w, cfg)
     return PackedWeight(packed.values, packed.indices, cfg=cfg,

@@ -15,9 +15,10 @@ packed  indices  : (R, G, N) int32   local column index within the group,
                                      in [0, M); padded slots point at 0 with
                                      value 0 (contributing nothing).
 
-Ported so far: the row-packed ``xwT`` layout and its int8-quantized form.
-The two-level block layout, contraction-dim sharding and draft-tier views of
-the JAX package come with later slices of the port.
+Ported so far: the row-packed ``xwT`` layout, the two-level ``block`` layout
+(:func:`pack_block`) and the int8-quantized form of both.  Contraction-dim
+sharding and draft-tier views of the JAX package come with later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -200,11 +201,16 @@ def unpack(values: torch.Tensor, indices: torch.Tensor, cfg: SparsityConfig,
 # ---------------------------------------------------------------------------
 
 # ``xwT`` is the serving orientation (y = x @ W^T with W row-sparse along the
-# contraction dim); ``block`` is the two-level block-sparse format, named here
-# so that requests for it fail with a clear message until it is ported.
+# contraction dim); ``block`` is the two-level block-sparse format — per
+# row-block active-group lists (level 1) over the usual relaxed N:M packed
+# pairs (level 2), converted ahead of time by :func:`pack_block`.
 LAYOUT_XWT = "xwT"
 LAYOUT_BLOCK = "block"
 LAYOUTS = (LAYOUT_XWT, LAYOUT_BLOCK)
+
+# Row-block height for the block layout; pack_block clamps it to the largest
+# power-of-two divisor of the row count.
+DEFAULT_BLOCK_R = 128
 
 # Known quantized value dtypes.  ``None`` (the default) means ``values``
 # carries full-precision floats; ``"int8"`` means symmetric int8 with a
@@ -217,46 +223,71 @@ QDTYPES = (QDTYPE_INT8,)
 def expand_scales(scales: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """Broadcast per-unit quantization scales over the packed value axes.
 
-    The scale shape is a prefix of the values shape, so per-group scales add
-    one axis and per-row scales add two.
+    The scale shape is a prefix of the values shape, so units owning one
+    trailing axis (per-group xwT, the block layout's per-(row-block, group,
+    row)) add one axis and per-row xwT units add two.
     """
     if scales.ndim == values.ndim - 1:
         return scales[..., None]
     return scales[..., None, None]
 
 
+def holds_duplicates(values: torch.Tensor, indices: torch.Tensor) -> bool:
+    """True when some group (last axis) holds two non-zero slots at one
+    index.  Such slots are summed in the activation dtype before their
+    product (the TPU kernel's scatter matrix); a zero slot sharing an index
+    changes nothing, so ``pack``'s padded slots do not count.  One vectorised
+    pass and one host sync."""
+    nz = values != 0
+    found = torch.zeros((), dtype=torch.bool, device=values.device)
+    for d in range(1, indices.shape[-1]):
+        found |= ((indices[..., d:] == indices[..., :-d])
+                  & nz[..., d:] & nz[..., :-d]).any()
+    return bool(found)
+
+
 class PackedWeight(nn.Module):
     """A packed relaxed-N:M sparse weight: the paper's ``{value, col_idx}``
     stream as a first-class object.
 
-    ``values`` / ``indices`` (and ``scales`` for a quantized weight) are
-    buffers, so ``.to(device)`` and ``state_dict`` see them; the
-    :class:`SparsityConfig` (including k-reconfiguration), the dense
-    ``(out, in)`` shape, the ``layout`` tag and ``qdtype`` are plain static
-    attributes, available to kernel dispatch without touching the tensors.
+    ``values`` / ``indices`` (plus ``active_groups`` for the block layout and
+    ``scales`` for a quantized weight) are buffers, so ``.to(device)`` and
+    ``state_dict`` see them; the :class:`SparsityConfig` (including
+    k-reconfiguration), the dense ``(out, in)`` shape, the ``layout`` tag, the
+    block geometry and ``qdtype`` are plain static attributes, available to
+    kernel dispatch without touching the tensors.
 
-    Shapes (``xwT`` layout): ``values``/``indices`` are ``(O, G, Ne)`` with
-    ``G = in_features // cfg.m`` and ``Ne = cfg.n_effective``.  When
-    ``qdtype`` is set, ``values`` holds int8 and ``scales`` is float32 of
-    shape ``(O,)`` (per output row, the default) or ``(O, G)`` (per group);
-    the dense weight is ``scales ⊙ values`` broadcast over the packed axes and
-    the kernels dequantize in-register (w8a16).
+    Shapes: for the ``xwT`` layout ``values``/``indices`` are ``(O, G, Ne)``
+    with ``G = in_features // cfg.m`` and ``Ne = cfg.n_effective``.  For the
+    ``block`` layout they are ``(RB, A_max, block_r, Ne)`` with
+    ``active_groups (RB, A_max) int32`` — the level-1 address stream that
+    decides which activation blocks the kernel reads at all — and the static
+    ``block_geom = (block_r, a_max)``.  When ``qdtype`` is set, ``values``
+    holds int8 and ``scales`` is float32 of shape ``(O,)`` (per output row,
+    the default) or ``(O, G)`` (per group) for ``xwT``, ``(RB, A_max,
+    block_r)`` (per row-block × group × row) for ``block``; the dense weight
+    is ``scales ⊙ values`` broadcast over the packed axes and the kernels
+    dequantize in-register (w8a16).
+
+    ``has_duplicates`` records, once, whether some group holds two non-zero
+    slots at one index (:func:`holds_duplicates`); dispatch passes it to the
+    kernels, which skip their duplicate fold when it is False — always, for
+    what :func:`pack` and :func:`pack_block` produce.
     """
 
     def __init__(self, values: torch.Tensor, indices: torch.Tensor, *,
                  cfg: SparsityConfig, dense_shape,
                  layout: str = LAYOUT_XWT,
+                 active_groups: Optional[torch.Tensor] = None,
+                 block_geom=None,
                  scales: Optional[torch.Tensor] = None,
-                 qdtype: Optional[str] = None):
+                 qdtype: Optional[str] = None,
+                 has_duplicates: Optional[bool] = None):
         super().__init__()
         if not isinstance(cfg, SparsityConfig):
             raise TypeError(f"cfg must be a SparsityConfig, got {type(cfg)}")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; expected {LAYOUTS}")
-        if layout == LAYOUT_BLOCK:
-            raise NotImplementedError(
-                "the block layout is not ported yet (it comes with the "
-                "block-spmm kernel slice); pack with layout='xwT'")
         if qdtype is None:
             if scales is not None:
                 raise ValueError(
@@ -275,28 +306,64 @@ class PackedWeight(nn.Module):
             raise ValueError(f"dense_shape must be 2-D (out, in), got "
                              f"{dense_shape}")
         vshape = tuple(values.shape)
-        want = (dense_shape[0], dense_shape[1] // cfg.m, cfg.n_effective)
-        if dense_shape[1] % cfg.m or vshape != want:
-            raise ValueError(
-                f"values shape {vshape} is inconsistent with the packed "
-                f"layout of cfg={cfg.pattern_name()} over dense "
-                f"{dense_shape}: expected {want}")
+        if layout == LAYOUT_BLOCK:
+            if active_groups is None:
+                raise ValueError(
+                    "block layout needs the active_groups tensor (the "
+                    "level-1 address stream); pack with pack_block")
+            if block_geom is None:
+                if len(vshape) != 4:
+                    raise ValueError(
+                        "block layout needs block_geom=(block_r, a_max) or "
+                        "(RB, A_max, block_r, Ne) values to derive it from")
+                block_geom = (vshape[2], vshape[1])
+            block_geom = (int(block_geom[0]), int(block_geom[1]))
+            br, amax = block_geom
+            want = (dense_shape[0] // br, amax, br, cfg.n_effective)
+            if dense_shape[0] % br or dense_shape[1] % cfg.m or vshape != want:
+                raise ValueError(
+                    f"values shape {vshape} is inconsistent with "
+                    f"block_geom={block_geom} over dense {dense_shape} at "
+                    f"cfg={cfg.pattern_name()}: expected {want}")
+            if tuple(active_groups.shape) != want[:2]:
+                raise ValueError(
+                    f"active_groups shape {tuple(active_groups.shape)} does "
+                    f"not match values {vshape}: expected {want[:2]}")
+            scale_shapes = (vshape[:-1],)
+        else:
+            if active_groups is not None or block_geom is not None:
+                raise ValueError(
+                    f"active_groups/block_geom only apply to the "
+                    f"{LAYOUT_BLOCK!r} layout, not {layout!r}")
+            want = (dense_shape[0], dense_shape[1] // cfg.m, cfg.n_effective)
+            if dense_shape[1] % cfg.m or vshape != want:
+                raise ValueError(
+                    f"values shape {vshape} is inconsistent with the packed "
+                    f"layout of cfg={cfg.pattern_name()} over dense "
+                    f"{dense_shape}: expected {want}")
+            # per output row (O,) or per (row, group) (O, G)
+            scale_shapes = (vshape[:-2], vshape[:-1])
         if tuple(indices.shape) != vshape:
             raise ValueError(f"indices shape {tuple(indices.shape)} does not "
                              f"match values {vshape}")
-        if scales is not None and tuple(scales.shape) not in (vshape[:-2],
-                                                              vshape[:-1]):
+        if scales is not None and tuple(scales.shape) not in scale_shapes:
             raise ValueError(
                 f"scales shape {tuple(scales.shape)} does not match values "
-                f"{vshape}: expected {vshape[:-2]} (per output row) or "
-                f"{vshape[:-1]} (per group)")
+                f"{vshape} for the {layout!r} layout: expected one of "
+                f"{scale_shapes} (per output row / per group for xwT, per "
+                f"row-block × group × row for block)")
         self.register_buffer("values", values)
         self.register_buffer("indices", indices)
+        self.register_buffer("active_groups", active_groups)
         self.register_buffer("scales", scales)
         self.cfg = cfg
         self.dense_shape = dense_shape
         self.layout = layout
+        self.block_geom = block_geom
         self.qdtype = qdtype
+        self.has_duplicates = (holds_duplicates(values, indices)
+                               if has_duplicates is None
+                               else bool(has_duplicates))
 
     # ---- static geometry -------------------------------------------------
     @property
@@ -314,29 +381,39 @@ class PackedWeight(nn.Module):
     def replace(self, **kw) -> "PackedWeight":
         out = {"values": self.values, "indices": self.indices,
                "cfg": self.cfg, "dense_shape": self.dense_shape,
-               "layout": self.layout, "scales": self.scales,
+               "layout": self.layout, "active_groups": self.active_groups,
+               "block_geom": self.block_geom, "scales": self.scales,
                "qdtype": self.qdtype}
+        if "values" not in kw and "indices" not in kw:
+            out["has_duplicates"] = self.has_duplicates
         out.update(kw)
         return PackedWeight(out.pop("values"), out.pop("indices"), **out)
 
     def extra_repr(self) -> str:
+        geom = f", block_geom={self.block_geom}" if self.block_geom else ""
         q = f", qdtype={self.qdtype!r}" if self.qdtype else ""
         return (f"values={tuple(self.values.shape)}, "
                 f"cfg={self.cfg.pattern_name()!r}, "
-                f"dense_shape={self.dense_shape}, layout={self.layout!r}{q}")
+                f"dense_shape={self.dense_shape}, layout={self.layout!r}"
+                f"{geom}{q}")
 
     # ---- conversions -----------------------------------------------------
     @classmethod
     def from_dense(cls, w: torch.Tensor, cfg: SparsityConfig,
-                   layout: str = LAYOUT_XWT) -> "PackedWeight":
+                   layout: str = LAYOUT_XWT, *,
+                   block_r: Optional[int] = None,
+                   a_max: Optional[int] = None) -> "PackedWeight":
         """Prune (if needed) and pack a dense 2-D weight into ``layout``."""
+        if layout == LAYOUT_BLOCK:
+            return pack_block(w, cfg, block_r=block_r, a_max=a_max)
         p = pack(prune(w, cfg), cfg)
         return cls(p.values, p.indices, cfg=cfg, dense_shape=w.shape,
                    layout=layout)
 
     def dequantized_values(self) -> torch.Tensor:
         """``values`` with quantization scales applied (float32 for a
-        quantized weight; the raw values otherwise)."""
+        quantized weight; the raw values otherwise).  The scale shape is a
+        prefix of the values shape, so the units are told apart by rank."""
         if self.qdtype is None:
             return self.values
         vals = self.values.to(torch.float32)
@@ -344,8 +421,124 @@ class PackedWeight(nn.Module):
 
     def to_dense(self) -> torch.Tensor:
         """Scatter back to the dense weight (dequantizing if needed)."""
+        if self.layout == LAYOUT_BLOCK:
+            return unpack_block(self.active_groups, self.dequantized_values(),
+                                self.indices, self.cfg, self.dense_shape)
         return unpack(self.dequantized_values(), self.indices, self.cfg,
                       self.dense_shape)
+
+
+# ---------------------------------------------------------------------------
+# Two-level block packing (the "block" layout)
+# ---------------------------------------------------------------------------
+
+def _choose_block_r(rows: int, cap: int = DEFAULT_BLOCK_R) -> int:
+    """Largest power-of-two divisor of ``rows``, capped at ``cap``."""
+    br = 1
+    while br * 2 <= cap and rows % (br * 2) == 0:
+        br *= 2
+    return br
+
+
+def _group_activity(w: torch.Tensor, block_r: int, m: int) -> torch.Tensor:
+    """Active-group mask ``(RB, G)`` of ``w (R, K)``: a group is active when
+    any row of the row block has a non-zero in it."""
+    r, k = w.shape
+    blocks = w.reshape(r // block_r, block_r, k // m, m)
+    return (blocks != 0).any(dim=3).any(dim=1)
+
+
+def _needed_a_max(activity: torch.Tensor) -> int:
+    """Max active groups over every row block (>= 1)."""
+    return max(1, int(activity.sum(dim=-1).max()))
+
+
+def pack_block(a: torch.Tensor, cfg: SparsityConfig, *,
+               block_r: Optional[int] = None,
+               a_max: Optional[int] = None) -> PackedWeight:
+    """Ahead-of-time two-level conversion to the ``block`` layout.
+
+    Level 1: per ``block_r``-row block, the sorted list of *active* M-groups
+    (groups where any row of the block has a non-zero) — the address stream
+    that decides which activation blocks the kernel reads at all.  Level 2:
+    within each listed group, the usual relaxed N:M ``{values, indices}``
+    pairs (magnitude top-``n_effective`` per row, like :func:`pack`).
+
+    ``a_max`` bounds the list length; by default it is the densest row
+    block's active count.  An ``a_max`` larger than ``G`` pads with inactive
+    slots (matching an existing checkpoint's geometry); one below the active
+    count raises.  Padded slots point at group 0 with all-zero values and
+    contribute nothing.
+
+    The selections are stable sorts — groups by (active first, then group
+    id), slots by (magnitude descending, then column) — so that values,
+    indices and ``active_groups`` equal the JAX package's bit for bit
+    (``jnp.argsort(stable=True)`` and ``jax.lax.top_k``), ties included.
+    """
+    _check_dims(a.shape, cfg.m)
+    r, kdim = a.shape
+    g = kdim // cfg.m
+    ne = cfg.n_effective
+    if block_r is None:
+        block_r = _choose_block_r(r)
+    if r % block_r:
+        raise ValueError(f"rows {r} not divisible by block_r={block_r}")
+    rb = r // block_r
+    activity = _group_activity(a, block_r, cfg.m)               # (RB, G)
+    needed = _needed_a_max(activity)
+    a_max = needed if a_max is None else int(a_max)
+    if needed > a_max:
+        raise ValueError(f"a_max={a_max} < {needed} active groups in the "
+                         "densest row block")
+
+    # Stable sort by (active desc, group id asc): actives first, ascending.
+    sel_w = min(a_max, g)
+    order = torch.sort(-activity.to(torch.int32), dim=-1,
+                       stable=True).indices[:, :sel_w]          # (RB, sel_w)
+    active = torch.gather(activity, -1, order)
+    if a_max > sel_w:
+        # a_max beyond the group count: pad with inactive slots.
+        pad = a_max - sel_w
+        order = torch.nn.functional.pad(order, (0, pad))
+        active = torch.nn.functional.pad(active, (0, pad))
+    ag = torch.where(active, order, torch.zeros_like(order)).to(torch.int32)
+
+    grp = a.reshape(rb, block_r, g, cfg.m).transpose(1, 2)       # (RB,G,br,M)
+    sel = torch.gather(grp, 1, order[:, :, None, None].expand(
+        rb, a_max, block_r, cfg.m))                              # (RB,A,br,M)
+    top = torch.sort(sel.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :ne]
+    idx = torch.sort(top, dim=-1).values
+    vals = torch.gather(sel, -1, idx)
+    # Padded slots alias group 0: zero them so they contribute nothing.
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    vals = torch.where(active[:, :, None, None], vals, zero)
+    idx = torch.where(vals != 0, idx, torch.zeros_like(idx))
+    return PackedWeight(vals.contiguous(), idx.to(torch.int32).contiguous(),
+                        cfg=cfg, dense_shape=(r, kdim), layout=LAYOUT_BLOCK,
+                        active_groups=ag.contiguous(),
+                        block_geom=(block_r, a_max))
+
+
+def unpack_block(active_groups: torch.Tensor, values: torch.Tensor,
+                 indices: torch.Tensor, cfg: SparsityConfig,
+                 shape: tuple) -> torch.Tensor:
+    """Scatter a two-level block packing back to a dense (R, K) matrix.
+    Duplicate indices and duplicate active-group ids accumulate (in the dtype
+    of ``values``); padded all-zero slots contribute 0."""
+    r, kdim = shape
+    rb, a_max, block_r, _ = values.shape
+    g = kdim // cfg.m
+    assert rb * block_r == r, (tuple(values.shape), shape)
+    per_slot = torch.zeros((rb, a_max, block_r, cfg.m), dtype=values.dtype,
+                           device=values.device)
+    per_slot.scatter_add_(-1, indices.to(torch.int64), values)
+    dense = torch.zeros((rb, block_r, g, cfg.m), dtype=values.dtype,
+                        device=values.device)
+    ids = active_groups.to(torch.int64)[:, None, :, None].expand(
+        rb, block_r, a_max, cfg.m)
+    dense.scatter_add_(2, ids, per_slot.transpose(1, 2))
+    return dense.reshape(r, kdim)
 
 
 # ---------------------------------------------------------------------------

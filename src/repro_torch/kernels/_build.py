@@ -25,8 +25,9 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("demm_xwt.cu", "demm_xwt_q8.cu")
-HEADERS = ("demm_xwt_common.cuh",)
+SOURCES = ("demm_xwt.cu", "demm_xwt_q8.cu", "demm_block_spmm.cu",
+           "demm_block_spmm_q8.cu")
+HEADERS = ("demm_xwt_common.cuh", "demm_block_spmm_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -112,15 +113,18 @@ def _build(target: Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # pointers and the stream are c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut the addresses
-    lib.demm_xwt_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i,
-                                    p]
-    lib.demm_xwt_launch.restype = i
-    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                       i, i, p]
-    lib.demm_xwt_q8_launch.restype = i
+    lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 11, p]
+    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 11, p]
+    lib.demm_block_spmm_launch.argtypes = [p, p, p, p, p, *[i] * 8, *[ll] * 7,
+                                           *[i] * 6, p]
+    lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 8,
+                                              *[ll] * 4, *[i] * 4, p]
+    for fn in (lib.demm_xwt_launch, lib.demm_xwt_q8_launch,
+               lib.demm_block_spmm_launch, lib.demm_block_spmm_q8_launch):
+        fn.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -15,15 +15,17 @@ namespace {
 
 template <typename XT>
 int launch_values(const XT* x, const void* values, int v_dtype, const int32_t* indices,
-                  float* y, int bx, int k, int o, int g, int m, int ne,
+                  float* y, int bx, int k, int o, int g, int m, int ne, int duplicates,
                   int rows_per_block, cudaStream_t stream) {
   if (v_dtype == demm::kFloat32) {
     demm::FloatWeights<XT, float> w{static_cast<const float*>(values)};
-    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
+    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates,
+                               rows_per_block, stream);
   }
   if (v_dtype == demm::kBFloat16) {
     demm::FloatWeights<XT, __nv_bfloat16> w{static_cast<const __nv_bfloat16*>(values)};
-    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
+    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates,
+                               rows_per_block, stream);
   }
   return demm::kErrBadDtype;
 }
@@ -32,7 +34,7 @@ int launch_values(const XT* x, const void* values, int v_dtype, const int32_t* i
 
 extern "C" int demm_xwt_launch(const void* x, const void* values, const int32_t* indices,
                                float* y, int bx, int k, int o, int g, int m, int ne,
-                               int x_dtype, int v_dtype, int rows_per_block,
+                               int x_dtype, int v_dtype, int duplicates, int rows_per_block,
                                int device, void* stream) {
   if (!demm::shapes_ok(bx, k, o, g, m, ne, rows_per_block)) return demm::kErrBadShape;
   demm::DeviceGuard guard(device);
@@ -40,10 +42,10 @@ extern "C" int demm_xwt_launch(const void* x, const void* values, const int32_t*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == demm::kFloat32)
     return launch_values<float>(static_cast<const float*>(x), values, v_dtype, indices, y,
-                                bx, k, o, g, m, ne, rows_per_block, s);
+                                bx, k, o, g, m, ne, duplicates, rows_per_block, s);
   if (x_dtype == demm::kBFloat16)
     return launch_values<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), values,
-                                        v_dtype, indices, y, bx, k, o, g, m, ne,
+                                        v_dtype, indices, y, bx, k, o, g, m, ne, duplicates,
                                         rows_per_block, s);
   return demm::kErrBadDtype;
 }

@@ -17,8 +17,8 @@
 extern "C" int demm_xwt_q8_launch(const void* x, const int8_t* values,
                                   const int32_t* indices, const float* scales, float* y,
                                   int bx, int k, int o, int g, int m, int ne, int x_dtype,
-                                  int scale_cols, int rows_per_block, int device,
-                                  void* stream) {
+                                  int scale_cols, int duplicates, int rows_per_block,
+                                  int device, void* stream) {
   if (!demm::shapes_ok(bx, k, o, g, m, ne, rows_per_block)) return demm::kErrBadShape;
   if (scale_cols != 1 && scale_cols != g) return demm::kErrBadShape;
   demm::DeviceGuard guard(device);
@@ -27,12 +27,13 @@ extern "C" int demm_xwt_q8_launch(const void* x, const int8_t* values,
   if (x_dtype == demm::kFloat32) {
     demm::Int8Weights<float> w{values, scales, scale_cols};
     return demm::launch_xt<float>(static_cast<const float*>(x), w, indices, y, bx, k, o, g,
-                                  m, ne, rows_per_block, s);
+                                  m, ne, duplicates, rows_per_block, s);
   }
   if (x_dtype == demm::kBFloat16) {
     demm::Int8Weights<__nv_bfloat16> w{values, scales, scale_cols};
     return demm::launch_xt<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), w, indices,
-                                          y, bx, k, o, g, m, ne, rows_per_block, s);
+                                          y, bx, k, o, g, m, ne, duplicates, rows_per_block,
+                                          s);
   }
   return demm::kErrBadDtype;
 }

@@ -1,18 +1,27 @@
-"""The int8 packed serving matmul ``y = x @ W_q8ᵀ`` (w8a16): CUDA kernel
-wrapper and its plain PyTorch version.
+"""The int8 packed serving matmuls (w8a16): CUDA kernel wrappers and their
+plain PyTorch versions, for both packed layouts.
 
-Replaces the TPU kernel ``demm_xwT_q8_pallas`` (``kernels/demm_q8.py`` of the
-JAX package; its block-layout twin waits for a later slice).  The CUDA source
-is ``csrc/demm_xwt_q8.cu``.  Weights are int8, activations keep their serving
-dtype; only the int8 values, the indices and the float32 scales cross device
-memory and the dequantisation happens in registers.  Like the float kernel it
-is bound on an H100 by the packed bytes over device-memory bandwidth — int8
-values cut those bytes from 8 to 5 per pair.
+* :func:`demm_xwT_q8` — ``y = x @ W_q8ᵀ`` from the row-packed stream; replaces
+  the TPU kernel ``demm_xwT_q8_pallas`` (``kernels/demm_q8.py`` of the JAX
+  package); CUDA source ``csrc/demm_xwt_q8.cu``.
+* :func:`demm_block_spmm_q8` — ``C = A_q8 @ B`` from the two-level block
+  layout; replaces ``demm_block_spmm_q8_pallas`` of the same module; CUDA
+  source ``csrc/demm_block_spmm_q8.cu`` (the body of K2).
 
-Semantics shared by the kernel and :func:`demm_xwT_q8_plain`: the int8 value
-is cast to the activation dtype (exact), multiplied by its scale — ``scales[o]``
-or ``scales[o, g]`` — cast to the activation dtype, the product rounded to the
-activation dtype, then the float32-accumulated dot of the float kernel.
+Weights are int8, activations keep their serving dtype; only the int8 values,
+the indices (and the address stream) and the float32 scales cross device
+memory and the dequantisation happens in registers.  Like the float kernels
+they are bound on an H100 by the packed bytes over device-memory bandwidth —
+int8 values cut those bytes from 8 to 5 per pair.
+
+Semantics shared by the kernels and their plain versions (the TPU kernels'):
+the int8 values of one group are summed at their local column in the
+activation dtype (exact up to ±256; slot order, rounding after each add —
+``scatter_groups``), that sum is multiplied by the unit's scale cast to the
+activation dtype and rounded to it, then the float32-accumulated product of
+the float kernels follows.  The scale unit is the output row ``scales[o]`` or
+the (row, group) ``scales[o, g]`` for xwT, the (row block, list slot, row)
+``scales[i, j, r]`` for the block layout.
 """
 
 from __future__ import annotations
@@ -21,18 +30,25 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sparsity import SparsityConfig, expand_scales, unpack
+from repro_torch.core.sparsity import SparsityConfig, expand_scales
+from repro_torch.kernels.demm_block_spmm import (
+    block_output,
+    block_scatter_dense,
+    check_block_args,
+)
 from repro_torch.kernels.demm_xwT import (
     _DTYPE_CODE,
     check_xwT_args,
     raise_on_launch_error,
+    round_to,
+    scatter_groups,
 )
 
 
-def _check_scales(scales, x, o, g):
-    if tuple(scales.shape) not in ((o,), (o, g)):
-        raise ValueError(f"scales must be (O,)={(o,)} or (O, G)={(o, g)}, "
-                         f"got {tuple(scales.shape)}")
+def _check_scales(scales, x, shapes):
+    if tuple(scales.shape) not in shapes:
+        raise ValueError(f"scales must have one of the shapes {shapes}, got "
+                         f"{tuple(scales.shape)}")
     if scales.dtype != torch.float32:
         raise TypeError(f"scales must be float32, got {scales.dtype}")
     if scales.device != x.device:
@@ -41,30 +57,37 @@ def _check_scales(scales, x, o, g):
         raise ValueError("scales must be contiguous")
 
 
+def _scaled(s: torch.Tensor, scales: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Scatter rows times their scales, both in ``dtype``'s rounding."""
+    return round_to(s * round_to(scales.to(torch.float32), dtype), dtype)
+
+
 def demm_xwT_q8_plain(x: torch.Tensor, values: torch.Tensor,
                       indices: torch.Tensor, scales: torch.Tensor,
                       cfg: SparsityConfig) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: dequantise every packed value in
-    the activation dtype (value × its row's or group's scale, rounded), scatter
-    (duplicates accumulating in float32) into the dense (O, K) weight, then a
-    float32 matmul."""
+    """Plain PyTorch version of the kernel: the int8 scatter rows in the
+    activation dtype times their row's or group's scale (rounded) form the
+    dense (O, K) weight, then a float32 matmul."""
     o, g, _ = values.shape
-    vals = values.to(x.dtype) * expand_scales(scales.to(x.dtype), values)
-    w = unpack(vals.to(torch.float32), indices, cfg, (o, g * cfg.m))
-    return x.to(torch.float32) @ w.T
+    s = scatter_groups(values, indices, cfg.m, x.dtype)          # (O, G, M)
+    w = _scaled(s, expand_scales(scales, values), x.dtype)
+    return x.to(torch.float32) @ w.reshape(o, g * cfg.m).T
 
 
 def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                 scales: torch.Tensor, cfg: SparsityConfig, *,
+                duplicates: bool = True,
                 rows_per_block: Optional[int] = None) -> torch.Tensor:
     """y (Bx, O) float32 = x (Bx, K) @ W_q8ᵀ; int8 values (O, G, Ne) with
     float32 scales (O,) or (O, G).
 
     A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
     takes :func:`demm_xwT_q8_plain`, and only because it lies on the CPU.
+    ``duplicates`` and ``rows_per_block`` as for ``demm_xwT``.
     """
     bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg, (torch.int8,))
-    _check_scales(scales, x, o, g)
+    _check_scales(scales, x, ((o,), (o, g)))
     if not x.is_cuda:
         return demm_xwT_q8_plain(x, values, indices, scales, cfg)
     from repro_torch.kernels._build import load_library
@@ -74,7 +97,8 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     code = lib.demm_xwt_q8_launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(),
         scales.data_ptr(), y.data_ptr(), bx, k, o, g, cfg.m, ne,
-        _DTYPE_CODE[x.dtype], 1 if scales.ndim == 1 else g, int(rows_per_block or 0),
+        _DTYPE_CODE[x.dtype], 1 if scales.ndim == 1 else g,
+        int(bool(duplicates)), int(rows_per_block or 0),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt_q8")
     demm_xwT_q8.launches += 1
@@ -82,3 +106,55 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
 
 
 demm_xwT_q8.launches = 0     # kernel launches (not plain-version calls)
+
+
+def demm_block_spmm_q8_plain(active_groups: torch.Tensor,
+                             values: torch.Tensor, indices: torch.Tensor,
+                             scales: torch.Tensor, b: torch.Tensor,
+                             cfg: SparsityConfig, *, r: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`demm_block_spmm_q8`: the int8 scatter
+    rows in B's dtype times their (row block, list slot, row) scale
+    (rounded), added into the dense (R, K) matrix in float32, then a float32
+    matmul."""
+    s = scatter_groups(values, indices, cfg.m, b.dtype)      # (RB,A,br,M)
+    s = _scaled(s, scales[..., None], b.dtype)
+    a = block_scatter_dense(active_groups, s, b.shape[0], r)
+    return a @ b.to(torch.float32)
+
+
+def demm_block_spmm_q8(active_groups: torch.Tensor, values: torch.Tensor,
+                       indices: torch.Tensor, scales: torch.Tensor,
+                       b: torch.Tensor, cfg: SparsityConfig, *, r: int,
+                       duplicates: bool = True,
+                       rows_per_block: Optional[int] = None) -> torch.Tensor:
+    """C (R, Cd) float32 = A_q8 @ B from the block layout with int8 values
+    (RB, A_max, block_r, Ne) and float32 scales (RB, A_max, block_r).
+
+    Same contract as ``demm_block_spmm`` (B may be any strided view, C comes
+    back in B's orientation); a CPU tensor takes
+    :func:`demm_block_spmm_q8_plain`, and only because it lies on the CPU.
+    """
+    rb, a_max, block_r, ne, k, cd = check_block_args(
+        active_groups, values, indices, b, cfg, r, (torch.int8,))
+    _check_scales(scales, b, ((rb, a_max, block_r),))
+    if not b.is_cuda:
+        return demm_block_spmm_q8_plain(active_groups, values, indices,
+                                        scales, b, cfg, r=r)
+    from repro_torch.kernels._build import load_library
+
+    lib = load_library()
+    c = block_output(b, r)
+    code = lib.demm_block_spmm_q8_launch(
+        active_groups.data_ptr(), values.data_ptr(), indices.data_ptr(),
+        scales.data_ptr(), b.data_ptr(), c.data_ptr(), r, k, cd, rb, a_max,
+        block_r, cfg.m, ne, b.stride(0), b.stride(1), c.stride(0),
+        c.stride(1),
+        _DTYPE_CODE[b.dtype], int(bool(duplicates)),
+        int(rows_per_block or 0), b.device.index,
+        torch.cuda.current_stream(b.device).cuda_stream)
+    raise_on_launch_error(code, "demm_block_spmm_q8")
+    demm_block_spmm_q8.launches += 1
+    return c
+
+
+demm_block_spmm_q8.launches = 0     # kernel launches (not plain-version calls)

@@ -8,17 +8,22 @@ one pass over the packed bytes, so device-memory bandwidth bounds it, and the
 kernel reads each ``{value, index}`` pair once, coalesced, against an
 activation tile held in shared memory.
 
-Semantics shared by the kernel and :func:`demm_xwT_plain`:
+Semantics shared by the kernel and :func:`demm_xwT_plain` (those of the TPU
+kernel's scatter matrix):
 
-* ``y[b, o] = Σ_g Σ_n values[o, g, n] · x[b, g·M + indices[o, g, n]]``;
-  duplicate indices accumulate, a padded slot (value 0 at index 0) adds 0;
-* the packed values are rounded to the activation dtype before the product,
-  products and sums are float32, the output is float32 whatever the inputs
-  (the caller casts back).  The TPU kernel sums *duplicate* indices of one
-  group in the activation dtype before its product; here they too add in
-  float32 — the same number whenever a group holds no duplicates, which is
-  all ``pack`` ever produces;
+* ``y[b, o] = Σ_g Σ_t S[o, g, t] · x[b, g·M + t]`` with ``S[o, g, t]`` the
+  packed values of group ``g`` at local column ``t``, rounded to the
+  activation dtype — slots that share an index summed in that dtype, in slot
+  order, rounded after each add (:func:`scatter_groups`); a padded slot
+  (value 0 at index 0) adds 0;
+* products and sums are float32, the output is float32 whatever the inputs
+  (the caller casts back);
 * ragged shapes are masked inside the kernel; nothing is padded.
+
+``pack`` never puts two non-zero slots of a group at one index, so the main
+path tells the kernel (``duplicates=False``) and skips the summing search; a
+call that does not say so gets the instantiation that sums, which is always
+right.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.sparsity import SparsityConfig, unpack
+from repro_torch.core.sparsity import SparsityConfig
 
 # dtype codes of the C interface (csrc/demm_xwt_common.cuh, enum DType)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,28 +85,52 @@ def raise_on_launch_error(code: int, kernel: str):
     raise RuntimeError(f"{kernel}: CUDA launch failed with error {code}")
 
 
+def round_to(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round float32 ``t`` to ``dtype`` and back (no-op for float32)."""
+    return t if dtype == torch.float32 else t.to(dtype).to(torch.float32)
+
+
+def scatter_groups(values: torch.Tensor, indices: torch.Tensor, m: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The scatter rows ``S (..., M)`` float32 of packed ``(..., Ne)``
+    values/indices, in ``dtype``'s rounding: each value is rounded to
+    ``dtype`` and slots that share an index are summed in ``dtype``, in slot
+    order, rounding after each add — what the TPU kernel's scatter matrix
+    holds.  Int8 values are exact in either dtype."""
+    s = torch.zeros((*values.shape[:-1], m), dtype=torch.float32,
+                    device=values.device)
+    idx = indices.to(torch.int64)
+    for n in range(values.shape[-1]):
+        # one slot per group and step: no two adds meet in one element
+        s.scatter_add_(-1, idx[..., n:n + 1],
+                       values[..., n:n + 1].to(dtype).to(torch.float32))
+        s = round_to(s, dtype)
+    return s
+
+
 def demm_xwT_plain(x: torch.Tensor, values: torch.Tensor,
                    indices: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: round the packed values to the
-    activation dtype, scatter them (duplicates accumulating in float32) into
-    the dense (O, K) weight, then a float32 matmul.  Not a copy of
-    ``ref.xwT_ref``, which keeps the values at full precision."""
+    """Plain PyTorch version of the kernel: the scatter rows in the
+    activation dtype (:func:`scatter_groups`) form the dense (O, K) weight,
+    then a float32 matmul.  Not a copy of ``ref.xwT_ref``, which keeps the
+    values at full precision."""
     o, g, _ = values.shape
-    w = unpack(values.to(x.dtype).to(torch.float32), indices, cfg,
-               (o, g * cfg.m))
+    w = scatter_groups(values, indices, cfg.m, x.dtype).reshape(o, g * cfg.m)
     return x.to(torch.float32) @ w.T
 
 
 def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-             cfg: SparsityConfig, *,
+             cfg: SparsityConfig, *, duplicates: bool = True,
              rows_per_block: Optional[int] = None) -> torch.Tensor:
     """y (Bx, O) float32 = x (Bx, K) @ W_sparseᵀ, W packed (O, G, Ne).
 
     A CUDA tensor launches the hand-written kernel (building the library at
     first use) or raises; a CPU tensor takes :func:`demm_xwT_plain`, and only
-    because it lies on the CPU.  ``rows_per_block`` is the kernel's one
-    tunable (output rows per thread block); left open, the launcher sizes it
-    to the card.
+    because it lies on the CPU.  ``duplicates=False`` promises that no group
+    holds two non-zero slots at one index (``PackedWeight.has_duplicates``)
+    and launches the kernel without its summing search.
+    ``rows_per_block`` is the kernel's one tunable (output rows per thread
+    block); left open, the launcher sizes it to the card.
     """
     bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg,
                                      (torch.float32, torch.bfloat16))
@@ -114,7 +143,8 @@ def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     code = lib.demm_xwt_launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
         bx, k, o, g, cfg.m, ne, _DTYPE_CODE[x.dtype],
-        _DTYPE_CODE[values.dtype], int(rows_per_block or 0), x.device.index,
+        _DTYPE_CODE[values.dtype], int(bool(duplicates)),
+        int(rows_per_block or 0), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt")
     demm_xwT.launches += 1

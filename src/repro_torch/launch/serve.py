@@ -1,10 +1,13 @@
 """Batched serving command line of the PyTorch/CUDA port.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b \\
-        --full --packed [--quantize int8]
+        --full --packed [--layout block] [--quantize int8]
 
 ``--packed`` converts every sparse weight to the paper's packed DeMM form
 before serving: the decode projections then stream only packed bytes.
+``--layout block`` packs into the two-level block format instead of the
+row-packed ``xwT`` stream: per row block, the list of active M-groups decides
+which activation blocks the block-spmm kernel reads at all.
 ``--quantize int8`` additionally quantizes the packed values to symmetric
 int8 (``repro_torch.quant``) — the projections then stream int8 bytes and
 dequantize in-register (w8a16 kernel); ``--quantize-granularity per_group``
@@ -100,16 +103,18 @@ def main(argv=None):
                     help="override the arch's N:M sparsity pattern before "
                          "init/packing (e.g. 8:16)")
     ap.add_argument("--packed", action="store_true")
-    ap.add_argument("--layout", choices=("xwT",), default="xwT",
-                    help="packed-weight layout for --packed (only the "
-                         "row-packed xwT stream is ported)")
+    ap.add_argument("--layout", choices=("xwT", "block"), default="xwT",
+                    help="packed-weight layout for --packed: the row-packed "
+                         "xwT stream or the two-level block format "
+                         "(pack_block; dispatches the block-spmm kernel)")
     ap.add_argument("--quantize", choices=("int8",), default=None,
                     help="quantize the packed values (repro_torch.quant): "
                          "int8 symmetric with scales, served by the w8a16 "
-                         "xwT_q8 kernel")
+                         "xwT_q8 / xwT_block_q8 kernels")
     ap.add_argument("--quantize-granularity",
                     choices=("per_row", "per_group"), default="per_row",
-                    help="scale unit for --quantize")
+                    help="xwT scale unit for --quantize (block is always per "
+                         "row-block x group x row)")
     ap.add_argument("--full", action="store_true",
                     help="serve the full (non-reduced) config")
     ap.add_argument("--device", default="cuda",
@@ -132,7 +137,9 @@ def main(argv=None):
                  "--packed")
     # fail invalid layout/backend pairs here, not deep inside the first
     # decode step
-    op = "xwT_q8" if args.quantize else "xwT"
+    op = "xwT_block" if args.layout == "block" else "xwT"
+    if args.quantize:
+        op += "_q8"
     valid = {v.name for v in tune.variants_for(op)}
     if args.backend not in valid:
         ap.error(f"--backend {args.backend} is not a registered {op} "

@@ -25,8 +25,11 @@ def jax_tree_to_numpy(tree):
                 "indices": np.asarray(tree.indices),
                 "scales": (None if tree.scales is None
                            else np.asarray(tree.scales)),
+                "active_groups": (None if tree.active_groups is None
+                                  else np.asarray(tree.active_groups)),
                 "cfg": (c.n, c.m, c.k), "dense_shape": tree.dense_shape,
-                "layout": tree.layout, "qdtype": tree.qdtype}
+                "layout": tree.layout, "block_geom": tree.block_geom,
+                "qdtype": tree.qdtype}
     if isinstance(tree, Static):
         c = tree.value
         return (c.n, c.m, c.k)

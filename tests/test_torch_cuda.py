@@ -16,9 +16,15 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_arch
-from repro_torch.core.sparsity import SparsityConfig
-from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
+from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
+from repro_torch.kernels.demm_block_spmm import (demm_block_spmm,
+                                                 demm_block_spmm_plain)
+from repro_torch.kernels.demm_q8 import (demm_block_spmm_q8,
+                                         demm_block_spmm_q8_plain,
+                                         demm_xwT_q8, demm_xwT_q8_plain)
+from repro_torch.kernels.demm_spmm import demm_spmm, demm_spmm_plain
 from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+from repro_torch.quant import quantize_packed
 from repro_torch.launch.serve import run_serve
 from repro_torch.models.families import build_model
 
@@ -77,16 +83,73 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
         demm_xwT(x, vals.cpu(), idx, cfg)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_duplicate_indices_sum_in_the_activation_dtype(card, dtype):
+    """Every slot of a group on one column, values not exact in bfloat16:
+    the summing instantiation equals the plain version's rounding."""
+    n, m, o, g, bx = 5, 80, 96, 8, 4
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed=3)
+    idx = idx[..., :1].expand(o, g, n).contiguous()
+    torch.testing.assert_close(demm_xwT(x, vals, idx, cfg),
+                               demm_xwT_plain(x, vals, idx, cfg), **TOL[dtype])
+    q = torch.randint(-127, 128, vals.shape, generator=gen, device=card,
+                      dtype=torch.int32).to(torch.int8)
+    scales = torch.rand((o,), generator=gen, device=card) * 0.02 + 1e-3
+    torch.testing.assert_close(demm_xwT_q8(x, q, idx, scales, cfg),
+                               demm_xwT_q8_plain(x, q, idx, scales, cfg),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,o,g,bx,a_max", [(2, 16, 256, 8, 4, None),
+                                              (5, 80, 384, 4, 1, None),
+                                              (3, 48, 128, 9, 37, 12)])
+def test_block_and_spmm_kernels_match_plain_versions(card, n, m, o, g, bx,
+                                                     a_max, dtype):
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed=n + m)
+    dense = unpack(vals, idx, cfg, (o, g * m))
+    dense[o // 2:] = 0                               # all-zero row blocks
+    pw = pack_block(dense, cfg, a_max=a_max)
+    qw = quantize_packed(pw)
+    for b in (x.T, x.T.contiguous()):                # serving and (K, Cd)
+        before = demm_block_spmm.launches
+        got = demm_block_spmm(pw.active_groups, pw.values, pw.indices, b, cfg,
+                              r=o, duplicates=pw.has_duplicates)
+        torch.cuda.synchronize()
+        assert demm_block_spmm.launches == before + 1
+        torch.testing.assert_close(
+            got, demm_block_spmm_plain(pw.active_groups, pw.values,
+                                       pw.indices, b, cfg, r=o), **TOL[dtype])
+        before = demm_block_spmm_q8.launches
+        got = demm_block_spmm_q8(qw.active_groups, qw.values, qw.indices,
+                                 qw.scales, b, cfg, r=o)
+        torch.cuda.synchronize()
+        assert demm_block_spmm_q8.launches == before + 1
+        torch.testing.assert_close(
+            got, demm_block_spmm_q8_plain(qw.active_groups, qw.values,
+                                          qw.indices, qw.scales, b, cfg, r=o),
+            **TOL[dtype])
+        before = demm_spmm.launches
+        got = demm_spmm(vals, idx, b, cfg)
+        torch.cuda.synchronize()
+        assert demm_spmm.launches == before + 1
+        torch.testing.assert_close(got, demm_spmm_plain(vals, idx, b, cfg),
+                                   **TOL[dtype])
+
+
+@pytest.mark.parametrize("layout", ["xwT", "block"])
 @pytest.mark.parametrize("quantize", [None, "int8"])
-def test_reduced_serving_cuda_equals_reference(card, quantize):
+def test_reduced_serving_cuda_equals_reference(card, quantize, layout):
     cfg = dataclasses.replace(get_arch("stablelm_3b").reduced(),
                               compute_dtype="float32")
     outs = {}
     for backend in ("cuda", "reference"):
         model = build_model(cfg, device=card, seed=0)
-        eng = run_serve(model, cfg.vocab_size, packed=True, quantize=quantize,
-                        backend=backend, requests=3, slots=2, max_new=5,
-                        max_len=32, seed=0, device=card)
+        eng = run_serve(model, cfg.vocab_size, packed=True, layout=layout,
+                        quantize=quantize, backend=backend, requests=3,
+                        slots=2, max_new=5, max_len=32, seed=0, device=card)
         outs[backend] = {r.uid: r.output for r in eng.completed}
         assert np.isfinite(eng.last_logits[:, :cfg.vocab_size]).all()
     assert outs["cuda"] == outs["reference"]

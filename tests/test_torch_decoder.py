@@ -27,6 +27,9 @@ CASES = {
     "packed_int8": dict(mode="packed", pack=True, quantize="int8"),
     "packed_int8_per_group": dict(mode="packed", pack=True, quantize="int8",
                                   granularity="per_group"),
+    "packed_block": dict(mode="packed", pack=True, layout="block"),
+    "packed_block_int8": dict(mode="packed", pack=True, layout="block",
+                              quantize="int8"),
 }
 
 
@@ -40,7 +43,8 @@ def setup():
 def _run_both(setup, case, convert_packed):
     jcfg, tcfg, jmodel, params = setup
     spec = CASES[case]
-    kw = {k: spec[k] for k in ("quantize", "granularity") if k in spec}
+    kw = {k: spec[k] for k in ("layout", "quantize", "granularity")
+          if k in spec}
     if spec.get("pack"):
         jparams = jax_pack_tree(params, **kw)
         if convert_packed:      # convert the JAX package's own packed tree
@@ -84,35 +88,62 @@ def test_decode_step_matches(setup, case):
 
 
 @pytest.mark.parametrize("case", ["packed", "packed_int8",
-                                  "packed_int8_per_group"])
+                                  "packed_int8_per_group", "packed_block",
+                                  "packed_block_int8"])
 def test_decode_step_matches_from_converted_packed_tree(setup, case):
-    _run_both(setup, case, convert_packed=True)
+    """Logits of a model converted from the JAX package's own packed tree
+    (for the block layout: a scan stack sharing one a_max, sliced per
+    layer) match the JAX model's."""
+    tmodel = _run_both(setup, case, convert_packed=True)
+    if CASES[case].get("layout") == "block":
+        geoms = {m.block_geom for m in tmodel.modules()
+                 if isinstance(m, PackedWeight)}
+        assert all(g is not None for g in geoms)
 
 
 def test_port_packing_equals_reference_packing(setup):
     """pack_tree of the port on converted masked weights gives the very
     arrays the JAX package's pack_tree gives (un-stacked per layer)."""
     jcfg, tcfg, _, params = setup
+    names = (("attn", ("wq", "wk", "wv", "wo")),
+             ("mlp", ("gate", "up", "down")))
     for kw in ({}, {"quantize": "int8"},
-               {"quantize": "int8", "granularity": "per_group"}):
+               {"quantize": "int8", "granularity": "per_group"},
+               {"layout": "block"}, {"layout": "block", "quantize": "int8"}):
         jparams = jax_pack_tree(params, **kw)
-        tmodel = pack_tree(to_torch_model(params, tcfg), **kw)
+        port_kw = dict(kw)
+        if kw.get("layout") == "block":
+            # the JAX scan stack shares one a_max over the layers; the port
+            # packs each layer on its own unless told the stack's a_max
+            port_kw["a_max"] = jparams["layers"]["attn"]["wq"].block_geom[1]
+        tmodel = pack_tree(to_torch_model(params, tcfg), **port_kw)
         for i, blk in enumerate(tmodel.layers):
-            for grp, names in (("attn", ("wq", "wk", "wv", "wo")),
-                               ("mlp", ("gate", "up", "down"))):
-                for name in names:
+            for grp, ns in names:
+                for name in ns:
                     tpw = getattr(getattr(blk, grp), name)
                     jpw = jparams["layers"][grp][name]
+                    if kw.get("layout") == "block" and \
+                            tpw.block_geom != jpw.block_geom:
+                        # another projection of the stack, another a_max
+                        tpw = pack_tree(to_torch_model(params, tcfg),
+                                        layout="block",
+                                        a_max=jpw.block_geom[1],
+                                        quantize=kw.get("quantize"))
+                        tpw = getattr(getattr(tpw.layers[i], grp), name)
                     assert (tpw.cfg.n, tpw.cfg.m, tpw.cfg.k) == \
                         (jpw.cfg.n, jpw.cfg.m, jpw.cfg.k)
                     assert tpw.dense_shape == tuple(jpw.dense_shape)
-                    np.testing.assert_array_equal(
-                        tpw.values.numpy(), np.asarray(jpw.values[i]))
-                    np.testing.assert_array_equal(
-                        tpw.indices.numpy(), np.asarray(jpw.indices[i]))
-                    if kw:
+                    assert tpw.layout == jpw.layout
+                    assert tpw.block_geom == jpw.block_geom
+                    children = ["values", "indices"]
+                    if tpw.layout == "block":
+                        children.append("active_groups")
+                    if "quantize" in kw:
+                        children.append("scales")
+                    for child in children:
                         np.testing.assert_array_equal(
-                            tpw.scales.numpy(), np.asarray(jpw.scales[i]))
+                            getattr(tpw, child).numpy(),
+                            np.asarray(getattr(jpw, child)[i]))
 
 
 def test_unported_parts_raise():
@@ -129,8 +160,14 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, attention="swa"), device="cpu")
     model = build_model(cfg, device="cpu", seed=1)
-    with pytest.raises(NotImplementedError):
-        pack_tree(model, layout="block")
+    with pytest.raises(ValueError, match="unknown layout"):
+        pack_tree(model, layout="tiles")
+    # the block layout is ported (shard-stacked and draft-tier views are
+    # not: PackedWeight has no shard_axis / tier_ne)
+    blocked = pack_tree(build_model(cfg, device="cpu", seed=1),
+                        layout="block")
+    assert blocked.layers[0].mlp.down.layout == "block"
+    assert not hasattr(blocked.layers[0].mlp.down, "shard_axis")
     # the port's own init: seeded, pre-pruned, packs losslessly
     again = build_model(cfg, device="cpu", seed=1)
     w0 = model.layers[0].mlp.down.w.data.clone()

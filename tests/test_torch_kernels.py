@@ -1,9 +1,19 @@
-"""Port vs JAX package: the plain PyTorch versions of the two packed matmul
-kernels against the Pallas kernels in interpret mode and the jnp oracles.
+"""Port vs JAX package: the plain PyTorch versions of the five packed matmul
+kernels (K1 xwT, K3 xwT_q8, K2 block_spmm, K4 block_spmm_q8, K5 spmm)
+against the Pallas kernels in interpret mode and the jnp oracles.
 
-Tolerances: float32 rtol/atol 1e-5 (summation order only); bfloat16 rtol/atol
-2e-2 against the interpret-mode kernel, which — like the port — rounds the
-packed values to the activation dtype before a float32-accumulated product.
+Tolerances: float32 rtol/atol 1e-5 (summation order only).  bfloat16
+activations: rtol/atol 1e-5 as well wherever the port's plain version is
+held against the interpret-mode kernel on inputs that reach its rounding —
+both round the packed values (and the sums of duplicate indices, and the
+int8 scale products) to bfloat16 at the same places and accumulate exact
+products in float32, so only the summation order differs; rtol/atol 2e-2
+where a test keeps the looser check it had, and against the interpret
+kernel's output for a single activation row (Bx = 1 or Cd = 1): XLA on the
+CPU evaluates that kernel's dot in bfloat16 there (8e-3 away from the exact
+product of the very same bf16 scatter matrix), which is the reference's own
+rounding.  The scatter rows themselves are held bit-equal to the Pallas
+body's ``_scatter_matrix``.
 """
 
 import jax.numpy as jnp
@@ -13,33 +23,55 @@ import torch
 
 from repro.core import sparsity as jsp
 from repro.kernels import ref as jref
-from repro.kernels.demm_q8 import demm_xwT_q8_pallas
-from repro.kernels.demm_spmm import demm_xwT_pallas
+from repro.kernels.demm_block_spmm import demm_block_spmm_pallas
+from repro.kernels.demm_q8 import demm_block_spmm_q8_pallas, demm_xwT_q8_pallas
+from repro.kernels.demm_spmm import (_scatter_matrix, demm_spmm_pallas,
+                                     demm_xwT_pallas)
+from repro.quant import quantize as jq
 
 from repro_torch import obs, tune
 from repro_torch.core import sparsity as tsp
 from repro_torch.kernels import ops, ref as tref
-from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
-from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+from repro_torch.kernels.demm_block_spmm import (demm_block_spmm,
+                                                 demm_block_spmm_plain,
+                                                 pack_block_sparse)
+from repro_torch.kernels.demm_q8 import (demm_block_spmm_q8,
+                                         demm_block_spmm_q8_plain,
+                                         demm_xwT_q8, demm_xwT_q8_plain)
+from repro_torch.kernels.demm_spmm import demm_spmm, demm_spmm_plain
+from repro_torch.kernels.demm_xwT import (demm_xwT, demm_xwT_plain,
+                                          scatter_groups)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+BF16_SAME_ROUNDING = dict(rtol=1e-5, atol=1e-5)
+
+
+def _bf16_tol(rows):
+    """Tolerance against a bf16 interpret-mode kernel with ``rows``
+    activation rows (B columns); see the module docstring."""
+    return BF16_SAME_ROUNDING if rows > 1 else BF16
 # (n, m, O, G, Bx): M in {16, 48, 80}, ragged Bx and O
 SHAPES = [(2, 16, 24, 4, 5), (3, 48, 20, 3, 1), (5, 80, 33, 2, 37),
           (8, 16, 16, 2, 4)]
 
 
-def _packed(n, m, o, g, seed, duplicates=False):
+def _packed(n, m, o, g, seed, duplicates=False, exact=True):
     rng = np.random.default_rng(seed)
     cfg = jsp.SparsityConfig(n, m)
     w = jsp.random_sparse_dense(rng, o, g * m, cfg)
     p = jsp.pack(jnp.asarray(w), cfg)
     values, indices = np.asarray(p.values), np.asarray(p.indices)
     if duplicates:
-        # every slot of a group points at one column; all values non-zero
-        # quarter-integers, so that their sums are exact in bfloat16 too
-        values = (rng.integers(1, 9, values.shape) / 4
-                  * rng.choice([-1.0, 1.0], values.shape)).astype(np.float32)
+        # every slot of a group points at one column.  exact: non-zero
+        # quarter-integers, whose sums are exact in bfloat16 too; otherwise
+        # standard normal, whose sums round
+        if exact:
+            values = (rng.integers(1, 9, values.shape) / 4
+                      * rng.choice([-1.0, 1.0], values.shape))
+        else:
+            values = rng.standard_normal(values.shape)
+        values = values.astype(np.float32)
         indices = np.broadcast_to(
             rng.integers(0, m, (o, g, 1)), indices.shape).astype(np.int32)
         values[0] = 0                               # an all-padded row
@@ -198,7 +230,243 @@ def test_registry_and_wrapper_errors():
         demm_xwT_q8(x, v, i, torch.ones(4), cfg)           # values not int8
     with pytest.raises(ValueError):
         demm_xwT_q8(x, v.to(torch.int8), i, torch.ones(4, 3), cfg)
+    # a block-tagged weight whose values are not (RB, A_max, block_r, Ne)
+    # raises the JAX package's ValueError; an unknown layout tag too
     pw = tsp.PackedWeight(v, i, cfg=cfg, dense_shape=(4, 32))
     pw.layout = "block"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unstacked"):
         ops.demm_matmul_packed(x, pw)
+    pw.layout = "nope"
+    with pytest.raises(ValueError, match="unknown PackedWeight layout"):
+        ops.demm_matmul_packed(x, pw)
+    for op in ("xwT_block", "xwT_block_q8", "spmm"):
+        assert tune.backend_names(op) == ("cuda", "reference")
+    ag = torch.zeros(1, 2, dtype=torch.int32)
+    bv, bi = torch.zeros(1, 2, 4, 2), torch.zeros(1, 2, 4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        demm_block_spmm(ag, bv, bi, x.T, cfg, r=8)         # RB*block_r != r
+    with pytest.raises(ValueError):
+        demm_block_spmm(ag[:, :1], bv, bi, x.T, cfg, r=4)  # ag shape
+    with pytest.raises(TypeError):
+        demm_block_spmm(ag.long(), bv, bi, x.T, cfg, r=4)  # ag dtype
+    with pytest.raises(TypeError):
+        demm_block_spmm_q8(ag, bv, bi, torch.ones(1, 2, 4), x.T, cfg, r=4)
+    with pytest.raises(ValueError):
+        demm_block_spmm_q8(ag, bv.to(torch.int8), bi, torch.ones(1, 2), x.T,
+                           cfg, r=4)                       # scales shape
+    with pytest.raises(ValueError):
+        demm_spmm(v, i, torch.zeros(48, 3), cfg)           # K != G*M
+
+
+@pytest.mark.parametrize("n,m,o,g,bx", SHAPES)
+def test_xwT_duplicates_bf16_match_interpret_kernel(n, m, o, g, bx):
+    """Duplicate indices whose sums round in bfloat16: K1's and K3's plain
+    versions sum them in the activation dtype, slot by slot, as the TPU
+    kernel's scatter matrix does (1e-5 relative; float32 sums after the
+    product would differ by bfloat16 rounding of the summed weight)."""
+    values, indices = _packed(n, m, o, g, seed=5 * n + m, duplicates=True,
+                              exact=False)
+    x = np.random.default_rng(bx + 7).standard_normal((bx, g * m)).astype(np.float32)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    xb = _t(x, torch.bfloat16)
+    got = demm_xwT_plain(xb, _t(values), _t(indices), tcfg).numpy()
+    kern = demm_xwT_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(values),
+                           jnp.asarray(indices), jcfg, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), **_bf16_tol(bx))
+    # the scatter rows are bit-equal to the Pallas body's, group by group
+    s_port = scatter_groups(_t(values), _t(indices), m, torch.bfloat16)
+    for gg in range(g):
+        s_jax = _scatter_matrix(jnp.asarray(values[:, gg:gg + 1]),
+                                jnp.asarray(indices[:, gg:gg + 1]), m, n,
+                                jnp.bfloat16)
+        np.testing.assert_array_equal(s_port[:, gg].numpy(),
+                                      np.asarray(s_jax, np.float32))
+    q = np.clip(np.round(values * 60), -127, 127).astype(np.int8)
+    for shape in ((o,), (o, g)):
+        scales = np.random.default_rng(o).uniform(0.005, 0.05, shape).astype(np.float32)
+        got = demm_xwT_q8_plain(xb, _t(q), _t(indices), _t(scales),
+                                tcfg).numpy()
+        kern = demm_xwT_q8_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q),
+                                  jnp.asarray(indices), jnp.asarray(scales),
+                                  jcfg, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(kern), **_bf16_tol(bx))
+
+
+# (n, m, R, G, block_r, a_max, Cd): a_max None = the densest row block's
+# active count; an a_max above G pads with slots aliasing group 0
+BLOCK_SHAPES = [(2, 16, 64, 4, 16, None, 8), (5, 80, 32, 3, 8, 5, 3),
+                (3, 48, 24, 5, 8, None, 1), (8, 16, 32, 2, 32, None, 16)]
+
+
+def _block_packed(n, m, r, g, block_r, a_max, seed, duplicates=False):
+    """A JAX-packed block weight with an inactive (row block, group) tile and
+    an all-zero row block; numpy (dense, active_groups, values, indices)."""
+    rng = np.random.default_rng(seed)
+    cfg = jsp.SparsityConfig(n, m)
+    w = jsp.random_sparse_dense(rng, r, g * m, cfg)
+    tiles = w.reshape(r // block_r, block_r, g, m)
+    tiles[0, :, g - 1] = 0
+    if r // block_r > 1:
+        tiles[-1] = 0
+    pw = jsp.pack_block(jnp.asarray(w), cfg, block_r=block_r, a_max=a_max)
+    ag, values, indices = (np.asarray(pw.active_groups),
+                           np.array(pw.values), np.array(pw.indices))
+    if duplicates:
+        indices = np.ascontiguousarray(np.broadcast_to(indices[..., :1],
+                                                       indices.shape))
+        values = np.where(values != 0, values,
+                          rng.standard_normal(values.shape)).astype(np.float32)
+        values[:, :, 0] = 0                         # padded rows
+    return w, ag, values, indices
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("duplicates", [False, True])
+@pytest.mark.parametrize("n,m,r,g,block_r,a_max,cd", BLOCK_SHAPES)
+def test_block_spmm_plain_vs_interpret_kernel(n, m, r, g, block_r, a_max, cd,
+                                              duplicates, dtype):
+    w, ag, values, indices = _block_packed(n, m, r, g, block_r, a_max,
+                                           seed=r + m, duplicates=duplicates)
+    b = np.random.default_rng(cd).standard_normal((g * m, cd)).astype(np.float32)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = demm_block_spmm_plain(_t(ag), _t(values), _t(indices), _t(b, tdt),
+                                tcfg, r=r).numpy()
+    kern = demm_block_spmm_pallas(jnp.asarray(ag), jnp.asarray(values),
+                                  jnp.asarray(indices), jnp.asarray(b, jdt),
+                                  jcfg, r=r, interpret=True)
+    assert got.dtype == np.float32 and got.shape == (r, cd)
+    tol = F32 if dtype == "float32" else _bf16_tol(cd)
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+    if not duplicates:
+        assert not np.any(got[r - block_r:]) or r == block_r  # zero row block
+    if dtype == "float32":
+        want = jref.block_spmm_ref(jnp.asarray(ag), jnp.asarray(values),
+                                   jnp.asarray(indices), jnp.asarray(b),
+                                   jcfg, r)
+        np.testing.assert_allclose(got, np.asarray(want), **F32)
+        np.testing.assert_allclose(
+            tref.block_spmm_ref(_t(ag), _t(values), _t(indices), _t(b), tcfg,
+                                r).numpy(), got, **F32)
+        if not duplicates:
+            np.testing.assert_allclose(got, w @ b, rtol=1e-4, atol=1e-4)
+    # the CPU route of the kernel wrapper, B as a transposed view too
+    before = demm_block_spmm.launches
+    bt = _t(np.ascontiguousarray(b.T), tdt).T
+    np.testing.assert_array_equal(
+        demm_block_spmm(_t(ag), _t(values), _t(indices), bt, tcfg,
+                        r=r).numpy(), got)
+    assert demm_block_spmm.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,m,r,g,block_r,a_max,cd", BLOCK_SHAPES)
+def test_block_spmm_q8_plain_vs_interpret_kernel(n, m, r, g, block_r, a_max,
+                                                 cd, dtype):
+    w, _, _, _ = _block_packed(n, m, r, g, block_r, a_max, seed=r * m)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    jqw = jq.quantize_packed(jsp.pack_block(jnp.asarray(w), jcfg,
+                                            block_r=block_r, a_max=a_max))
+    ag, q, indices, scales = (np.asarray(jqw.active_groups),
+                              np.asarray(jqw.values), np.asarray(jqw.indices),
+                              np.asarray(jqw.scales))
+    b = np.random.default_rng(cd + 1).standard_normal((g * m, cd)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = demm_block_spmm_q8_plain(_t(ag), _t(q), _t(indices), _t(scales),
+                                   _t(b, tdt), tcfg, r=r).numpy()
+    kern = demm_block_spmm_q8_pallas(jnp.asarray(ag), jnp.asarray(q),
+                                     jnp.asarray(indices),
+                                     jnp.asarray(scales), jnp.asarray(b, jdt),
+                                     jcfg, r=r, interpret=True)
+    tol = F32 if dtype == "float32" else _bf16_tol(cd)
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+    if dtype == "float32":
+        want = jref.block_spmm_q8_ref(jnp.asarray(ag), jnp.asarray(q),
+                                      jnp.asarray(indices),
+                                      jnp.asarray(scales), jnp.asarray(b),
+                                      jcfg, r)
+        np.testing.assert_allclose(got, np.asarray(want), **F32)
+        np.testing.assert_allclose(
+            tref.block_spmm_q8_ref(_t(ag), _t(q), _t(indices), _t(scales),
+                                   _t(b), tcfg, r).numpy(), got, **F32)
+    before = demm_block_spmm_q8.launches
+    np.testing.assert_array_equal(
+        demm_block_spmm_q8(_t(ag), _t(q), _t(indices), _t(scales),
+                           _t(b, tdt), tcfg, r=r).numpy(), got)
+    assert demm_block_spmm_q8.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("duplicates", [False, True])
+@pytest.mark.parametrize("n,m,o,g,bx", SHAPES)
+def test_spmm_plain_vs_interpret_kernel(n, m, o, g, bx, duplicates, dtype):
+    values, indices = _packed(n, m, o, g, seed=n * o, duplicates=duplicates,
+                              exact=False)
+    b = np.random.default_rng(bx + 9).standard_normal((g * m, bx)).astype(np.float32)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = demm_spmm_plain(_t(values), _t(indices), _t(b, tdt), tcfg).numpy()
+    kern = demm_spmm_pallas(jnp.asarray(values), jnp.asarray(indices),
+                            jnp.asarray(b, jdt), jcfg, block_r=16,
+                            block_c=16, interpret=True)
+    assert got.dtype == np.float32 and got.shape == (o, bx)
+    tol = F32 if dtype == "float32" else _bf16_tol(bx)
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+    if dtype == "float32":
+        want = jref.spmm_ref(jnp.asarray(values), jnp.asarray(indices),
+                             jnp.asarray(b), jcfg, (o, g * m))
+        np.testing.assert_allclose(got, np.asarray(want), **F32)
+        np.testing.assert_allclose(
+            tref.spmm_ref(_t(values), _t(indices), _t(b), tcfg,
+                          (o, g * m)).numpy(), got, **F32)
+    before = demm_spmm.launches
+    np.testing.assert_array_equal(
+        demm_spmm(_t(values), _t(indices), _t(b, tdt), tcfg).numpy(), got)
+    assert demm_spmm.launches == before
+
+
+def test_pack_block_sparse_adapter_matches_jax():
+    from repro.kernels.demm_block_spmm import pack_block_sparse as jpbs
+    rng = np.random.default_rng(4)
+    a = jsp.random_sparse_dense(rng, 256, 64, jsp.SparsityConfig(2, 16))
+    a[:128, :16] = 0
+    got = pack_block_sparse(a, tsp.SparsityConfig(2, 16))
+    want = jpbs(a, jsp.SparsityConfig(2, 16))
+    assert got[3] == want[3]
+    for g_, w_ in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g_, np.asarray(w_))
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("op", ["xwT_block", "xwT_block_q8", "spmm"])
+def test_block_and_spmm_dispatch_on_cpu(backend, op):
+    n, m, r, g = 2, 16, 32, 4
+    w = jsp.random_sparse_dense(np.random.default_rng(2), r, g * m,
+                                jsp.SparsityConfig(n, m))
+    tcfg = tsp.SparsityConfig(n, m)
+    x = _t(np.random.default_rng(3).standard_normal((5, g * m)).astype(np.float32))
+    reg = obs.MetricsRegistry()
+    prev = obs.default_registry()
+    obs.set_default_registry(reg)
+    try:
+        if op == "spmm":
+            p = tsp.pack(_t(w), tcfg)
+            got = ops.demm_spmm(p.values, p.indices, x.T, tcfg, (r, g * m),
+                                backend=backend)
+            ops.demm_spmm(p.values, p.indices, x.T, tcfg, (r, g * m),
+                          backend=backend)
+            want = _t(w) @ x.T
+        else:
+            pw = tsp.pack_block(_t(w), tcfg, block_r=8)
+            if op == "xwT_block_q8":
+                from repro_torch.quant import quantize_packed
+                pw = quantize_packed(pw)
+            got = ops.demm_matmul_packed(x, pw, backend=backend)
+            ops.demm_matmul_packed(x, pw, backend=backend)
+            want = x @ pw.to_dense().T
+    finally:
+        obs.set_default_registry(prev)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+    counters = {(c["name"], c["labels"].get("op"), c["labels"].get("backend")):
+                c["value"] for c in reg.snapshot(meta=False)["counters"]}
+    assert counters[("kernel_dispatch_total", op, backend)] == 2

@@ -1,7 +1,8 @@
 """The ported slice as a whole: the same prompts through the JAX package's
 ``run_serve`` and the port's ``run_serve(device="cpu", backend="reference")``
 with converted weights give identical token streams — greedy for masked,
-packed and packed+int8 serving, and sampled at temperature 0.8 / top-k 8
+packed and packed+int8 serving in both packed layouts (row-packed ``xwT`` and
+two-level ``block``), and sampled at temperature 0.8 / top-k 8
 (the sampler is numpy Philox on both sides).  float32 compute on both sides:
 bf16 logit grids flip argmax ties between programs.
 """
@@ -25,6 +26,8 @@ CASES = {
     "packed_int8": dict(packed=True, quantize="int8"),
     "packed_int8_per_group": dict(packed=True, quantize="int8",
                                   granularity="per_group"),
+    "packed_block": dict(packed=True, layout="block"),
+    "packed_block_int8": dict(packed=True, layout="block", quantize="int8"),
     "packed_sampled": dict(packed=True, temperature=0.8, top_k=8),
     "masked_sampled": dict(packed=False, temperature=0.8, top_k=8),
 }

@@ -1,8 +1,11 @@
-"""Port vs JAX package: pruning masks, packing, unpacking, int8 quantization.
+"""Port vs JAX package: pruning masks, packing (row-packed and two-level
+block), unpacking, int8 quantization.
 
 Everything here must be bit-equal: masks, packed values and indices (incl.
 under-full groups and magnitude ties, where the choice among equals decides
-where a padded slot lands), int8 values and float32 scales.
+where a padded slot lands), the block layout's active-group lists (incl.
+all-zero row blocks and ``a_max > G`` padding), int8 values and float32
+scales.
 """
 
 import jax.numpy as jnp
@@ -120,7 +123,130 @@ def test_packed_weight_validation():
     with pytest.raises(ValueError):
         tsp.PackedWeight(v.to(torch.int8), i, cfg=cfg, dense_shape=(4, 32),
                          qdtype="int8")
-    with pytest.raises(NotImplementedError):
+    # the block layout is ported: it needs its address stream and a
+    # consistent geometry, and takes per-(row-block, group, row) scales only
+    with pytest.raises(ValueError, match="active_groups"):
         tsp.PackedWeight(v, i, cfg=cfg, dense_shape=(4, 32), layout="block")
+    bv, bi = torch.zeros(1, 2, 4, 2), torch.zeros(1, 2, 4, 2, dtype=torch.int32)
+    ag = torch.zeros(1, 2, dtype=torch.int32)
+    bpw = tsp.PackedWeight(bv, bi, cfg=cfg, dense_shape=(4, 32),
+                           layout="block", active_groups=ag)
+    assert bpw.block_geom == (4, 2) and not bpw.has_duplicates
+    assert torch.equal(bpw.to_dense(), torch.zeros(4, 32))
+    with pytest.raises(ValueError):
+        tsp.PackedWeight(bv, bi, cfg=cfg, dense_shape=(8, 32),
+                         layout="block", active_groups=ag)
+    with pytest.raises(ValueError):
+        tsp.PackedWeight(bv, bi, cfg=cfg, dense_shape=(4, 32),
+                         layout="block", active_groups=ag[:, :1])
+    with pytest.raises(ValueError):
+        tsp.PackedWeight(v, i, cfg=cfg, dense_shape=(4, 32),
+                         active_groups=ag)
+    with pytest.raises(ValueError):
+        tsp.PackedWeight(bv.to(torch.int8), bi, cfg=cfg, dense_shape=(4, 32),
+                         layout="block", active_groups=ag,
+                         scales=torch.ones(1), qdtype="int8")
+    with pytest.raises(ValueError, match="granularity"):
+        tq.quantize_packed(bpw, granularity="per_group")
     with pytest.raises(ValueError):
         tq.quantize_packed(tq.quantize_packed(pw))
+
+
+def test_duplicate_index_record():
+    """``has_duplicates`` counts two *non-zero* slots of one group at one
+    index; pack's padded slots (value 0 at index 0) do not count."""
+    cfg = tsp.SparsityConfig(2, 4)
+    idx = torch.tensor([[[0, 0]]], dtype=torch.int32)
+    pw = tsp.PackedWeight(torch.tensor([[[1.0, 0.0]]]), idx, cfg=cfg,
+                          dense_shape=(1, 4))
+    assert not pw.has_duplicates
+    dup = pw.replace(values=torch.tensor([[[1.0, 2.0]]]))
+    assert dup.has_duplicates
+    assert dup.replace(cfg=tsp.SparsityConfig(1, 4, 2)).has_duplicates
+    assert not tsp.holds_duplicates(torch.ones(3, 2, 1),
+                                    torch.zeros(3, 2, 1, dtype=torch.int32))
+
+
+BLOCK_GEOMETRIES = [(4, None), (4, 5), (6, 4), (12, None), (None, None)]
+
+
+@pytest.mark.parametrize("block_r,a_max", BLOCK_GEOMETRIES)
+@pytest.mark.parametrize("n,m", PATTERNS)
+@pytest.mark.parametrize("kind", ["plain", "tied", "under", "under_tied",
+                                  "empty", "zero_block"])
+def test_pack_block_bit_equal(n, m, kind, block_r, a_max):
+    """pack_block gives JAX's values, indices and active-group lists bit for
+    bit: magnitude ties, under-full groups, all-zero row blocks (and all-zero
+    weights), inactive tiles, a_max > G padding, the default geometry."""
+    cases = _cases(n, m, seed=10 * n + m)
+    a = cases["under" if kind == "zero_block" else kind].copy()
+    if kind == "zero_block":
+        a[4:8] = 0                               # an all-zero row block
+        a[:4, :m] = 0                            # an inactive (block, group)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    want = jsp.pack_block(jnp.asarray(a), jcfg, block_r=block_r, a_max=a_max)
+    got = tsp.pack_block(torch.from_numpy(a), tcfg, block_r=block_r,
+                         a_max=a_max)
+    assert got.layout == "block" and got.block_geom == want.block_geom
+    assert got.dense_shape == tuple(want.dense_shape)
+    for name in ("values", "indices", "active_groups"):
+        t = getattr(got, name)
+        assert t.is_contiguous()
+        np.testing.assert_array_equal(t.numpy(),
+                                      np.asarray(getattr(want, name)))
+    assert got.indices.dtype == torch.int32
+    assert got.active_groups.dtype == torch.int32
+    assert not got.has_duplicates
+    # unpack_block of the same packing, and to_dense, agree with JAX
+    np.testing.assert_array_equal(got.to_dense().numpy(),
+                                  np.asarray(want.to_dense()))
+    np.testing.assert_array_equal(
+        tsp.unpack_block(got.active_groups, got.values, got.indices, tcfg,
+                         got.dense_shape).numpy(),
+        np.asarray(jsp.unpack_block(want.active_groups, want.values,
+                                    want.indices, jcfg, want.dense_shape)))
+    if kind in ("under", "under_tied", "empty", "zero_block"):
+        # lossless on a weight that satisfies the pattern
+        np.testing.assert_array_equal(got.to_dense().numpy(), a)
+
+
+def test_pack_block_a_max_validation():
+    cfg = tsp.SparsityConfig(2, 16)
+    w = torch.zeros(8, 32)
+    w[0, 0], w[0, 16] = 1.0, 2.0                # two active groups
+    with pytest.raises(ValueError, match="active groups"):
+        tsp.pack_block(w, cfg, block_r=8, a_max=1)
+    with pytest.raises(ValueError, match="active groups"):
+        jsp.pack_block(jnp.asarray(w.numpy()), jsp.SparsityConfig(2, 16),
+                       block_r=8, a_max=1)
+    with pytest.raises(ValueError, match="divisible"):
+        tsp.pack_block(w, cfg, block_r=3)
+    pw = tsp.PackedWeight.from_dense(w, cfg, layout="block", a_max=4)
+    assert pw.block_geom == (8, 4)
+    assert pw.active_groups.tolist() == [[0, 1, 0, 0]]
+    assert torch.equal(pw.to_dense(), w)
+
+
+@pytest.mark.parametrize("n,m", [(2, 16), (5, 80), (3, 48)])
+def test_quantize_block_bit_equal(n, m):
+    rng = np.random.default_rng(11 * n + m)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    w = jsp.random_sparse_dense(rng, 16, 3 * m, jcfg)
+    w[4:8] = 0                                   # an all-zero row block
+    w *= rng.uniform(0.01, 10.0, (16, 1)).astype(np.float32)
+    jpw = jsp.pack_block(jnp.asarray(w), jcfg, block_r=4, a_max=5)
+    tpw = tsp.pack_block(torch.from_numpy(w), tcfg, block_r=4, a_max=5)
+    jqw, tqw = jq.quantize_packed(jpw), tq.quantize_packed(tpw)
+    assert tqw.qdtype == "int8" and tqw.values.dtype == torch.int8
+    assert tuple(tqw.scales.shape) == (4, 5, 4)
+    for name in ("values", "indices", "active_groups", "scales"):
+        np.testing.assert_array_equal(getattr(tqw, name).numpy(),
+                                      np.asarray(getattr(jqw, name)))
+    np.testing.assert_array_equal(tqw.to_dense().numpy(),
+                                  np.asarray(jqw.to_dense()))
+    np.testing.assert_array_equal(tq.amax_scales(tpw).numpy(),
+                                  np.asarray(jq.amax_scales(jpw)))
+    back = tq.dequantize_packed(tqw)
+    assert back.layout == "block" and back.qdtype is None
+    np.testing.assert_array_equal(
+        back.values.numpy(), np.asarray(jq.dequantize_packed(jqw).values))
