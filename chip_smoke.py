@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below, about two minutes
-    python3 chip_smoke.py --sweep    # also time the kernels' one tunable
-    python3 chip_smoke.py --compare-with DIR   # K1/K3 here against DIR's
+    python3 chip_smoke.py --sweep    # also time the kernels' tunables
+    python3 chip_smoke.py --compare-with DIR   # K1-K5 here against DIR's
 
 Needs a CUDA device and ``nvcc``; imports only ``repro_torch`` (from ``src/``
 beside this file).  Each phase raises on failure, so the exit code is non-zero
@@ -31,7 +31,14 @@ unless all of them held:
                 block, ``a_max > G`` padding, duplicate indices with
                 non-quarter-integer values, and B stored (K, Cd);
               * ``demm_spmm`` (paper orientation, B (K, Cd)) at the same
-                shapes, plus duplicate indices.
+                shapes, plus duplicate indices;
+              * the redesigned bodies, each asserted to be the one taken:
+                K5's tiled tensor-core body (bf16 B, Cd in {64, 200, 256,
+                1024}, R = 100, M in {8, 16, 40, 48, 80}, duplicates, every
+                tile, stage count and groups per stage) while a float32 B
+                and a transposed B take the gather body; K4's cluster body at Bx in {1, 4, 8}
+                with inactive tiles, an all-zero row block, a_max > G,
+                duplicates and every cluster size.
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
@@ -58,7 +65,10 @@ unless all of them held:
               time is measured and not the time Python takes to issue a launch
               (that is ``eager_ms``); the byte / operation bound, the plain
               version, and ``torch.matmul`` against the dense weight in the
-              same dtype as a yardstick the port never calls.
+              same dtype as a yardstick the port never calls.  K5's tiled
+              body does the dense count of operations at Cd = 256; the floor
+              that sets (2 R K Cd at the bf16 peak, computed, not measured)
+              is printed on a line of its own, outside the ``kernels`` line.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}}`` (per kernel: launches on
@@ -178,10 +188,13 @@ def make_q8(o, g, n, per_group, gen):
 def check_kernels(gen):
     import torch
     from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.kernels.demm_q8 import block_q8_body
+    from repro_torch.kernels.demm_spmm import spmm_body
     from repro_torch.quant import quantize_packed
 
     fns = kernel_fns()
     err = {name: 0.0 for name in KERNELS}
+    bodies = {"demm_spmm": set(), "demm_block_spmm_q8": set()}
     n_cases = 0
 
     def compare(name, got, want, dtype, what, main):
@@ -230,44 +243,83 @@ def check_kernels(gen):
                             what + (" per_group" if per_group else " per_row"),
                             main)
 
-    def run_block(what, pw, batches, main=False, paper_b=False):
-        """K2 and K4 on one block packing, B = xᵀ (or B (K, Cd))."""
+    def run_block(what, pw, batches, main=False, paper_b=False,
+                  cluster_sizes=(None,), dtypes=("float32", "bfloat16")):
+        """K2 and K4 on one block packing, B = xᵀ (or B (K, Cd)); K4 takes
+        its cluster body in the serving orientation at Bx <= 8."""
         o, k = pw.dense_shape
         kern, plain = fns["demm_block_spmm"]
         kern_q, plain_q = fns["demm_block_spmm_q8"]
         qw = quantize_packed(pw)
         for bx in batches:
-            for dtype in ("float32", "bfloat16"):
+            for dtype in dtypes:
                 x = torch.randn((bx, k), generator=gen, device=gen.device)
                 b = (x.T.contiguous() if paper_b else x.T).to(
                     getattr(torch, dtype))
                 tag = (f"{what} O={o} K={k} {pw.cfg.pattern_name()} "
                        f"block_geom={pw.block_geom} Cd={bx} B={dtype}")
+                body = block_q8_body(qw.values, qw.indices, qw.scales, b,
+                                     pw.cfg.m)
+                if not paper_b and body != ("cluster" if bx <= 8
+                                            else "gather"):
+                    raise AssertionError(f"{tag}: K4 would take its {body} "
+                                         "body")
+                bodies["demm_block_spmm_q8"].add(body)
                 compare("demm_block_spmm",
                         kern(pw.active_groups, pw.values, pw.indices, b,
                              pw.cfg, r=o, duplicates=pw.has_duplicates),
                         plain(pw.active_groups, pw.values, pw.indices, b,
                               pw.cfg, r=o), dtype, tag, main)
-                compare("demm_block_spmm_q8",
-                        kern_q(qw.active_groups, qw.values, qw.indices,
-                               qw.scales, b, qw.cfg, r=o,
-                               duplicates=qw.has_duplicates),
-                        plain_q(qw.active_groups, qw.values, qw.indices,
-                                qw.scales, b, qw.cfg, r=o), dtype, tag, main)
+                want = plain_q(qw.active_groups, qw.values, qw.indices,
+                               qw.scales, b, qw.cfg, r=o)
+                for cs in cluster_sizes:
+                    compare("demm_block_spmm_q8",
+                            kern_q(qw.active_groups, qw.values, qw.indices,
+                                   qw.scales, b, qw.cfg, r=o,
+                                   duplicates=qw.has_duplicates,
+                                   cluster_size=cs), want, dtype,
+                            f"{tag} {body}"
+                            + (f" cluster_size={cs}" if cs else ""), main)
 
-    def run_spmm(label, o, k, n, m, batches, *, duplicates=False, main=False):
+    def run_spmm(label, o, k, n, m, batches, *, duplicates=False, main=False,
+                 dtypes=("float32", "bfloat16"), transposed=False,
+                 expect=None, tunables=(None,)):
+        """K5 with B (K, Cd) (or the transpose of a (Cd, K) tensor); with
+        ``expect`` ("tiled" or "gather") the body a bfloat16 B must take (a
+        float32 B always takes the gather body).  ``tunables``: (tile,
+        groups per stage, stages) of the tiled body, each through the
+        measurement hook; None: the wrapper's defaults."""
+        from repro_torch.kernels.demm_spmm import demm_spmm_on
         cfg = SparsityConfig(n, m)
         kern, plain = fns["demm_spmm"]
         vals, idx = make_packed(o, k, n, m, gen, duplicates=duplicates)
         for cd in batches:
-            for dtype in ("float32", "bfloat16"):
-                b = torch.randn((k, cd), generator=gen, device=gen.device)
+            for dtype in dtypes:
+                shape = (cd, k) if transposed else (k, cd)
+                b = torch.randn(shape, generator=gen, device=gen.device)
                 b = b.to(getattr(torch, dtype))
-                compare("demm_spmm",
-                        kern(vals, idx, b, cfg, duplicates=duplicates),
-                        plain(vals, idx, b, cfg), dtype,
-                        f"{label} R={o} K={k} {n}:{m} Cd={cd} B={dtype}"
-                        + (" duplicates" if duplicates else ""), main)
+                b = b.T if transposed else b
+                body = spmm_body(vals, idx, b, m)
+                if expect is not None and body != (
+                        expect if dtype == "bfloat16" else "gather"):
+                    raise AssertionError(f"{label} Cd={cd} B={dtype}: K5 "
+                                         f"would take its {body} body")
+                bodies["demm_spmm"].add(body)
+                want = plain(vals, idx, b, cfg)
+                for tun in tunables:
+                    if tun is None:
+                        got = kern(vals, idx, b, cfg, duplicates=duplicates)
+                    else:
+                        tile, ng, st = tun
+                        got = demm_spmm_on(None, vals, idx, b, cfg,
+                                           duplicates=duplicates, tile=tile,
+                                           groups_per_stage=ng, stages=st)
+                    compare("demm_spmm", got, want, dtype,
+                            f"{label} R={o} K={k} {n}:{m} Cd={cd} B={dtype} "
+                            f"{body}" + (" duplicates" if duplicates else "")
+                            + (f" tile={tile} groups_per_stage={ng} "
+                               f"stages={st}" if tun else ""),
+                            main)
 
     for shape in MAIN_SHAPES + [REDUCED_SHAPE]:
         run_xwt(*shape, BATCHES, main=True)
@@ -305,9 +357,9 @@ def check_kernels(gen):
         if inactive.block_geom[1] >= g:
             raise AssertionError(f"{label}: no inactive group left")
         run_block(label + " inactive tiles + all-zero row block", inactive,
-                  (4, 37))
+                  (1, 4, 8, 37))
         run_block(label + " a_max > G", pack_block(dense, cfg, a_max=g + 3),
-                  (4,))
+                  (1, 4, 8))
         run_block(label + " B (K, Cd)", pw, (37,), paper_b=True)
         dv = torch.randn(pw.values.shape, generator=gen, device=gen.device)
         di = pw.indices[..., :1].expand(pw.indices.shape).contiguous()
@@ -315,9 +367,48 @@ def check_kernels(gen):
         dup = pw.replace(values=dv, indices=di)
         if not dup.has_duplicates:
             raise AssertionError("duplicate case holds no duplicates")
-        run_block(label + " duplicates", dup, (4,))
+        run_block(label + " duplicates", dup, (1, 4, 8))
+        if label != REDUCED_SHAPE[0]:
+            # every cluster size, one stage ring (size 1 at 2560 x 6912)
+            run_block(label + " cluster sizes", pw, (4,),
+                      cluster_sizes=(1, 2, 4, 8), dtypes=("bfloat16",))
         run_spmm(label, o, k, n, m, BATCHES, main=True)
         run_spmm(label, o, k, n, m, (4,), duplicates=True)
+
+    # K5's tiled body: ragged R, M of 16, 48, 80 and two that are not
+    # multiples of 16 (zero rows written by the kernel), duplicates summed as
+    # they are placed, every tile and stage count; a float32 B and a
+    # transposed B take the gather body
+    for n, m, g in ((2, 16, 10), (3, 48, 8), (5, 80, 8), (2, 40, 6),
+                    (1, 8, 12)):
+        run_spmm(f"tiled {n}:{m}", 100, g * m, n, m, (64, 200, 256, 1024),
+                 dtypes=("bfloat16",), expect="tiled")
+    run_spmm("tiled duplicates", 100, 640, 5, 80, (200,), duplicates=True,
+             dtypes=("bfloat16",), expect="tiled")
+    # every tile, groups per stage and stage count (8 groups: 3 or 5 per
+    # stage leave a last stage of fewer groups), each (tile, groups per
+    # stage, stages) one that fits a block's shared memory
+    run_spmm("tiled tunables", 300, 640, 5, 80, (320,), dtypes=("bfloat16",),
+             expect="tiled", tunables=(
+                 ((128, 1), 1, 4), ((128, 1), 2, 3), ((128, 1), 3, 2),
+                 ((128, 2), 1, 4), ((128, 2), 2, 2), ((256, 1), 1, 4),
+                 ((256, 1), 1, 3), ((256, 2), 1, 3)))
+    run_spmm("tiled tunables", 300, 384, 3, 48, (320,), dtypes=("bfloat16",),
+             expect="tiled", tunables=(
+                 ((128, 1), 4, 2), ((128, 1), 5, 2), ((256, 1), 2, 2),
+                 ((256, 2), 2, 2)))
+    run_spmm("gather float32 B", 100, 640, 5, 80, (256,),
+             dtypes=("float32",), expect="gather")
+    run_spmm("gather transposed B", 100, 640, 5, 80, (256,),
+             dtypes=("bfloat16",), transposed=True, expect="gather")
+    # rows of pairs not 16-byte aligned (G x Ne = 30): the gather body
+    run_spmm("gather unaligned pair rows", 100, 480, 5, 80, (256,),
+             dtypes=("bfloat16",), expect="gather")
+    for name, want in (("demm_spmm", {"tiled", "gather"}),
+                       ("demm_block_spmm_q8", {"cluster", "gather"})):
+        if bodies[name] != want:
+            raise AssertionError(f"{name} ran the bodies {bodies[name]}, "
+                                 f"expected {want}")
     return err, n_cases
 
 
@@ -572,11 +663,15 @@ def ring_size(nbytes, target=4 * L2_BYTES, lo=4, hi=128):
     return int(min(hi, max(lo, -(-target // nbytes))))
 
 
-def timed_entry(meta, kern, plain, nbytes, ops, *, sweep=()):
+def timed_entry(meta, kern, plain, nbytes, ops, *, sweep=(), variants=None):
+
     """One timing row: the kernel over its ring (graph replay and eager),
     the plain version over the first copies, and the bound from the bytes
     each input and output must cross once and the operations at the bf16
-    peak."""
+    peak.  ``sweep`` times ``rows_per_block`` values; ``variants`` maps a
+    key of the row to {label: keyword arguments of the call} and times
+    each (a launcher's refusal is recorded; any other error fails the run
+    where it happens)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / PEAK_OPS_PER_S["bfloat16"]
     ms, eager_ms = time_ring(kern)
@@ -591,6 +686,16 @@ def timed_entry(meta, kern, plain, nbytes, ops, *, sweep=()):
             str(r): time_ring([lambda c=c, r=r: c(rows_per_block=r)
                                for c in kern], passes=5)[0]
             for r in sweep}
+    if variants:
+        from repro_torch.kernels.demm_xwT import LaunchRefused
+    for key, cases in (variants or {}).items():
+        entry[key] = {}
+        for label, kw in cases.items():
+            try:
+                entry[key][label] = time_ring(
+                    [lambda c=c, kw=kw: c(**kw) for c in kern], passes=5)[0]
+            except LaunchRefused as e:    # e.g. stages that do not fit
+                entry[key][label] = f"refused: {e}"
     return entry
 
 
@@ -648,12 +753,26 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
     return out
 
 
+# --sweep: the redesigned bodies' tunables
+CLUSTER_SIZES = (1, 2, 4, 8)
+TC_TILES = ((128, 1), (128, 2), (256, 1), (256, 2))
+TC_GROUPS = (1, 2, 3, 4)
+TC_STAGES = (2, 3, 4)
+SPMM_CROSSOVER_CDS = (16, 32, 64, 128, 256)
+
+
 def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     """Times of the five kernels at one projection shape: K1-K4 at Bx = 4
     with bfloat16 activations, as the main path launches them; K5 at
-    Cd = 4 and 256 with B (K, Cd) bfloat16."""
+    Cd = 4 and 256 with B (K, Cd) bfloat16.  With the sweep on, also K4's
+    cluster sizes and its gather body, K5's tiles, groups per stage and
+    stages at Cd = 256 (through the kernels' measurement hooks), and
+    both K5 bodies at Cd from 16 to 256 (where the tiled body starts to
+    win)."""
     import torch
     from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
+    from repro_torch.kernels.demm_q8 import demm_block_spmm_q8_on
+    from repro_torch.kernels.demm_spmm import demm_spmm_on, spmm_body
     from repro_torch.quant import quantize_packed
 
     fns = kernel_fns()
@@ -683,14 +802,24 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     w_bytes = (qw.values.nbytes + qw.indices.nbytes + qw.active_groups.nbytes
                + qw.scales.nbytes)
     r = ring((qw.active_groups, qw.values, qw.indices, qw.scales), w_bytes)
+
+    def k4(a, v, i, sc, body=None, **kw):
+        if body is None:
+            return kern(a, v, i, sc, xt, cfg, r=o, duplicates=False, **kw)
+        return demm_block_spmm_q8_on(body, a, v, i, sc, xt, cfg, r=o,
+                                     duplicates=False, **kw)
+
     out["demm_block_spmm_q8"] = [timed_entry(
         bmeta,
-        [lambda a=a, v=v, i=i, sc=sc, **kw:
-         kern(a, v, i, sc, xt, cfg, r=o, duplicates=False, **kw)
+        [lambda a=a, v=v, i=i, sc=sc, **kw: k4(a, v, i, sc, **kw)
          for a, v, i, sc in r],
         [lambda a=a, v=v, i=i, sc=sc: plain(a, v, i, sc, xt, cfg, r=o)
          for a, v, i, sc in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=block_sweep)]
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz,
+        variants={"cluster_size_ms": {
+            str(c): {"cluster_size": c} for c in CLUSTER_SIZES},
+            "gather_body_ms": {"default": {"body": "gather"}}}
+        if sweep else None)]
     del r, pw, qw
 
     # yardstick of K1-K4: one dense matmul against the unpacked weight
@@ -708,35 +837,62 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     r = ring((vals, idx), w_bytes)
     wr = list(w.repeat(ring_size(w.nbytes, hi=32), 1, 1).unbind(0))
     out["demm_spmm"] = []
+
+    def k5(v, i, b, body=None, groups_per_stage=None, **kw):
+        if body is None and groups_per_stage is None:
+            return kern(v, i, b, cfg, duplicates=False, **kw)
+        return demm_spmm_on(body, v, i, b, cfg, duplicates=False,
+                            groups_per_stage=groups_per_stage, **kw)
+
     for cd in (4, 256):
         b = torch.randn((k, cd), generator=gen, device=gen.device)
         b = b.to(torch.bfloat16)
+        tiled = spmm_body(vals, idx, b, m) == "tiled"
+        variants = None
+        if sweep and tiled:
+            # columns x rows / groups per stage / stages
+            variants = {"tile_groups_stages_ms": {
+                f"{t[0]}x{64 * t[1]}/{ng}/{st}":
+                    {"tile": t, "groups_per_stage": ng, "stages": st}
+                for t in TC_TILES for ng in TC_GROUPS for st in TC_STAGES}}
         e = timed_entry(
-            {**meta, "Bx": cd, "Cd": cd, "B_dtype": "bfloat16"},
-            [lambda v=v, i=i, b=b, **kw:
-             kern(v, i, b, cfg, duplicates=False, **kw)
-             for v, i in r],
+            {**meta, "Bx": cd, "Cd": cd, "B_dtype": "bfloat16",
+             "body": spmm_body(vals, idx, b, m)},
+            [lambda v=v, i=i, b=b, **kw: k5(v, i, b, **kw) for v, i in r],
             [lambda v=v, i=i, b=b: plain(v, i, b, cfg) for v, i in r],
-            b.nbytes + w_bytes + o * cd * 4, 2 * cd * nnz, sweep=block_sweep)
+            b.nbytes + w_bytes + o * cd * 4, 2 * cd * nnz,
+            sweep=() if tiled else block_sweep, variants=variants)
         e["library_ms"] = time_ring(
             [lambda wt=wt, b=b: torch.matmul(wt, b) for wt in wr])[0]
         out["demm_spmm"].append(e)
+    if sweep:
+        # both bodies at widths around the switch (TILED_MIN_CD)
+        cross = {}
+        for cd in SPMM_CROSSOVER_CDS:
+            b = torch.randn((k, cd), generator=gen,
+                            device=gen.device).to(torch.bfloat16)
+            cross[str(cd)] = {
+                body: time_ring([lambda v=v, i=i, b=b, body=body:
+                                 k5(v, i, b, body=body) for v, i in r],
+                                passes=5)[0]
+                for body in ("tiled", "gather")}
+        out["demm_spmm"][-1]["body_ms_by_cd"] = cross
     del r, wr, w, dense
     torch.cuda.empty_cache()
     return out
 
 
 def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
-                work):
+                work, source_wide=None):
     """One line of the ``kernels`` report: the seven launches of one decoder
     layer (4 + 2 + 1 over the three shapes) at Bx (Cd) = 4 summed, every
-    per-shape row beside."""
-    rows = [e for e in per_shape if e["Bx"] == 4]
-
-    def total(key):
-        return sum(LAYER_MIX[e["shape"]] * e[key] for e in rows)
-    bound_by = {e["bound_by"] for e in rows}
-    return {
+    per-shape row beside; for K5 also the layer at Cd = 256 (``*_wide``,
+    run by the body in ``source_wide``)."""
+    def total(key, cd=4):
+        return sum(LAYER_MIX[e["shape"]] * e[key] for e in per_shape
+                   if e["Bx"] == cd)
+    bound_by = {e["bound_by"] for e in per_shape if e["Bx"] == 4}
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max_abs_err, "work": work,
         "ms": total("ms"), "eager_ms": total("eager_ms"),
@@ -744,55 +900,118 @@ def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
         "bound_ms": total("bound_ms"),
         "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
         "library_ms": total("library_ms"),
-        "shapes": per_shape,
     }
+    if any(e["Bx"] == 256 for e in per_shape):
+        entry["source_wide"] = source_wide
+        entry.update({f"{key}_wide": total(key, 256) for key in (
+            "ms", "plain_ms", "bound_ms", "library_ms")})
+    entry["shapes"] = per_shape
+    return entry
 
 
 # ---------------------------------------------------------------------------
 
-def xwt_times_of(src: str) -> dict:
-    """``--xwt-times-of SRC`` (one process per checkout): K1 and K3 per
-    layer, built and imported from the checkout whose ``src/`` is SRC."""
+COMPARED = ("demm_xwT", "demm_xwT_q8", "demm_block_spmm", "demm_block_spmm_q8",
+            "demm_spmm@4", "demm_spmm@256")
+
+
+def kernel_times(label, o, k, n, m, gen):
+    """Device time of each kernel at one projection shape as the main path
+    launches it (K1-K4 at Bx = 4, bf16 x; K5 with B (K, 4) and (K, 256)
+    bf16), defaults and ``duplicates=False`` only, so that an older
+    checkout's wrappers take the same calls."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
+    from repro_torch.kernels.demm_block_spmm import demm_block_spmm
+    from repro_torch.kernels.demm_q8 import demm_block_spmm_q8
+    from repro_torch.kernels.demm_spmm import demm_spmm
+    from repro_torch.quant import quantize_packed
+
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
+    out = {name: rows[0]["ms"]
+           for name, rows in time_xwt(x, vals, idx, q, scales, cfg,
+                                      meta).items()}
+    pw = pack_block(unpack(vals, idx, cfg, (o, k)), cfg)
+    qw = quantize_packed(pw)
+    xt = x.T
+    r = ring((pw.active_groups, pw.values, pw.indices),
+             pw.values.nbytes + pw.indices.nbytes)
+    out["demm_block_spmm"] = time_ring(
+        [lambda a=a, v=v, i=i: demm_block_spmm(a, v, i, xt, cfg, r=o,
+                                               duplicates=False)
+         for a, v, i in r])[0]
+    r = ring((qw.active_groups, qw.values, qw.indices, qw.scales),
+             qw.values.nbytes + qw.indices.nbytes + qw.scales.nbytes)
+    out["demm_block_spmm_q8"] = time_ring(
+        [lambda a=a, v=v, i=i, sc=sc: demm_block_spmm_q8(
+            a, v, i, sc, xt, cfg, r=o, duplicates=False)
+         for a, v, i, sc in r])[0]
+    r = ring((vals, idx), vals.nbytes + idx.nbytes)
+    for cd in (4, 256):
+        b = torch.randn((k, cd), generator=gen,
+                        device=gen.device).to(torch.bfloat16)
+        out[f"demm_spmm@{cd}"] = time_ring(
+            [lambda v=v, i=i, b=b: demm_spmm(v, i, b, cfg, duplicates=False)
+             for v, i in r])[0]
+    del r, pw, qw
+    torch.cuda.empty_cache()
+    return out
+
+
+def times_of(src: str) -> dict:
+    """``--times-of SRC`` (one process per checkout): K1-K5 per layer,
+    built and imported from the checkout whose ``src/`` is SRC."""
     sys.path.insert(0, os.path.abspath(src))
     sys.path.remove(os.path.join(HERE, "src"))
     import torch
     import repro_torch
-    from repro_torch.core.sparsity import SparsityConfig
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
-    per = {"demm_xwT": [], "demm_xwT_q8": []}
+    per = {name: 0.0 for name in COMPARED}
     for label, o, k, n, m in MAIN_SHAPES:
-        x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
-        for name, entries in time_xwt(x, vals, idx, q, scales,
-                                      SparsityConfig(n, m), meta).items():
-            per[name] += entries
-    return {"package": repro_torch.__file__,
-            **{name: sum(LAYER_MIX[e["shape"]] * e["ms"] for e in rows)
-               for name, rows in per.items()}}
+        for name, ms in kernel_times(label, o, k, n, m, gen).items():
+            per[name] += LAYER_MIX[label] * ms
+    return {"package": repro_torch.__file__, **per}
 
 
-def compare_xwt(other: str):
-    """``--compare-with DIR``: K1 and K3 per layer of the checkout at DIR and
-    of this one, each in its own process (its own build), in the turns DIR,
-    this, this, DIR; prints one JSON line."""
+def compare_with(other: str):
+    """``--compare-with DIR``: K1-K5 per layer of the checkout at DIR and of
+    this one, each in its own process (its own build), in the turns DIR,
+    this, this, DIR; prints one JSON line and the ratios."""
     runs = []
     for root in (other, HERE, HERE, other):
-        out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--xwt-times-of",
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times-of",
              os.path.join(root, "src")],
-            capture_output=True, text=True, timeout=600, check=True).stdout
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--times-of {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
         runs.append({"root": root,
-                     **json.loads(out.strip().splitlines()[-1])})
-    log(f"[compare] K1/K3 ms per layer, in turns: {json.dumps(runs)}")
+                     **json.loads(proc.stdout.strip().splitlines()[-1])})
+    log(f"[compare] ms per layer, in turns: {json.dumps(runs)}")
+    summary = {}
+    for name in COMPARED:
+        parent = [runs[0][name], runs[3][name]]
+        this = [runs[1][name], runs[2][name]]
+        summary[name] = {
+            "parent_ms": parent, "this_ms": this,
+            "speedup": statistics.mean(parent) / statistics.mean(this),
+            "parent_spread": abs(parent[0] - parent[1]) / min(parent),
+            "this_vs_parent": (statistics.mean(this) - statistics.mean(parent))
+            / statistics.mean(parent)}
+    log(f"[compare] summary: {json.dumps(summary)}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="also time rows_per_block in {8, 16, 24, 32, 48, 64} "
-                         "(xwT kernels) and {8, 16, 32, 64} (block kernels) "
-                         "for every kernel and shape")
+                    help="also time the tunables: rows_per_block in {8, 16, "
+                         "24, 32, 48, 64} (xwT kernels) and {8, 16, 32, 64} "
+                         "(gather bodies), K4's cluster size, K5's tile and "
+                         "stages, and both K5 bodies at Cd 16-256")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
                          "the packed model with torch.profiler")
@@ -800,14 +1019,14 @@ def main(argv=None) -> int:
                     help="development aid: stop after this phase (3: build "
                          "and check the kernels only); prints no result line")
     ap.add_argument("--compare-with", default=None, metavar="DIR",
-                    help="development aid: time K1 and K3 of the checkout at "
-                         "DIR against this one's, in turns, and stop; prints "
-                         "no result line")
-    ap.add_argument("--xwt-times-of", default=None, help=argparse.SUPPRESS)
+                    help="development aid: time K1-K5 of the checkout at DIR "
+                         "against this one's, in turns, and stop; prints no "
+                         "result line")
+    ap.add_argument("--times-of", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.time()
-    if args.xwt_times_of:
-        print(json.dumps(xwt_times_of(args.xwt_times_of)), flush=True)
+    if args.times_of:
+        print(json.dumps(times_of(args.times_of)), flush=True)
         return 0
 
     import torch
@@ -844,7 +1063,7 @@ def main(argv=None) -> int:
         f"main-path shapes: {errs}; {time.time() - t0:.1f} s")
 
     if args.compare_with:
-        compare_xwt(args.compare_with)
+        compare_with(args.compare_with)
         log(f"stopped after the comparison as asked "
             f"({time.time() - t_start:.1f} s)")
         return 0
@@ -920,12 +1139,22 @@ def main(argv=None) -> int:
                                serving + ", block layout"),
         "demm_spmm": (csrc + "demm_block_spmm.cu",
                       "src/repro/kernels/demm_spmm.py:111",
-                      layer.format("C = A @ B with B (K, 4) bfloat16 "
-                                   "(rows with Cd = 256 beside)")),
+                      layer.format("C = A @ B with B (K, 4) bfloat16, the "
+                                   "gather body of demm_block_spmm.cu; "
+                                   "*_wide: B (K, 256), the tiled body of "
+                                   "source_wide")),
     }
     kernels = [layer_entry(name, src, replaces, per_kernel[name],
-                           launches[name], errs[name], work=work)
+                           launches[name], errs[name], work=work,
+                           source_wide=csrc + "demm_spmm_tc.cu")
                for name, (src, replaces, work) in sources.items()]
+    # K5's tiled body does the dense count of operations: its floor, worked
+    # from the shapes (not a measurement, so not in the kernels line)
+    floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
+             for label, o, k, _, _ in MAIN_SHAPES}
+    log(f"[7 times] demm_spmm Cd=256 dense tile-product floor, 2 R K Cd at "
+        f"the bf16 peak, computed from the shapes, ms: {json.dumps(floor)}; "
+        f"per layer {sum(LAYER_MIX[s] * t for s, t in floor.items())}")
     log(f"[done] {time.time() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels, "serve": list(serve.values()),

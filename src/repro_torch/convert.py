@@ -31,6 +31,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_linear import SparseLinear
 from repro_torch.core.sparsity import PackedWeight, SparsityConfig
+from repro_torch.device import require_device
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embedding, RMSNorm
 from repro_torch.models.transformer import DecoderLM, TBlock
@@ -90,10 +91,14 @@ def _block(layers, i: int, device) -> TBlock:
         MLP(*(_linear(m[k], device, i) for k in ("gate", "up", "down"))))
 
 
-def from_jax_params(tree, cfg: ArchConfig, *, device="cpu") -> DecoderLM:
+def from_jax_params(tree, cfg: ArchConfig, *, device="cuda") -> DecoderLM:
     """Build the port's :class:`DecoderLM` of ``cfg`` from the JAX package's
-    ``DecoderLM`` parameter tree (numpy leaves, see the module docstring)."""
-    device = torch.device(device)
+    ``DecoderLM`` parameter tree (numpy leaves, see the module docstring).
+
+    Like the port's other entry points it builds on the card unless the
+    caller asks for the CPU by name (``device="cpu"``); without a card the
+    default raises."""
+    device = require_device(device)
     layers = tree["layers"]
     extra = set(layers) - {"ln1", "attn", "ln2", "mlp"}
     if extra:

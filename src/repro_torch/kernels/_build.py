@@ -26,8 +26,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("demm_xwt.cu", "demm_xwt_q8.cu", "demm_block_spmm.cu",
-           "demm_block_spmm_q8.cu")
-HEADERS = ("demm_xwt_common.cuh", "demm_block_spmm_common.cuh")
+           "demm_block_spmm_q8.cu", "demm_spmm_tc.cu")
+HEADERS = ("demm_xwt_common.cuh", "demm_block_spmm_common.cuh",
+           "hopper_async.cuh", "demm_block_cluster.cuh", "demm_spmm_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -121,9 +122,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.demm_block_spmm_launch.argtypes = [p, p, p, p, p, *[i] * 8, *[ll] * 7,
                                            *[i] * 6, p]
     lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 8,
-                                              *[ll] * 4, *[i] * 4, p]
+                                              *[ll] * 4, *[i] * 5, p]
+    lib.demm_spmm_tc_launch.argtypes = [p, i, p, p, p, *[i] * 5, *[ll] * 3,
+                                        *[i] * 6, p]
     for fn in (lib.demm_xwt_launch, lib.demm_xwt_q8_launch,
-               lib.demm_block_spmm_launch, lib.demm_block_spmm_q8_launch):
+               lib.demm_block_spmm_launch, lib.demm_block_spmm_q8_launch,
+               lib.demm_spmm_tc_launch):
         fn.restype = i
 
 

@@ -81,6 +81,16 @@ struct FloatWeights {
     return round_to<XT>(to_float<VT>(values[slot]));
   }
   __device__ __forceinline__ float finish(float s, size_t /*scale_slot*/) const { return s; }
+  // The same policy reading its values from elsewhere (a staged copy).
+  static constexpr bool kHasScales = false;
+  __device__ __forceinline__ const float* scale_ptr() const { return nullptr; }
+  __device__ __forceinline__ FloatWeights on(const void* v, const float* /*scales*/) const {
+    return {static_cast<const VT*>(v)};
+  }
+  // finish() split in two: the multiplier of a scale unit, read once, and
+  // its application to one summed slot.
+  __device__ __forceinline__ float scale_of(size_t /*scale_slot*/) const { return 1.f; }
+  __device__ __forceinline__ float finish_with(float s, float /*scale*/) const { return s; }
   // finish(raw(slot)) for the xwT layout's slot of (row o, group g)
   __device__ __forceinline__ float load(size_t slot, int /*o*/, int /*g*/) const {
     return raw(slot);
@@ -107,6 +117,18 @@ struct Int8Weights {
   // the product rounded again, as the scatter tile of the TPU kernel is.
   __device__ __forceinline__ float finish(float s, size_t scale_slot) const {
     return round_to<XT>(s * round_to<XT>(scales[scale_slot]));
+  }
+  static constexpr bool kHasScales = true;
+  __device__ __forceinline__ const float* scale_ptr() const { return scales; }
+  __device__ __forceinline__ Int8Weights on(const void* v, const float* sc) const {
+    return {static_cast<const int8_t*>(v), sc, scale_cols};
+  }
+  // finish(s, slot) == finish_with(s, scale_of(slot))
+  __device__ __forceinline__ float scale_of(size_t scale_slot) const {
+    return round_to<XT>(scales[scale_slot]);
+  }
+  __device__ __forceinline__ float finish_with(float s, float scale) const {
+    return round_to<XT>(s * scale);
   }
   // finish(raw(slot)) for the xwT layout's slot of (row o, group g), the
   // scale read first

@@ -6,7 +6,13 @@ plain PyTorch versions, for both packed layouts.
   package); CUDA source ``csrc/demm_xwt_q8.cu``.
 * :func:`demm_block_spmm_q8` — ``C = A_q8 @ B`` from the two-level block
   layout; replaces ``demm_block_spmm_q8_pallas`` of the same module; CUDA
-  source ``csrc/demm_block_spmm_q8.cu`` (the body of K2).
+  source ``csrc/demm_block_spmm_q8.cu``.  At serving batch
+  (:func:`block_q8_body`) it runs the bulk-copy cluster body
+  (``csrc/demm_block_cluster.cuh``): a cluster of CTAs per row block, each
+  requesting its contiguous slice of values, indices and scales with bulk
+  copies at entry and loading the x segments of its own groups meanwhile,
+  the partial tiles added through distributed shared memory; otherwise K2's
+  gather body.
 
 Weights are int8, activations keep their serving dtype; only the int8 values,
 the indices (and the address stream) and the float32 scales cross device
@@ -122,21 +128,77 @@ def demm_block_spmm_q8_plain(active_groups: torch.Tensor,
     return a @ b.to(torch.float32)
 
 
+# Widest B (activation rows) the cluster body takes: its partial tiles and
+# register sums are sized for at most 8 columns (the launcher's ``cd <= 8``;
+# a test holds the two equal).
+CLUSTER_MAX_CD = 8
+
+
+def block_q8_body(values: torch.Tensor, indices: torch.Tensor,
+                  scales: torch.Tensor, b: torch.Tensor, m: int) -> str:
+    """Which CUDA body :func:`demm_block_spmm_q8` runs: ``"cluster"`` at
+    serving batch — B = xᵀ (B's rows, x's columns, contiguous), at most
+    :data:`CLUSTER_MAX_CD` columns, x's rows and every copied span
+    (``block_r·Ne`` values, ``block_r`` scales, ``M`` activations) 16-byte
+    aligned, ``block_r`` a power of two up to 256 — ``"gather"`` (K2's body)
+    otherwise.  This is the one statement of the rule:
+    ``csrc/demm_block_cluster.cuh::cluster_takes`` only refuses what the
+    cluster body cannot take."""
+    block_r, ne = values.shape[2], values.shape[3]
+    es = b.element_size()
+    cd = b.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (values, indices, scales, b))
+    if (cd <= CLUSTER_MAX_CD and b.stride(0) == 1
+            and (cd == 1 or (b.stride(1) * es) % 16 == 0)
+            and (m * es) % 16 == 0 and (block_r * ne) % 16 == 0
+            and block_r % 4 == 0 and 256 % block_r == 0 and aligned):
+        return "cluster"
+    return "gather"
+
+
 def demm_block_spmm_q8(active_groups: torch.Tensor, values: torch.Tensor,
                        indices: torch.Tensor, scales: torch.Tensor,
                        b: torch.Tensor, cfg: SparsityConfig, *, r: int,
                        duplicates: bool = True,
-                       rows_per_block: Optional[int] = None) -> torch.Tensor:
+                       rows_per_block: Optional[int] = None,
+                       cluster_size: Optional[int] = None) -> torch.Tensor:
     """C (R, Cd) float32 = A_q8 @ B from the block layout with int8 values
     (RB, A_max, block_r, Ne) and float32 scales (RB, A_max, block_r).
 
     Same contract as ``demm_block_spmm`` (B may be any strided view, C comes
     back in B's orientation); a CPU tensor takes
     :func:`demm_block_spmm_q8_plain`, and only because it lies on the CPU.
+    The body is :func:`block_q8_body`'s; ``rows_per_block`` tunes the gather
+    body, ``cluster_size`` (CTAs per row block, 1-8) the cluster body; left
+    open, the launcher sizes them to the card.
     """
+    return demm_block_spmm_q8_on(None, active_groups, values, indices,
+                                 scales, b, cfg, r=r, duplicates=duplicates,
+                                 rows_per_block=rows_per_block,
+                                 cluster_size=cluster_size)
+
+
+def demm_block_spmm_q8_on(body: Optional[str], active_groups: torch.Tensor,
+                          values: torch.Tensor, indices: torch.Tensor,
+                          scales: torch.Tensor, b: torch.Tensor,
+                          cfg: SparsityConfig, *, r: int,
+                          duplicates: bool = True,
+                          rows_per_block: Optional[int] = None,
+                          cluster_size: Optional[int] = None) -> torch.Tensor:
+    """:func:`demm_block_spmm_q8` on a named body (``"cluster"``, only where
+    :func:`block_q8_body` picks it, or ``"gather"``; ``None``: the chosen
+    one) — a measurement hook for timing one body against the other
+    (``chip_smoke.py --sweep``), not a serving entry point.  A launch counts
+    on ``demm_block_spmm_q8.launches``."""
     rb, a_max, block_r, ne, k, cd = check_block_args(
         active_groups, values, indices, b, cfg, r, (torch.int8,))
     _check_scales(scales, b, ((rb, a_max, block_r),))
+    chosen = block_q8_body(values, indices, scales, b, cfg.m)
+    if body not in (None, "cluster", "gather"):
+        raise ValueError(f"body must be 'cluster' or 'gather', got {body!r}")
+    if body == "cluster" and chosen != "cluster":
+        raise ValueError("the cluster body does not take these arguments "
+                         "(block_q8_body)")
     if not b.is_cuda:
         return demm_block_spmm_q8_plain(active_groups, values, indices,
                                         scales, b, cfg, r=r)
@@ -144,13 +206,16 @@ def demm_block_spmm_q8(active_groups: torch.Tensor, values: torch.Tensor,
 
     lib = load_library()
     c = block_output(b, r)
+    # 0: the gather body; -1: the cluster body, its size left to the launcher
+    cluster = (int(cluster_size or -1) if (body or chosen) == "cluster"
+               else 0)
     code = lib.demm_block_spmm_q8_launch(
         active_groups.data_ptr(), values.data_ptr(), indices.data_ptr(),
         scales.data_ptr(), b.data_ptr(), c.data_ptr(), r, k, cd, rb, a_max,
         block_r, cfg.m, ne, b.stride(0), b.stride(1), c.stride(0),
         c.stride(1),
         _DTYPE_CODE[b.dtype], int(bool(duplicates)),
-        int(rows_per_block or 0), b.device.index,
+        int(rows_per_block or 0), cluster, b.device.index,
         torch.cuda.current_stream(b.device).cuda_stream)
     raise_on_launch_error(code, "demm_block_spmm_q8")
     demm_block_spmm_q8.launches += 1

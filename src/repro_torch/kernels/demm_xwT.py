@@ -40,7 +40,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-1: "unsupported dtype",
            -2: "inconsistent shapes (or more than 65535 x 8 activation rows)",
            -3: "one M-group of the activation tile exceeds the shared "
-               "memory a block may use"}
+               "memory a block may use",
+           -4: "cuTensorMapEncodeTiled refused a tensor map (B, values or "
+               "indices)"}
 
 def check_xwT_args(x, values, indices, cfg: SparsityConfig, value_dtypes):
     """Shape/dtype/device/contiguity checks shared by the float and int8
@@ -77,11 +79,19 @@ def check_xwT_args(x, values, indices, cfg: SparsityConfig, value_dtypes):
     return bx, k, o, g, ne
 
 
+class LaunchRefused(ValueError):
+    """A launcher refused its arguments before launching (a negative code:
+    a shape, dtype or tunable its kernel does not take).  Nothing ran; the
+    CUDA context is intact."""
+
+
 def raise_on_launch_error(code: int, kernel: str):
+    """Raise for a launcher's return code: :class:`LaunchRefused` for its
+    own refusals, ``RuntimeError`` for a CUDA error."""
     if code == 0:
         return
     if code < 0:
-        raise RuntimeError(f"{kernel}: {_ERRORS.get(code, code)}")
+        raise LaunchRefused(f"{kernel}: {_ERRORS.get(code, code)}")
     raise RuntimeError(f"{kernel}: CUDA launch failed with error {code}")
 
 

@@ -21,10 +21,11 @@ Ops and uniform signatures
 Backends: ``reference`` is the kernel's plain PyTorch version on whatever
 device the tensors lie; ``cuda`` is the hand-written kernel (on a CPU tensor
 its wrapper runs the plain version, and only because the tensor is on the
-CPU).  ``params`` reach the kernel (``duplicates``, ``rows_per_block``); the
-plain versions ignore them.  Problem descriptions, the tuning cache,
-autotuning, ``auto`` and the measure-only ``block_spmm`` variant of ``spmm``
-are not ported yet.
+CPU).  ``params`` reach the kernel (``duplicates``, ``rows_per_block``, and
+the redesigned bodies' ``tile`` / ``stages`` for ``spmm`` and
+``cluster_size`` for ``xwT_block_q8``); the plain versions ignore them.
+Problem descriptions, the tuning cache, autotuning, ``auto`` and the
+measure-only ``block_spmm`` variant of ``spmm`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -135,7 +136,10 @@ def _register_builtin_variants():
             demm_block_spmm_q8(ag, values, indices, scales, x.T, cfg,
                                r=w_shape[0], **params).T,
         description="hand-written CUDA kernel, int8 values dequantised "
-                    "in-register (csrc/demm_block_spmm_q8.cu)"))
+                    "in-register: at serving batch a cluster of CTAs per row "
+                    "block with bulk copies in flight and a distributed "
+                    "shared-memory reduction (csrc/demm_block_cluster.cuh), "
+                    "else the gather body (csrc/demm_block_spmm_q8.cu)"))
     register_variant(KernelVariant(
         op="spmm", name="reference",
         call=lambda values, indices, b, cfg, a_shape, **_:
@@ -145,8 +149,11 @@ def _register_builtin_variants():
         op="spmm", name="cuda",
         call=lambda values, indices, b, cfg, a_shape, **params:
             demm_spmm(values, indices, b, cfg, **params),
-        description="hand-written CUDA kernel, the block-spmm body with the "
-                    "identity address stream (csrc/demm_block_spmm.cu)"))
+        description="hand-written CUDA kernel: for a wide bf16 B the tiled "
+                    "tensor-core body, TMA-staged B tiles and wgmma on the "
+                    "scatter tile (csrc/demm_spmm_tc.cu); else the block-spmm "
+                    "gather body with the identity address stream "
+                    "(csrc/demm_block_spmm.cu)"))
 
 
 _register_builtin_variants()

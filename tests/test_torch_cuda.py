@@ -19,10 +19,11 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
 from repro_torch.kernels.demm_block_spmm import (demm_block_spmm,
                                                  demm_block_spmm_plain)
-from repro_torch.kernels.demm_q8 import (demm_block_spmm_q8,
+from repro_torch.kernels.demm_q8 import (block_q8_body, demm_block_spmm_q8,
                                          demm_block_spmm_q8_plain,
                                          demm_xwT_q8, demm_xwT_q8_plain)
-from repro_torch.kernels.demm_spmm import demm_spmm, demm_spmm_plain
+from repro_torch.kernels.demm_spmm import (demm_spmm, demm_spmm_on,
+                                           demm_spmm_plain, spmm_body)
 from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
 from repro_torch.quant import quantize_packed
 from repro_torch.launch.serve import run_serve
@@ -137,6 +138,101 @@ def test_block_and_spmm_kernels_match_plain_versions(card, n, m, o, g, bx,
         assert demm_spmm.launches == before + 1
         torch.testing.assert_close(got, demm_spmm_plain(vals, idx, b, cfg),
                                    **TOL[dtype])
+
+
+@pytest.mark.parametrize("duplicates", [False, True])
+@pytest.mark.parametrize("n,m", [(2, 16), (3, 48), (5, 80)])
+@pytest.mark.parametrize("cd", [64, 200, 256, 1024])
+def test_spmm_tiled_body_matches_plain_version(card, cd, n, m, duplicates):
+    """K5's tensor-core body: a bf16 B of 64 or more columns, R = 100
+    (ragged against both tiles), every slot of a group on one column with
+    ``duplicates`` (summed in bf16 as they are placed)."""
+    o, g = 100, 8
+    cfg = SparsityConfig(n, m)
+    _, vals, idx, gen = _inputs(card, n, m, o, g, 1, torch.float32,
+                                seed=cd + m)
+    if duplicates:
+        idx = idx[..., :1].expand(o, g, n).contiguous()
+    b = torch.randn((g * m, cd), generator=gen, device=card).to(torch.bfloat16)
+    assert spmm_body(vals, idx, b, m) == "tiled"
+    before = demm_spmm.launches
+    got = demm_spmm(vals, idx, b, cfg, duplicates=duplicates)
+    torch.cuda.synchronize()
+    assert demm_spmm.launches == before + 1
+    torch.testing.assert_close(got, demm_spmm_plain(vals, idx, b, cfg),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("tile,groups_per_stage,stages",
+                         [((128, 1), 1, 4), ((128, 1), 3, 2), ((128, 2), 2, 2),
+                          ((256, 1), 1, 3), ((256, 2), 1, 3)])
+def test_spmm_tiled_body_tunables(card, tile, groups_per_stage, stages):
+    """Every tile of the tiled body, with 8 groups so that 3 groups per stage
+    leave a last stage of fewer groups (its rows past K read as 0)."""
+    n, m, o, g, cd = 5, 80, 300, 8, 320
+    cfg = SparsityConfig(n, m)
+    _, vals, idx, gen = _inputs(card, n, m, o, g, 1, torch.float32, seed=7)
+    b = torch.randn((g * m, cd), generator=gen, device=card).to(torch.bfloat16)
+    got = demm_spmm(vals, idx, b, cfg, duplicates=False, tile=tile,
+                    stages=stages)
+    torch.testing.assert_close(got, demm_spmm_plain(vals, idx, b, cfg),
+                               **TOL[torch.bfloat16])
+    got = demm_spmm_on("tiled", vals, idx, b, cfg, duplicates=False,
+                       tile=tile, groups_per_stage=groups_per_stage,
+                       stages=stages)
+    torch.testing.assert_close(got, demm_spmm_plain(vals, idx, b, cfg),
+                               **TOL[torch.bfloat16])
+
+
+def test_spmm_float32_and_transposed_b_take_the_gather_body(card):
+    n, m, o, g, cd = 5, 80, 100, 8, 256
+    cfg = SparsityConfig(n, m)
+    _, vals, idx, gen = _inputs(card, n, m, o, g, 1, torch.float32, seed=5)
+    b32 = torch.randn((g * m, cd), generator=gen, device=card)
+    bt = torch.randn((cd, g * m), generator=gen, device=card).to(
+        torch.bfloat16).T
+    for b in (b32, bt):
+        assert spmm_body(vals, idx, b, m) == "gather"
+        torch.testing.assert_close(demm_spmm(vals, idx, b, cfg),
+                                   demm_spmm_plain(vals, idx, b, cfg),
+                                   **TOL[b.dtype])
+
+
+@pytest.mark.parametrize("case", ["inactive", "a_max > G", "duplicates"])
+@pytest.mark.parametrize("bx", [1, 4, 8])
+def test_block_q8_cluster_body_matches_plain_version(card, bx, case):
+    """K4's cluster body at serving batch: inactive (row block, group) tiles
+    (a_max < G) with an all-zero row block, padded list slots (a_max > G),
+    duplicate indices (the summing instantiation)."""
+    n, m, o, g = 5, 80, 512, 8
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, torch.bfloat16,
+                                seed=bx + len(case))
+    dense = unpack(vals, idx, cfg, (o, g * m))
+    if case == "inactive":
+        dense.reshape(4, 128, g, m)[:, :, 1] = 0     # group 1 inactive everywhere
+        dense[128:256] = 0                            # an all-zero row block
+        pw = pack_block(dense, cfg)
+        assert pw.block_geom[1] < g
+    else:
+        pw = pack_block(dense, cfg, a_max=g + 3 if case == "a_max > G" else None)
+    if case == "duplicates":
+        dv = torch.randn(pw.values.shape, generator=gen, device=card)
+        pw = pw.replace(values=dv, indices=pw.indices[..., :1].expand(
+            pw.indices.shape).contiguous())
+        assert pw.has_duplicates
+    qw = quantize_packed(pw)
+    b = x.T
+    assert block_q8_body(qw.values, qw.indices, qw.scales, b, m) == "cluster"
+    want = demm_block_spmm_q8_plain(qw.active_groups, qw.values, qw.indices,
+                                    qw.scales, b, cfg, r=o)
+    for cluster_size in (None, 1, 2, 4, 8):
+        got = demm_block_spmm_q8(qw.active_groups, qw.values, qw.indices,
+                                 qw.scales, b, cfg, r=o,
+                                 duplicates=qw.has_duplicates,
+                                 cluster_size=cluster_size)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("layout", ["xwT", "block"])

@@ -125,3 +125,26 @@ def test_kernel_library_build_fails_loudly_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("this machine has nvcc")
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         _build.load_library()
+
+
+def test_from_jax_params_defaults_to_the_card():
+    """The tree converter is an entry point of the port: without a card its
+    default device raises instead of building on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import from_jax_params
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_params({"layers": {}}, get_arch("stablelm_3b").reduced())
+
+
+def test_kernel_build_hashes_every_cuda_source():
+    """A source or header left off ``_build.SOURCES`` / ``HEADERS`` would not
+    enter the library's hash, and an edited file would leave a stale library
+    in place."""
+    from repro_torch.kernels import _build
+    on_disk = {p.name for p in _build.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    assert set(_build.SOURCES) == {n for n in on_disk if n.endswith(".cu")}
+    assert set(_build.HEADERS) == {n for n in on_disk if n.endswith(".cuh")}

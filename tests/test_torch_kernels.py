@@ -425,6 +425,167 @@ def test_spmm_plain_vs_interpret_kernel(n, m, o, g, bx, duplicates, dtype):
     assert demm_spmm.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_spmm_plain_vs_interpret_kernel_wide_b(duplicates, dtype):
+    """K5 at the width its tiled body serves (Cd = 200, M = 48, ragged R):
+    the plain version the card's kernel is held to agrees with
+    ``demm_spmm_pallas`` in interpret mode."""
+    n, m, o, g, cd = 3, 48, 100, 3, 200
+    values, indices = _packed(n, m, o, g, seed=cd + o, duplicates=duplicates,
+                              exact=False)
+    b = np.random.default_rng(cd).standard_normal((g * m, cd)).astype(np.float32)
+    jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = demm_spmm_plain(_t(values), _t(indices), _t(b, tdt), tcfg).numpy()
+    kern = demm_spmm_pallas(jnp.asarray(values), jnp.asarray(indices),
+                            jnp.asarray(b, jdt), jcfg, block_r=32,
+                            block_c=128, interpret=True)
+    assert got.shape == (o, cd)
+    tol = F32 if dtype == "float32" else BF16_SAME_ROUNDING
+    np.testing.assert_allclose(got, np.asarray(kern), **tol)
+    before = demm_spmm.launches
+    np.testing.assert_array_equal(
+        demm_spmm(_t(values), _t(indices), _t(b, tdt), tcfg).numpy(), got)
+    assert demm_spmm.launches == before
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+# (label, B, M, Ne, G, body K5 must take); values float32 (R, G, Ne)
+_SPMM_BODY_CASES = [
+    ("bf16 Cd=64", lambda: _bf16(640, 64), 80, 5, 8, "tiled"),
+    ("bf16 Cd=200", lambda: _bf16(384, 200), 48, 3, 8, "tiled"),
+    ("bf16 Cd=256", lambda: _bf16(640, 256), 80, 5, 8, "tiled"),
+    ("bf16 Cd=1024", lambda: _bf16(160, 1024), 16, 2, 10, "tiled"),
+    ("bf16 Cd=4 (narrow)", lambda: _bf16(640, 4), 80, 5, 8, "gather"),
+    ("bf16 Cd=63 (below the switch)", lambda: _bf16(640, 63), 80, 5, 8,
+     "gather"),
+    ("float32 B (TF32 would change it)",
+     lambda: torch.zeros(640, 256), 80, 5, 8, "gather"),
+    ("transposed B", lambda: _bf16(256, 640).T, 80, 5, 8, "gather"),
+    ("rows not 16-byte aligned (Cd=100)", lambda: _bf16(640, 100), 80, 5, 8,
+     "gather"),
+    ("base not 16-byte aligned", lambda: _bf16(640, 264)[:, 1:257], 80, 5, 8,
+     "gather"),
+    ("a 16-byte aligned column window", lambda: _bf16(640, 264)[:, 8:264],
+     80, 5, 8, "tiled"),
+    ("rows of pairs not 16-byte aligned (G x Ne = 30)",
+     lambda: _bf16(480, 256), 80, 5, 6, "gather"),
+    ("M > 128", lambda: _bf16(1152, 256), 144, 5, 8, "gather"),
+    ("Ne > 8", lambda: _bf16(640, 256), 80, 12, 8, "gather"),
+]
+
+
+@pytest.mark.parametrize("label,make,m,ne,g,want", _SPMM_BODY_CASES,
+                         ids=[c[0] for c in _SPMM_BODY_CASES])
+def test_spmm_body_choice(label, make, m, ne, g, want):
+    from repro_torch.kernels.demm_spmm import spmm_body
+    values = torch.zeros((4, g, ne))
+    indices = torch.zeros((4, g, ne), dtype=torch.int32)
+    assert spmm_body(values, indices, make(), m) == want, label
+
+
+def test_spmm_body_override_is_checked_on_the_cpu_too():
+    from repro_torch.kernels.demm_spmm import demm_spmm_on
+    n, m, o, g = 5, 80, 8, 4
+    values, indices = _packed(n, m, o, g, seed=1)
+    tcfg = tsp.SparsityConfig(n, m)
+    b = _t(np.ones((g * m, 256), np.float32))
+    with pytest.raises(ValueError, match="tiled body takes"):
+        demm_spmm_on("tiled", _t(values), _t(indices), b, tcfg)
+    with pytest.raises(ValueError, match="body must be"):
+        demm_spmm_on("dense", _t(values), _t(indices), b, tcfg)
+    want = demm_spmm_plain(_t(values), _t(indices), b, tcfg)
+    np.testing.assert_array_equal(
+        demm_spmm_on("gather", _t(values), _t(indices), b, tcfg).numpy(),
+        want.numpy())
+
+
+def test_block_q8_body_override_is_checked_on_the_cpu_too():
+    from repro_torch.kernels.demm_q8 import (demm_block_spmm_q8_on,
+                                             demm_block_spmm_q8_plain)
+    from repro_torch.quant import quantize_packed
+    n, m, r, g = 2, 16, 32, 4
+    w = jsp.random_sparse_dense(np.random.default_rng(6), r, g * m,
+                                jsp.SparsityConfig(n, m))
+    tcfg = tsp.SparsityConfig(n, m)
+    qw = quantize_packed(tsp.pack_block(_t(w), tcfg, block_r=8))
+    args = (qw.active_groups, qw.values, qw.indices, qw.scales)
+    b = _t(np.random.default_rng(7).standard_normal((g * m, 3)).astype(
+        np.float32))                     # B (K, Cd) contiguous: not serving
+    with pytest.raises(ValueError, match="cluster body does not take"):
+        demm_block_spmm_q8_on("cluster", *args, b, tcfg, r=r)
+    with pytest.raises(ValueError, match="body must be"):
+        demm_block_spmm_q8_on("dense", *args, b, tcfg, r=r)
+    np.testing.assert_array_equal(
+        demm_block_spmm_q8_on("gather", *args, b, tcfg, r=r).numpy(),
+        demm_block_spmm_q8_plain(*args, b, tcfg, r=r).numpy())
+
+
+def _header_constant(name, header):
+    import re
+    from repro_torch.kernels._build import CSRC
+    text = (CSRC / header).read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert found, f"{name} not in {header}"
+    return int(found.group(1))
+
+
+def test_body_choice_limits_match_the_launchers():
+    """The Python choosers state each body's limits once; the CUDA launchers
+    refuse what lies beyond them.  The two must name the same numbers."""
+    import re
+    from repro_torch.kernels import demm_q8, demm_spmm as ks
+    from repro_torch.kernels._build import CSRC
+    assert ks.TILED_MAX_M == _header_constant("kTcMaxM", "demm_spmm_tc.cuh")
+    assert ks.TILED_MAX_NE == _header_constant("kTcMaxNe", "demm_spmm_tc.cuh")
+    takes = (CSRC / "demm_block_cluster.cuh").read_text()
+    takes = takes[takes.index("inline bool cluster_takes"):]
+    assert re.search(rf"g\.cd <= {demm_q8.CLUSTER_MAX_CD}\b", takes)
+
+
+def test_launch_refusal_is_not_a_cuda_error():
+    """A launcher's own refusal (negative code) is a ValueError that names
+    it; a CUDA error (positive code) stays a RuntimeError, so a caller that
+    skips refused tunables never swallows a fault of the card."""
+    from repro_torch.kernels.demm_xwT import LaunchRefused, raise_on_launch_error
+    raise_on_launch_error(0, "k")
+    with pytest.raises(LaunchRefused, match="inconsistent shapes"):
+        raise_on_launch_error(-2, "k")
+    with pytest.raises(RuntimeError, match="error 700") as info:
+        raise_on_launch_error(700, "k")
+    assert not isinstance(info.value, LaunchRefused)
+
+
+# (label, Bx (Cd), B = xᵀ?, block_r, Ne, M, body K4 must take)
+_Q8_BODY_CASES = [
+    ("serving Bx=1", 1, True, 128, 5, 80, "cluster"),
+    ("serving Bx=4", 4, True, 128, 5, 80, "cluster"),
+    ("serving Bx=8", 8, True, 128, 3, 48, "cluster"),
+    ("Bx=9 (too wide)", 9, True, 128, 5, 80, "gather"),
+    ("Bx=37", 37, True, 128, 5, 80, "gather"),
+    ("B (K, Cd) contiguous", 4, False, 128, 5, 80, "gather"),
+    ("block_r*Ne not a multiple of 16", 4, True, 8, 5, 80, "gather"),
+    ("block_r*Ne a multiple of 16", 4, True, 8, 2, 16, "cluster"),
+    ("M*2 bytes not a multiple of 16", 4, True, 128, 2, 12, "gather"),
+]
+
+
+@pytest.mark.parametrize("label,bx,serving,block_r,ne,m,want", _Q8_BODY_CASES,
+                         ids=[c[0] for c in _Q8_BODY_CASES])
+def test_block_q8_body_choice(label, bx, serving, block_r, ne, m, want):
+    from repro_torch.kernels.demm_q8 import block_q8_body
+    k = 4 * m
+    values = torch.zeros((2, 4, block_r, ne), dtype=torch.int8)
+    indices = torch.zeros((2, 4, block_r, ne), dtype=torch.int32)
+    scales = torch.ones((2, 4, block_r))
+    b = _bf16(bx, k).T if serving else _bf16(k, bx)
+    assert block_q8_body(values, indices, scales, b, m) == want, label
+
+
 def test_pack_block_sparse_adapter_matches_jax():
     from repro.kernels.demm_block_spmm import pack_block_sparse as jpbs
     rng = np.random.default_rng(4)
