@@ -36,15 +36,21 @@ unless all of them held:
                 K5's tiled tensor-core body (bf16 B, Cd in {64, 200, 256,
                 1024}, R = 100, M in {8, 16, 40, 48, 80}, duplicates, every
                 tile, stage count and groups per stage) while a float32 B
-                and a transposed B take the gather body; K4's cluster body at Bx in {1, 4, 8}
-                with inactive tiles, an all-zero row block, a_max > G,
-                duplicates and every cluster size.
+                and a transposed B take the gather body, and K5 at narrow B
+                never takes K2's cluster body; K2's and K4's cluster body at
+                Bx in {1, 4, 8} with inactive tiles, an all-zero row block,
+                a_max > G, duplicates and every cluster size; K1's bulk
+                row-tile body at Bx <= 8 (chunk counts, one-row and
+                ragged tiles, a ring of row chunks
+                larger than shared memory) while Bx > 8 and an x tile
+                larger than shared memory take the gather body.
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
               backend ``cuda``: 4 requests x 8 new tokens on 4 slots; every
               request completes inside the true vocab and the float kernel was
-              launched exactly 7 x 32 x ticks times, no other kernel.
+              launched exactly 7 x 32 x ticks times, no other kernel, every
+              launch on its serving body (K1 bulk, K2 cluster).
 5. serve q8 — the same with int8 values (per-row scales) and the int8 kernel.
    4b/5b    — the same two with ``--layout block`` on a fresh model of the
               same seed: float through ``demm_block_spmm``, int8 through
@@ -68,7 +74,9 @@ unless all of them held:
               same dtype as a yardstick the port never calls.  K5's tiled
               body does the dense count of operations at Cd = 256; the floor
               that sets (2 R K Cd at the bf16 peak, computed, not measured)
-              is printed on a line of its own, outside the ``kernels`` line.
+              is printed on a line of its own, outside the ``kernels`` line,
+              as is the launch floor: an empty kernel at K1's bulk grid and
+              an empty cluster launch at K2's, timed the same way.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}}`` (per kernel: launches on
@@ -188,13 +196,16 @@ def make_q8(o, g, n, per_group, gen):
 def check_kernels(gen):
     import torch
     from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.kernels.demm_block_spmm import block_body
     from repro_torch.kernels.demm_q8 import block_q8_body
     from repro_torch.kernels.demm_spmm import spmm_body
+    from repro_torch.kernels.demm_xwT import demm_xwT_on, xwt_body
     from repro_torch.quant import quantize_packed
 
     fns = kernel_fns()
     err = {name: 0.0 for name in KERNELS}
-    bodies = {"demm_spmm": set(), "demm_block_spmm_q8": set()}
+    bodies = {"demm_xwT": set(), "demm_block_spmm": set(), "demm_spmm": set(),
+              "demm_block_spmm_q8": set()}
     n_cases = 0
 
     def compare(name, got, want, dtype, what, main):
@@ -210,7 +221,14 @@ def check_kernels(gen):
         n_cases += 1
 
     def run_xwt(label, o, k, n, m, batches, *, duplicates=False, main=False,
-                rows_per_block=None, values_dtype=torch.float32):
+                rows_per_block=None, values_dtype=torch.float32, expect=None,
+                tunables=()):
+        """K1 and K3 on one random packed weight.  K1 must take the body
+        ``expect`` names (None: ``bulk`` at Bx <= 8 where x's tile takes at
+        most half a block's shared memory, ``gather`` at Bx > 8, either
+        between);
+        ``tunables``: keyword arguments of the bulk body (rows per CTA,
+        chunks), each through the measurement hook."""
         cfg = SparsityConfig(n, m)
         g = k // m
         kern, plain = fns["demm_xwT"]
@@ -225,12 +243,27 @@ def check_kernels(gen):
                         + (" duplicates" if duplicates else "")
                         + (f" rows_per_block={rows_per_block}"
                            if rows_per_block else ""))
+                body = xwt_body(x, vals, idx, m, duplicates=duplicates)
+                tile = 8 if duplicates else 1 << (bx - 1).bit_length()
+                want_body = expect or (
+                    "gather" if bx > 8 else "bulk" if tile * k
+                    * x.element_size() <= BULK_SMEM_BYTES // 2 else body)
+                if body != want_body:
+                    raise AssertionError(f"{what}: K1 would take its {body} "
+                                         "body")
+                bodies["demm_xwT"].add(body)
+                want = plain(x, vals, idx, cfg)
                 # the main path says duplicates=False; duplicates take the
                 # instantiation that sums them
                 compare("demm_xwT",
                         kern(x, vals, idx, cfg, duplicates=duplicates,
                              rows_per_block=rows_per_block),
-                        plain(x, vals, idx, cfg), dtype, what, main)
+                        want, dtype, f"{what} {body}", main)
+                for tun in tunables if body == "bulk" else ():
+                    compare("demm_xwT",
+                            demm_xwT_on("bulk", x, vals, idx, cfg,
+                                        duplicates=duplicates, **tun),
+                            want, dtype, f"{what} bulk {tun}", main)
                 for per_group in (False, True):
                     q, scales = make_q8(o, g, n, per_group, gen)
                     if duplicates:
@@ -245,8 +278,8 @@ def check_kernels(gen):
 
     def run_block(what, pw, batches, main=False, paper_b=False,
                   cluster_sizes=(None,), dtypes=("float32", "bfloat16")):
-        """K2 and K4 on one block packing, B = xᵀ (or B (K, Cd)); K4 takes
-        its cluster body in the serving orientation at Bx <= 8."""
+        """K2 and K4 on one block packing, B = xᵀ (or B (K, Cd)); both take
+        the cluster body in the serving orientation at Bx <= 8."""
         o, k = pw.dense_shape
         kern, plain = fns["demm_block_spmm"]
         kern_q, plain_q = fns["demm_block_spmm_q8"]
@@ -258,18 +291,25 @@ def check_kernels(gen):
                     getattr(torch, dtype))
                 tag = (f"{what} O={o} K={k} {pw.cfg.pattern_name()} "
                        f"block_geom={pw.block_geom} Cd={bx} B={dtype}")
+                serving = "cluster" if bx <= 8 and not paper_b else "gather"
                 body = block_q8_body(qw.values, qw.indices, qw.scales, b,
                                      pw.cfg.m)
-                if not paper_b and body != ("cluster" if bx <= 8
-                                            else "gather"):
-                    raise AssertionError(f"{tag}: K4 would take its {body} "
-                                         "body")
+                body2 = block_body(pw.active_groups, pw.values, pw.indices,
+                                   b, pw.cfg.m)
+                if (body, body2) != (serving, serving):
+                    raise AssertionError(f"{tag}: K4 / K2 would take their "
+                                         f"{body} / {body2} bodies")
                 bodies["demm_block_spmm_q8"].add(body)
-                compare("demm_block_spmm",
-                        kern(pw.active_groups, pw.values, pw.indices, b,
-                             pw.cfg, r=o, duplicates=pw.has_duplicates),
-                        plain(pw.active_groups, pw.values, pw.indices, b,
-                              pw.cfg, r=o), dtype, tag, main)
+                bodies["demm_block_spmm"].add(body2)
+                want = plain(pw.active_groups, pw.values, pw.indices, b,
+                             pw.cfg, r=o)
+                for cs in cluster_sizes:
+                    compare("demm_block_spmm",
+                            kern(pw.active_groups, pw.values, pw.indices, b,
+                                 pw.cfg, r=o, duplicates=pw.has_duplicates,
+                                 cluster_size=cs), want, dtype,
+                            f"{tag} {body2}"
+                            + (f" cluster_size={cs}" if cs else ""), main)
                 want = plain_q(qw.active_groups, qw.values, qw.indices,
                                qw.scales, b, qw.cfg, r=o)
                 for cs in cluster_sizes:
@@ -304,6 +344,11 @@ def check_kernels(gen):
                         expect if dtype == "bfloat16" else "gather"):
                     raise AssertionError(f"{label} Cd={cd} B={dtype}: K5 "
                                          f"would take its {body} body")
+                # K5's gather body is K2's launcher with the identity
+                # address stream: never the cluster body
+                if block_body(None, vals, idx, b, m) != "gather":
+                    raise AssertionError(f"{label} Cd={cd}: K5 would take "
+                                         "K2's cluster body")
                 bodies["demm_spmm"].add(body)
                 want = plain(vals, idx, b, cfg)
                 for tun in tunables:
@@ -328,11 +373,23 @@ def check_kernels(gen):
     # duplicate indices and an all-padded row
     run_xwt(*REDUCED_SHAPE, (4, 37), duplicates=True)
     run_xwt(*MAIN_SHAPES[2], (4,), duplicates=True)
-    # x tile larger than a block's shared memory: the group loop runs in chunks
-    run_xwt("chunked", 520, 16384, 8, 128, (8, 13))
+    # x tile larger than a block's shared memory: the gather body's group
+    # loop runs in chunks (and the bulk body does not take it)
+    run_xwt("chunked", 520, 16384, 8, 128, (8, 13), expect="gather")
     # non-default tiles, ragged against O
     run_xwt("tiles", 1000, 2560, 5, 80, (4,), rows_per_block=8)
     run_xwt("tiles", 1000, 2560, 5, 80, (3,), rows_per_block=72)
+    # the bulk body's tunables at the three main shapes: rows per CTA (one
+    # row; ragged; more than fit at once: a ring), chunks
+    for label, o, k, n, m in MAIN_SHAPES:
+        run_xwt(label + " bulk tunables", o, k, n, m, (1, 4, 8),
+                tunables=[dict(chunks=c) for c in BULK_CHUNKS]
+                + [dict(rows_per_block=r) for r in (1, 7, 160)]
+                + [dict(rows_per_block=40, chunks=3)])
+    # a tile far larger than shared memory: the ring of row chunks
+    run_xwt("bulk ring", 3000, 6912, 3, 48, (4,),
+            tunables=[dict(rows_per_block=3000), dict(rows_per_block=1000,
+                                                      chunks=16)])
     # packed values already in bfloat16
     run_xwt("bf16 values", 300, 2560, 5, 80, (4,), values_dtype=torch.bfloat16)
     # 8:16-style override pattern (dense-ish groups), tiny M
@@ -369,9 +426,10 @@ def check_kernels(gen):
             raise AssertionError("duplicate case holds no duplicates")
         run_block(label + " duplicates", dup, (1, 4, 8))
         if label != REDUCED_SHAPE[0]:
-            # every cluster size, one stage ring (size 1 at 2560 x 6912)
-            run_block(label + " cluster sizes", pw, (4,),
-                      cluster_sizes=(1, 2, 4, 8), dtypes=("bfloat16",))
+            # every cluster size, one stage ring (size 1 at 2560 x 6912),
+            # both K2 and K4
+            run_block(label + " cluster sizes", pw, (1, 4, 8),
+                      cluster_sizes=CLUSTER_SIZES)
         run_spmm(label, o, k, n, m, BATCHES, main=True)
         run_spmm(label, o, k, n, m, (4,), duplicates=True)
 
@@ -404,7 +462,9 @@ def check_kernels(gen):
     # rows of pairs not 16-byte aligned (G x Ne = 30): the gather body
     run_spmm("gather unaligned pair rows", 100, 480, 5, 80, (256,),
              dtypes=("bfloat16",), expect="gather")
-    for name, want in (("demm_spmm", {"tiled", "gather"}),
+    for name, want in (("demm_xwT", {"bulk", "gather"}),
+                       ("demm_block_spmm", {"cluster", "gather"}),
+                       ("demm_spmm", {"tiled", "gather"}),
                        ("demm_block_spmm_q8", {"cluster", "gather"})):
         if bodies[name] != want:
             raise AssertionError(f"{name} ran the bodies {bodies[name]}, "
@@ -419,14 +479,29 @@ def check_kernels(gen):
 def reset_counts():
     for kern, _ in kernel_fns().values():
         kern.launches = 0
+        for body in getattr(kern, "body_launches", {}):
+            kern.body_launches[body] = 0
 
 
 def read_counts():
     return {name: kern.launches for name, (kern, _) in kernel_fns().items()}
 
 
+def read_body_counts():
+    """Launches by body of the kernels that count them (K1, K2)."""
+    return {name: dict(kern.body_launches)
+            for name, (kern, _) in kernel_fns().items()
+            if hasattr(kern, "body_launches")}
+
+
+# the body each serving kernel must run at Bx = 4 (kernels without a second
+# body are absent)
+SERVING_BODY = {"demm_xwT": "bulk", "demm_block_spmm": "cluster"}
+
+
 def serve_full_width(model, cfg, *, layout, quantize, expect):
-    """Drive run_serve once; check the outputs and the launch counts."""
+    """Drive run_serve once; check the outputs, the launch counts and, for
+    K1 and K2, that every launch ran the serving body."""
     import torch
     from repro_torch import obs
     from repro_torch.launch.serve import run_serve
@@ -439,6 +514,7 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
                        slots=4, max_new=max_new, max_len=64, seed=0,
                        device=DEVICE, metrics=obs.MetricsRegistry())
     counts = read_counts()               # ... and just after
+    body_counts = read_body_counts()
     ticks = engine.drain_ticks
     if len(engine.completed) != requests:
         raise AssertionError(f"{len(engine.completed)} of {requests} "
@@ -458,6 +534,11 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
         raise AssertionError(
             f"launch counts {counts} after {ticks} ticks: expected {want} "
             f"(7 x {cfg.num_layers} x ticks of {expect}, nothing else)")
+    body = SERVING_BODY.get(expect)
+    if body is not None and body_counts[expect][body] != want[expect]:
+        raise AssertionError(f"{expect} launches by body "
+                             f"{body_counts[expect]}: expected all "
+                             f"{want[expect]} on its {body} body")
     tokens = sum(len(r.output) for r in engine.completed)
     return {
         "layout": layout, "quantize": quantize, "ticks": ticks,
@@ -466,6 +547,7 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
         "decode_step_ms_p50": 1e3 * engine._sk_tok.quantile(0.5),
         "tokens_per_s": tokens / engine.drain_seconds,
         "launches": counts[expect],
+        "body": body,
         "first_output": engine.completed[0].output,
     }
 
@@ -720,13 +802,16 @@ def shape_inputs(label, o, k, n, m, gen):
 
 
 def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
-    """K1 and K3 as the main path launches them.  (A checkout from before
-    the duplicate repair has no ``duplicates`` flag: its one instantiation
-    is the main path's.)"""
+    """K1 and K3 as the main path launches them; with the sweep on, K1's
+    bulk-body tunables (rows per CTA, chunks) and its gather
+    body, K3's rows per block.  (A checkout from before the duplicate
+    repair has no ``duplicates`` flag: its one instantiation is the main
+    path's.)"""
     import inspect
+    from repro_torch.kernels import demm_xwT as kx
     from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
-    from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
 
+    demm_xwT, demm_xwT_plain = kx.demm_xwT, kx.demm_xwT_plain
     main = ({"duplicates": False}
             if "duplicates" in inspect.signature(demm_xwT).parameters else {})
     bx, o = x.shape[0], vals.shape[0]
@@ -735,12 +820,24 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
     out = {}
     w_bytes = vals.nbytes + idx.nbytes
     r = ring((vals, idx), w_bytes)
+
+    def k1(v, i, body=None, **kw):
+        if body is None and "chunks" not in kw:
+            return demm_xwT(x, v, i, cfg, **main, **kw)
+        return kx.demm_xwT_on(body, x, v, i, cfg, **main, **kw)
+
+    variants = None
+    if sweep:
+        variants = {
+            "bulk_rows_ms": {str(n): {"rows_per_block": n} for n in BULK_ROWS},
+            "bulk_chunks_ms": {str(c): {"chunks": c} for c in BULK_CHUNKS},
+            "gather_body_ms": {"default": {"body": "gather"}}}
     out["demm_xwT"] = [timed_entry(
-        meta,
-        [lambda v=v, i=i, **kw: demm_xwT(x, v, i, cfg, **main, **kw)
-         for v, i in r],
+        {**meta, "body": kx.xwt_body(x, vals, idx, cfg.m, **main)
+         if hasattr(kx, "xwt_body") else "gather"},
+        [lambda v=v, i=i, **kw: k1(v, i, **kw) for v, i in r],
         [lambda v=v, i=i: demm_xwT_plain(x, v, i, cfg) for v, i in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=sweep)]
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, variants=variants)]
     w_bytes = q.nbytes + idx.nbytes + scales.nbytes
     r = ring((q, idx, scales), w_bytes)
     out["demm_xwT_q8"] = [timed_entry(
@@ -755,6 +852,9 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
 
 # --sweep: the redesigned bodies' tunables
 CLUSTER_SIZES = (1, 2, 4, 8)
+BULK_CHUNKS = (1, 2, 4, 16)
+BULK_ROWS = (8, 12, 16, 20, 24, 32, 40, 53, 64)
+BULK_SMEM_BYTES = 232448     # an H100 block's shared memory (opt-in)
 TC_TILES = ((128, 1), (128, 2), (256, 1), (256, 2))
 TC_GROUPS = (1, 2, 3, 4)
 TC_STAGES = (2, 3, 4)
@@ -771,6 +871,7 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     win)."""
     import torch
     from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
+    from repro_torch.kernels.demm_block_spmm import block_body, demm_block_spmm_on
     from repro_torch.kernels.demm_q8 import demm_block_spmm_q8_on
     from repro_torch.kernels.demm_spmm import demm_spmm_on, spmm_body
     from repro_torch.quant import quantize_packed
@@ -791,12 +892,23 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     kern, plain = fns["demm_block_spmm"]
     w_bytes = pw.values.nbytes + pw.indices.nbytes + pw.active_groups.nbytes
     r = ring((pw.active_groups, pw.values, pw.indices), w_bytes)
+
+    def k2(a, v, i, body=None, **kw):
+        if body is None:
+            return kern(a, v, i, xt, cfg, r=o, duplicates=False, **kw)
+        return demm_block_spmm_on(body, a, v, i, xt, cfg, r=o,
+                                  duplicates=False, **kw)
+
     out["demm_block_spmm"] = [timed_entry(
-        bmeta,
-        [lambda a=a, v=v, i=i, **kw:
-         kern(a, v, i, xt, cfg, r=o, duplicates=False, **kw) for a, v, i in r],
+        {**bmeta, "body": block_body(pw.active_groups, pw.values, pw.indices,
+                                     xt, cfg.m)},
+        [lambda a=a, v=v, i=i, **kw: k2(a, v, i, **kw) for a, v, i in r],
         [lambda a=a, v=v, i=i: plain(a, v, i, xt, cfg, r=o) for a, v, i in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=block_sweep)]
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz,
+        variants={"cluster_size_ms": {
+            str(c): {"cluster_size": c} for c in CLUSTER_SIZES},
+            "gather_body_ms": {"default": {"body": "gather"}}}
+        if sweep else None)]
     qw = quantize_packed(pw)
     kern, plain = fns["demm_block_spmm_q8"]
     w_bytes = (qw.values.nbytes + qw.indices.nbytes + qw.active_groups.nbytes
@@ -879,6 +991,52 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
         out["demm_spmm"][-1]["body_ms_by_cd"] = cross
     del r, wr, w, dense
     torch.cuda.empty_cache()
+    return out
+
+
+def launch_floor():
+    """An empty kernel launched at K1's bulk grid (about one CTA per SM, as
+    ``csrc/demm_xwt_bulk.cuh`` sizes it) and at K2's cluster grid (a cluster
+    of ``cl_auto_csize`` CTAs per row block), each with the dynamic shared
+    memory the kernel asks for at Bx = 4 bf16, timed by the same graph
+    replay as the kernels: what a launch of that shape costs before any
+    work.  ms per shape and per layer."""
+    import torch
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.demm_xwT import raise_on_launch_error
+
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def empty(blocks, threads, csize, smem):
+        def call():
+            raise_on_launch_error(lib.demm_empty_launch(
+                blocks, threads, csize, smem, torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream), "demm_empty")
+        return call
+
+    out = {"demm_xwT": {}, "demm_block_spmm": {}}
+    for label, o, k, n, m in MAIN_SHAPES:
+        g, bx, block_r = k // m, 4, 128
+        rows = -(-o // sms)
+        x1 = bx * k * 2                                  # bf16 x, transposed
+        smem1 = min(BULK_SMEM_BYTES, 128 + x1 + rows * g * n * 8)  # fp32 + int32
+        rb = o // block_r
+        csize = 2
+        while csize < 8 and rb * csize < sms:
+            csize *= 2
+        per = -(-g // csize)
+        smem2 = (16 + ((256 // block_r + 1) * block_r * bx + 8) * 4
+                 + per * (block_r * n * 8 + bx * m * 2))
+        grids = {"demm_xwT": (-(-o // rows), 512, 1, smem1),
+                 "demm_block_spmm": (rb * csize, 256, csize, smem2)}
+        for name, (blocks, threads, cs, smem) in grids.items():
+            ms = time_ring([empty(blocks, threads, cs, smem)] * 64)[0]
+            out[name][label] = {"blocks": blocks, "threads": threads,
+                                "cluster": cs, "smem": smem, "ms": ms}
+    for name, per_shape in out.items():
+        per_shape["per_layer_ms"] = sum(LAYER_MIX[lb] * e["ms"]
+                                        for lb, e in per_shape.items())
     return out
 
 
@@ -1008,10 +1166,13 @@ def compare_with(other: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the tunables: rows_per_block in {8, 16, "
-                         "24, 32, 48, 64} (xwT kernels) and {8, 16, 32, 64} "
-                         "(gather bodies), K4's cluster size, K5's tile and "
-                         "stages, and both K5 bodies at Cd 16-256")
+                    help="also time the tunables: K1's bulk body (rows per "
+                         "CTA, chunks) against its gather "
+                         "body, K3's rows_per_block in {8, 16, 24, 32, 48, "
+                         "64}, K2's and K4's cluster sizes against their "
+                         "gather body, K5's rows_per_block in {8, 16, 32, "
+                         "64} at Cd = 4, its tile and stages at Cd = 256, "
+                         "and both K5 bodies at Cd 16-256")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
                          "the packed model with torch.profiler")
@@ -1152,6 +1313,9 @@ def main(argv=None) -> int:
     # from the shapes (not a measurement, so not in the kernels line)
     floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
              for label, o, k, _, _ in MAIN_SHAPES}
+    log(f"[7 times] launch floor, an empty kernel at each redesigned "
+        f"kernel's grid and shared memory, graph replay, ms: "
+        f"{json.dumps(launch_floor())}")
     log(f"[7 times] demm_spmm Cd=256 dense tile-product floor, 2 R K Cd at "
         f"the bf16 peak, computed from the shapes, ms: {json.dumps(floor)}; "
         f"per layer {sum(LAYER_MIX[s] * t for s, t in floor.items())}")

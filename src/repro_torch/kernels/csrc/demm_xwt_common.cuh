@@ -74,7 +74,7 @@ template <typename XT, typename VT>
 struct FloatWeights {
   const VT* values;
   static constexpr int kValueBytes = sizeof(VT);
-  __device__ __forceinline__ const char* value_bytes() const {
+  __host__ __device__ __forceinline__ const char* value_bytes() const {
     return reinterpret_cast<const char*>(values);
   }
   __device__ __forceinline__ float raw(size_t slot) const {
@@ -96,6 +96,21 @@ struct FloatWeights {
     return raw(slot);
   }
   __device__ __forceinline__ size_t xwt_scale(int /*o*/, int /*g*/) const { return 0; }
+  // load() of the four slots [slot, slot + 4) of row o, in groups g[0..3],
+  // with one vector load (slot a multiple of 4, the values 16-byte aligned)
+  __device__ __forceinline__ void load4(size_t slot, int /*o*/, const int (&/*g*/)[4],
+                                        float (&w)[4]) const {
+    if constexpr (sizeof(VT) == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(values + slot);
+      w[0] = round_to<XT>(v.x); w[1] = round_to<XT>(v.y);
+      w[2] = round_to<XT>(v.z); w[3] = round_to<XT>(v.w);
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(values + slot);
+      const VT* h = reinterpret_cast<const VT*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = round_to<XT>(to_float<VT>(h[j]));
+    }
+  }
 };
 
 template <typename XT>
@@ -104,7 +119,7 @@ struct Int8Weights {
   const float* scales;     // xwT: (O, scale_cols); block: (RB, A_max, block_r)
   int scale_cols;          // xwT only.  1: per output row; G: per (row, group)
   static constexpr int kValueBytes = 1;
-  __device__ __forceinline__ const char* value_bytes() const {
+  __host__ __device__ __forceinline__ const char* value_bytes() const {
     return reinterpret_cast<const char*>(values);
   }
   __device__ __forceinline__ float raw(size_t slot) const {
@@ -135,6 +150,17 @@ struct Int8Weights {
   __device__ __forceinline__ float load(size_t slot, int o, int g) const {
     const float s = round_to<XT>(scales[xwt_scale(o, g)]);
     return round_to<XT>(static_cast<float>(values[slot]) * s);
+  }
+  // load() of the four slots [slot, slot + 4) of row o, in groups g[0..3]
+  // (one 4-byte load of the values, slot a multiple of 4)
+  __device__ __forceinline__ void load4(size_t slot, int o, const int (&g)[4],
+                                        float (&w)[4]) const {
+    const char4 v = *reinterpret_cast<const char4*>(values + slot);
+    const int8_t q[4] = {static_cast<int8_t>(v.x), static_cast<int8_t>(v.y),
+                         static_cast<int8_t>(v.z), static_cast<int8_t>(v.w)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = round_to<XT>(static_cast<float>(q[j]) * round_to<XT>(scales[xwt_scale(o, g[j])]));
   }
 };
 

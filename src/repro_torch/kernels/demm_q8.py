@@ -41,6 +41,7 @@ from repro_torch.kernels.demm_block_spmm import (
     block_output,
     block_scatter_dense,
     check_block_args,
+    cluster_takes,
 )
 from repro_torch.kernels.demm_xwT import (
     _DTYPE_CODE,
@@ -128,32 +129,17 @@ def demm_block_spmm_q8_plain(active_groups: torch.Tensor,
     return a @ b.to(torch.float32)
 
 
-# Widest B (activation rows) the cluster body takes: its partial tiles and
-# register sums are sized for at most 8 columns (the launcher's ``cd <= 8``;
-# a test holds the two equal).
-CLUSTER_MAX_CD = 8
-
-
 def block_q8_body(values: torch.Tensor, indices: torch.Tensor,
                   scales: torch.Tensor, b: torch.Tensor, m: int) -> str:
-    """Which CUDA body :func:`demm_block_spmm_q8` runs: ``"cluster"`` at
-    serving batch — B = xᵀ (B's rows, x's columns, contiguous), at most
-    :data:`CLUSTER_MAX_CD` columns, x's rows and every copied span
-    (``block_r·Ne`` values, ``block_r`` scales, ``M`` activations) 16-byte
-    aligned, ``block_r`` a power of two up to 256 — ``"gather"`` (K2's body)
-    otherwise.  This is the one statement of the rule:
-    ``csrc/demm_block_cluster.cuh::cluster_takes`` only refuses what the
-    cluster body cannot take."""
-    block_r, ne = values.shape[2], values.shape[3]
-    es = b.element_size()
-    cd = b.shape[1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in (values, indices, scales, b))
-    if (cd <= CLUSTER_MAX_CD and b.stride(0) == 1
-            and (cd == 1 or (b.stride(1) * es) % 16 == 0)
-            and (m * es) % 16 == 0 and (block_r * ne) % 16 == 0
-            and block_r % 4 == 0 and 256 % block_r == 0 and aligned):
-        return "cluster"
-    return "gather"
+    """Which CUDA body :func:`demm_block_spmm_q8` runs: ``"cluster"`` where
+    the cluster body takes the int8 values, the indices, the scales and B
+    (``demm_block_spmm.cluster_takes``: serving batch, B = xᵀ with at most
+    ``CLUSTER_MAX_CD`` columns, every copied span 16-byte aligned),
+    ``"gather"`` (K2's body) otherwise.  This is the one statement of the
+    rule: ``csrc/demm_block_cluster.cuh::cluster_takes`` only refuses what
+    the cluster body cannot take."""
+    return ("cluster" if cluster_takes(values, indices, b, m, scales)
+            else "gather")
 
 
 def demm_block_spmm_q8(active_groups: torch.Tensor, values: torch.Tensor,

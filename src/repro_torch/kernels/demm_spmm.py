@@ -183,14 +183,15 @@ def demm_spmm_on(body: Optional[str], values: torch.Tensor,
             b.device.index, stream)
     else:
         # one row block of all R rows, list slot j = group j (no address
-        # stream)
+        # stream), on K2's gather body (block_body(None, ...) == "gather":
+        # cluster 0)
         code = lib.demm_block_spmm_launch(
             None, values.data_ptr(), indices.data_ptr(), b.data_ptr(),
             c.data_ptr(), r, k, cd, 1, g, r, cfg.m, ne,
             r * g * ne, ne, g * ne, b.stride(0), b.stride(1),
             c.stride(0), c.stride(1), 0, _DTYPE_CODE[b.dtype],
             _DTYPE_CODE[values.dtype], int(bool(duplicates)),
-            int(rows_per_block or 0), b.device.index, stream)
+            int(rows_per_block or 0), 0, b.device.index, stream)
     raise_on_launch_error(code, "demm_spmm")
     demm_spmm.launches += 1
     return c

@@ -2,13 +2,20 @@
 its plain PyTorch version.
 
 Replaces the TPU kernel ``demm_xwT_pallas`` (``kernels/demm_spmm.py`` of the
-JAX package).  The CUDA source is ``csrc/demm_xwt.cu`` (body in
-``csrc/demm_xwt_common.cuh``); on an H100 the work at decode batch sizes is
-one pass over the packed bytes, so device-memory bandwidth bounds it, and the
-kernel reads each ``{value, index}`` pair once, coalesced, against an
-activation tile held in shared memory.
+JAX package).  The CUDA source is ``csrc/demm_xwt.cu``; on an H100 the work
+at decode batch sizes is one pass over the packed bytes, so device-memory
+bandwidth bounds it.  Two bodies, picked by :func:`xwt_body`:
 
-Semantics shared by the kernel and :func:`demm_xwT_plain` (those of the TPU
+* ``bulk`` (``csrc/demm_xwt_bulk.cuh``) at serving batch (Bx <= 8): about
+  one CTA per SM, each owning a tile of consecutive output rows whose values
+  and indices — one contiguous span each — it requests with bulk copies at
+  entry, x staged once per CTA with 16-byte loads while the copies are in
+  flight;
+* ``gather`` (``csrc/demm_xwt_common.cuh``) otherwise: many small blocks,
+  each staging its x tile in shared memory, warps striding over a row's
+  ``{value, index}`` pairs, coalesced.
+
+Semantics shared by both bodies and :func:`demm_xwT_plain` (those of the TPU
 kernel's scatter matrix):
 
 * ``y[b, o] = Σ_g Σ_t S[o, g, t] · x[b, g·M + t]`` with ``S[o, g, t]`` the
@@ -129,21 +136,80 @@ def demm_xwT_plain(x: torch.Tensor, values: torch.Tensor,
     return x.to(torch.float32) @ w.T
 
 
+# The bulk body's limits (``csrc/demm_xwt_bulk.cuh``; a test holds the two
+# equal): the widest activation tile, the bytes before the x tile, and the
+# shared memory an H100 block may use.
+BULK_MAX_BX = 8
+BULK_HEAD_BYTES = 128
+BULK_SMEM_BYTES = 232448
+
+
+def _x_tile(bx: int) -> int:
+    """The activation tile a launch of ``bx`` rows takes: the smallest of 1,
+    2, 4, 8 that covers it."""
+    return next(t for t in (1, 2, 4, 8) if bx <= t) if bx <= 8 else 8
+
+
+def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
+             m: int, *, duplicates: bool = True) -> str:
+    """Which CUDA body :func:`demm_xwT` runs: ``"bulk"`` at serving batch —
+    at most :data:`BULK_MAX_BX` rows of x, x's rows (K activations) and a
+    row's values and indices (``G·Ne`` each) 16-byte multiples, every array
+    16-byte aligned, and the transposed x tile (the widest tile with
+    ``duplicates``) beside two rows of pairs within a block's shared memory
+    — ``"gather"`` otherwise.  This is the one statement of the rule: the
+    CUDA launcher only refuses what the bulk body cannot take."""
+    bx, k = x.shape
+    pairs = values.shape[1] * values.shape[2]
+    es, ves = x.element_size(), values.element_size()
+    tile = 8 if duplicates else _x_tile(bx)
+    x_bytes = -(-k // 16) * 16 * tile * es      # K in whole 16-column blocks
+    fits = BULK_HEAD_BYTES + x_bytes + 2 * pairs * (ves + 4) <= BULK_SMEM_BYTES
+    if (bx <= BULK_MAX_BX and (k * es) % 16 == 0 and (pairs * ves) % 16 == 0
+            and (pairs * 4) % 16 == 0 and fits
+            and all(t.data_ptr() % 16 == 0 for t in (x, values, indices))):
+        return "bulk"
+    return "gather"
+
+
 def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
              cfg: SparsityConfig, *, duplicates: bool = True,
              rows_per_block: Optional[int] = None) -> torch.Tensor:
     """y (Bx, O) float32 = x (Bx, K) @ W_sparseᵀ, W packed (O, G, Ne).
 
     A CUDA tensor launches the hand-written kernel (building the library at
-    first use) or raises; a CPU tensor takes :func:`demm_xwT_plain`, and only
-    because it lies on the CPU.  ``duplicates=False`` promises that no group
-    holds two non-zero slots at one index (``PackedWeight.has_duplicates``)
-    and launches the kernel without its summing search.
-    ``rows_per_block`` is the kernel's one tunable (output rows per thread
-    block); left open, the launcher sizes it to the card.
+    first use; the body :func:`xwt_body` names) or raises; a CPU tensor takes
+    :func:`demm_xwT_plain`, and only because it lies on the CPU.
+    ``duplicates=False`` promises that no group holds two non-zero slots at
+    one index (``PackedWeight.has_duplicates``) and launches the kernel
+    without its summing search.  ``rows_per_block`` (output rows per thread
+    block of either body) is the kernel's tunable; left open, the launcher
+    sizes it to the card.
     """
+    return demm_xwT_on(None, x, values, indices, cfg, duplicates=duplicates,
+                       rows_per_block=rows_per_block)
+
+
+def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
+                indices: torch.Tensor, cfg: SparsityConfig, *,
+                duplicates: bool = True,
+                rows_per_block: Optional[int] = None,
+                chunks: Optional[int] = None) -> torch.Tensor:
+    """:func:`demm_xwT` on a named body (``"bulk"``, only where
+    :func:`xwt_body` picks it, or ``"gather"``; ``None``: the chosen one) and
+    the bulk body's ``chunks`` (row chunks per CTA, each with its own
+    barrier; left open, the whole tile, or a ring where it does not fit) —
+    a measurement hook for timing one body against the other and the chunk
+    counts (``chip_smoke.py --sweep``), not a serving entry point.  A launch
+    counts on ``demm_xwT.launches``."""
     bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg,
                                      (torch.float32, torch.bfloat16))
+    chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates)
+    if body not in (None, "bulk", "gather"):
+        raise ValueError(f"body must be 'bulk' or 'gather', got {body!r}")
+    if body == "bulk" and chosen != "bulk":
+        raise ValueError("the bulk body does not take these arguments "
+                         "(xwt_body)")
     if not x.is_cuda:
         return demm_xwT_plain(x, values, indices, cfg)
     from repro_torch.kernels._build import load_library
@@ -154,11 +220,14 @@ def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
         bx, k, o, g, cfg.m, ne, _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[values.dtype], int(bool(duplicates)),
-        int(rows_per_block or 0), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(rows_per_block or 0), int((body or chosen) == "bulk"),
+        int(chunks or 0),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt")
     demm_xwT.launches += 1
+    demm_xwT.body_launches[body or chosen] += 1
     return y
 
 
 demm_xwT.launches = 0     # kernel launches (not plain-version calls)
+demm_xwT.body_launches = {"bulk": 0, "gather": 0}    # the same, by body

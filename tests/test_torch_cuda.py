@@ -17,14 +17,16 @@ import torch
 
 from repro_torch.configs.base import get_arch
 from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
-from repro_torch.kernels.demm_block_spmm import (demm_block_spmm,
+from repro_torch.kernels.demm_block_spmm import (block_body, demm_block_spmm,
+                                                 demm_block_spmm_on,
                                                  demm_block_spmm_plain)
 from repro_torch.kernels.demm_q8 import (block_q8_body, demm_block_spmm_q8,
                                          demm_block_spmm_q8_plain,
                                          demm_xwT_q8, demm_xwT_q8_plain)
 from repro_torch.kernels.demm_spmm import (demm_spmm, demm_spmm_on,
                                            demm_spmm_plain, spmm_body)
-from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+from repro_torch.kernels.demm_xwT import (demm_xwT, demm_xwT_on,
+                                          demm_xwT_plain, xwt_body)
 from repro_torch.quant import quantize_packed
 from repro_torch.launch.serve import run_serve
 from repro_torch.models.families import build_model
@@ -233,6 +235,133 @@ def test_block_q8_cluster_body_matches_plain_version(card, bx, case):
                                  cluster_size=cluster_size)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+# (n, m, O, G): the three projection shapes of full-width stablelm_3b and
+# the reduced configuration's 2:16
+BODY_SHAPES = [(5, 80, 2560, 32), (5, 80, 6912, 32), (3, 48, 2560, 144),
+               (2, 16, 256, 8)]
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bx", [1, 4, 8])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES)
+def test_xwt_bulk_body_matches_plain_version(card, n, m, o, g, bx, dtype,
+                                             vdtype):
+    """K1's bulk row-tile body at serving batch, as the main path launches
+    it (no summing search), float32 and bfloat16 values; a float32 x of 8
+    rows at K = 6912 leaves room for a ring of one-row chunks only."""
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, bx, dtype, seed=o + bx)
+    vals = vals.to(vdtype)
+    assert xwt_body(x, vals, idx, m, duplicates=False) == "bulk"
+    before = dict(demm_xwT.body_launches)
+    got = demm_xwT(x, vals, idx, cfg, duplicates=False)
+    torch.cuda.synchronize()
+    assert demm_xwT.body_launches["bulk"] == before["bulk"] + 1
+    torch.testing.assert_close(got, demm_xwT_plain(x, vals, idx, cfg),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(chunks=1), dict(chunks=2), dict(chunks=16), dict(rows_per_block=1),
+    dict(rows_per_block=7), dict(rows_per_block=160),
+    dict(rows_per_block=40, chunks=3)],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES[:3])
+def test_xwt_bulk_body_tunables(card, n, m, o, g, kw):
+    """Every tunable of the bulk body: chunk counts (several barriers),
+    one-row and ragged tiles, a tile larger than shared memory (a ring of
+    chunks)."""
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, 4, torch.bfloat16, seed=g)
+    got = demm_xwT_on("bulk", x, vals, idx, cfg, duplicates=False, **kw)
+    torch.testing.assert_close(got, demm_xwT_plain(x, vals, idx, cfg),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bx", [1, 4, 8])
+def test_xwt_bulk_body_sums_duplicates(card, bx, dtype):
+    """Every slot of a group on one column, standard-normal values (their
+    bfloat16 sums round) and an all-padded row: the bulk body's summing
+    instantiation equals the plain version's rounding."""
+    n, m, o, g = 5, 80, 300, 8
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, bx, dtype, seed=bx)
+    idx = idx[..., :1].expand(o, g, n).contiguous()
+    vals[0] = 0
+    idx[0] = 0
+    assert xwt_body(x, vals, idx, m) == "bulk"
+    want = demm_xwT_plain(x, vals, idx, cfg)
+    for kw in ({}, dict(chunks=4), dict(rows_per_block=7)):
+        torch.testing.assert_close(demm_xwT_on("bulk", x, vals, idx, cfg, **kw),
+                                   want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["dense", "inactive", "a_max > G",
+                                  "duplicates"])
+@pytest.mark.parametrize("bx", [1, 4, 8])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES)
+def test_block_cluster_body_matches_plain_version(card, n, m, o, g, bx, case,
+                                                  vdtype):
+    """K2 on K4's cluster body at serving batch, float32 and bfloat16 values:
+    every group active; inactive (row block, group) tiles with an all-zero
+    row block; padded list slots (a_max > G); duplicate indices with
+    standard-normal values (the summing instantiation); every cluster size
+    at Bx = 4."""
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, torch.bfloat16,
+                                seed=o + g + bx)
+    dense = unpack(vals, idx, cfg, (o, g * m))
+    if case == "inactive":
+        dense.reshape(o // 128, 128, g, m)[:, :, 1] = 0   # group 1 nowhere
+        dense[128:256] = 0                                # an all-zero block
+        pw = pack_block(dense, cfg)
+        assert pw.block_geom[1] < g
+    else:
+        pw = pack_block(dense, cfg, a_max=g + 3 if case == "a_max > G"
+                        else None)
+    if case == "duplicates":
+        dv = torch.randn(pw.values.shape, generator=gen, device=card)
+        dv[0, :, 0] = 0
+        pw = pw.replace(values=dv, indices=pw.indices[..., :1].expand(
+            pw.indices.shape).contiguous())
+        assert pw.has_duplicates
+    pw = pw.replace(values=pw.values.to(vdtype).contiguous())
+    args = (pw.active_groups, pw.values, pw.indices)
+    b = x.T
+    assert block_body(*args, b, m) == "cluster"
+    want = demm_block_spmm_plain(*args, b, cfg, r=o)
+    for cluster_size in (None, 1, 2, 4, 8) if bx == 4 else (None,):
+        before = dict(demm_block_spmm.body_launches)
+        got = demm_block_spmm(*args, b, cfg, r=o,
+                              duplicates=pw.has_duplicates,
+                              cluster_size=cluster_size)
+        torch.cuda.synchronize()
+        assert (demm_block_spmm.body_launches["cluster"]
+                == before["cluster"] + 1)
+        torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+    got = demm_block_spmm_on("gather", *args, b, cfg, r=o,
+                             duplicates=pw.has_duplicates)
+    torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+def test_narrow_spmm_stays_on_the_gather_body(card):
+    """K5 at Cd = 4 runs K2's launcher with the identity address stream:
+    the gather body, never K2's cluster body, whose counts stay put."""
+    n, m, o, g = 5, 80, 2560, 32
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, 4, torch.bfloat16, seed=11)
+    before = dict(demm_block_spmm.body_launches)
+    assert spmm_body(vals, idx, x.T, m) == "gather"
+    assert block_body(None, vals, idx, x.T, m) == "gather"
+    torch.testing.assert_close(demm_spmm(vals, idx, x.T, cfg),
+                               demm_spmm_plain(vals, idx, x.T, cfg),
+                               **TOL[torch.bfloat16])
+    assert demm_block_spmm.body_launches == before
 
 
 @pytest.mark.parametrize("layout", ["xwT", "block"])

@@ -538,13 +538,32 @@ def test_body_choice_limits_match_the_launchers():
     """The Python choosers state each body's limits once; the CUDA launchers
     refuse what lies beyond them.  The two must name the same numbers."""
     import re
-    from repro_torch.kernels import demm_q8, demm_spmm as ks
+    from repro_torch.kernels import demm_block_spmm as kb, demm_spmm as ks
+    from repro_torch.kernels import demm_xwT as kx
     from repro_torch.kernels._build import CSRC
     assert ks.TILED_MAX_M == _header_constant("kTcMaxM", "demm_spmm_tc.cuh")
     assert ks.TILED_MAX_NE == _header_constant("kTcMaxNe", "demm_spmm_tc.cuh")
     takes = (CSRC / "demm_block_cluster.cuh").read_text()
     takes = takes[takes.index("inline bool cluster_takes"):]
-    assert re.search(rf"g\.cd <= {demm_q8.CLUSTER_MAX_CD}\b", takes)
+    takes = takes[:takes.index("\n}\n")]
+    assert re.search(rf"g\.cd <= {kb.CLUSTER_MAX_CD}\b", takes)
+    # the span rule is written over the value width (1, 2 or 4 bytes), as
+    # cluster_takes states it with values.element_size()
+    assert "g.block_r) * g.ne * W::kValueBytes) % 16 == 0" in takes
+    assert "g.block_r % 4 == 0" in takes
+    bulk = "demm_xwt_bulk.cuh"
+    assert kx.BULK_MAX_BX == _header_constant("kBulkMaxBt", bulk)
+    assert kx.BULK_HEAD_BYTES == _header_constant("kBulkHeadBytes", bulk)
+    takes = (CSRC / bulk).read_text()
+    takes = takes[takes.index("inline bool bulk_takes"):]
+    takes = takes[:takes.index("\n}\n")]
+    assert "g.bx <= kBulkMaxBt" in takes
+    assert "(pairs * W::kValueBytes) % 16 == 0" in takes
+    assert "(pairs * sizeof(int32_t)) % 16 == 0" in takes
+    # the stage plan needs the x tile and two rows of pairs, as xwt_body
+    plan = (CSRC / bulk).read_text()
+    plan = plan[plan.index("inline bool bulk_plan"):]
+    assert "fixed + 2 * row_bytes > static_cast<size_t>(smem_limit)" in plan
 
 
 def test_launch_refusal_is_not_a_cuda_error():
@@ -584,6 +603,156 @@ def test_block_q8_body_choice(label, bx, serving, block_r, ne, m, want):
     scales = torch.ones((2, 4, block_r))
     b = _bf16(bx, k).T if serving else _bf16(k, bx)
     assert block_q8_body(values, indices, scales, b, m) == want, label
+
+
+# (label, Bx (Cd), B: "serving" xᵀ / "paper" (K, Cd) / "float32" xᵀ,
+#  block_r, Ne, M, values dtype, body K2 must take)
+_BLOCK_BODY_CASES = [
+    ("serving Bx=1", 1, "serving", 128, 5, 80, torch.float32, "cluster"),
+    ("serving Bx=4", 4, "serving", 128, 5, 80, torch.float32, "cluster"),
+    ("serving Bx=8", 8, "serving", 128, 3, 48, torch.float32, "cluster"),
+    ("serving Bx=4 bf16 values", 4, "serving", 128, 5, 80, torch.bfloat16,
+     "cluster"),
+    ("serving Bx=4 float32 x", 4, "float32", 128, 5, 80, torch.float32,
+     "cluster"),
+    ("Bx=9 (too wide)", 9, "serving", 128, 5, 80, torch.float32, "gather"),
+    ("Bx=37", 37, "serving", 128, 5, 80, torch.float32, "gather"),
+    ("B (K, Cd) contiguous", 4, "paper", 128, 5, 80, torch.float32,
+     "gather"),
+    # block_r x Ne = 4 values: 16 bytes in float32, 8 in bfloat16
+    ("4-byte values, 16-byte span", 4, "serving", 4, 1, 16, torch.float32,
+     "cluster"),
+    ("2-byte values, 8-byte span", 4, "serving", 4, 1, 16, torch.bfloat16,
+     "gather"),
+    ("block_r not a multiple of 4", 4, "serving", 2, 8, 16, torch.float32,
+     "gather"),
+    ("M*2 bytes not a multiple of 16", 4, "serving", 128, 2, 12,
+     torch.float32, "gather"),
+]
+
+
+@pytest.mark.parametrize("label,bx,kind,block_r,ne,m,vdtype,want",
+                         _BLOCK_BODY_CASES,
+                         ids=[c[0] for c in _BLOCK_BODY_CASES])
+def test_block_body_choice(label, bx, kind, block_r, ne, m, vdtype, want):
+    from repro_torch.kernels.demm_block_spmm import block_body
+    k = 4 * m
+    ag = torch.zeros((2, 4), dtype=torch.int32)
+    values = torch.zeros((2, 4, block_r, ne), dtype=vdtype)
+    indices = torch.zeros((2, 4, block_r, ne), dtype=torch.int32)
+    b = {"serving": lambda: _bf16(bx, k).T, "paper": lambda: _bf16(k, bx),
+         "float32": lambda: torch.zeros(bx, k).T}[kind]()
+    assert block_body(ag, values, indices, b, m) == want, label
+
+
+@pytest.mark.parametrize("cd", [1, 4, 8, 256])
+def test_row_packed_spmm_never_takes_the_cluster_body(cd):
+    """K5 runs K2's launcher with the identity address stream
+    (``active_groups`` null, values (R, G, Ne)): always the gather body,
+    even at serving widths where the block layout takes the cluster body."""
+    from repro_torch.kernels.demm_block_spmm import block_body
+    values = torch.zeros((128, 8, 4))
+    indices = torch.zeros((128, 8, 4), dtype=torch.int32)
+    b = _bf16(cd, 8 * 16).T
+    assert block_body(None, values, indices, b, 16) == "gather"
+
+
+def test_block_body_override_is_checked_on_the_cpu_too():
+    from repro_torch.kernels.demm_block_spmm import demm_block_spmm_on
+    n, m, r, g = 2, 16, 32, 4
+    w = jsp.random_sparse_dense(np.random.default_rng(8), r, g * m,
+                                jsp.SparsityConfig(n, m))
+    tcfg = tsp.SparsityConfig(n, m)
+    pw = tsp.pack_block(_t(w), tcfg, block_r=8)
+    args = (pw.active_groups, pw.values, pw.indices)
+    x = _t(np.random.default_rng(9).standard_normal((3, g * m)).astype(
+        np.float32))
+    before = demm_block_spmm.launches
+    with pytest.raises(ValueError, match="cluster body does not take"):
+        demm_block_spmm_on("cluster", *args, x.T.contiguous(), tcfg, r=r)
+    with pytest.raises(ValueError, match="body must be"):
+        demm_block_spmm_on("dense", *args, x.T, tcfg, r=r)
+    want = demm_block_spmm_plain(*args, x.T, tcfg, r=r).numpy()
+    for body in ("cluster", "gather", None):
+        np.testing.assert_array_equal(
+            demm_block_spmm_on(body, *args, x.T, tcfg, r=r).numpy(), want)
+    np.testing.assert_array_equal(
+        demm_block_spmm(*args, x.T, tcfg, r=r, cluster_size=2).numpy(), want)
+    assert demm_block_spmm.launches == before     # CPU: the plain version
+
+
+def _xwt_args(bx, k, m, ne, *, xdtype=torch.bfloat16, vdtype=torch.float32,
+              offset=0):
+    g = k // m
+    buf = torch.zeros(bx * k + offset, dtype=xdtype)
+    x = buf[offset:].view(bx, k)
+    values = torch.zeros((4, g, ne), dtype=vdtype)
+    indices = torch.zeros((4, g, ne), dtype=torch.int32)
+    return x, values, indices
+
+
+# (label, Bx, K, M, Ne, keyword arguments of _xwt_args, duplicates, body K1
+#  must take)
+_XWT_BODY_CASES = [
+    ("serving Bx=1", 1, 2560, 80, 5, {}, False, "bulk"),
+    ("serving Bx=4", 4, 2560, 80, 5, {}, False, "bulk"),
+    ("serving Bx=8 K=6912", 8, 6912, 48, 3, {}, False, "bulk"),
+    ("float32 x, bf16 values", 4, 2560, 80, 5,
+     dict(xdtype=torch.float32, vdtype=torch.bfloat16), False, "bulk"),
+    ("duplicates (the widest tile)", 1, 2560, 80, 5, {}, True, "bulk"),
+    ("Bx=9 (too wide)", 9, 2560, 80, 5, {}, False, "gather"),
+    ("Bx=37", 37, 2560, 80, 5, {}, False, "gather"),
+    ("x tile beyond shared memory (K=16384, Bx=8)", 8, 16384, 128, 8, {},
+     False, "gather"),
+    ("float32 x, K=8192: one row fits, the duplicates tile does not", 1,
+     8192, 128, 8, dict(xdtype=torch.float32), False, "bulk"),
+    ("the same with duplicates", 1, 8192, 128, 8,
+     dict(xdtype=torch.float32), True, "gather"),
+    ("x rows not 16-byte multiples (K=36)", 4, 36, 12, 4, {}, False,
+     "gather"),
+    ("x not 16-byte aligned", 4, 2560, 80, 5, dict(offset=1), False,
+     "gather"),
+    ("a row of pairs not 16-byte multiples (G x Ne = 30)", 4, 480, 80, 5,
+     {}, False, "gather"),
+    ("bf16 values: G x Ne = 20 is 40 bytes", 4, 320, 80, 5,
+     dict(vdtype=torch.bfloat16), False, "gather"),
+    ("float32 values: G x Ne = 20 is 80 bytes", 4, 320, 80, 5, {}, False,
+     "bulk"),
+]
+
+
+@pytest.mark.parametrize("label,bx,k,m,ne,kw,duplicates,want",
+                         _XWT_BODY_CASES,
+                         ids=[c[0] for c in _XWT_BODY_CASES])
+def test_xwt_body_choice(label, bx, k, m, ne, kw, duplicates, want):
+    from repro_torch.kernels.demm_xwT import xwt_body
+    x, values, indices = _xwt_args(bx, k, m, ne, **kw)
+    assert xwt_body(x, values, indices, m, duplicates=duplicates) == want, \
+        label
+
+
+def test_xwt_body_override_is_checked_on_the_cpu_too():
+    from repro_torch.kernels.demm_xwT import demm_xwT_on
+    n, m, o, g, bx = 5, 80, 8, 4, 3
+    values, indices = _packed(n, m, o, g, seed=10)
+    tcfg = tsp.SparsityConfig(n, m)
+    x = _t(np.random.default_rng(11).standard_normal((bx, g * m)).astype(
+        np.float32))
+    x_wide = _t(np.random.default_rng(12).standard_normal((9, g * m)).astype(
+        np.float32))
+    before = demm_xwT.launches
+    with pytest.raises(ValueError, match="bulk body does not take"):
+        demm_xwT_on("bulk", x_wide, _t(values), _t(indices), tcfg)
+    with pytest.raises(ValueError, match="body must be"):
+        demm_xwT_on("dense", x, _t(values), _t(indices), tcfg)
+    want = demm_xwT_plain(x, _t(values), _t(indices), tcfg).numpy()
+    for body in ("bulk", "gather", None):
+        np.testing.assert_array_equal(
+            demm_xwT_on(body, x, _t(values), _t(indices), tcfg).numpy(), want)
+    np.testing.assert_array_equal(
+        demm_xwT_on("bulk", x, _t(values), _t(indices), tcfg, chunks=3,
+                    rows_per_block=5).numpy(), want)
+    assert demm_xwT.launches == before            # CPU: the plain version
 
 
 def test_pack_block_sparse_adapter_matches_jax():
