@@ -39,11 +39,12 @@ unless all of them held:
                 and a transposed B take the gather body, and K5 at narrow B
                 never takes K2's cluster body; K2's and K4's cluster body at
                 Bx in {1, 4, 8} with inactive tiles, an all-zero row block,
-                a_max > G, duplicates and every cluster size; K1's bulk
-                row-tile body at Bx <= 8 (chunk counts, one-row and
-                ragged tiles, a ring of row chunks
-                larger than shared memory) while Bx > 8 and an x tile
-                larger than shared memory take the gather body.
+                a_max > G, duplicates and every cluster size; K1's and K3's
+                bulk row-tile body at Bx <= 8 (K3 with per-row and per-group
+                scales; chunk counts, one-row and ragged tiles, a ring of
+                row chunks larger than shared memory, duplicates) while Bx >
+                8 and an x tile larger than shared memory take the gather
+                body.
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
@@ -51,7 +52,8 @@ unless all of them held:
               request completes inside the true vocab and the float kernel was
               launched exactly 7 x 32 x ticks times, no other kernel, every
               launch on its serving body (K1 bulk, K2 cluster).
-5. serve q8 — the same with int8 values (per-row scales) and the int8 kernel.
+5. serve q8 — the same with int8 values (per-row scales) and the int8 kernel
+              (K3 every launch on its bulk body).
    4b/5b    — the same two with ``--layout block`` on a fresh model of the
               same seed: float through ``demm_block_spmm``, int8 through
               ``demm_block_spmm_q8``.
@@ -71,12 +73,13 @@ unless all of them held:
               time is measured and not the time Python takes to issue a launch
               (that is ``eager_ms``); the byte / operation bound, the plain
               version, and ``torch.matmul`` against the dense weight in the
-              same dtype as a yardstick the port never calls.  K5's tiled
+              same dtype as a yardstick the port never calls; K3 with
+              per-row and with per-group scales.  K5's tiled
               body does the dense count of operations at Cd = 256; the floor
               that sets (2 R K Cd at the bf16 peak, computed, not measured)
               is printed on a line of its own, outside the ``kernels`` line,
-              as is the launch floor: an empty kernel at K1's bulk grid and
-              an empty cluster launch at K2's, timed the same way.
+              as is the launch floor: an empty kernel at K1's and K3's bulk
+              grids and an empty cluster launch at K2's, timed the same way.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}}`` (per kernel: launches on
@@ -197,15 +200,14 @@ def check_kernels(gen):
     import torch
     from repro_torch.core.sparsity import SparsityConfig, pack_block
     from repro_torch.kernels.demm_block_spmm import block_body
-    from repro_torch.kernels.demm_q8 import block_q8_body
+    from repro_torch.kernels.demm_q8 import block_q8_body, demm_xwT_q8_on
     from repro_torch.kernels.demm_spmm import spmm_body
     from repro_torch.kernels.demm_xwT import demm_xwT_on, xwt_body
     from repro_torch.quant import quantize_packed
 
     fns = kernel_fns()
     err = {name: 0.0 for name in KERNELS}
-    bodies = {"demm_xwT": set(), "demm_block_spmm": set(), "demm_spmm": set(),
-              "demm_block_spmm_q8": set()}
+    bodies = {name: set() for name in KERNELS}
     n_cases = 0
 
     def compare(name, got, want, dtype, what, main):
@@ -222,13 +224,16 @@ def check_kernels(gen):
 
     def run_xwt(label, o, k, n, m, batches, *, duplicates=False, main=False,
                 rows_per_block=None, values_dtype=torch.float32, expect=None,
-                tunables=()):
-        """K1 and K3 on one random packed weight.  K1 must take the body
-        ``expect`` names (None: ``bulk`` at Bx <= 8 where x's tile takes at
-        most half a block's shared memory, ``gather`` at Bx > 8, either
-        between);
-        ``tunables``: keyword arguments of the bulk body (rows per CTA,
-        chunks), each through the measurement hook."""
+                tunables=(), lanes=()):
+        """K1 and K3 (per-row and per-group scales) on one random packed
+        weight.  Each must take the body ``expect`` names (None: ``bulk`` at
+        Bx <= 8 where x's tile takes at most half a block's shared memory and
+        K3's int8 rows and per-group scale rows are 16-byte multiples,
+        ``gather`` at Bx > 8, either between); ``tunables``: keyword
+        arguments of the bulk body (rows per CTA, chunks), each through the
+        measurement hooks; ``lanes``: K3's slot lanes per row, each forced
+        at the default tile (the tunables' tiles reach the launcher's own
+        choice of 8 or 16)."""
         cfg = SparsityConfig(n, m)
         g = k // m
         kern, plain = fns["demm_xwT"]
@@ -268,13 +273,30 @@ def check_kernels(gen):
                     q, scales = make_q8(o, g, n, per_group, gen)
                     if duplicates:
                         q[0] = 0
+                    what_q = what + (" per_group" if per_group else " per_row")
+                    body = xwt_body(x, q, idx, m, duplicates=duplicates,
+                                    scales=scales)
+                    spans = (g * n) % 16 == 0 and (g % 4 == 0 or not per_group)
+                    want_body = expect or (
+                        "gather" if bx > 8 else "bulk" if spans and tile * k
+                        * x.element_size() <= BULK_SMEM_BYTES // 2 else body)
+                    if body != want_body:
+                        raise AssertionError(f"{what_q}: K3 would take its "
+                                             f"{body} body")
+                    bodies["demm_xwT_q8"].add(body)
+                    want = plain_q(x, q, idx, scales, cfg)
                     compare("demm_xwT_q8",
                             kern_q(x, q, idx, scales, cfg,
                                    duplicates=duplicates,
                                    rows_per_block=rows_per_block),
-                            plain_q(x, q, idx, scales, cfg), dtype,
-                            what + (" per_group" if per_group else " per_row"),
-                            main)
+                            want, dtype, f"{what_q} {body}", main)
+                    q8_tunables = [*tunables,
+                                   *(dict(lanes=ln) for ln in lanes)]
+                    for tun in q8_tunables if body == "bulk" else ():
+                        compare("demm_xwT_q8",
+                                demm_xwT_q8_on("bulk", x, q, idx, scales, cfg,
+                                               duplicates=duplicates, **tun),
+                                want, dtype, f"{what_q} bulk {tun}", main)
 
     def run_block(what, pw, batches, main=False, paper_b=False,
                   cluster_sizes=(None,), dtypes=("float32", "bfloat16")):
@@ -372,7 +394,9 @@ def check_kernels(gen):
     run_xwt("reduced 1:8", 384, 128, 1, 8, (4, 37))
     # duplicate indices and an all-padded row
     run_xwt(*REDUCED_SHAPE, (4, 37), duplicates=True)
-    run_xwt(*MAIN_SHAPES[2], (4,), duplicates=True)
+    run_xwt(*MAIN_SHAPES[2], (1, 4, 8), duplicates=True,
+            tunables=[dict(chunks=4), dict(rows_per_block=7)],
+            lanes=BULK_LANES)
     # x tile larger than a block's shared memory: the gather body's group
     # loop runs in chunks (and the bulk body does not take it)
     run_xwt("chunked", 520, 16384, 8, 128, (8, 13), expect="gather")
@@ -385,11 +409,12 @@ def check_kernels(gen):
         run_xwt(label + " bulk tunables", o, k, n, m, (1, 4, 8),
                 tunables=[dict(chunks=c) for c in BULK_CHUNKS]
                 + [dict(rows_per_block=r) for r in (1, 7, 160)]
-                + [dict(rows_per_block=40, chunks=3)])
+                + [dict(rows_per_block=40, chunks=3)], lanes=BULK_LANES)
     # a tile far larger than shared memory: the ring of row chunks
     run_xwt("bulk ring", 3000, 6912, 3, 48, (4,),
             tunables=[dict(rows_per_block=3000), dict(rows_per_block=1000,
-                                                      chunks=16)])
+                                                      chunks=16)],
+            lanes=BULK_LANES)
     # packed values already in bfloat16
     run_xwt("bf16 values", 300, 2560, 5, 80, (4,), values_dtype=torch.bfloat16)
     # 8:16-style override pattern (dense-ish groups), tiny M
@@ -463,6 +488,7 @@ def check_kernels(gen):
     run_spmm("gather unaligned pair rows", 100, 480, 5, 80, (256,),
              dtypes=("bfloat16",), expect="gather")
     for name, want in (("demm_xwT", {"bulk", "gather"}),
+                       ("demm_xwT_q8", {"bulk", "gather"}),
                        ("demm_block_spmm", {"cluster", "gather"}),
                        ("demm_spmm", {"tiled", "gather"}),
                        ("demm_block_spmm_q8", {"cluster", "gather"})):
@@ -488,7 +514,7 @@ def read_counts():
 
 
 def read_body_counts():
-    """Launches by body of the kernels that count them (K1, K2)."""
+    """Launches by body of the kernels that count them (K1, K2, K3)."""
     return {name: dict(kern.body_launches)
             for name, (kern, _) in kernel_fns().items()
             if hasattr(kern, "body_launches")}
@@ -496,7 +522,8 @@ def read_body_counts():
 
 # the body each serving kernel must run at Bx = 4 (kernels without a second
 # body are absent)
-SERVING_BODY = {"demm_xwT": "bulk", "demm_block_spmm": "cluster"}
+SERVING_BODY = {"demm_xwT": "bulk", "demm_xwT_q8": "bulk",
+                "demm_block_spmm": "cluster"}
 
 
 def serve_full_width(model, cfg, *, layout, quantize, expect):
@@ -647,10 +674,11 @@ def check_backends_agree(cfg_full):
     return report
 
 
-def profile_ticks(model, cfg, ticks=5):
+def profile_ticks(model, cfg, label, ticks=5):
     """``--profile``: a steady window of decode ticks on 4 full slots, first
     on the host clock, then under ``torch.profiler``; prints the device-busy
-    share and the kernels that take the device time."""
+    share and the kernels that take the device time, under ``label`` (the
+    serving mode)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -687,7 +715,7 @@ def profile_ticks(model, cfg, ticks=5):
     dev.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in dev)
     report = {
-        "ticks": ticks, "tick_ms_unprofiled": plain_tick_ms,
+        "mode": label, "ticks": ticks, "tick_ms_unprofiled": plain_tick_ms,
         "tick_ms_profiled": wall_ms / ticks,
         "device_ms_per_tick": dev_ms / ticks,
         "device_busy_share_unprofiled": dev_ms / ticks / plain_tick_ms,
@@ -789,27 +817,32 @@ def ring(tensors, nbytes):
 
 
 def shape_inputs(label, o, k, n, m, gen):
-    """The Bx = 4 bf16 activations and one random packed weight (float and
-    int8 per-row) of a projection shape, with the timing rows' metadata."""
+    """The Bx = 4 bf16 activations and one random packed weight (float, and
+    int8 with per-row and with per-group scales) of a projection shape, with
+    the timing rows' metadata."""
     import torch
     bx, g = 4, k // m
     x = torch.randn((bx, k), generator=gen, device=gen.device).to(torch.bfloat16)
     vals, idx = make_packed(o, k, n, m, gen)
-    q, scales = make_q8(o, g, n, False, gen)
+    q, per_row = make_q8(o, g, n, False, gen)
+    scales = {"per_row": per_row, "per_group": make_q8(o, g, n, True, gen)[1]}
     meta = {"shape": label, "O": o, "K": k, "pattern": f"{n}:{m}", "Bx": bx,
             "x_dtype": "bfloat16"}
     return x, vals, idx, q, scales, meta
 
 
 def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
-    """K1 and K3 as the main path launches them; with the sweep on, K1's
-    bulk-body tunables (rows per CTA, chunks) and its gather
-    body, K3's rows per block.  (A checkout from before the duplicate
-    repair has no ``duplicates`` flag: its one instantiation is the main
-    path's.)"""
+    """K1 and K3 as the main path launches them, K3 with each of the
+    ``scales`` ({"per_row": (O,), "per_group": (O, G)}); with the sweep on,
+    both kernels' bulk-body tunables (rows per CTA, chunks) and their gather
+    body, K3's also at the gather body's rows per block ``sweep``.  (A
+    checkout from before the duplicate repair has no ``duplicates`` flag:
+    its one instantiation is the main path's; one from before K3's bulk
+    body has no K3 hook and runs the gather body.)"""
     import inspect
+    from repro_torch.kernels import demm_q8 as kq
     from repro_torch.kernels import demm_xwT as kx
-    from repro_torch.kernels.demm_q8 import demm_xwT_q8, demm_xwT_q8_plain
+    demm_xwT_q8, demm_xwT_q8_plain = kq.demm_xwT_q8, kq.demm_xwT_q8_plain
 
     demm_xwT, demm_xwT_plain = kx.demm_xwT, kx.demm_xwT_plain
     main = ({"duplicates": False}
@@ -838,21 +871,41 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
         [lambda v=v, i=i, **kw: k1(v, i, **kw) for v, i in r],
         [lambda v=v, i=i: demm_xwT_plain(x, v, i, cfg) for v, i in r],
         x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, variants=variants)]
-    w_bytes = q.nbytes + idx.nbytes + scales.nbytes
-    r = ring((q, idx, scales), w_bytes)
-    out["demm_xwT_q8"] = [timed_entry(
-        meta,
-        [lambda v=v, i=i, sc=sc, **kw:
-         demm_xwT_q8(x, v, i, sc, cfg, **main, **kw) for v, i, sc in r],
-        [lambda v=v, i=i, sc=sc: demm_xwT_q8_plain(x, v, i, sc, cfg)
-         for v, i, sc in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, sweep=sweep)]
+    has_bulk = hasattr(kq, "demm_xwT_q8_on")
+
+    def k3(v, i, sc, body=None, **kw):
+        if body is None and not {"chunks", "lanes"} & kw.keys():
+            return demm_xwT_q8(x, v, i, sc, cfg, **main, **kw)
+        return kq.demm_xwT_q8_on(body, x, v, i, sc, cfg, **main, **kw)
+
+    if sweep and has_bulk:
+        variants = {**variants, "bulk_lanes_ms": {
+            str(n): {"lanes": n} for n in BULK_LANES}, "gather_body_ms": {
+            "default": {"body": "gather"},
+            **{f"rows_per_block={n}": {"body": "gather", "rows_per_block": n}
+               for n in sweep}}}
+    out["demm_xwT_q8"] = []
+    for unit, sc0 in scales.items():
+        w_bytes = q.nbytes + idx.nbytes + sc0.nbytes
+        r = ring((q, idx, sc0), w_bytes)
+        body = (kx.xwt_body(x, q, idx, cfg.m, scales=sc0, **main)
+                if has_bulk else "gather")
+        out["demm_xwT_q8"].append(timed_entry(
+            {**meta, "scales": unit, "body": body},
+            [lambda v=v, i=i, sc=sc, **kw: k3(v, i, sc, **kw)
+             for v, i, sc in r],
+            [lambda v=v, i=i, sc=sc: demm_xwT_q8_plain(x, v, i, sc, cfg)
+             for v, i, sc in r],
+            x.nbytes + w_bytes + y_bytes, 2 * bx * nnz,
+            sweep=() if has_bulk else sweep, variants=variants))
+        del r
     return out
 
 
 # --sweep: the redesigned bodies' tunables
 CLUSTER_SIZES = (1, 2, 4, 8)
 BULK_CHUNKS = (1, 2, 4, 16)
+BULK_LANES = (8, 16)
 BULK_ROWS = (8, 12, 16, 20, 24, 32, 40, 53, 64)
 BULK_SMEM_BYTES = 232448     # an H100 block's shared memory (opt-in)
 TC_TILES = ((128, 1), (128, 2), (256, 1), (256, 2))
@@ -939,7 +992,8 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     wr = [wt.T for wt in w.repeat(ring_size(w.nbytes, hi=32), 1, 1).unbind(0)]
     lib = time_ring([lambda wt=wt: torch.matmul(x, wt) for wt in wr])[0]
     for entries in out.values():
-        entries[0]["library_ms"] = lib
+        for e in entries:
+            e["library_ms"] = lib
     del wr
 
     # K5, the paper orientation C = A @ B, with B of 4 and 256 columns; its
@@ -995,12 +1049,12 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
 
 
 def launch_floor():
-    """An empty kernel launched at K1's bulk grid (about one CTA per SM, as
-    ``csrc/demm_xwt_bulk.cuh`` sizes it) and at K2's cluster grid (a cluster
-    of ``cl_auto_csize`` CTAs per row block), each with the dynamic shared
-    memory the kernel asks for at Bx = 4 bf16, timed by the same graph
-    replay as the kernels: what a launch of that shape costs before any
-    work.  ms per shape and per layer."""
+    """An empty kernel launched at K1's and K3's bulk grid (about one CTA
+    per SM, as ``csrc/demm_xwt_bulk.cuh`` sizes it) and at K2's cluster grid
+    (a cluster of ``cl_auto_csize`` CTAs per row block), each with the
+    dynamic shared memory the kernel asks for at Bx = 4 bf16, timed by the
+    same graph replay as the kernels: what a launch of that shape costs
+    before any work.  ms per shape and per layer."""
     import torch
     from repro_torch.kernels._build import load_library
     from repro_torch.kernels.demm_xwT import raise_on_launch_error
@@ -1015,12 +1069,13 @@ def launch_floor():
                 torch.cuda.current_stream().cuda_stream), "demm_empty")
         return call
 
-    out = {"demm_xwT": {}, "demm_block_spmm": {}}
+    out = {"demm_xwT": {}, "demm_xwT_q8": {}, "demm_block_spmm": {}}
     for label, o, k, n, m in MAIN_SHAPES:
         g, bx, block_r = k // m, 4, 128
         rows = -(-o // sms)
         x1 = bx * k * 2                                  # bf16 x, transposed
         smem1 = min(BULK_SMEM_BYTES, 128 + x1 + rows * g * n * 8)  # fp32 + int32
+        smem3 = min(BULK_SMEM_BYTES, 128 + x1 + rows * g * n * 5)  # int8, int32
         rb = o // block_r
         csize = 2
         while csize < 8 and rb * csize < sms:
@@ -1029,6 +1084,7 @@ def launch_floor():
         smem2 = (16 + ((256 // block_r + 1) * block_r * bx + 8) * 4
                  + per * (block_r * n * 8 + bx * m * 2))
         grids = {"demm_xwT": (-(-o // rows), 512, 1, smem1),
+                 "demm_xwT_q8": (-(-o // rows), 512, 1, smem3),
                  "demm_block_spmm": (rb * csize, 256, csize, smem2)}
         for name, (blocks, threads, cs, smem) in grids.items():
             ms = time_ring([empty(blocks, threads, cs, smem)] * 64)[0]
@@ -1045,10 +1101,12 @@ def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
     """One line of the ``kernels`` report: the seven launches of one decoder
     layer (4 + 2 + 1 over the three shapes) at Bx (Cd) = 4 summed, every
     per-shape row beside; for K5 also the layer at Cd = 256 (``*_wide``,
-    run by the body in ``source_wide``)."""
-    def total(key, cd=4):
+    run by the body in ``source_wide``), for K3 also the layer with
+    per-group scales (``*_per_group``; the main figures are per-row, as
+    served)."""
+    def total(key, cd=4, scales="per_row"):
         return sum(LAYER_MIX[e["shape"]] * e[key] for e in per_shape
-                   if e["Bx"] == cd)
+                   if e["Bx"] == cd and e.get("scales", "per_row") == scales)
     bound_by = {e["bound_by"] for e in per_shape if e["Bx"] == 4}
     entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1059,6 +1117,9 @@ def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
         "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
         "library_ms": total("library_ms"),
     }
+    if any(e.get("scales") == "per_group" for e in per_shape):
+        entry.update({f"{key}_per_group": total(key, scales="per_group")
+                      for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
     if any(e["Bx"] == 256 for e in per_shape):
         entry["source_wide"] = source_wide
         entry.update({f"{key}_wide": total(key, 256) for key in (
@@ -1069,8 +1130,9 @@ def layer_entry(name, source, replaces, per_shape, launches, max_abs_err, *,
 
 # ---------------------------------------------------------------------------
 
-COMPARED = ("demm_xwT", "demm_xwT_q8", "demm_block_spmm", "demm_block_spmm_q8",
-            "demm_spmm@4", "demm_spmm@256")
+COMPARED = ("demm_xwT", "demm_xwT_q8", "demm_xwT_q8/per_group",
+            "demm_block_spmm", "demm_block_spmm_q8", "demm_spmm@4",
+            "demm_spmm@256")
 
 
 def kernel_times(label, o, k, n, m, gen):
@@ -1087,9 +1149,10 @@ def kernel_times(label, o, k, n, m, gen):
 
     cfg = SparsityConfig(n, m)
     x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
-    out = {name: rows[0]["ms"]
+    out = {name + ("/per_group" if row.get("scales") == "per_group" else ""):
+           row["ms"]
            for name, rows in time_xwt(x, vals, idx, q, scales, cfg,
-                                      meta).items()}
+                                      meta).items() for row in rows}
     pw = pack_block(unpack(vals, idx, cfg, (o, k)), cfg)
     qw = quantize_packed(pw)
     xt = x.T
@@ -1166,16 +1229,18 @@ def compare_with(other: str):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the tunables: K1's bulk body (rows per "
-                         "CTA, chunks) against its gather "
-                         "body, K3's rows_per_block in {8, 16, 24, 32, 48, "
-                         "64}, K2's and K4's cluster sizes against their "
-                         "gather body, K5's rows_per_block in {8, 16, 32, "
-                         "64} at Cd = 4, its tile and stages at Cd = 256, "
-                         "and both K5 bodies at Cd 16-256")
+                    help="also time the tunables: K1's and K3's bulk body "
+                         "(rows per CTA, chunks; K3's slot lanes per row) "
+                         "against their gather body, K3's gather body at "
+                         "rows_per_block in {8, 16, 24, 32, 48, 64}, K2's "
+                         "and K4's cluster sizes against their gather body, "
+                         "K5's rows_per_block in {8, 16, 32, 64} at Cd = 4, "
+                         "its tile and stages at Cd = 256, and both K5 "
+                         "bodies at Cd 16-256")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
-                         "the packed model with torch.profiler")
+                         "the four serving modes (both layouts, float and "
+                         "int8) with torch.profiler")
     ap.add_argument("--stop-after", type=int, default=None, metavar="PHASE",
                     help="development aid: stop after this phase (3: build "
                          "and check the kernels only); prints no result line")
@@ -1256,11 +1321,13 @@ def main(argv=None) -> int:
             f"({time.time() - t0:.1f} s with packing): "
             f"{json.dumps(serve[float_kernel])}")
         if args.profile:
-            profile_ticks(model, cfg)
+            profile_ticks(model, cfg, f"--layout {layout}")
         serve[q8_kernel] = serve_full_width(
             model, cfg, layout=layout, quantize="int8", expect=q8_kernel)
         log(f"[5 serve q8] packed+int8 --layout {layout}, backend cuda: "
             f"{json.dumps(serve[q8_kernel])}")
+        if args.profile:                 # the model is now quantized in place
+            profile_ticks(model, cfg, f"--layout {layout} --quantize int8")
         del model
         torch.cuda.empty_cache()
     spmm = spmm_path(gen)
@@ -1290,8 +1357,11 @@ def main(argv=None) -> int:
     sources = {
         "demm_xwT": (csrc + "demm_xwt.cu",
                      "src/repro/kernels/demm_spmm.py:180", serving),
-        "demm_xwT_q8": (csrc + "demm_xwt_q8.cu",
-                        "src/repro/kernels/demm_q8.py:79", serving),
+        "demm_xwT_q8": (csrc + "demm_xwt_bulk.cuh",
+                        "src/repro/kernels/demm_q8.py:79",
+                        serving + ", int8 values with per-row scales, the "
+                        "bulk row-tile body launched by demm_xwt_q8.cu; "
+                        "*_per_group: scales (O, G)"),
         "demm_block_spmm": (csrc + "demm_block_spmm.cu",
                             "src/repro/kernels/demm_block_spmm.py:85",
                             serving + ", block layout"),

@@ -119,7 +119,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # pointers and the stream are c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut the addresses
     lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 13, p]
-    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 11, p]
+    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 14, p]
     lib.demm_block_spmm_launch.argtypes = [p, p, p, p, p, *[i] * 8, *[ll] * 7,
                                            *[i] * 7, p]
     lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 8,

@@ -31,7 +31,8 @@ int launch_body(const XT* x, W w, const int32_t* indices, float* y, int bx, int 
                                rows_per_block, stream);
   if (bulk != 1) return demm::kErrBadShape;
   demm::BulkGeom geo{bx, k, o, g, m, ne, rows_per_block, 0, 0};
-  return demm::launch_bulk<XT>(x, w, indices, y, geo, duplicates, chunks, stream);
+  // 16 slot lanes (a half warp) a row at every tile
+  return demm::launch_bulk<XT, 16>(x, w, indices, y, geo, duplicates, chunks, 0, stream);
 }
 
 template <typename XT>

@@ -96,20 +96,36 @@ struct FloatWeights {
     return raw(slot);
   }
   __device__ __forceinline__ size_t xwt_scale(int /*o*/, int /*g*/) const { return 0; }
-  // load() of the four slots [slot, slot + 4) of row o, in groups g[0..3],
-  // with one vector load (slot a multiple of 4, the values 16-byte aligned)
-  __device__ __forceinline__ void load4(size_t slot, int /*o*/, const int (&/*g*/)[4],
-                                        float (&w)[4]) const {
-    if constexpr (sizeof(VT) == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(values + slot);
-      w[0] = round_to<XT>(v.x); w[1] = round_to<XT>(v.y);
-      w[2] = round_to<XT>(v.z); w[3] = round_to<XT>(v.w);
-    } else {
-      const uint2 v = *reinterpret_cast<const uint2*>(values + slot);
-      const VT* h = reinterpret_cast<const VT*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = round_to<XT>(to_float<VT>(h[j]));
+  // The bulk body's interface (demm_xwt_bulk.cuh): no scales to stage, none
+  // per row, and a row view over the staged values.
+  static constexpr int kStagedScaleBytes = 0;
+  __host__ __device__ __forceinline__ const char* staged_scale_bytes() const { return nullptr; }
+  __device__ __forceinline__ float row_scale(int /*o*/) const { return 1.f; }
+  struct Row {
+    const VT* values;
+    __device__ __forceinline__ float raw(size_t slot) const {
+      return round_to<XT>(to_float<VT>(values[slot]));
     }
+    __device__ __forceinline__ float finish(float s, int /*g*/) const { return s; }
+    // the four slots [slot, slot + 4), in groups g[0..3], with one vector
+    // load (slot a multiple of 4, the values 16-byte aligned)
+    __device__ __forceinline__ void load4(size_t slot, const int (&/*g*/)[4],
+                                          float (&w)[4]) const {
+      if constexpr (sizeof(VT) == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(values + slot);
+        w[0] = round_to<XT>(v.x); w[1] = round_to<XT>(v.y);
+        w[2] = round_to<XT>(v.z); w[3] = round_to<XT>(v.w);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(values + slot);
+        const VT* h = reinterpret_cast<const VT*>(&v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) w[j] = round_to<XT>(to_float<VT>(h[j]));
+      }
+    }
+  };
+  __device__ __forceinline__ Row row(const void* v, const float* /*scales*/,
+                                     float /*scale*/) const {
+    return {static_cast<const VT*>(v)};
   }
 };
 
@@ -151,16 +167,57 @@ struct Int8Weights {
     const float s = round_to<XT>(scales[xwt_scale(o, g)]);
     return round_to<XT>(static_cast<float>(values[slot]) * s);
   }
-  // load() of the four slots [slot, slot + 4) of row o, in groups g[0..3]
-  // (one 4-byte load of the values, slot a multiple of 4)
-  __device__ __forceinline__ void load4(size_t slot, int o, const int (&g)[4],
-                                        float (&w)[4]) const {
-    const char4 v = *reinterpret_cast<const char4*>(values + slot);
-    const int8_t q[4] = {static_cast<int8_t>(v.x), static_cast<int8_t>(v.y),
-                         static_cast<int8_t>(v.z), static_cast<int8_t>(v.w)};
+};
+
+// The xwT int8 policy of the bulk body (demm_xwt_bulk.cuh), its scale unit
+// fixed at compile time so that the inner loop reads no scale from device
+// memory: PER_GROUP (scales (O, G)) stages a chunk's rows x G scales in
+// shared memory beside its pairs (kStagedScaleBytes per row and group), and a
+// row view reads its group's scale there; per row (scales (O,)) the row's
+// scale is read once per row pass (row_scale) and kept in a register.  The
+// arithmetic is Int8Weights': the (summed) int8 value times its scale rounded
+// to the activation type, the product rounded again.  The scale cannot be
+// taken out of the row's sum, since the rounding is per weight.
+template <typename XT, bool PER_GROUP>
+struct Int8BulkWeights {
+  const int8_t* values;
+  const float* scales;     // (O, G) if PER_GROUP, else (O,)
+  static constexpr int kValueBytes = 1;
+  static constexpr int kStagedScaleBytes = PER_GROUP ? sizeof(float) : 0;
+  __host__ __device__ __forceinline__ const char* value_bytes() const {
+    return reinterpret_cast<const char*>(values);
+  }
+  __host__ __device__ __forceinline__ const char* staged_scale_bytes() const {
+    return PER_GROUP ? reinterpret_cast<const char*>(scales) : nullptr;
+  }
+  // row o's scale rounded to the activation type (per row; 1 if PER_GROUP)
+  __device__ __forceinline__ float row_scale(int o) const {
+    return PER_GROUP ? 1.f : round_to<XT>(__ldg(scales + o));
+  }
+  struct Row {
+    const int8_t* values;    // the staged copy
+    const float* scales;     // PER_GROUP: the row's G staged scales
+    float scale;             // otherwise: the row's rounded scale
+    __device__ __forceinline__ float raw(size_t slot) const {
+      return static_cast<float>(values[slot]);
+    }
+    __device__ __forceinline__ float finish(float s, int g) const {
+      return round_to<XT>(s * (PER_GROUP ? round_to<XT>(scales[g]) : scale));
+    }
+    // the four slots [slot, slot + 4), in groups g[0..3] (one 4-byte load of
+    // the values, slot a multiple of 4)
+    __device__ __forceinline__ void load4(size_t slot, const int (&g)[4],
+                                          float (&w)[4]) const {
+      const char4 v = *reinterpret_cast<const char4*>(values + slot);
+      const int8_t q[4] = {static_cast<int8_t>(v.x), static_cast<int8_t>(v.y),
+                           static_cast<int8_t>(v.z), static_cast<int8_t>(v.w)};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = round_to<XT>(static_cast<float>(q[j]) * round_to<XT>(scales[xwt_scale(o, g[j])]));
+      for (int j = 0; j < 4; ++j) w[j] = finish(static_cast<float>(q[j]), g[j]);
+    }
+  };
+  __device__ __forceinline__ Row row(const void* v, const float* row_scales,
+                                     float scale) const {
+    return {static_cast<const int8_t*>(v), row_scales, scale};
   }
 };
 

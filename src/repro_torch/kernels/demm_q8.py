@@ -3,7 +3,11 @@ plain PyTorch versions, for both packed layouts.
 
 * :func:`demm_xwT_q8` — ``y = x @ W_q8ᵀ`` from the row-packed stream; replaces
   the TPU kernel ``demm_xwT_q8_pallas`` (``kernels/demm_q8.py`` of the JAX
-  package); CUDA source ``csrc/demm_xwt_q8.cu``.
+  package); CUDA source ``csrc/demm_xwt_q8.cu``.  At serving batch
+  (``demm_xwT.xwt_body`` given the scales) it runs K1's bulk-copy row-tile
+  body (``csrc/demm_xwt_bulk.cuh``): about one CTA per SM, each requesting
+  its rows' int8 values, indices and per-group scales with bulk copies at
+  entry, x staged once per CTA; otherwise K1's gather body.
 * :func:`demm_block_spmm_q8` — ``C = A_q8 @ B`` from the two-level block
   layout; replaces ``demm_block_spmm_q8_pallas`` of the same module; CUDA
   source ``csrc/demm_block_spmm_q8.cu``.  At serving batch
@@ -49,6 +53,7 @@ from repro_torch.kernels.demm_xwT import (
     raise_on_launch_error,
     round_to,
     scatter_groups,
+    xwt_body,
 )
 
 
@@ -89,12 +94,45 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     """y (Bx, O) float32 = x (Bx, K) @ W_q8ᵀ; int8 values (O, G, Ne) with
     float32 scales (O,) or (O, G).
 
-    A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
-    takes :func:`demm_xwT_q8_plain`, and only because it lies on the CPU.
+    A CUDA tensor launches the hand-written kernel (the body
+    ``demm_xwT.xwt_body`` names given the scales: K1's bulk row-tile body at
+    serving batch, its gather body otherwise) or raises; a CPU tensor takes
+    :func:`demm_xwT_q8_plain`, and only because it lies on the CPU.
     ``duplicates`` and ``rows_per_block`` as for ``demm_xwT``.
     """
+    return demm_xwT_q8_on(None, x, values, indices, scales, cfg,
+                          duplicates=duplicates,
+                          rows_per_block=rows_per_block)
+
+
+def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
+                   values: torch.Tensor, indices: torch.Tensor,
+                   scales: torch.Tensor, cfg: SparsityConfig, *,
+                   duplicates: bool = True,
+                   rows_per_block: Optional[int] = None,
+                   chunks: Optional[int] = None,
+                   lanes: Optional[int] = None) -> torch.Tensor:
+    """:func:`demm_xwT_q8` on a named body (``"bulk"``, only where
+    ``xwt_body`` picks it, or ``"gather"``; ``None``: the chosen one) and the
+    bulk body's ``chunks`` (row chunks per CTA; left open, the whole tile, or
+    a ring where it does not fit) and ``lanes`` (slot lanes per row, 8 or
+    16; left open, 8 where a chunk holds more than 32 rows, so that one
+    pass of the CTA's 512 threads takes them) — a measurement hook for
+    timing one body against the other and the tunables (``chip_smoke.py
+    --sweep``), not a serving entry point.  A launch counts on
+    ``demm_xwT_q8.launches`` and by body on
+    ``demm_xwT_q8.body_launches``."""
     bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg, (torch.int8,))
     _check_scales(scales, x, ((o,), (o, g)))
+    chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates,
+                      scales=scales)
+    if body not in (None, "bulk", "gather"):
+        raise ValueError(f"body must be 'bulk' or 'gather', got {body!r}")
+    if body == "bulk" and chosen != "bulk":
+        raise ValueError("the bulk body does not take these arguments "
+                         "(xwt_body)")
+    if lanes not in (None, 8, 16):
+        raise ValueError(f"lanes must be 8 or 16, got {lanes!r}")
     if not x.is_cuda:
         return demm_xwT_q8_plain(x, values, indices, scales, cfg)
     from repro_torch.kernels._build import load_library
@@ -106,13 +144,16 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
         scales.data_ptr(), y.data_ptr(), bx, k, o, g, cfg.m, ne,
         _DTYPE_CODE[x.dtype], 1 if scales.ndim == 1 else g,
         int(bool(duplicates)), int(rows_per_block or 0),
+        int((body or chosen) == "bulk"), int(chunks or 0), int(lanes or 0),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt_q8")
     demm_xwT_q8.launches += 1
+    demm_xwT_q8.body_launches[body or chosen] += 1
     return y
 
 
 demm_xwT_q8.launches = 0     # kernel launches (not plain-version calls)
+demm_xwT_q8.body_launches = {"bulk": 0, "gather": 0}    # the same, by body
 
 
 def demm_block_spmm_q8_plain(active_groups: torch.Tensor,

@@ -151,23 +151,32 @@ def _x_tile(bx: int) -> int:
 
 
 def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
-             m: int, *, duplicates: bool = True) -> str:
-    """Which CUDA body :func:`demm_xwT` runs: ``"bulk"`` at serving batch —
-    at most :data:`BULK_MAX_BX` rows of x, x's rows (K activations) and a
-    row's values and indices (``G·Ne`` each) 16-byte multiples, every array
-    16-byte aligned, and the transposed x tile (the widest tile with
-    ``duplicates``) beside two rows of pairs within a block's shared memory
-    — ``"gather"`` otherwise.  This is the one statement of the rule: the
-    CUDA launcher only refuses what the bulk body cannot take."""
+             m: int, *, duplicates: bool = True,
+             scales: Optional[torch.Tensor] = None) -> str:
+    """Which CUDA body :func:`demm_xwT` (and, given the int8 kernel's
+    ``scales``, ``demm_q8.demm_xwT_q8``) runs: ``"bulk"`` at serving batch —
+    at most :data:`BULK_MAX_BX` rows of x; x's rows (K activations), a row's
+    values and its indices (``G·Ne`` each) and a row's per-group scales
+    (``G`` float32, staged beside its pairs; per-row scales are not staged)
+    16-byte multiples; every array the bulk copies read 16-byte aligned; and
+    the transposed x tile (the widest tile with ``duplicates``) beside two
+    rows of pairs and their staged scales within a block's shared memory —
+    ``"gather"`` otherwise.  This is the one statement of the rule: the CUDA
+    launchers only refuse what the bulk body cannot take."""
     bx, k = x.shape
-    pairs = values.shape[1] * values.shape[2]
+    g = values.shape[1]
+    pairs = g * values.shape[2]
     es, ves = x.element_size(), values.element_size()
+    staged = [] if scales is None or scales.ndim == 1 else [scales]
+    scale_bytes = 4 * g if staged else 0         # a row's staged scales
     tile = 8 if duplicates else _x_tile(bx)
     x_bytes = -(-k // 16) * 16 * tile * es      # K in whole 16-column blocks
-    fits = BULK_HEAD_BYTES + x_bytes + 2 * pairs * (ves + 4) <= BULK_SMEM_BYTES
+    row_bytes = pairs * (ves + 4) + scale_bytes
+    fits = BULK_HEAD_BYTES + x_bytes + 2 * row_bytes <= BULK_SMEM_BYTES
     if (bx <= BULK_MAX_BX and (k * es) % 16 == 0 and (pairs * ves) % 16 == 0
-            and (pairs * 4) % 16 == 0 and fits
-            and all(t.data_ptr() % 16 == 0 for t in (x, values, indices))):
+            and (pairs * 4) % 16 == 0 and scale_bytes % 16 == 0 and fits
+            and all(t.data_ptr() % 16 == 0
+                    for t in (x, values, indices, *staged))):
         return "bulk"
     return "gather"
 

@@ -22,7 +22,8 @@ from repro_torch.kernels.demm_block_spmm import (block_body, demm_block_spmm,
                                                  demm_block_spmm_plain)
 from repro_torch.kernels.demm_q8 import (block_q8_body, demm_block_spmm_q8,
                                          demm_block_spmm_q8_plain,
-                                         demm_xwT_q8, demm_xwT_q8_plain)
+                                         demm_xwT_q8, demm_xwT_q8_on,
+                                         demm_xwT_q8_plain)
 from repro_torch.kernels.demm_spmm import (demm_spmm, demm_spmm_on,
                                            demm_spmm_plain, spmm_body)
 from repro_torch.kernels.demm_xwT import (demm_xwT, demm_xwT_on,
@@ -298,6 +299,85 @@ def test_xwt_bulk_body_sums_duplicates(card, bx, dtype):
     for kw in ({}, dict(chunks=4), dict(rows_per_block=7)):
         torch.testing.assert_close(demm_xwT_on("bulk", x, vals, idx, cfg, **kw),
                                    want, **TOL[dtype])
+
+
+def _q8_inputs(card, n, m, o, g, bx, dtype, per_group, duplicates, seed):
+    """int8 values and float32 scales (O,) or (O, G); with ``duplicates``
+    every slot of a group on one column (their int8 sums round to bfloat16
+    above 256) and row 0 all padded."""
+    x, _, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed)
+    q = torch.randint(-127, 128, (o, g, n), generator=gen, device=card,
+                      dtype=torch.int32).to(torch.int8)
+    if duplicates:
+        idx = idx[..., :1].expand(o, g, n).contiguous()
+        q[0] = 0
+        idx[0] = 0
+    shape = (o, g) if per_group else (o,)
+    scales = torch.rand(shape, generator=gen, device=card) * 0.02 + 0.001
+    return x, q, idx, scales
+
+
+@pytest.mark.parametrize("duplicates", [False, True])
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bx", [1, 4, 8])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES)
+def test_xwt_q8_bulk_body_matches_plain_version(card, n, m, o, g, bx, dtype,
+                                                per_group, duplicates):
+    """K3 on the bulk row-tile body at serving batch, per-row scales (a
+    register per row pass) and per-group scales (staged in shared memory),
+    as the main path launches it and with the summing instantiation."""
+    cfg = SparsityConfig(n, m)
+    x, q, idx, scales = _q8_inputs(card, n, m, o, g, bx, dtype, per_group,
+                                   duplicates, seed=o + bx)
+    assert xwt_body(x, q, idx, m, duplicates=duplicates,
+                    scales=scales) == "bulk"
+    before = dict(demm_xwT_q8.body_launches)
+    got = demm_xwT_q8(x, q, idx, scales, cfg, duplicates=duplicates)
+    torch.cuda.synchronize()
+    assert demm_xwT_q8.body_launches["bulk"] == before["bulk"] + 1
+    torch.testing.assert_close(got, demm_xwT_q8_plain(x, q, idx, scales, cfg),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(chunks=1), dict(chunks=2), dict(chunks=16), dict(rows_per_block=1),
+    dict(rows_per_block=7), dict(rows_per_block=160),
+    dict(rows_per_block=40, chunks=3), dict(rows_per_block=3000),
+    dict(lanes=8), dict(lanes=16), dict(rows_per_block=7, lanes=8),
+    dict(rows_per_block=160, chunks=2, lanes=16)],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES[:3])
+def test_xwt_q8_bulk_body_tunables(card, n, m, o, g, per_group, kw):
+    """K3's bulk-body tunables with both scale units: chunk counts (several
+    barriers, each with its scales), one-row and ragged tiles, a tile
+    larger than shared memory (a ring of chunks), every slot-lane count."""
+    cfg = SparsityConfig(n, m)
+    x, q, idx, scales = _q8_inputs(card, n, m, o, g, 4, torch.bfloat16,
+                                   per_group, False, seed=g)
+    got = demm_xwT_q8_on("bulk", x, q, idx, scales, cfg, duplicates=False,
+                         **kw)
+    torch.testing.assert_close(got, demm_xwT_q8_plain(x, q, idx, scales, cfg),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("bx", [9, 37])
+def test_xwt_q8_wide_batch_takes_the_gather_body(card, bx, per_group):
+    """Beyond serving batch K3 keeps the gather body, and says so."""
+    n, m, o, g = 5, 80, 2560, 32
+    cfg = SparsityConfig(n, m)
+    x, q, idx, scales = _q8_inputs(card, n, m, o, g, bx, torch.bfloat16,
+                                   per_group, False, seed=bx)
+    assert xwt_body(x, q, idx, m, duplicates=False, scales=scales) == "gather"
+    before = dict(demm_xwT_q8.body_launches)
+    got = demm_xwT_q8(x, q, idx, scales, cfg, duplicates=False)
+    torch.cuda.synchronize()
+    assert demm_xwT_q8.body_launches == {**before,
+                                         "gather": before["gather"] + 1}
+    torch.testing.assert_close(got, demm_xwT_q8_plain(x, q, idx, scales, cfg),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])

@@ -564,6 +564,21 @@ def test_body_choice_limits_match_the_launchers():
     plan = (CSRC / bulk).read_text()
     plan = plan[plan.index("inline bool bulk_plan"):]
     assert "fixed + 2 * row_bytes > static_cast<size_t>(smem_limit)" in plan
+    # K3: a row's staged scales (per group: G float32, per row: none) are
+    # part of its row bytes, a 16-byte multiple, read from an aligned array
+    assert "(static_cast<size_t>(g.g) * W::kStagedScaleBytes) % 16 == 0" \
+        in takes
+    assert "aligned(weights.staged_scale_bytes())" in takes
+    rows = (CSRC / bulk).read_text()
+    rows = rows[rows.index("inline size_t bulk_row_bytes"):]
+    assert "static_cast<size_t>(g) * W::kStagedScaleBytes;" in rows
+    common = (CSRC / "demm_xwt_common.cuh").read_text()
+    int8 = common[common.index("struct Int8BulkWeights"):]
+    assert ("kStagedScaleBytes = PER_GROUP ? sizeof(float) : 0;"
+            in int8[:int8.index("\n};\n")])
+    q8 = (CSRC / "demm_xwt_q8.cu").read_text()
+    assert "Int8BulkWeights<XT, false>" in q8       # scale_cols == 1
+    assert "Int8BulkWeights<XT, true>" in q8        # scale_cols == G
 
 
 def test_launch_refusal_is_not_a_cuda_error():
@@ -753,6 +768,105 @@ def test_xwt_body_override_is_checked_on_the_cpu_too():
         demm_xwT_on("bulk", x, _t(values), _t(indices), tcfg, chunks=3,
                     rows_per_block=5).numpy(), want)
     assert demm_xwT.launches == before            # CPU: the plain version
+
+
+def _xwt_q8_args(bx, k, m, ne, per_group, *, xdtype=torch.bfloat16,
+                 scale_offset=0):
+    x, values, indices = _xwt_args(bx, k, m, ne, xdtype=xdtype,
+                                   vdtype=torch.int8)
+    o, g = values.shape[:2]
+    shape = (o, g) if per_group else (o,)
+    n = int(np.prod(shape))
+    scales = torch.ones(n + scale_offset)[scale_offset:].view(shape)
+    return x, values, indices, scales
+
+
+# (label, Bx, K, M, Ne, per-group scales?, keyword arguments of
+#  _xwt_q8_args, duplicates, body K3 must take)
+_XWT_Q8_BODY_CASES = [
+    ("serving Bx=1 per row", 1, 2560, 80, 5, False, {}, False, "bulk"),
+    ("serving Bx=4 per row", 4, 2560, 80, 5, False, {}, False, "bulk"),
+    ("serving Bx=4 per group", 4, 2560, 80, 5, True, {}, False, "bulk"),
+    ("serving Bx=8 K=6912 per row", 8, 6912, 48, 3, False, {}, False,
+     "bulk"),
+    ("serving Bx=8 K=6912 per group", 8, 6912, 48, 3, True, {}, False,
+     "bulk"),
+    ("float32 x per group", 4, 2560, 80, 5, True,
+     dict(xdtype=torch.float32), False, "bulk"),
+    ("duplicates (the widest tile) per group", 1, 6912, 48, 3, True, {},
+     True, "bulk"),
+    ("Bx=9 (too wide)", 9, 2560, 80, 5, False, {}, False, "gather"),
+    ("Bx=37 per group", 37, 2560, 80, 5, True, {}, False, "gather"),
+    # G x Ne = 20: 80 bytes of float32 values (K1 takes the bulk body), 20
+    # of int8
+    ("int8 values: G x Ne = 20 is 20 bytes", 4, 320, 80, 5, False, {},
+     False, "gather"),
+    ("int8 values: G x Ne = 32 is 32 bytes", 4, 320, 80, 8, False, {},
+     False, "bulk"),
+    # G = 2: 8 bytes of per-group scales a row; per-row scales are not
+    # staged
+    ("per-group scale rows not 16-byte multiples (G=2)", 4, 32, 16, 8,
+     True, {}, False, "gather"),
+    ("the same per row", 4, 32, 16, 8, False, {}, False, "bulk"),
+    ("per-group scales not 16-byte aligned", 4, 2560, 80, 5, True,
+     dict(scale_offset=1), False, "gather"),
+    ("per-row scales not 16-byte aligned (read, not copied)", 4, 2560, 80,
+     5, False, dict(scale_offset=1), False, "bulk"),
+    ("x tile beyond shared memory (K=16384, Bx=8)", 8, 16384, 128, 8, True,
+     {}, False, "gather"),
+    # float32 x, K=55296: the x tile and two rows of pairs fit, with the
+    # rows' 432 per-group scales they do not
+    ("fit limit per row", 1, 55296, 128, 2, False,
+     dict(xdtype=torch.float32), False, "bulk"),
+    ("fit limit per group", 1, 55296, 128, 2, True,
+     dict(xdtype=torch.float32), False, "gather"),
+]
+
+
+@pytest.mark.parametrize("label,bx,k,m,ne,per_group,kw,duplicates,want",
+                         _XWT_Q8_BODY_CASES,
+                         ids=[c[0] for c in _XWT_Q8_BODY_CASES])
+def test_xwt_q8_body_choice(label, bx, k, m, ne, per_group, kw, duplicates,
+                            want):
+    from repro_torch.kernels.demm_xwT import xwt_body
+    x, values, indices, scales = _xwt_q8_args(bx, k, m, ne, per_group, **kw)
+    assert xwt_body(x, values, indices, m, duplicates=duplicates,
+                    scales=scales) == want, label
+
+
+@pytest.mark.parametrize("per_group", [False, True])
+def test_xwt_q8_body_override_is_checked_on_the_cpu_too(per_group):
+    from repro_torch.kernels.demm_q8 import demm_xwT_q8_on
+    n, m, o, g, bx = 5, 80, 8, 16, 3        # int8 rows of 80 bytes
+    values, indices = _packed(n, m, o, g, seed=13)
+    tcfg = tsp.SparsityConfig(n, m)
+    rng = np.random.default_rng(14)
+    q = _t(rng.integers(-127, 128, values.shape).astype(np.int8))
+    scales = _t(rng.uniform(0.001, 0.02, (o, g) if per_group else (o,))
+                .astype(np.float32))
+    x = _t(rng.standard_normal((bx, g * m)).astype(np.float32))
+    x_wide = _t(rng.standard_normal((9, g * m)).astype(np.float32))
+    before = (demm_xwT_q8.launches, dict(demm_xwT_q8.body_launches))
+    with pytest.raises(ValueError, match="bulk body does not take"):
+        demm_xwT_q8_on("bulk", x_wide, q, _t(indices), scales, tcfg)
+    with pytest.raises(ValueError, match="body must be"):
+        demm_xwT_q8_on("dense", x, q, _t(indices), scales, tcfg)
+    with pytest.raises(ValueError, match="scales must have one of"):
+        demm_xwT_q8_on(None, x, q, _t(indices), scales[:-1], tcfg)
+    for lanes in (4, 32):
+        with pytest.raises(ValueError, match="lanes must be 8 or 16"):
+            demm_xwT_q8_on("bulk", x, q, _t(indices), scales, tcfg,
+                           lanes=lanes)
+    want = demm_xwT_q8_plain(x, q, _t(indices), scales, tcfg).numpy()
+    for body in ("bulk", "gather", None):
+        np.testing.assert_array_equal(
+            demm_xwT_q8_on(body, x, q, _t(indices), scales, tcfg).numpy(),
+            want)
+    np.testing.assert_array_equal(
+        demm_xwT_q8_on("bulk", x, q, _t(indices), scales, tcfg, chunks=3,
+                       rows_per_block=5, lanes=8).numpy(), want)
+    # CPU: the plain version, counted nowhere
+    assert (demm_xwT_q8.launches, demm_xwT_q8.body_launches) == before
 
 
 def test_pack_block_sparse_adapter_matches_jax():
