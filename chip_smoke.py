@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase below, about two minutes
+    python3 chip_smoke.py            # every phase below, a few minutes
     python3 chip_smoke.py --sweep    # also time the kernels' tunables
     python3 chip_smoke.py --compare-with DIR   # K1-K5 here against DIR's
 
@@ -48,15 +48,23 @@ unless all of them held:
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
-              backend ``cuda``: 4 requests x 8 new tokens on 4 slots; every
-              request completes inside the true vocab and the float kernel was
-              launched exactly 7 x 32 x ticks times, no other kernel, every
-              launch on its serving body (K1 bulk, K2 cluster).
+              backend ``cuda``: 4 requests x 8 new tokens on 4 slots through
+              ``run_serve``, whose engine captures its decode step once as a
+              CUDA graph and replays it every tick; every request completes
+              inside the true vocab; the wrappers launched the float kernel
+              exactly 7 x 32 x (warm-up steps + 1 capture) times, no other
+              kernel, every launch on its serving body (K1 bulk, K2
+              cluster); a ``torch.profiler`` window of 3 replays then shows
+              7 x 32 x 3 launches of that kernel on the device, by its
+              kernel name and on its serving body, and no other DeMM kernel,
+              while no wrapper is called.
+   4g graph — on the same packed model: the captured step's tokens equal
+              the eager step's and its logits are bit-equal on every tick.
 5. serve q8 — the same with int8 values (per-row scales) and the int8 kernel
-              (K3 every launch on its bulk body).
+              (K3 every launch on its bulk body); 5g the same graph check.
    4b/5b    — the same two with ``--layout block`` on a fresh model of the
               same seed: float through ``demm_block_spmm``, int8 through
-              ``demm_block_spmm_q8``.
+              ``demm_block_spmm_q8`` (both on the cluster body).
    5c spmm  — ``ops.demm_spmm`` (the paper orientation's entry point),
               backend ``cuda``, on the seven projection shapes of one layer
               with B of 4 and of 256 columns: exactly 14 launches of
@@ -65,6 +73,16 @@ unless all of them held:
               ``cuda`` and backend ``reference`` give allclose logits on every
               tick (rtol 1e-3) and identical greedy token streams; the xwT and
               block layouts give the same greedy tokens through their kernels.
+   6g graph — the same 2-layer float32 model in the four serving modes
+              (both layouts, float and int8): the captured step's tokens
+              equal the eager step's and backend ``reference``'s; its logits
+              are bit-equal to the eager step's and allclose (rtol 1e-3) to
+              the reference's.
+   6f flight — ``repro_torch.launch.serve`` as a user runs it, full width,
+              ``--profile-dir --flight-dir --force-stall --slo-report``:
+              exactly one stall dump, and the profiler's trace holds the
+              kernels of the warm-up step and of every graph replay by name
+              (7 x 32 x (1 + ticks) of K1 on its bulk body).
 7. times    — per kernel and shape at Bx = 4 with bfloat16 activations (what
               the main path launches; K5 at Cd = 4 and 256): CUDA-event
               medians of the kernel over a ring of weight copies larger than
@@ -82,9 +100,15 @@ unless all of them held:
               grids and an empty cluster launch at K2's, timed the same way.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
-``{"kernels": [...], "serve": [...], "agree": {...}}`` (per kernel: launches on
-its path, error, times, bound; per serve run: ticks, decode-step time,
-tokens/s), and one JSON object ``{"ok": true, "device": ...}``.
+``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
+"flight": {...}}`` (per kernel: wrapper launches on its path, error, times,
+bound; per serve run: ticks, decode-step time, tokens/s, device launches per
+replay), and one JSON object ``{"ok": true, "device": ...}``.
+
+``--profile`` also profiles a steady window of decode ticks of the four
+serving modes, the captured step and the eager step in turns (graph, eager,
+eager, graph), and prints a table: host-clock tick, device time per tick,
+device busy share, device launches per tick, tokens/s.
 """
 
 from __future__ import annotations
@@ -520,18 +544,88 @@ def read_body_counts():
             if hasattr(kern, "body_launches")}
 
 
-# the body each serving kernel must run at Bx = 4 (kernels without a second
-# body are absent)
+# the body each serving kernel must run at Bx = 4 (K4's body is told apart
+# on the device only, by its kernel name; K5 does not serve)
 SERVING_BODY = {"demm_xwT": "bulk", "demm_xwT_q8": "bulk",
-                "demm_block_spmm": "cluster"}
+                "demm_block_spmm": "cluster", "demm_block_spmm_q8": "cluster"}
+
+
+def device_kernel_of(name: str):
+    """(kernel, body) of a DeMM kernel as the profiler names it on the card
+    (the CUDA function's name and its weight policy), else None."""
+    head = name.split("(")[0]
+    q8 = "Int8" in head
+    if "xwt_bulk_kernel" in head:
+        return ("demm_xwT_q8" if q8 else "demm_xwT"), "bulk"
+    if "xwt_kernel" in head:
+        return ("demm_xwT_q8" if q8 else "demm_xwT"), "gather"
+    if "block_cluster_kernel" in head:
+        return ("demm_block_spmm_q8" if q8 else "demm_block_spmm"), "cluster"
+    if "block_spmm_kernel" in head:
+        return ("demm_block_spmm_q8" if q8 else "demm_block_spmm"), "gather"
+    if "spmm_tc_kernel" in head:
+        return "demm_spmm", "tiled"
+    return None
+
+
+def device_kernel_counts(prof) -> dict:
+    """Launches of each (kernel, body) in a torch.profiler window."""
+    import torch
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kb = device_kernel_of(e.key)
+        if kb is not None:
+            counts[kb] = counts.get(kb, 0) + e.count
+    return counts
+
+
+def profiled_replays(engine, cfg, expect, ticks=3):
+    """A ``torch.profiler`` window of ``ticks`` graph replays on a drained
+    engine given 4 new requests: each replay must launch the expected kernel
+    7 x layers times on its serving body on the device, and no other DeMM
+    kernel, while no wrapper is called (the Python counters stay put)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(7)
+    for i in range(4):
+        engine.submit(Request(uid=100 + i, max_new_tokens=50,
+                              prompt=rng.integers(0, cfg.vocab_size, 3,
+                                                  dtype=np.int32)))
+    engine.step()                        # claims the slots; a replay
+    torch.cuda.synchronize()
+    before = read_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"graph replays called a kernel wrapper: "
+                             f"{before} -> {read_counts()}")
+    got = device_kernel_counts(prof)
+    want = {(expect, SERVING_BODY[expect]): 7 * cfg.num_layers * ticks}
+    if got != want:
+        raise AssertionError(
+            f"{ticks} profiled replays launched {got} on the device: expected "
+            f"{want} (7 x {cfg.num_layers} per replay, nothing else)")
+    return got[(expect, SERVING_BODY[expect])] // ticks
 
 
 def serve_full_width(model, cfg, *, layout, quantize, expect):
-    """Drive run_serve once; check the outputs, the launch counts and, for
-    K1 and K2, that every launch ran the serving body."""
+    """Drive run_serve once; check the outputs, that the wrappers launched
+    the expected kernel 7 x layers times in each of the warm-up step(s) and
+    the capture of the decode step (K1, K2, K3 on their serving bodies) and
+    nothing else, and that each replay of the captured step ran it on the
+    device 7 x layers times on its serving body (a profiled window)."""
     import torch
     from repro_torch import obs
     from repro_torch.launch.serve import run_serve
+    from repro_torch.serve.serve_loop import CAPTURE_WARMUP
 
     requests, max_new = 4, 8
     torch.cuda.synchronize()
@@ -555,19 +649,22 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
     import numpy as np
     if not np.isfinite(engine.last_logits[:, :cfg.vocab_size]).all():
         raise AssertionError("non-finite logits")
+    if engine._graph is None:
+        raise AssertionError("the CUDA engine did not capture its step")
     want = {name: 0 for name in KERNELS}
-    want[expect] = 7 * cfg.num_layers * ticks
+    want[expect] = 7 * cfg.num_layers * (CAPTURE_WARMUP + 1)
     if counts != want:
         raise AssertionError(
             f"launch counts {counts} after {ticks} ticks: expected {want} "
-            f"(7 x {cfg.num_layers} x ticks of {expect}, nothing else)")
-    body = SERVING_BODY.get(expect)
-    if body is not None and body_counts[expect][body] != want[expect]:
+            f"(7 x {cfg.num_layers} x ({CAPTURE_WARMUP} warm-up step(s) + "
+            f"1 capture) of {expect}, nothing else)")
+    body = SERVING_BODY[expect]
+    if expect in body_counts and body_counts[expect][body] != want[expect]:
         raise AssertionError(f"{expect} launches by body "
                              f"{body_counts[expect]}: expected all "
                              f"{want[expect]} on its {body} body")
     tokens = sum(len(r.output) for r in engine.completed)
-    return {
+    entry = {
         "layout": layout, "quantize": quantize, "ticks": ticks,
         "tokens": tokens, "drain_s": engine.drain_seconds,
         "tick_ms_mean": 1e3 * engine.drain_seconds / ticks,
@@ -577,6 +674,9 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
         "body": body,
         "first_output": engine.completed[0].output,
     }
+    entry["device_launches_per_replay"] = profiled_replays(engine, cfg,
+                                                           expect)
+    return entry
 
 
 def spmm_path(gen):
@@ -616,16 +716,19 @@ def spmm_path(gen):
             "max_abs_err_vs_reference": worst}
 
 
-def serve_collect(model, cfg, backend):
-    """Greedy serve on 2 slots, keeping every tick's logits."""
+def serve_collect(model, cfg, backend, eager=False):
+    """Greedy serve on 2 slots, keeping every tick's logits; ``eager`` runs
+    the decode step eagerly instead of replaying its captured graph (the
+    engine's measurement hook)."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.sparse_linear import ExecPolicy
-    from repro_torch.serve import Request, ServeConfig, make_engine
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    engine = make_engine(model, ServeConfig(num_slots=2, max_len=48),
+    engine = ServeEngine(model, ServeConfig(num_slots=2, max_len=48),
                          policy=ExecPolicy(mode="packed", backend=backend),
-                         device=DEVICE, metrics=obs.MetricsRegistry())
+                         device=DEVICE, metrics=obs.MetricsRegistry(),
+                         _eager=eager)
     rng = np.random.default_rng(1)
     for i in range(3):
         prompt = rng.integers(0, cfg.vocab_size, rng.integers(4, 9),
@@ -674,21 +777,143 @@ def check_backends_agree(cfg_full):
     return report
 
 
-def profile_ticks(model, cfg, label, ticks=5):
+def graph_vs_eager(model, cfg, label):
+    """Phase 4g/5g: the captured step against the eager step on the same
+    model: the same tokens, and bit-equal logits on every tick.  Returns
+    the report and the captured step's logits and tokens."""
+    import numpy as np
+
+    lg, tg = serve_collect(model, cfg, "cuda")
+    le, te = serve_collect(model, cfg, "cuda", eager=True)
+    if len(lg) != len(le) or tg != te:
+        raise AssertionError(f"{label}: graph and eager steps give different "
+                             f"tokens: {tg} vs {te}")
+    for t, (a, b) in enumerate(zip(lg, le)):
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"{label} tick {t}: graph and eager logits differ, max abs "
+                f"{np.abs(a - b).max()}")
+    return {"mode": label, "ticks": len(lg), "streams": len(tg),
+            "tokens_equal": True, "logits_bit_equal": True}, lg, tg
+
+
+def check_graph_modes(cfg_full):
+    """Phase 6g: full width, 2 layers, float32 compute, in the four serving
+    modes: the captured step's tokens equal the eager step's and backend
+    ``reference``'s (its logits bit-equal to the eager step's, allclose to
+    the reference's at rtol 1e-3)."""
+    import numpy as np
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, compute_dtype="float32")
+    report = {}
+    for layout in ("xwT", "block"):
+        for quantize in (None, "int8"):
+            label = f"{layout}" + (f"+{quantize}" if quantize else "")
+            model = pack_tree(build_model(cfg, device=DEVICE, seed=1),
+                              layout=layout, quantize=quantize)
+            entry, lg, tg = graph_vs_eager(model, cfg, label)
+            lr, tr = serve_collect(model, cfg, "reference")
+            if tg != tr:
+                raise AssertionError(f"{label}: graph cuda and reference "
+                                     f"tokens differ: {tg} vs {tr}")
+            worst = 0.0
+            for t, (a, b) in enumerate(zip(lg, lr)):
+                a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+                if not np.allclose(a, b, rtol=1e-3, atol=1e-3):
+                    raise AssertionError(
+                        f"{label} tick {t}: graph logits differ from the "
+                        f"reference's, max abs {np.abs(a - b).max()}")
+                worst = max(worst, float(np.abs(a - b).max()))
+            entry["tokens_equal_reference"] = True
+            entry["max_abs_logit_diff_vs_reference"] = worst
+            report[label] = entry
+    return report
+
+
+def flight_run(cfg):
+    """Phase 6f: ``launch.serve`` as a user runs it, at full width with
+    ``--profile-dir``, ``--flight-dir``, ``--slo-report`` and one forced
+    stall: exactly one flight dump, and the profiler trace holds the
+    kernels of every replay of the captured step by name (7 x layers of K1
+    on its bulk body for the warm-up step and each tick)."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch.serve import main as serve_main
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    flight, prof = (os.path.join(out_dir, d) for d in ("flight", "profile"))
+    metrics_out = os.path.join(out_dir, "metrics.json")
+    prev = obs.default_registry()
+    obs.set_default_registry(obs.MetricsRegistry())
+    try:
+        serve_main(["--arch", cfg.name, "--full", "--packed", "--requests",
+                    "4", "--max-new", "8", "--max-len", "64",
+                    "--profile-dir", prof, "--flight-dir", flight,
+                    "--force-stall", "--slo-report", "--metrics-out",
+                    metrics_out])
+        return read_flight_run(cfg, flight, prof, metrics_out)
+    finally:
+        obs.set_default_registry(prev)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def read_flight_run(cfg, flight, prof, metrics_out):
+    """Check what :func:`flight_run`'s serve program left behind."""
+    from repro_torch.obs.profile import TRACE_FILE
+    from repro_torch.serve.serve_loop import CAPTURE_WARMUP
+
+    dumps = sorted(os.listdir(flight))
+    if dumps != ["flight-0001-stall-serve_tick"]:
+        raise AssertionError(f"expected one stall dump, found {dumps}")
+    for f in ("rings.json", "metrics.json", "meta.json"):
+        if not os.path.exists(os.path.join(flight, dumps[0], f)):
+            raise AssertionError(f"flight dump without {f}")
+    with open(metrics_out) as f:
+        snap = json.load(f)
+    (tick_hist,) = [h for h in snap["histograms"]
+                    if h["name"] == "serve_tick_seconds"]
+    ticks = tick_hist["count"]
+    with open(os.path.join(prof, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kb = device_kernel_of(e.get("name", ""))
+            if kb is not None:
+                kernels[kb] = kernels.get(kb, 0) + 1
+    want = {("demm_xwT", "bulk"): 7 * cfg.num_layers * (CAPTURE_WARMUP
+                                                        + ticks)}
+    if kernels != want:
+        raise AssertionError(
+            f"profiler trace of {ticks} ticks holds DeMM kernels {kernels}: "
+            f"expected {want} (the warm-up step and every replay)")
+    graph_launches = sum(1 for e in events
+                         if "cudaGraphLaunch" in str(e.get("name", "")))
+    return {"ticks": ticks, "dumps": dumps,
+            "trace_kernels": sum(kernels.values()),
+            "graph_launches_in_trace": graph_launches,
+            "trace_bytes": os.path.getsize(os.path.join(prof, TRACE_FILE))}
+
+
+def profile_ticks(model, cfg, label, ticks=5, eager=False):
     """``--profile``: a steady window of decode ticks on 4 full slots, first
     on the host clock, then under ``torch.profiler``; prints the device-busy
     share and the kernels that take the device time, under ``label`` (the
-    serving mode)."""
+    serving mode).  ``eager`` runs the eager step in place of the graph."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import obs
     from repro_torch.core.sparse_linear import ExecPolicy
-    from repro_torch.serve import Request, ServeConfig, make_engine
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    engine = make_engine(model, ServeConfig(num_slots=4, max_len=64),
+    engine = ServeEngine(model, ServeConfig(num_slots=4, max_len=64),
                          policy=ExecPolicy(mode="packed", backend="cuda"),
-                         device=DEVICE, metrics=obs.MetricsRegistry())
+                         device=DEVICE, metrics=obs.MetricsRegistry(),
+                         _eager=eager)
     rng = np.random.default_rng(0)
     for i in range(4):
         engine.submit(Request(uid=i, max_new_tokens=50, prompt=rng.integers(
@@ -696,11 +921,14 @@ def profile_ticks(model, cfg, label, ticks=5):
     for _ in range(6):
         engine.step()
     torch.cuda.synchronize()
+    tok0 = engine._m_tokens.value
     t0 = time.perf_counter()
     for _ in range(ticks):
         engine.step()
     torch.cuda.synchronize()
     plain_tick_ms = 1e3 * (time.perf_counter() - t0) / ticks
+    tokens_per_s = (engine._m_tokens.value - tok0) / (plain_tick_ms * ticks
+                                                      / 1e3)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -715,7 +943,9 @@ def profile_ticks(model, cfg, label, ticks=5):
     dev.sort(key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in dev)
     report = {
-        "mode": label, "ticks": ticks, "tick_ms_unprofiled": plain_tick_ms,
+        "mode": label, "step": "eager" if eager else "graph",
+        "ticks": ticks, "tick_ms_unprofiled": plain_tick_ms,
+        "tokens_per_s_unprofiled": tokens_per_s,
         "tick_ms_profiled": wall_ms / ticks,
         "device_ms_per_tick": dev_ms / ticks,
         "device_busy_share_unprofiled": dev_ms / ticks / plain_tick_ms,
@@ -1240,7 +1470,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
                          "the four serving modes (both layouts, float and "
-                         "int8) with torch.profiler")
+                         "int8) with torch.profiler, the captured step and "
+                         "the eager step in turns")
     ap.add_argument("--stop-after", type=int, default=None, metavar="PHASE",
                     help="development aid: stop after this phase (3: build "
                          "and check the kernels only); prints no result line")
@@ -1301,7 +1532,7 @@ def main(argv=None) -> int:
     # 4./5. serve at full width, xwT layout; 4b/5b block layout on a fresh
     # model of the same seed (packing is in place)
     cfg = get_arch("stablelm_3b")
-    serve = {}
+    serve, graph, profiles = {}, {}, []
     for layout in ("xwT", "block"):
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
@@ -1314,20 +1545,22 @@ def main(argv=None) -> int:
         float_kernel, q8_kernel = (("demm_xwT", "demm_xwT_q8")
                                    if layout == "xwT" else
                                    ("demm_block_spmm", "demm_block_spmm_q8"))
-        t0 = time.time()
-        serve[float_kernel] = serve_full_width(
-            model, cfg, layout=layout, quantize=None, expect=float_kernel)
-        log(f"[4 serve] packed --layout {layout}, backend cuda "
-            f"({time.time() - t0:.1f} s with packing): "
-            f"{json.dumps(serve[float_kernel])}")
-        if args.profile:
-            profile_ticks(model, cfg, f"--layout {layout}")
-        serve[q8_kernel] = serve_full_width(
-            model, cfg, layout=layout, quantize="int8", expect=q8_kernel)
-        log(f"[5 serve q8] packed+int8 --layout {layout}, backend cuda: "
-            f"{json.dumps(serve[q8_kernel])}")
-        if args.profile:                 # the model is now quantized in place
-            profile_ticks(model, cfg, f"--layout {layout} --quantize int8")
+        for kernel, quantize in ((float_kernel, None), (q8_kernel, "int8")):
+            mode = f"--layout {layout}" + (f" --quantize {quantize}"
+                                           if quantize else "")
+            t0 = time.time()
+            # the model is packed (then quantized) in place
+            serve[kernel] = serve_full_width(
+                model, cfg, layout=layout, quantize=quantize, expect=kernel)
+            phase = "[5 serve q8]" if quantize else "[4 serve]"
+            log(f"{phase} packed {mode}, backend cuda ({time.time() - t0:.1f}"
+                f" s with packing): {json.dumps(serve[kernel])}")
+            graph[mode] = graph_vs_eager(model, cfg, mode)[0]
+            log(f"[{phase[1]}g graph] {json.dumps(graph[mode])}")
+            if args.profile:             # graph and eager, paired
+                for eager in (False, True, True, False):
+                    profiles.append(profile_ticks(model, cfg, mode,
+                                                  eager=eager))
         del model
         torch.cuda.empty_cache()
     spmm = spmm_path(gen)
@@ -1336,6 +1569,25 @@ def main(argv=None) -> int:
     # 6. backends agree end to end
     agree = check_backends_agree(get_arch("stablelm_3b"))
     log(f"[6 agree] cuda vs reference, 2 layers float32: {json.dumps(agree)}")
+    graph["2 layers float32"] = check_graph_modes(get_arch("stablelm_3b"))
+    log(f"[6g graph] graph vs eager vs reference, 2 layers float32, four "
+        f"modes: {json.dumps(graph['2 layers float32'])}")
+    if profiles:
+        log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
+            "| launches/tick | tokens/s")
+        for r in profiles:
+            log(f"[profile] {r['mode']} | {r['step']} | "
+                f"{r['tick_ms_unprofiled']:.3f} | "
+                f"{r['device_ms_per_tick']:.3f} | "
+                f"{100 * r['device_busy_share_unprofiled']:.1f} % | "
+                f"{r['device_launches_per_tick']:.0f} | "
+                f"{r['tokens_per_s_unprofiled']:.1f}")
+
+    # 6f. the serve program with its observability flags, a forced stall
+    t0 = time.time()
+    flight = flight_run(cfg)
+    log(f"[6f flight] launch.serve --full --profile-dir --flight-dir "
+        f"--force-stall ({time.time() - t0:.1f} s): {json.dumps(flight)}")
 
     # 7. times
     sweep = (8, 16, 24, 32, 48, 64) if args.sweep else ()
@@ -1392,7 +1644,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.time() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels, "serve": list(serve.values()),
-                    "spmm": spmm, "agree": agree}))
+                    "spmm": spmm, "agree": agree, "graph": graph,
+                    "flight": flight}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -19,16 +19,34 @@ versions.  ``--device`` defaults to ``cuda`` and the program refuses to start
 without a CUDA device; ``--device cpu`` runs on the CPU on purpose (reduced
 configs, tests).
 
+On a CUDA device the engine captures its decode step once as a CUDA graph
+and replays it every tick (``repro_torch.serve.serve_loop``).
+
 ``--temperature``/``--top-k`` select replay-safe coupled sampling (0 =
-greedy).  ``--metrics-out m.json`` writes the process-wide metrics snapshot
-after the drain (a ``.prom`` suffix selects Prometheus text exposition) and
-``--trace-out t.jsonl`` dumps the JSONL event trace.
+greedy).  ``--trace-replay trace.jsonl`` replays a
+``benchmarks/serve_bench.py`` trace at its logical arrival ticks, with prompt
+tokens derived deterministically from ``(--seed, uid)``, as the JAX package's
+serving program does.
+
+Observability (``repro_torch.obs``): ``--metrics-out m.json`` writes the
+process-wide metrics snapshot after the drain (a ``.prom`` suffix selects
+Prometheus text exposition), ``--trace-out t.jsonl`` dumps the JSONL event
+trace (``python -m repro_torch.obs.export t.jsonl --check`` converts it to a
+Perfetto trace and checks its request attribution), ``--profile-dir d/``
+wraps serving in a ``torch.profiler`` trace (``d/trace.json``),
+``--slo-report`` (or a deadline, ``--slo-ttft-ms`` / ``--slo-e2e-ms``)
+prints the SLO / goodput / phase-latency report, and ``--flight-dir d/``
+attaches a flight recorder whose tick watchdog dumps its event rings on a
+stall (``--watchdog-threshold``), a crash or SIGTERM; ``--force-stall``
+proves the stall -> dump path after the drain.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -42,12 +60,32 @@ from repro_torch.models.families import build_model
 from repro_torch.serve import Request, ServeConfig, make_engine
 
 
+def _load_trace(path: str):
+    """benchmarks/serve_bench.py trace format: JSONL rows of
+    {uid, arrival_tick, prompt_len, max_new[, priority]}."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                rows.append(json.loads(line))
+    return sorted(rows, key=lambda r: (r["arrival_tick"], r["uid"]))
+
+
+def _trace_prompt(seed: int, uid: int, length: int, vocab: int):
+    """Per-request deterministic prompt, replayable from (seed, uid) —
+    matches benchmarks/serve_bench.py so replays are comparable."""
+    return np.random.default_rng((seed, uid)).integers(
+        0, vocab, length, dtype=np.int32)
+
+
 def run_serve(model, vocab_size: int, *, packed: bool = True,
               layout: str = "xwT", quantize=None,
               granularity: str = "per_row", backend: str = "cuda",
               requests: int = 8, slots: int = 4, max_new: int = 16,
               max_len: int = 128, seed: int = 0, temperature: float = 0.0,
-              top_k: int = 0, device="cuda", metrics=None):
+              top_k: int = 0, device="cuda", metrics=None,
+              trace_replay=None, recorder=None):
     """Pack (optionally) and serve ``requests`` random prompts; returns the
     drained engine.  The reusable core of ``main()``.
 
@@ -56,7 +94,11 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     the CPU is used only when ``device="cpu"`` is passed.  ``packed=True``
     packs the model's sparse linears **in place** (``launch.pack_tree``).
     Prompt tokens are drawn with numpy from ``seed``, the same way the JAX
-    package's serving program draws them.
+    package's serving program draws them.  ``trace_replay`` submits a
+    serve_bench-format JSONL trace at its logical arrival ticks instead of
+    ``requests`` random prompts (prompt tokens from ``(seed, uid)``).
+    ``recorder`` (a :class:`~repro_torch.obs.FlightRecorder`) is attached
+    to the engine.
     """
     device = require_device(device)
     mode = "masked"
@@ -68,14 +110,33 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     serve_cfg = ServeConfig(num_slots=slots, max_len=max_len,
                             temperature=temperature, top_k=top_k, seed=seed)
     engine = make_engine(model, serve_cfg, policy=policy, device=device,
-                         metrics=metrics)
-    rng = np.random.default_rng(seed)
-    for i in range(requests):
-        prompt = rng.integers(0, vocab_size, rng.integers(4, 12),
-                              dtype=np.int32)
-        engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
-    t0 = time.time()
-    engine.drain_ticks = engine.run_until_drained()
+                         metrics=metrics, recorder=recorder)
+    if trace_replay:
+        rows = _load_trace(trace_replay)
+        t0 = time.time()
+        tick, i = 0, 0
+        while i < len(rows):
+            while i < len(rows) and rows[i]["arrival_tick"] <= tick:
+                r = rows[i]
+                engine.submit(Request(
+                    uid=r["uid"],
+                    prompt=_trace_prompt(seed, r["uid"], r["prompt_len"],
+                                         vocab_size),
+                    max_new_tokens=r["max_new"],
+                    priority=r.get("priority", 1)))
+                i += 1
+            engine.step()
+            tick += 1
+        engine.drain_ticks = tick + engine.run_until_drained()
+    else:
+        rng = np.random.default_rng(seed)
+        for i in range(requests):
+            prompt = rng.integers(0, vocab_size, rng.integers(4, 12),
+                                  dtype=np.int32)
+            engine.submit(Request(uid=i, prompt=prompt,
+                                  max_new_tokens=max_new))
+        t0 = time.time()
+        engine.drain_ticks = engine.run_until_drained()
     # decode-only wall time (packing / engine build excluded), so reported
     # tok/s stays comparable across runs
     engine.drain_seconds = time.time() - t0
@@ -131,7 +192,41 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the JSONL event trace (request lifecycle "
                          "spans/events) here")
+    ap.add_argument("--trace-replay", default=None, metavar="JSONL",
+                    help="replay this serve_bench-format trace ({uid, "
+                         "arrival_tick, prompt_len, max_new, priority} "
+                         "rows) at its logical ticks instead of --requests "
+                         "random prompts")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the serve run "
+                         "into DIR/trace.json (Perfetto / chrome://tracing)")
+    ap.add_argument("--slo-report", action="store_true",
+                    help="print the SLO / goodput / phase-latency report "
+                         "after the drain (repro_torch.obs.slo); implied by "
+                         "--slo-ttft-ms/--slo-e2e-ms")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="time-to-first-token deadline in ms; completed "
+                         "requests are judged pass/fail against it")
+    ap.add_argument("--slo-e2e-ms", type=float, default=None,
+                    help="end-to-end (submit -> complete) deadline in ms")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="attach a flight recorder (repro_torch.obs): "
+                         "bounded per-subsystem event rings + a tick stall "
+                         "watchdog; stalls, crashes, and SIGTERM dump "
+                         "rings+metrics+metadata here")
+    ap.add_argument("--watchdog-threshold", type=float, default=8.0,
+                    help="--flight-dir: declare a stall when tick silence "
+                         "exceeds this multiple of the EWMA tick interval "
+                         "(floored at 1s)")
+    ap.add_argument("--force-stall", action="store_true",
+                    help="--flight-dir: after the drain, stop beating the "
+                         "watchdog and wait for it to trip (proves the "
+                         "stall->dump path); exits nonzero if no dump "
+                         "appears")
     args = ap.parse_args(argv)
+    if args.force_stall and not args.flight_dir:
+        ap.error("--force-stall needs --flight-dir (there is no watchdog "
+                 "to trip without a flight recorder)")
     if args.quantize and not args.packed:
         ap.error("--quantize applies to the packed serving form; add "
                  "--packed")
@@ -152,6 +247,11 @@ def main(argv=None):
         ap.error(str(e))
 
     log = obs.get_logger("launch.serve")
+    recorder = None
+    if args.flight_dir:
+        recorder = obs.FlightRecorder(
+            args.flight_dir, watchdog_threshold=args.watchdog_threshold)
+        recorder.install_signal_handlers()
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -161,14 +261,20 @@ def main(argv=None):
         n, m = parse_tier(args.sparsity)
         cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(n, m, 1))
     model = build_model(cfg, device=device, seed=args.seed)
-    engine = run_serve(model, cfg.vocab_size, packed=args.packed,
-                       layout=args.layout, quantize=args.quantize,
-                       granularity=args.quantize_granularity,
-                       backend=args.backend, requests=args.requests,
-                       slots=args.slots, max_new=args.max_new,
-                       max_len=args.max_len, seed=args.seed,
-                       temperature=args.temperature, top_k=args.top_k,
-                       device=device)
+    profile_ctx = (obs.profile(args.profile_dir) if args.profile_dir
+                   else contextlib.nullcontext())
+    guard_ctx = (recorder.guard() if recorder is not None
+                 else contextlib.nullcontext())
+    with profile_ctx, guard_ctx:
+        engine = run_serve(model, cfg.vocab_size, packed=args.packed,
+                           layout=args.layout, quantize=args.quantize,
+                           granularity=args.quantize_granularity,
+                           backend=args.backend, requests=args.requests,
+                           slots=args.slots, max_new=args.max_new,
+                           max_len=args.max_len, seed=args.seed,
+                           temperature=args.temperature, top_k=args.top_k,
+                           device=device, trace_replay=args.trace_replay,
+                           recorder=recorder)
     dt = engine.drain_seconds
     mode = "packed" if args.packed else "masked"
     total_tokens = sum(len(r.output) for r in engine.completed)
@@ -180,12 +286,30 @@ def main(argv=None):
     for r in engine.completed[:3]:
         log.info(f"  req {r.uid}: prompt[:4]={r.prompt[:4].tolist()} "
                  f"-> {r.output[:8]}")
+    slo_cfg = obs.SLOConfig(ttft_ms=args.slo_ttft_ms, e2e_ms=args.slo_e2e_ms)
+    if args.slo_report or slo_cfg.enabled():
+        report = obs.slo_report(engine.completed, slo_cfg,
+                                metrics=engine.metrics)
+        log.info("slo report\n" + json.dumps(report, indent=2))
     if args.metrics_out:
         engine.metrics.write(args.metrics_out)
         log.info("wrote metrics snapshot", path=args.metrics_out)
     if args.trace_out:
         engine.metrics.trace.write(args.trace_out)
         log.info("wrote event trace", path=args.trace_out)
+    if args.profile_dir:
+        log.info("wrote profiler trace", dir=args.profile_dir)
+    if recorder is not None:
+        if args.force_stall:
+            # the drain is done, nothing beats the watchdog any more: the
+            # stall must be detected and dumped on its own
+            log.info("forcing a stall", flight_dir=args.flight_dir)
+            if not recorder.wait_for_dump(timeout=30.0):
+                recorder.close()
+                raise SystemExit(
+                    "--force-stall: no flight dump appeared within 30s")
+            log.info("flight dump written", dumps=recorder.dumps)
+        recorder.close()
 
 
 if __name__ == "__main__":

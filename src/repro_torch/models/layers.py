@@ -153,9 +153,27 @@ class Embedding(nn.Module):
     def __init__(self, table: torch.Tensor):
         super().__init__()
         self.table = nn.Parameter(table, requires_grad=False)
+        # dtype -> (table version, table storage, cast copy): the
+        # unembedding's cast of the table, made once per dtype rather than
+        # on every decode step, and made again if the table changes
+        self._casts = {}
 
     def forward(self, tokens):
         return self.table[tokens]
+
+    def table_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The table in ``dtype``, the same values ``table.to(dtype)``
+        gives, cast once and kept."""
+        t = self.table
+        if t.dtype == dtype:
+            return t
+        # an inference tensor has no version counter (nor can it change
+        # outside inference mode)
+        key = (None if t.is_inference() else t._version, t.data_ptr())
+        hit = self._casts.get(dtype)
+        if hit is None or hit[0] != key:
+            hit = self._casts[dtype] = (key, t.detach().to(dtype))
+        return hit[1]
 
 
 def init_embedding(vocab: int, d: int, *, generator: torch.Generator, device,
@@ -172,7 +190,7 @@ def apply_unembedding(emb: Embedding, x, true_vocab: Optional[int] = None):
     """Logits = x @ tableᵀ (a plain dense product).  When the table is padded
     (padded_vocab > true_vocab), the padded columns are masked to a large
     negative so greedy decode can never select them."""
-    logits = x @ emb.table.to(x.dtype).T
+    logits = x @ emb.table_as(x.dtype).T
     if true_vocab is not None and true_vocab < logits.shape[-1]:
         logits[..., true_vocab:] = -1e30
     return logits

@@ -17,7 +17,14 @@ metadata stamp):
 * :mod:`repro_torch.obs.log`     — level-filtered structured logger used by
   the ``launch/`` programs.
 * :mod:`repro_torch.obs.profile` — ``annotate(name)`` names DeMM kernels on
-  profiler timelines through NVTX ranges.
+  profiler timelines through NVTX ranges; ``profile(trace_dir)`` writes a
+  ``torch.profiler`` Chrome/Perfetto trace of the enclosed region.
+* :mod:`repro_torch.obs.slo`     — per-request phase attribution, goodput /
+  wasted-token accounting, SLO pass-fail reports.
+* :mod:`repro_torch.obs.recorder` — :class:`FlightRecorder` (bounded
+  per-subsystem event rings + stall watchdogs + crash/signal dumps).
+* :mod:`repro_torch.obs.export`  — JSONL trace → Perfetto/Chrome trace JSON
+  (``python -m repro_torch.obs.export``).
 
 The process-wide default registry (:func:`metrics`) is what the kernel
 dispatch counters and the serve engine share by default, so
@@ -41,16 +48,21 @@ from repro_torch.obs.metrics import (
     run_metadata,
     set_default_registry,
 )
-from repro_torch.obs.profile import annotate
+from repro_torch.obs.profile import annotate, profile, profiling_active
+from repro_torch.obs.recorder import FlightRecorder, Watchdog
 from repro_torch.obs.sketch import QuantileSketch
+from repro_torch.obs.slo import (SLOConfig, phase_sketches, request_phases,
+                                 slo_report)
 from repro_torch.obs.trace import EventTrace, Span
 
 __all__ = [
-    "DEFAULT_TIME_BUCKETS", "Counter", "EventTrace", "Gauge", "Histogram",
-    "LEVELS", "MetricsRegistry", "QuantileSketch", "Span",
-    "StructuredLogger", "TraceContext", "annotate", "current_context",
-    "default_registry", "event", "get_logger", "metrics", "new_trace_id",
-    "run_metadata", "set_default_registry", "use_context",
+    "DEFAULT_TIME_BUCKETS", "Counter", "EventTrace", "FlightRecorder",
+    "Gauge", "Histogram", "LEVELS", "MetricsRegistry", "QuantileSketch",
+    "SLOConfig", "Span", "StructuredLogger", "TraceContext", "Watchdog",
+    "annotate", "current_context", "default_registry", "event",
+    "get_logger", "metrics", "new_trace_id", "phase_sketches", "profile",
+    "profiling_active", "request_phases", "run_metadata",
+    "set_default_registry", "slo_report", "use_context",
 ]
 
 

@@ -18,13 +18,16 @@ __all__ = ["Engine", "EngineBase", "Request", "ServeConfig", "ServeEngine",
 
 
 def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
-                plan=None, replicas: int = 1, spec=None):
+                plan=None, replicas: int = 1, spec=None, recorder=None):
     """Build a serving engine for ``config`` on ``device``.
 
     * ``config`` — :class:`ServeConfig` selects the dense-cache
       :class:`ServeEngine`.
     * ``device`` — defaults to ``"cuda"`` and raises when no CUDA device is
-      present; the CPU is used only when asked for by name.
+      present; the CPU is used only when asked for by name.  A CUDA engine
+      runs its decode step as a captured CUDA graph.
+    * ``recorder`` — a :class:`~repro_torch.obs.FlightRecorder` the engine
+      attaches to (event rings + a tick stall watchdog).
     * ``plan`` / ``replicas`` > 1 / ``spec`` and a ``PagedServeConfig`` name
       parts of the system that are not ported yet.
     """
@@ -46,4 +49,4 @@ def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
             f"make_engine: unknown config type {type(config).__name__!r} "
             "(expected ServeConfig)")
     return ServeEngine(model, config, policy=policy, metrics=metrics,
-                       device=device)
+                       device=device, recorder=recorder)

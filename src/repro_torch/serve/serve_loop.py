@@ -15,6 +15,24 @@ Each tick runs the decode step under ``torch.inference_mode()`` and
 synchronises with the device once, when it pulls the logits (and the slot
 positions) to the host; sampling happens there.
 
+The compiled step.  The JAX package compiles the decode step into one
+program (``jax.jit``).  Its counterpart here is a CUDA graph: a CUDA engine
+captures ``model.decode_step`` once, at its first tick (under the first
+lane's trace context, where the JAX package traces), after one eager
+warm-up step on a side stream that builds the kernels and runs their
+one-off set-up; it then restores the decode state to what
+``init_decode_state`` made and replays the graph on every tick.  The graph
+reads and writes static tensors that live as long as the engine: the next
+tokens (filled each tick from a pinned host buffer), the KV caches, the
+slot positions ``state["pos"]`` (the captured region writes the advanced
+positions back into that same tensor) and the logits it leaves.  A failure
+to capture or replay raises; the engine never runs the step eagerly in its
+place.  ``ServeEngine(_eager=True)`` runs the eager step on the card as a
+measurement and test hook.  The CPU engine is always eager.  Host-side
+counters (``kernel_dispatch_total``, the kernels' ``launches``) move during
+the warm-up and the capture only, not on replays: the JAX package's
+once-per-trace meaning.
+
 Sampling: ``ServeConfig(temperature=, top_k=, seed=)`` selects the replay-safe
 coupled sampler (``repro_torch.spec.sampling``) — greedy argmax at
 ``temperature == 0``.
@@ -26,7 +44,9 @@ per-token decode latency, time-to-first-token, tick duration histograms;
 slot-occupancy and tokens/sec gauges; request/token counters — and emits
 ``request_submit`` / ``request_claim`` / ``request_first_token`` /
 ``request_complete`` events plus one ``request`` span per request on the
-registry's event trace.
+registry's event trace.  ``ServeEngine(recorder=)`` attaches a
+:class:`~repro_torch.obs.FlightRecorder`, whose tick watchdog ``step()``
+beats first thing (on the host, outside the graph).
 """
 
 from __future__ import annotations
@@ -43,6 +63,9 @@ from repro_torch import obs
 from repro_torch.device import require_device
 from repro_torch.serve.protocol import EngineBase
 
+# eager steps a CUDA engine runs on a side stream before it captures its step
+CAPTURE_WARMUP = 1
+
 
 @dataclasses.dataclass
 class Request:
@@ -50,6 +73,7 @@ class Request:
     prompt: np.ndarray          # (T,) int32
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    priority: int = 1           # 0 = highest; a scheduler's policy
     # filled by the engine:
     output: Optional[list] = None
     # lifecycle timestamps (time.monotonic seconds), filled by the engine:
@@ -59,6 +83,12 @@ class Request:
     complete_ts: Optional[float] = None
     # correlates every trace event emitted on this request's behalf
     trace_id: Optional[str] = None
+    # waste / phase attribution (repro_torch.obs.slo):
+    preempts: int = 0                 # times evicted by a paged scheduler
+    wasted_prefill_tokens: int = 0    # tokens re-ingested after preemption
+    rejected_draft_tokens: int = 0    # draft proposals the verifier threw away
+    preempt_overhead_s: float = 0.0   # evict -> resumed-re-prefill round trips
+    preempt_ts: Optional[float] = None   # open preemption episode start
 
 
 @dataclasses.dataclass
@@ -72,7 +102,7 @@ class ServeConfig:
 
 class ServeEngine(EngineBase):
     def __init__(self, model, cfg: ServeConfig, *, policy=None, metrics=None,
-                 device="cuda"):
+                 device="cuda", recorder=None, _eager: bool = False):
         from repro_torch.core.sparse_linear import resolve_policy
         from repro_torch.spec.sampling import ReplaySafeSampler
 
@@ -88,10 +118,19 @@ class ServeEngine(EngineBase):
         self.state = model.init_decode_state(
             cfg.num_slots, cfg.max_len, dtype=torch.float32,
             device=model.device)
+        # the next tokens: the host loop writes ``_next_tok``, a numpy view
+        # of a (pinned, on a CUDA engine) host buffer that is copied into
+        # the step's static input each tick (on the CPU they are one tensor)
+        self._tok_host = torch.zeros((cfg.num_slots, 1), dtype=torch.int64,
+                                     pin_memory=self.device.type == "cuda")
+        self._next_tok = self._tok_host.numpy()
+        self._tokens = self._tok_host.to(self.device)
+        self._use_graph = self.device.type == "cuda" and not _eager
+        self._graph = None       # captured at the first tick
+        self._logits = None      # the graph's logits output (slots, V) f32
         self.queue: deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * cfg.num_slots
         self._fed: List[int] = [0] * cfg.num_slots    # prompt tokens fed
-        self._next_tok = np.zeros((cfg.num_slots, 1), np.int64)
         self.completed: List[Request] = []
         self.last_logits: Optional[np.ndarray] = None  # (slots, V) of last tick
         self.sampler = ReplaySafeSampler(temperature=cfg.temperature,
@@ -135,6 +174,7 @@ class ServeEngine(EngineBase):
         self._sk_e2e = m.sketch(
             "serve_e2e_seconds_sketch",
             help="submit -> completion (quantile sketch)")
+        self._setup_recorder(recorder)
 
     def submit(self, req: Request):
         req.output = []
@@ -186,8 +226,10 @@ class ServeEngine(EngineBase):
     def step(self) -> int:
         """One engine tick: one decode step for the whole batch.  Returns the
         number of active slots.  The whole tick runs in inference mode (the
-        slot reset rewrites state tensors that the decode step produced)."""
+        slot reset and the step rewrite the engine's state tensors in
+        place).  The flight recorder's watchdog is beaten first."""
         t_tick = time.perf_counter()
+        self._beat()
         self._claim_slots()
         lanes = [i for i, r in enumerate(self.active) if r is not None]
         self._m_slots.set(len(lanes))
@@ -199,11 +241,9 @@ class ServeEngine(EngineBase):
         t0 = time.perf_counter()
         # batched dispatch: attributed to the first active lane's request
         with obs.use_context(self._request_context(self.active[lanes[0]])):
-            tokens = torch.from_numpy(self._next_tok).to(self.model.device)
-            logits, self.state = self.model.decode_step(
-                self.state, tokens, policy=self.policy)
+            logits = self._run_step()
             # the tick's one device sync: logits and positions to the host
-            logits = logits[:, 0].to(torch.float32).cpu().numpy()
+            logits = logits.cpu().numpy()
             pos = self.state["pos"].cpu().numpy()
         self.last_logits = logits
         step_dt = time.perf_counter() - t0
@@ -237,6 +277,59 @@ class ServeEngine(EngineBase):
         self._m_slots.set(sum(r is not None for r in self.active))
         self._m_tick.observe(time.perf_counter() - t_tick)
         return sum(r is not None for r in self.active)
+
+    def _run_step(self) -> torch.Tensor:
+        """One decode step of the whole batch from ``_next_tok``: a replay
+        of the captured graph on a CUDA engine (captured here at the first
+        tick), else the eager step.  Returns the logits (slots, V) float32
+        on the device."""
+        if self._tokens is not self._tok_host:
+            # pinned -> device; the host buffer is next written after this
+            # tick's device sync, so the copy need not block
+            self._tokens.copy_(self._tok_host, non_blocking=True)
+        if not self._use_graph:
+            return self._decode()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        return self._logits
+
+    def _decode(self) -> torch.Tensor:
+        """The decode step on the engine's static tensors: the KV caches
+        are written in place and the advanced positions are copied back
+        into ``state["pos"]``, so the step reads and writes the same tensors
+        every time (what a CUDA graph needs)."""
+        logits, new = self.model.decode_step(self.state, self._tokens,
+                                             policy=self.policy)
+        self.state["pos"].copy_(new["pos"])
+        return logits[:, 0].to(torch.float32)
+
+    def _capture(self, warmup: int = CAPTURE_WARMUP):
+        """Capture :meth:`_decode` into a CUDA graph, once per engine.
+
+        ``warmup`` eager steps on a side stream first build the kernel
+        library and run every launcher's one-off set-up (shared-memory
+        opt-ins, cached device attributes), as ``torch.cuda.graphs``
+        documents.  They advance the positions and write KV rows, so the
+        decode state is restored afterwards to what ``init_decode_state``
+        made.  Any failure raises."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                self._decode()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits = self._decode()
+        fresh = self.model.init_decode_state(
+            self.cfg.num_slots, self.cfg.max_len, dtype=torch.float32,
+            device=dev)
+        for name in ("k", "v"):
+            self.state["caches"][name].copy_(fresh["caches"][name])
+        self.state["pos"].copy_(fresh["pos"])
+        self._graph, self._logits = graph, logits
 
     def run_until_drained(self, max_ticks: int = 10000):
         ticks = 0

@@ -458,3 +458,156 @@ def test_reduced_serving_cuda_equals_reference(card, quantize, layout):
         outs[backend] = {r.uid: r.output for r in eng.completed}
         assert np.isfinite(eng.last_logits[:, :cfg.vocab_size]).all()
     assert outs["cuda"] == outs["reference"]
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step (a CUDA engine replays one CUDA graph per tick)
+# ---------------------------------------------------------------------------
+
+def _graph_model(card, *, layout, quantize, dtype):
+    from repro_torch.launch.pack_tree import pack_tree
+
+    cfg = dataclasses.replace(get_arch("stablelm_3b").reduced(),
+                              compute_dtype=dtype)
+    model = pack_tree(build_model(cfg, device=card, seed=0), layout=layout,
+                      quantize=quantize)
+    return model, cfg
+
+
+def _collect(model, cfg, *, backend, eager=False, slots=2, max_len=32,
+             temperature=0.0, top_k=0, prompts=None, max_new=5):
+    """Serve ``prompts`` (default: three random ones) and keep every tick's
+    logits; returns (engine, [logits per tick], {uid: tokens})."""
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    eng = ServeEngine(model, ServeConfig(num_slots=slots, max_len=max_len,
+                                         temperature=temperature,
+                                         top_k=top_k, seed=0),
+                      policy=ExecPolicy(mode="packed", backend=backend),
+                      device="cuda", metrics=obs.MetricsRegistry(),
+                      _eager=eager)
+    if prompts is None:
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab_size, rng.integers(3, 7),
+                                dtype=np.int32) for _ in range(3)]
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=max_new))
+    logits = []
+    while eng.queue or any(r is not None for r in eng.active):
+        eng.step()
+        logits.append(eng.last_logits.copy())
+    return eng, logits, {r.uid: list(r.output) for r in eng.completed}
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8, top_k=8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+def test_graph_step_equals_eager_step_and_reference(card, layout, quantize,
+                                                    dtype, sampling):
+    """The captured step gives the eager step's logits bit for bit on every
+    tick and its tokens; in float32 compute also backend ``reference``'s
+    tokens (bfloat16 rounds differently in the plain versions)."""
+    model, cfg = _graph_model(card, layout=layout, quantize=quantize,
+                              dtype=dtype)
+    eng, lg, tg = _collect(model, cfg, backend="cuda", **sampling)
+    _, le, te = _collect(model, cfg, backend="cuda", eager=True, **sampling)
+    _, le2, _ = _collect(model, cfg, backend="cuda", eager=True, **sampling)
+    assert eng._graph is not None and eng._use_graph
+    assert all(np.array_equal(a, b) for a, b in zip(le, le2)), \
+        "the eager step is not deterministic"
+    assert len(lg) == len(le)
+    for t, (a, b) in enumerate(zip(lg, le)):
+        assert np.array_equal(a, b), (t, np.abs(a - b).max())
+    assert tg == te and len(tg) == 3
+    if dtype == "float32":
+        _, lr, tr = _collect(model, cfg, backend="reference", **sampling)
+        assert tg == tr
+        for a, b in zip(lg, lr):
+            np.testing.assert_allclose(a[:, :cfg.vocab_size],
+                                       b[:, :cfg.vocab_size], rtol=1e-3,
+                                       atol=1e-3)
+
+
+def test_graph_slot_reuse_decodes_as_a_fresh_engine(card):
+    model, cfg = _graph_model(card, layout="xwT", quantize=None,
+                              dtype="bfloat16")
+    rng = np.random.default_rng(5)
+    p1, p2 = (rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+              for n in (7, 4))
+    eng, _, out = _collect(model, cfg, backend="cuda", slots=1,
+                           prompts=[p1, p2], max_new=6)
+    _, _, fresh = _collect(model, cfg, backend="cuda", slots=1,
+                           prompts=[p2], max_new=6)
+    assert out[1] == fresh[0]
+    assert eng.completed[1].output == fresh[0]
+
+
+def test_graph_pos_advances_by_one_per_replay(card):
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.kernels.demm_xwT import demm_xwT
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    model, cfg = _graph_model(card, layout="xwT", quantize=None,
+                              dtype="bfloat16")
+    eng = ServeEngine(model, ServeConfig(num_slots=3, max_len=32),
+                      policy=ExecPolicy(mode="packed", backend="cuda"),
+                      device="cuda", metrics=obs.MetricsRegistry())
+    pos = eng.state["pos"]
+    eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32) + 5,
+                       max_new_tokens=20))
+    eng.step()                                   # capture + first replay
+    graph = eng._graph
+    assert pos.tolist() == [1, 1, 1]            # idle slots advance too
+    launches = demm_xwT.launches
+    for t in range(2, 8):
+        eng.step()
+        assert eng._graph is graph and eng.state["pos"] is pos
+        assert pos.tolist() == [t, t, t]
+    assert demm_xwT.launches == launches        # replays never call a wrapper
+    eng.submit(Request(uid=1, prompt=np.arange(3, dtype=np.int32),
+                       max_new_tokens=2))
+    eng.step()                                   # claims slot 1 (reset to 0)
+    assert pos.tolist() == [8, 1, 8]
+
+
+def test_capture_restores_the_initial_state_and_failures_raise(card):
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    model, cfg = _graph_model(card, layout="block", quantize=None,
+                              dtype="bfloat16")
+
+    def engine():
+        return ServeEngine(model, ServeConfig(num_slots=2, max_len=16),
+                           policy=ExecPolicy(mode="packed", backend="cuda"),
+                           device="cuda", metrics=obs.MetricsRegistry())
+
+    eng = engine()
+    with torch.inference_mode():
+        eng._capture(warmup=2)
+    fresh = model.init_decode_state(2, 16, dtype=torch.float32, device=card)
+    for name in ("k", "v"):
+        assert torch.equal(eng.state["caches"][name], fresh["caches"][name])
+    assert torch.equal(eng.state["pos"], fresh["pos"])
+    # a step that cannot be captured raises; nothing runs it eagerly instead
+    eng = engine()
+    decode = model.decode_step
+
+    def unsafe(state, tokens, **kw):
+        torch.cuda.synchronize()                 # not allowed in a capture
+        return decode(state, tokens, **kw)
+
+    model.decode_step = unsafe
+    try:
+        eng.submit(Request(uid=0, prompt=np.arange(3, dtype=np.int32),
+                           max_new_tokens=2))
+        with pytest.raises(RuntimeError):
+            eng.step()
+        assert eng._graph is None and eng.completed == []
+    finally:
+        del model.decode_step

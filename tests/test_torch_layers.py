@@ -77,6 +77,32 @@ def test_unembedding_masks_padded_columns():
                                       jnp.asarray(toks))))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_unembedding_keeps_its_cast_table_and_logits_stay_bit_equal(dtype):
+    """The table is cast to the activation dtype once per model and dtype,
+    not on every decode step: the logits are bit-equal to the per-step cast
+    (what the JAX package's ``table.astype(x.dtype)`` does), and a table
+    changed in place is cast again."""
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((96, 32)).astype(np.float32)
+    emb = tl.Embedding(_t(table))
+    for step in range(3):
+        x = _t(rng.standard_normal((4, 1, 32)).astype(np.float32)).to(dtype)
+        want = x @ emb.table.to(dtype).T
+        want[..., 90:] = -1e30
+        got = tl.apply_unembedding(emb, x, 90)
+        assert got.dtype == dtype and torch.equal(got, want)
+        cast = emb.table_as(dtype)
+        assert emb.table_as(dtype) is cast          # kept, not recast
+        assert (cast is emb.table) == (dtype == torch.float32)
+        if step == 1:
+            with torch.no_grad():
+                emb.table.mul_(2)                    # changed in place
+            assert emb.table_as(dtype) is not cast or dtype == torch.float32
+            assert torch.equal(emb.table_as(dtype), emb.table.to(dtype))
+
+
 def _linear_pair(rng, out_f, in_f, cfg):
     w = rng.standard_normal((out_f, in_f)).astype(np.float32) * in_f ** -0.5
     jnode = {"w": jnp.asarray(w)}

@@ -7,6 +7,8 @@ two-level ``block``), and sampled at temperature 0.8 / top-k 8
 bf16 logit grids flip argmax ties between programs.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -126,3 +128,108 @@ def test_unported_engine_options_raise(setup):
         make_engine(model, PagedServeConfig(), device="cpu")
     with pytest.raises(TypeError):
         make_engine(model, object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# trace replay + flight recorder + SLO report: the serving loop in full
+# ---------------------------------------------------------------------------
+
+TRACE = "benchmarks/traces/tiny_trace.jsonl"
+
+
+def _replay(run, recorder_cls, registry_cls, obs_mod, tmp, *args, **kw):
+    """One trace replay with its own default registry and a flight
+    recorder; returns (engine, registry, recorder), the recorder closed."""
+    reg = registry_cls()
+    prev = obs_mod.default_registry()
+    obs_mod.set_default_registry(reg)
+    rec = recorder_cls(str(tmp), metrics=reg)
+    try:
+        eng = run(*args, trace_replay=TRACE, recorder=rec, **kw)
+    finally:
+        rec.close()
+        obs_mod.set_default_registry(prev)
+    return eng, reg, rec
+
+
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+def test_trace_replay_with_recorder_matches_jax(setup, tmp_path, layout):
+    from repro.obs import slo as jslo
+    from repro_torch.obs import export as texport
+    from repro_torch.obs import slo as tslo
+
+    jcfg, tcfg, jmodel, params = setup
+    kw = dict(packed=True, layout=layout, backend="reference", slots=4,
+              max_len=96, seed=5)
+    jeng, _, jrec = _replay(jax_run_serve, jobs.FlightRecorder,
+                            jobs.MetricsRegistry, jobs, tmp_path / "j",
+                            jmodel, params, jcfg.vocab_size, **kw)
+    teng, treg, trec = _replay(run_serve, tobs.FlightRecorder,
+                               tobs.MetricsRegistry, tobs, tmp_path / "t",
+                               to_torch_model(params, tcfg),
+                               tcfg.vocab_size, device="cpu", **kw)
+    want, got = _streams(jeng), _streams(teng)
+    assert len(got) == 12 and got == want
+    # the CPU engine stays eager: nothing captured
+    assert teng._graph is None and not teng._use_graph
+    # every tick beat the watchdog first; no stall, so no dump
+    assert teng._watchdog.beats == teng.drain_ticks > 0
+    assert jeng._watchdog.beats == teng._watchdog.beats
+    assert trec.dumps == jrec.dumps == []
+    assert not teng._watchdog._thread.is_alive()
+    # the recorder's serve ring holds the engine's lifecycle events
+    assert {e["name"] for e in trec.rings["serve"]} >= {
+        "request_submit", "request_claim", "request_first_token",
+        "request_complete"}
+    # every dispatch and lifecycle event carries a submitted request's id
+    assert texport.check_propagation(treg.trace.events) == []
+    by_uid = {r.uid: r for r in jeng.completed}
+    for r in teng.completed:
+        assert tslo.request_tokens(r) == jslo.request_tokens(by_uid[r.uid])
+        assert r.priority == by_uid[r.uid].priority
+    tr = tslo.slo_report(teng.completed)
+    jr = jslo.slo_report(jeng.completed)
+    assert tr["goodput"] == jr["goodput"]
+    assert (tr["requests"], tr["completed"]) == (jr["requests"],
+                                                 jr["completed"]) == (12, 12)
+    assert tr["phases"].keys() == jr["phases"].keys()
+
+
+def test_trace_prompt_and_load_match_jax():
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+
+    assert tserve._load_trace(TRACE) == jserve._load_trace(TRACE)
+    for uid in range(4):
+        np.testing.assert_array_equal(tserve._trace_prompt(3, uid, 7, 500),
+                                      jserve._trace_prompt(3, uid, 7, 500))
+
+
+def test_cli_trace_replay_slo_report_and_forced_stall(tmp_path, caplog,
+                                                      capsys):
+    from repro_torch.launch.serve import main
+    from repro_torch.obs.export import check_propagation, load_events
+
+    flight = tmp_path / "flight"
+    trace_out = tmp_path / "t.jsonl"
+    prev = tobs.default_registry()
+    tobs.set_default_registry(tobs.MetricsRegistry())
+    try:
+        main(["--device", "cpu", "--packed", "--trace-replay", TRACE,
+              "--slo-report", "--slo-ttft-ms", "1e6", "--flight-dir",
+              str(flight), "--force-stall", "--trace-out", str(trace_out),
+              "--profile-dir", str(tmp_path / "prof")])
+    finally:
+        tobs.set_default_registry(prev)
+    dumps = sorted(os.listdir(flight))
+    assert dumps == ["flight-0001-stall-serve_tick"]
+    assert sorted(os.listdir(flight / dumps[0])) == [
+        "meta.json", "metrics.json", "rings.json"]
+    _, events = load_events(str(trace_out))
+    assert check_propagation(events) == []
+    assert (tmp_path / "prof" / "trace.json").exists()
+    out = capsys.readouterr()
+    text = out.out + out.err + caplog.text
+    assert '"attainment": 1.0' in text
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--force-stall"])   # needs --flight-dir
