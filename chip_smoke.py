@@ -83,6 +83,30 @@ unless all of them held:
               exactly one stall dump, and the profiler's trace holds the
               kernels of the warm-up step and of every graph replay by name
               (7 x 32 x (1 + ticks) of K1 on its bulk body).
+   6p paged — ``repro_torch.launch.serve --full --packed --paged`` replaying
+              the committed tiny trace with priorities on 16 pages of 8
+              tokens: all 12 requests complete, at least one preemption.
+8. paged    — in each of the four modes, on phase 4/5's packed model: the
+              paged engine (``make_engine(model, PagedServeConfig(...))``;
+              4 slots, pages of 16, max_len 512, chunks of 32) serves 8
+              prompts of 40-400 tokens (each ending on a partial chunk), 16
+              new tokens each.  Counted from reset to drain: one capture of
+              the prefill chunk and one of the decode step; the wrappers
+              launch the mode's kernel 7 x 32 x 2 times for each program
+              (warm-up + capture; the chunk's x of 32 rows on the gather
+              body, the step's on its serving body), nothing else; chunks
+              dispatched = sum of ceil(len / 32).  A second pass on the
+              same engine gives TTFT per request and prompt tokens/s;
+              profiled windows show 224 gather-body launches of the kernel
+              per chunk replay and 224 serving-body launches per decode
+              replay on the device, with device time, busy share and the
+              kernels that take it; the page gather is timed alone; the
+              dense engine ingests the same prompts token by token for
+              comparison; and both captured programs give the eager
+              programs' logits bit for bit (4 of the prompts).
+   8g       — 2 layers, float32, the four modes: paged tokens equal the
+              dense engine's and backend ``reference``'s (logits allclose,
+              rtol 1e-3), and a 13-page arena preempts and keeps the tokens.
 7. times    — per kernel and shape at Bx = 4 with bfloat16 activations (what
               the main path launches; K5 at Cd = 4 and 256): CUDA-event
               medians of the kernel over a ring of weight copies larger than
@@ -98,12 +122,17 @@ unless all of them held:
               is printed on a line of its own, outside the ``kernels`` line,
               as is the launch floor: an empty kernel at K1's and K3's bulk
               grids and an empty cluster launch at K2's, timed the same way.
+   7p       — K1-K4 at x of 32 rows, as a prefill chunk launches them, each
+              asserted to run its gather body: the same timing rows
+              (``prefill_bx32`` of each kernel in the ``kernels`` line).
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
-"flight": {...}}`` (per kernel: wrapper launches on its path, error, times,
-bound; per serve run: ticks, decode-step time, tokens/s, device launches per
-replay), and one JSON object ``{"ok": true, "device": ...}``.
+"flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...}}``
+(per kernel: wrapper launches on the dense and the paged path, error, times,
+bound, its gather body at Bx = 32; per serve run: ticks, decode-step time,
+tokens/s, device launches per replay), and one JSON object ``{"ok": true,
+"device": ...}``.
 
 ``--profile`` also profiles a steady window of decode ticks of the four
 serving modes, the captured step and the eager step in turns (graph, eager,
@@ -121,6 +150,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -959,6 +989,456 @@ def profile_ticks(model, cfg, label, ticks=5, eager=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the paged engine (chunked prefill and decode, two captured graphs)
+# ---------------------------------------------------------------------------
+
+PAGED = dict(num_slots=4, max_len=512, page_size=16, prefill_chunk=32)
+PAGED_REQUESTS, PAGED_NEW = 8, 16
+# the body each serving kernel runs in a prefill chunk: x of 32 rows
+PREFILL_BODY = "gather"
+
+
+def paged_prompts(vocab, n=PAGED_REQUESTS, seed=11, lo=40, hi=400,
+                  chunk=PAGED["prefill_chunk"]):
+    """``n`` prompts of ``lo`` to ``hi`` tokens from a seeded generator, none
+    a multiple of the chunk: every request takes several chunks and ends on
+    a partial one."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n)
+    lengths[lengths % chunk == 0] += 1
+    return [rng.integers(0, vocab, int(t), dtype=np.int32) for t in lengths]
+
+
+def paged_engine(model, backend="cuda", eager=False, **cfg):
+    """A paged engine through ``make_engine`` (as a user builds one), or the
+    eager-programs measurement hook."""
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.paged import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import make_engine
+
+    config = PagedServeConfig(**{**PAGED, **cfg})
+    policy = ExecPolicy(mode="packed", backend=backend)
+    if eager:
+        return PagedServeEngine(model, config, policy=policy, device=DEVICE,
+                                metrics=obs.MetricsRegistry(), _eager=True)
+    return make_engine(model, config, policy=policy, device=DEVICE,
+                       metrics=obs.MetricsRegistry())
+
+
+def submit_all(engine, prompts, max_new, uid0=0):
+    from repro_torch.serve import Request
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=max_new))
+
+
+def drain_recording(engine, prompts, max_new):
+    """Serve ``prompts`` (uid = index) to the end, keeping every logits row
+    the sampler reads, in call order, as (program, uid, position, row):
+    ``"prefill"`` for a request's last chunk, ``"decode"`` for a decode
+    step's lane.  (The rows of masked lanes are not kept: they may read the
+    null page, whose content is not deterministic.)  Returns (that list,
+    {uid: tokens})."""
+    import numpy as np
+
+    seen, program = [], ["decode"]
+    finish, sample = engine._finish_prefill, engine.sampler.sample
+
+    def in_prefill(*args):
+        program[0] = "prefill"
+        try:
+            return finish(*args)
+        finally:
+            program[0] = "decode"
+
+    def record(logits, uid, pos):
+        seen.append((program[0], uid, pos, np.array(logits, copy=True)))
+        return sample(logits, uid, pos)
+
+    engine._finish_prefill = in_prefill
+    engine.sampler = types.SimpleNamespace(sample=record)  # (a frozen dataclass)
+    submit_all(engine, prompts, max_new)
+    engine.run_until_drained()
+    del engine._finish_prefill              # no reference cycle left
+    return seen, {r.uid: list(r.output) for r in engine.completed}
+
+
+def pass_report(engine, requests, t0, t1):
+    """Time to first token per request (ms, by uid), prompt tokens per
+    second until the last first token, and tokens per second over the pass
+    [t0, t1] (host clock) of ``requests``."""
+    reqs = sorted(requests, key=lambda r: r.uid)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    last_first = max(r.first_token_ts for r in reqs)
+    first_submit = min(r.submit_ts for r in reqs)
+    return {
+        "ttft_ms": [1e3 * (r.first_token_ts - r.submit_ts) for r in reqs],
+        "prompt_tokens": prompt_tokens,
+        "prompt_tokens_per_s": prompt_tokens / (last_first - first_submit),
+        "drain_s": t1 - t0,
+        "tokens_per_s": sum(len(r.output) for r in reqs) / (t1 - t0),
+    }
+
+
+def profiled_window(engine, ticks):
+    """``ticks`` engine ticks under ``torch.profiler``: device ms, DeMM
+    device launches by (kernel, body), the program dispatches in the window
+    and the kernels that take the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    p0, d0 = engine.prefill.dispatches, engine._m_disp_decode.value
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"prefill_dispatches": engine.prefill.dispatches - p0,
+            "decode_dispatches": int(engine._m_disp_decode.value - d0),
+            "device_ms": sum(r[1] for r in rows),
+            "device_launches": sum(r[2] for r in rows),
+            "demm": device_kernel_counts(prof),
+            "top": [{"name": k[:70], "ms": t, "calls": c}
+                    for k, t, c in rows[:14]]}
+
+
+def paged_windows(engine, cfg, expect):
+    """On a drained engine whose programs are captured: 4 requests of 129
+    prompt tokens (5 chunks each) and 50 new tokens.  Tick 1 (host clock,
+    synchronised) and tick 2 (profiled) run 4 non-final chunks each and no
+    decode step; once all 4 decode, 5 ticks on the host clock and 5 under
+    the profiler.  Each prefill replay must launch the mode's kernel 7 x
+    layers times on the gather body and each decode replay 7 x layers times
+    on its serving body, on the device, and no other DeMM kernel."""
+    import numpy as np
+    import torch
+
+    per = 7 * cfg.num_layers
+    rng = np.random.default_rng(5)
+    submit_all(engine, [rng.integers(0, cfg.vocab_size, 129, dtype=np.int32)
+                        for _ in range(4)], 50, uid0=1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step()
+    torch.cuda.synchronize()
+    chunk_ms = 1e3 * (time.perf_counter() - t0) / 4
+    pre = profiled_window(engine, 1)
+    want = {(expect, PREFILL_BODY): per * 4}
+    if (pre["prefill_dispatches"], pre["decode_dispatches"]) != (4, 0) \
+            or pre["demm"] != want:
+        raise AssertionError(f"prefill window: {pre['prefill_dispatches']} "
+                             f"chunks, {pre['decode_dispatches']} steps, "
+                             f"DeMM launches {pre['demm']}: expected 4, 0, "
+                             f"{want}")
+    while not engine._decode_mask.all():
+        engine.step()
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    tok0 = engine._m_tokens.value
+    t0 = time.perf_counter()
+    for _ in range(5):
+        engine.step()
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / 5
+    tokens_per_s = (engine._m_tokens.value - tok0) / (5 * tick_ms / 1e3)
+    dec = profiled_window(engine, 5)
+    want = {(expect, SERVING_BODY[expect]): per * 5}
+    if (dec["prefill_dispatches"], dec["decode_dispatches"]) != (0, 5) \
+            or dec["demm"] != want:
+        raise AssertionError(f"decode window: {dec['prefill_dispatches']} "
+                             f"chunks, {dec['decode_dispatches']} steps, "
+                             f"DeMM launches {dec['demm']}: expected 0, 5, "
+                             f"{want}")
+    engine.run_until_drained()
+    return {
+        "prefill_chunk": {
+            "ms_host_clock": chunk_ms,
+            "device_ms": pre["device_ms"] / 4,
+            "device_launches": pre["device_launches"] / 4,
+            "demm_launches_by_body": {f"{k}/{b}": n // 4 for (k, b), n
+                                      in pre["demm"].items()},
+            "top_device_ms": [{**t, "ms": t["ms"] / 4, "calls": t["calls"] / 4}
+                              for t in pre["top"]]},
+        "decode_tick": {
+            "ms_host_clock": tick_ms, "tokens_per_s": tokens_per_s,
+            "device_ms": dec["device_ms"] / 5,
+            "busy_share": dec["device_ms"] / 5 / tick_ms,
+            "device_launches": dec["device_launches"] / 5,
+            "demm_launches_by_body": {f"{k}/{b}": n // 5 for (k, b), n
+                                      in dec["demm"].items()},
+            "top_device_ms": [{**t, "ms": t["ms"] / 5, "calls": t["calls"] / 5}
+                              for t in dec["top"]]},
+    }
+
+
+def page_gather_ms(engine, cfg):
+    """Device time of the decode step's page gathers, timed alone, with
+    every slot's block-table row full of distinct pages (all slots at
+    ``max_len``: the most a tick gathers; a ring over the layers' arenas,
+    which exceed L2): K and V of every layer, per tick.  Its bound is the
+    bytes of those pages read once and of the gathered caches written
+    once."""
+    import torch
+    from repro_torch.models.attention import gather_pages
+
+    caches = engine.state["caches"]
+    slots, nblk = caches["block_table"].shape
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    bt = (torch.randperm(engine.layout.usable_pages, generator=gen,
+                         device=DEVICE)[:slots * nblk] + 1).view(slots, nblk)
+    calls = [lambda a=a: gather_pages(a, bt)
+             for name in ("k", "v") for a in caches[name].unbind(0)]
+    ms = time_ring(calls)[0]
+    one = gather_pages(caches["k"][0], bt)
+    nbytes = 2 * one.nbytes             # distinct pages read, copy written
+    del one
+    torch.cuda.empty_cache()
+    return {"ms_per_gather": ms, "gathers_per_tick": len(calls),
+            "ms_per_tick": ms * len(calls), "bytes_per_gather": nbytes,
+            "bound_ms_per_tick": 1e3 * nbytes * len(calls) / HBM_BYTES_PER_S}
+
+
+def graph_equals_eager_paged(model, cfg, prompts, max_new, label):
+    """Both captured programs against the eager programs on the same model
+    and prompts: bit-equal logits of every request's last chunk and of every
+    decode step, the same tokens, one capture of each program."""
+    import numpy as np
+
+    graph = paged_engine(model)
+    lg, tg = drain_recording(graph, prompts, max_new)
+    le, te = drain_recording(paged_engine(model, eager=True), prompts,
+                             max_new)
+    if (graph.captures, graph.prefill.captures) != (1, 1):
+        raise AssertionError(f"{label}: captures {graph.captures} (decode), "
+                             f"{graph.prefill.captures} (prefill); expected "
+                             "one each")
+    if [e[:3] for e in lg] != [e[:3] for e in le] or tg != te:
+        raise AssertionError(f"{label}: graph and eager programs give "
+                             f"different tokens: {tg} vs {te}")
+    for (kind, uid, pos, a), (*_, b) in zip(lg, le):
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"{label} {kind} logits of request {uid} at {pos}: graph "
+                f"and eager differ, max abs {np.abs(a - b).max()}")
+    return {"prefill_logits_bit_equal": sum(e[0] == "prefill" for e in lg),
+            "decode_logits_bit_equal": sum(e[0] == "decode" for e in lg),
+            "tokens_equal": True, "captures": [1, 1]}
+
+
+def paged_full_width(model, cfg, mode, expect):
+    """Phase 8: the paged engine at full width on ``model`` (packed as
+    ``mode``), 8 prompts of 40-400 tokens, 16 new tokens each.  The first
+    pass, counted from reset to drain, builds and captures both programs:
+    the wrappers launch ``expect`` 7 x layers x 2 times in each program's
+    warm-up and capture (the prefill chunk's on the gather body, the
+    step's on its serving body) and nothing else.  A second pass on the
+    same engine is timed (TTFT, prompt tokens/s); then the profiled windows,
+    the page gather alone, the dense engine's token-by-token ingest of the
+    same prompts, and the captured programs against the eager ones."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.serve import ServeConfig, make_engine
+
+    prompts = paged_prompts(cfg.vocab_size)
+    chunks = sum(-(-len(p) // PAGED["prefill_chunk"]) for p in prompts)
+    torch.cuda.synchronize()
+    reset_counts()                       # just before the main path ...
+    engine = paged_engine(model)
+    submit_all(engine, prompts, PAGED_NEW)
+    t0 = time.perf_counter()
+    ticks = engine.run_until_drained()
+    t1 = time.perf_counter()
+    counts = read_counts()               # ... and just after
+    body_counts = read_body_counts()
+    first = pass_report(engine, engine.completed, t0, t1)
+    if len(engine.completed) != len(prompts):
+        raise AssertionError(f"{len(engine.completed)} of {len(prompts)} "
+                             "requests completed")
+    for r in engine.completed:
+        if len(r.output) != PAGED_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: {r.output}")
+    if not np.isfinite(engine.last_logits[:, :cfg.vocab_size]).all():
+        raise AssertionError("non-finite logits")
+    if (engine.captures, engine.prefill.captures) != (1, 1):
+        raise AssertionError(f"captures: decode {engine.captures}, prefill "
+                             f"{engine.prefill.captures}; expected 1 and 1")
+    if engine.prefill.dispatches != chunks:
+        raise AssertionError(f"{engine.prefill.dispatches} chunks "
+                             f"dispatched, expected {chunks}")
+    per = 7 * cfg.num_layers
+    want = {name: 0 for name in KERNELS}
+    want[expect] = 4 * per
+    if counts != want:
+        raise AssertionError(f"paged launch counts {counts}: expected {want}"
+                             " (7 x layers x (warm-up + capture) of each of "
+                             "the two programs, nothing else)")
+    serving = SERVING_BODY[expect]
+    if expect in body_counts and body_counts[expect] != {
+            PREFILL_BODY: 2 * per, serving: 2 * per}:
+        raise AssertionError(f"{expect} launches by body "
+                             f"{body_counts[expect]}: expected {2 * per} "
+                             f"gather (prefill), {2 * per} {serving}")
+    decode_ticks = int(engine._m_disp_decode.value)
+    # the second pass: both programs captured
+    n0 = len(engine.completed)
+    submit_all(engine, prompts, PAGED_NEW, uid0=100)
+    t0 = time.perf_counter()
+    engine.run_until_drained()
+    t1 = time.perf_counter()
+    second = pass_report(engine, engine.completed[n0:], t0, t1)
+    same = {r.uid - 100: r.output for r in engine.completed[n0:]} == {
+        r.uid: r.output for r in engine.completed[:n0]}
+    if not same:
+        raise AssertionError(f"{mode}: the second pass gave other tokens")
+    entry = {
+        "mode": mode, "kernel": expect,
+        "prompt_lengths": [len(p) for p in prompts],
+        "chunks": chunks, "ticks": ticks, "decode_steps": decode_ticks,
+        "launches": counts[expect],
+        "launches_by_body": body_counts.get(expect),
+        "captures": [engine.captures, engine.prefill.captures],
+        "first_pass": first, "second_pass": second,
+        "first_output": engine.completed[0].output}
+    entry.update(paged_windows(engine, cfg, expect))
+    entry["page_gather"] = page_gather_ms(engine, cfg)
+    del engine
+    torch.cuda.empty_cache()
+    # the dense engine ingesting the same prompts token by token, its
+    # decode step captured first by a one-token request
+    dense = make_engine(model, ServeConfig(num_slots=PAGED["num_slots"],
+                                           max_len=PAGED["max_len"]),
+                        policy=ExecPolicy(mode="packed", backend="cuda"),
+                        device=DEVICE, metrics=obs.MetricsRegistry())
+    submit_all(dense, prompts[:1], 1, uid0=500)
+    dense.run_until_drained()
+    submit_all(dense, prompts, PAGED_NEW)
+    t0 = time.perf_counter()
+    dense_ticks = dense.run_until_drained()
+    t1 = time.perf_counter()
+    entry["dense_token_by_token"] = {
+        **pass_report(dense, dense.completed[1:], t0, t1),
+        "ticks": dense_ticks}
+    del dense
+    torch.cuda.empty_cache()
+    entry["graph_vs_eager"] = graph_equals_eager_paged(
+        model, cfg, prompts[:4], 8, mode)
+    return entry
+
+
+def paged_gates(cfg_full):
+    """Phase 8g: 2 layers, float32 compute, the four serving modes, 6
+    prompts of 40-112 tokens, 8 new tokens, chunks of 32 on pages of 16
+    (max_len 128): the paged engine's tokens equal the dense engine's
+    (token-by-token ingest; NBLK x page_size = max_len) and backend
+    ``reference``'s (logits allclose, rtol 1e-3), and an arena of 13 pages
+    preempts at least once and still gives the uninterrupted tokens."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.serve import ServeConfig, make_engine
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, compute_dtype="float32")
+    prompts = paged_prompts(cfg.vocab_size, n=6, seed=2, hi=112)
+    report = {}
+    for layout in ("xwT", "block"):
+        for quantize in (None, "int8"):
+            label = layout + (f"+{quantize}" if quantize else "")
+            model = pack_tree(build_model(cfg, device=DEVICE, seed=1),
+                              layout=layout, quantize=quantize)
+            eng = paged_engine(model, max_len=128)
+            lg, tg = drain_recording(eng, prompts, 8)
+            lr, tr = drain_recording(
+                paged_engine(model, backend="reference", max_len=128),
+                prompts, 8)
+            if tg != tr:
+                raise AssertionError(f"{label}: paged cuda and reference "
+                                     f"tokens differ: {tg} vs {tr}")
+            worst = 0.0
+            for (kind, *_, a), (*_, b) in zip(lg, lr):
+                a, b = a[..., :cfg.vocab_size], b[..., :cfg.vocab_size]
+                if not np.allclose(a, b, rtol=1e-3, atol=1e-3):
+                    raise AssertionError(f"{label} {kind}: logits differ "
+                                         f"from the reference's, max abs "
+                                         f"{np.abs(a - b).max()}")
+                worst = max(worst, float(np.abs(a - b).max()))
+            dense = make_engine(model, ServeConfig(num_slots=4, max_len=128),
+                                policy=ExecPolicy(mode="packed",
+                                                  backend="cuda"),
+                                device=DEVICE, metrics=obs.MetricsRegistry())
+            submit_all(dense, prompts, 8)
+            dense.run_until_drained()
+            td = {r.uid: list(r.output) for r in dense.completed}
+            if td != tg:
+                raise AssertionError(f"{label}: paged and dense tokens "
+                                     f"differ: {tg} vs {td}")
+            small = paged_engine(model, max_len=128, num_pages=13)
+            _, tp = drain_recording(small, prompts, 8)
+            preempts = small.metrics.counter("serve_preempt_total").value
+            if preempts < 1 or tp != tg:
+                raise AssertionError(f"{label}: {preempts} preemptions, "
+                                     f"tokens {tp} vs {tg}")
+            report[label] = {
+                "streams": len(tg), "paged_equals_dense": True,
+                "cuda_equals_reference": True,
+                "max_abs_logit_diff_vs_reference": worst,
+                "preemptions": preempts, "preempted_tokens_equal": True,
+                "captures": [eng.captures, eng.prefill.captures]}
+    return report
+
+
+def paged_cli(cfg):
+    """Phase 6p: ``launch.serve --full --packed --paged`` as a user runs
+    it, replaying the committed tiny trace with priorities on an arena of
+    16 pages of 8 tokens (it preempts), with the SLO report: every request
+    completes, at least one preemption, both programs dispatched."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch.serve import main as serve_main
+
+    trace = os.path.join(HERE, "benchmarks", "traces", "tiny_trace.jsonl")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_paged_")
+    metrics_out = os.path.join(out_dir, "metrics.json")
+    prev = obs.default_registry()
+    obs.set_default_registry(obs.MetricsRegistry())
+    try:
+        serve_main(["--arch", cfg.name, "--full", "--packed", "--paged",
+                    "--trace-replay", trace, "--max-len", "96",
+                    "--page-size", "8", "--max-pages", "16",
+                    "--scheduler", "priority", "--slo-report",
+                    "--metrics-out", metrics_out])
+        with open(metrics_out) as f:
+            snap = json.load(f)
+    finally:
+        obs.set_default_registry(prev)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counters = {(c["name"], tuple(sorted(c["labels"].items()))): c["value"]
+                for c in snap["counters"]}
+    got = {"completed": counters[("serve_requests_completed_total", ())],
+           "preemptions": counters[("serve_preempt_total", ())],
+           "prefill_dispatches": counters[("serve_step_dispatch_total",
+                                           (("program", "prefill"),))],
+           "decode_dispatches": counters[("serve_step_dispatch_total",
+                                          (("program", "decode"),))]}
+    if got["completed"] != 12 or got["preemptions"] < 1 \
+            or got["prefill_dispatches"] < 12 or got["decode_dispatches"] < 1:
+        raise AssertionError(f"launch.serve --paged: {got}")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -1046,12 +1526,12 @@ def ring(tensors, nbytes):
                       for t in tensors)))
 
 
-def shape_inputs(label, o, k, n, m, gen):
-    """The Bx = 4 bf16 activations and one random packed weight (float, and
-    int8 with per-row and with per-group scales) of a projection shape, with
-    the timing rows' metadata."""
+def shape_inputs(label, o, k, n, m, gen, bx=4):
+    """The Bx = 4 (or ``bx``) bf16 activations and one random packed weight
+    (float, and int8 with per-row and with per-group scales) of a projection
+    shape, with the timing rows' metadata."""
     import torch
-    bx, g = 4, k // m
+    g = k // m
     x = torch.randn((bx, k), generator=gen, device=gen.device).to(torch.bfloat16)
     vals, idx = make_packed(o, k, n, m, gen)
     q, per_row = make_q8(o, g, n, False, gen)
@@ -1144,30 +1624,26 @@ TC_STAGES = (2, 3, 4)
 SPMM_CROSSOVER_CDS = (16, 32, 64, 128, 256)
 
 
-def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
-    """Times of the five kernels at one projection shape: K1-K4 at Bx = 4
-    with bfloat16 activations, as the main path launches them; K5 at
-    Cd = 4 and 256 with B (K, Cd) bfloat16.  With the sweep on, also K4's
-    cluster sizes and its gather body, K5's tiles, groups per stage and
-    stages at Cd = 256 (through the kernels' measurement hooks), and
-    both K5 bodies at Cd from 16 to 256 (where the tiled body starts to
-    win)."""
-    import torch
-    from repro_torch.core.sparsity import SparsityConfig, pack_block, unpack
-    from repro_torch.kernels.demm_block_spmm import block_body, demm_block_spmm_on
+def time_block(x, vals, idx, cfg, meta, *, sweep=False):
+    """K2 and K4 on the block layout of the same weight as ``vals, idx``
+    (every group active, a_max = G), B = xᵀ as serving passes it; with the
+    sweep on, also their cluster sizes and gather body.  Returns the dense
+    weight and {kernel: [timing row]}."""
+    from repro_torch.core.sparsity import pack_block, unpack
+    from repro_torch.kernels.demm_block_spmm import (block_body,
+                                                     demm_block_spmm_on)
     from repro_torch.kernels.demm_q8 import demm_block_spmm_q8_on
-    from repro_torch.kernels.demm_spmm import demm_spmm_on, spmm_body
     from repro_torch.quant import quantize_packed
 
     fns = kernel_fns()
-    cfg = SparsityConfig(n, m)
-    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
-    bx = x.shape[0]
+    bx, o, k = x.shape[0], vals.shape[0], x.shape[1]
     nnz = int((vals != 0).sum())
     y_bytes = bx * o * 4
-    out = time_xwt(x, vals, idx, q, scales, cfg, meta, sweep=sweep)
-
-    # the block layout of the same weight: every group is active, a_max = G
+    out = {}
+    variants = ({"cluster_size_ms": {
+        str(c): {"cluster_size": c} for c in CLUSTER_SIZES},
+        "gather_body_ms": {"default": {"body": "gather"}}}
+        if sweep else None)
     dense = unpack(vals, idx, cfg, (o, k))
     pw = pack_block(dense, cfg)
     bmeta = {**meta, "block_geom": list(pw.block_geom)}
@@ -1187,11 +1663,7 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
                                      xt, cfg.m)},
         [lambda a=a, v=v, i=i, **kw: k2(a, v, i, **kw) for a, v, i in r],
         [lambda a=a, v=v, i=i: plain(a, v, i, xt, cfg, r=o) for a, v, i in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz,
-        variants={"cluster_size_ms": {
-            str(c): {"cluster_size": c} for c in CLUSTER_SIZES},
-            "gather_body_ms": {"default": {"body": "gather"}}}
-        if sweep else None)]
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, variants=variants)]
     qw = quantize_packed(pw)
     kern, plain = fns["demm_block_spmm_q8"]
     w_bytes = (qw.values.nbytes + qw.indices.nbytes + qw.active_groups.nbytes
@@ -1210,21 +1682,69 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
          for a, v, i, sc in r],
         [lambda a=a, v=v, i=i, sc=sc: plain(a, v, i, sc, xt, cfg, r=o)
          for a, v, i, sc in r],
-        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz,
-        variants={"cluster_size_ms": {
-            str(c): {"cluster_size": c} for c in CLUSTER_SIZES},
-            "gather_body_ms": {"default": {"body": "gather"}}}
-        if sweep else None)]
-    del r, pw, qw
+        x.nbytes + w_bytes + y_bytes, 2 * bx * nnz, variants=variants)]
+    return dense, out
 
-    # yardstick of K1-K4: one dense matmul against the unpacked weight
+
+def library_ms(x, dense):
+    """The yardstick of K1-K4: one bf16 ``torch.matmul`` of x against the
+    dense weight, over a ring of weight copies larger than L2."""
+    import torch
     w = dense.to(torch.bfloat16)
     wr = [wt.T for wt in w.repeat(ring_size(w.nbytes, hi=32), 1, 1).unbind(0)]
-    lib = time_ring([lambda wt=wt: torch.matmul(x, wt) for wt in wr])[0]
+    return time_ring([lambda wt=wt: torch.matmul(x, wt) for wt in wr])[0]
+
+
+def time_gather_bodies(label, o, k, n, m, gen, bx=32):
+    """K1-K4 at one projection shape with x of ``bx`` rows (bf16), as a
+    prefill chunk launches them: every one of them on its gather body (the
+    bulk and cluster bodies take at most 8 rows), K3 with per-row scales as
+    served.  Rows as :func:`time_shape`'s, with the library yardstick."""
+    from repro_torch.core.sparsity import SparsityConfig
+
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen,
+                                                 bx=bx)
+    out = time_xwt(x, vals, idx, q, {"per_row": scales["per_row"]}, cfg,
+                   meta)
+    dense, blocks = time_block(x, vals, idx, cfg, meta)
+    out.update(blocks)
+    out["demm_block_spmm_q8"][0]["body"] = "gather"   # told apart on device
+    lib = library_ms(x, dense)
     for entries in out.values():
         for e in entries:
             e["library_ms"] = lib
-    del wr
+            if e["body"] != "gather":
+                raise AssertionError(f"{label} at Bx = {bx}: {e['body']} "
+                                     "body, expected the gather body")
+    return out
+
+
+def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
+    """Times of the five kernels at one projection shape: K1-K4 at Bx = 4
+    with bfloat16 activations, as the main path launches them; K5 at
+    Cd = 4 and 256 with B (K, Cd) bfloat16.  With the sweep on, also K4's
+    cluster sizes and its gather body, K5's tiles, groups per stage and
+    stages at Cd = 256 (through the kernels' measurement hooks), and
+    both K5 bodies at Cd from 16 to 256 (where the tiled body starts to
+    win)."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels.demm_spmm import demm_spmm_on, spmm_body
+
+    fns = kernel_fns()
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen)
+    nnz = int((vals != 0).sum())
+    out = time_xwt(x, vals, idx, q, scales, cfg, meta, sweep=sweep)
+
+    dense, blocks = time_block(x, vals, idx, cfg, meta, sweep=bool(sweep))
+    out.update(blocks)
+    lib = library_ms(x, dense)
+    for entries in out.values():
+        for e in entries:
+            e["library_ms"] = lib
+    w = dense.to(torch.bfloat16)
 
     # K5, the paper orientation C = A @ B, with B of 4 and 256 columns; its
     # yardstick is the dense bf16 product A @ B
@@ -1532,7 +2052,7 @@ def main(argv=None) -> int:
     # 4./5. serve at full width, xwT layout; 4b/5b block layout on a fresh
     # model of the same seed (packing is in place)
     cfg = get_arch("stablelm_3b")
-    serve, graph, profiles = {}, {}, []
+    serve, graph, profiles, paged = {}, {}, [], {}
     for layout in ("xwT", "block"):
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
@@ -1557,6 +2077,10 @@ def main(argv=None) -> int:
                 f" s with packing): {json.dumps(serve[kernel])}")
             graph[mode] = graph_vs_eager(model, cfg, mode)[0]
             log(f"[{phase[1]}g graph] {json.dumps(graph[mode])}")
+            t0 = time.time()
+            paged[mode] = paged_full_width(model, cfg, mode, kernel)
+            log(f"[8 paged] {mode} ({time.time() - t0:.1f} s): "
+                f"{json.dumps(paged[mode])}")
             if args.profile:             # graph and eager, paired
                 for eager in (False, True, True, False):
                     profiles.append(profile_ticks(model, cfg, mode,
@@ -1572,6 +2096,26 @@ def main(argv=None) -> int:
     graph["2 layers float32"] = check_graph_modes(get_arch("stablelm_3b"))
     log(f"[6g graph] graph vs eager vs reference, 2 layers float32, four "
         f"modes: {json.dumps(graph['2 layers float32'])}")
+    t0 = time.time()
+    paged_gate = paged_gates(get_arch("stablelm_3b"))
+    log(f"[8g paged] paged vs dense vs reference, preemption, 2 layers "
+        f"float32, four modes ({time.time() - t0:.1f} s): "
+        f"{json.dumps(paged_gate)}")
+    log("[8 paged] mode | TTFT ms median (dense) | prompt tok/s (dense) | "
+        "chunk ms host / device | decode tick ms host / device | busy | "
+        "page gather ms/tick")
+    for mode, r in paged.items():
+        sp, dn = r["second_pass"], r["dense_token_by_token"]
+        log(f"[8 paged] {mode} | {statistics.median(sp['ttft_ms']):.1f} "
+            f"({statistics.median(dn['ttft_ms']):.1f}) | "
+            f"{sp['prompt_tokens_per_s']:.0f} "
+            f"({dn['prompt_tokens_per_s']:.0f}) | "
+            f"{r['prefill_chunk']['ms_host_clock']:.3f} / "
+            f"{r['prefill_chunk']['device_ms']:.3f} | "
+            f"{r['decode_tick']['ms_host_clock']:.3f} / "
+            f"{r['decode_tick']['device_ms']:.3f} | "
+            f"{100 * r['decode_tick']['busy_share']:.1f} % | "
+            f"{r['page_gather']['ms_per_tick']:.3f}")
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
             "| launches/tick | tokens/s")
@@ -1588,6 +2132,10 @@ def main(argv=None) -> int:
     flight = flight_run(cfg)
     log(f"[6f flight] launch.serve --full --profile-dir --flight-dir "
         f"--force-stall ({time.time() - t0:.1f} s): {json.dumps(flight)}")
+    t0 = time.time()
+    cli = paged_cli(cfg)
+    log(f"[6p paged cli] launch.serve --full --packed --paged "
+        f"--trace-replay ({time.time() - t0:.1f} s): {json.dumps(cli)}")
 
     # 7. times
     sweep = (8, 16, 24, 32, 48, 64) if args.sweep else ()
@@ -1599,6 +2147,12 @@ def main(argv=None) -> int:
             for entry in entries:
                 per_kernel[name].append(entry)
                 log(f"[7 times] {name} {json.dumps(entry)}")
+    gather32 = {name: [] for name in KERNELS[:4]}
+    for shape in MAIN_SHAPES:
+        for name, entries in time_gather_bodies(*shape, gen).items():
+            for entry in entries:
+                gather32[name].append(entry)
+                log(f"[7p gather Bx=32] {name} {json.dumps(entry)}")
     csrc = "src/repro_torch/kernels/csrc/"
     layer = ("the 7 packed projections of one stablelm_3b decoder layer "
              "(4 x 2560x2560 5:80, 2 x 6912x2560 5:80, 1 x 2560x6912 3:48), "
@@ -1631,6 +2185,20 @@ def main(argv=None) -> int:
                            launches[name], errs[name], work=work,
                            source_wide=csrc + "demm_spmm_tc.cu")
                for name, (src, replaces, work) in sources.items()]
+    for entry in kernels:
+        rows = gather32.get(entry["name"])
+        if rows is None:
+            continue
+        # the paged engine: wrapper launches over its counted pass, and the
+        # gather body at Bx = 32, as a prefill chunk launches it, per layer
+        entry["launches_paged"] = sum(r["launches"] for r in paged.values()
+                                      if r["kernel"] == entry["name"])
+        entry["prefill_bx32"] = {
+            "body": "gather", **{key: sum(LAYER_MIX[e["shape"]] * e[key]
+                                          for e in rows)
+                                 for key in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")},
+            "shapes": rows}
     # K5's tiled body does the dense count of operations: its floor, worked
     # from the shapes (not a measurement, so not in the kernels line)
     floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
@@ -1645,7 +2213,8 @@ def main(argv=None) -> int:
     log(smi)
     log(json.dumps({"kernels": kernels, "serve": list(serve.values()),
                     "spmm": spmm, "agree": agree, "graph": graph,
-                    "flight": flight}))
+                    "flight": flight, "paged": list(paged.values()),
+                    "paged_gates": paged_gate, "paged_cli": cli}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,13 @@ configs, tests).
 On a CUDA device the engine captures its decode step once as a CUDA graph
 and replays it every tick (``repro_torch.serve.serve_loop``).
 
+``--paged`` swaps the dense-cache loop for the paged serving engine
+(``repro_torch.paged``): a shared paged KV arena sized by
+``--page-size``/``--max-pages``, chunked prefill (``--prefill-chunk`` tokens
+per dispatch, the chunk program captured once as a second CUDA graph), and a
+``--scheduler fcfs|priority`` admission/preemption policy (with
+``--trace-replay``, the priorities come from the trace).
+
 ``--temperature``/``--top-k`` select replay-safe coupled sampling (0 =
 greedy).  ``--trace-replay trace.jsonl`` replays a
 ``benchmarks/serve_bench.py`` trace at its logical arrival ticks, with prompt
@@ -57,6 +64,7 @@ from repro_torch.core.sparse_linear import ExecPolicy
 from repro_torch.device import require_device
 from repro_torch.launch.pack_tree import pack_tree
 from repro_torch.models.families import build_model
+from repro_torch.paged import PagedServeConfig, SchedConfig
 from repro_torch.serve import Request, ServeConfig, make_engine
 
 
@@ -85,6 +93,8 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
               requests: int = 8, slots: int = 4, max_new: int = 16,
               max_len: int = 128, seed: int = 0, temperature: float = 0.0,
               top_k: int = 0, device="cuda", metrics=None,
+              paged: bool = False, page_size: int = 16, max_pages=None,
+              prefill_chunk: int = 32, scheduler: str = "fcfs",
               trace_replay=None, recorder=None):
     """Pack (optionally) and serve ``requests`` random prompts; returns the
     drained engine.  The reusable core of ``main()``.
@@ -94,7 +104,11 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     the CPU is used only when ``device="cpu"`` is passed.  ``packed=True``
     packs the model's sparse linears **in place** (``launch.pack_tree``).
     Prompt tokens are drawn with numpy from ``seed``, the same way the JAX
-    package's serving program draws them.  ``trace_replay`` submits a
+    package's serving program draws them.  ``paged=True`` serves through
+    :class:`repro_torch.paged.PagedServeEngine` (shared KV arena of
+    ``max_pages`` pages of ``page_size`` tokens, chunked prefill of
+    ``prefill_chunk`` tokens, ``scheduler`` admission) instead of the
+    dense-cache loop.  ``trace_replay`` submits a
     serve_bench-format JSONL trace at its logical arrival ticks instead of
     ``requests`` random prompts (prompt tokens from ``(seed, uid)``).
     ``recorder`` (a :class:`~repro_torch.obs.FlightRecorder`) is attached
@@ -107,8 +121,16 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
                           granularity=granularity)
         mode = "packed"
     policy = ExecPolicy(mode=mode, backend=backend)
-    serve_cfg = ServeConfig(num_slots=slots, max_len=max_len,
-                            temperature=temperature, top_k=top_k, seed=seed)
+    if paged:
+        serve_cfg = PagedServeConfig(
+            num_slots=slots, max_len=max_len, page_size=page_size,
+            num_pages=max_pages, prefill_chunk=prefill_chunk,
+            temperature=temperature, top_k=top_k, seed=seed,
+            sched=SchedConfig(policy=scheduler))
+    else:
+        serve_cfg = ServeConfig(num_slots=slots, max_len=max_len,
+                                temperature=temperature, top_k=top_k,
+                                seed=seed)
     engine = make_engine(model, serve_cfg, policy=policy, device=device,
                          metrics=metrics, recorder=recorder)
     if trace_replay:
@@ -153,6 +175,23 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights, the prompt tokens and "
                          "the sampler")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through repro_torch.paged.PagedServeEngine: "
+                         "shared paged KV arena + chunked prefill + "
+                         "scheduled admission/preemption (full-attention "
+                         "archs only)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="--paged: tokens per KV arena page")
+    ap.add_argument("--max-pages", type=int, default=None,
+                    help="--paged: arena pages incl. the reserved null page "
+                         "(default: fully provisioned for the slots; "
+                         "undersize to exercise preemption)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="--paged: prompt tokens per prefill dispatch")
+    ap.add_argument("--scheduler", choices=("fcfs", "priority"),
+                    default="fcfs",
+                    help="--paged: admission policy (priority preempts "
+                         "lower-priority requests for higher ones)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy); sampling is "
                          "replay-safe — randomness is keyed on (seed, "
@@ -273,12 +312,19 @@ def main(argv=None):
                            slots=args.slots, max_new=args.max_new,
                            max_len=args.max_len, seed=args.seed,
                            temperature=args.temperature, top_k=args.top_k,
-                           device=device, trace_replay=args.trace_replay,
+                           device=device, paged=args.paged,
+                           page_size=args.page_size,
+                           max_pages=args.max_pages,
+                           prefill_chunk=args.prefill_chunk,
+                           scheduler=args.scheduler,
+                           trace_replay=args.trace_replay,
                            recorder=recorder)
     dt = engine.drain_seconds
     mode = "packed" if args.packed else "masked"
     total_tokens = sum(len(r.output) for r in engine.completed)
     tag = mode if not args.quantize else f"{mode}+{args.quantize}"
+    if args.paged:
+        tag += "+paged"
     log.info("served", requests=len(engine.completed), tokens=total_tokens,
              seconds=round(dt, 3),
              tok_s=round(total_tokens / max(dt, 1e-9), 1), mode=tag,

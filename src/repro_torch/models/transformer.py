@@ -4,11 +4,16 @@
     state = model.init_decode_state(batch, max_len)
     logits, state = model.decode_step(state, tokens, policy=ExecPolicy(...))
 
+    state = model.init_decode_state(batch, max_len, paged=PagedLayout(...))
+    logits, state = model.prefill_chunk(state, tokens, slot, n_valid)
+
 ``DecoderLM`` is an ``nn.Module`` whose layers sit in an ``nn.ModuleList`` (a
 Python loop over layers takes the place of the JAX package's scan over a
-stacked layer axis).  Only decode against full-attention append caches,
-``(L, B, S, Hkv, Dh)``, is ported; prefill, training loss, windowed ring
-buffers, paged caches, experts and the other families come with later slices.
+stacked layer axis).  Decode against full-attention append caches,
+``(L, B, S, Hkv, Dh)``, or against a paged KV arena ``(L, Np, P, Hkv, Dh)``
+with per-slot block tables, and chunked prefill into the paged arena are
+ported; whole-sequence prefill, training loss, windowed ring buffers,
+experts and the other families come with later slices.
 """
 
 from __future__ import annotations
@@ -105,18 +110,44 @@ class DecoderLM(nn.Module):
 
     # ---- serving ----
     def init_decode_state(self, batch: int, max_len: int,
-                          dtype=torch.bfloat16, device=None):
+                          dtype=torch.bfloat16, device=None, paged=None):
         """Decode state: per-layer append caches stacked on a leading layer
-        axis plus the per-slot write position."""
+        axis plus the per-slot write position.
+
+        ``paged`` (a ``repro_torch.paged.PagedLayout``) swaps the per-slot
+        caches for one shared arena of pages per layer, ``(L, Np, P, Hkv,
+        Dh)``, with a block table (B, NBLK) and a decode mask ``active``
+        (B,) bool; only full-attention caches are paged, as in the JAX
+        package."""
         cfg = self.cfg
         device = device if device is not None else self.device
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
+        hkv, dh, l = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+        pos = torch.zeros((batch,), dtype=torch.int64, device=device)
+        if paged is not None:
+            if cfg.attention != "full":
+                raise NotImplementedError(
+                    f"paged KV cache needs attention='full' (got "
+                    f"{cfg.attention!r}): windowed ring buffers are already "
+                    f"O(window) per slot")
+            shape = (l, paged.num_pages, paged.page_size, hkv, dh)
+            return {
+                "caches": {
+                    "kind": "paged", "layout": paged,
+                    "k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device),
+                    "block_table": torch.zeros((batch, paged.max_blocks),
+                                               dtype=torch.int64,
+                                               device=device),
+                    "active": torch.zeros((batch,), dtype=torch.bool,
+                                          device=device)},
+                "pos": pos,
+            }
+        shape = (l, batch, max_len, hkv, dh)
         return {
             "caches": {"kind": "full",
                        "k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)},
-            "pos": torch.zeros((batch,), dtype=torch.int64, device=device),
+            "pos": pos,
         }
 
     def _decode_ffn(self, blk: TBlock, x, policy):
@@ -135,27 +166,94 @@ class DecoderLM(nn.Module):
             window=window, policy=policy, rope=rope)
         return self._decode_ffn(blk, x + h, policy), nc
 
+    def _decode_paged_layer(self, blk: TBlock, x, arena_k, arena_v, bt,
+                            active, pos, policy, rope=None):
+        cfg = self.cfg
+        h = apply_rmsnorm(blk.ln1, x)
+        h, _ = attn.apply_attention_decode_paged(
+            blk.attn, h, arena_k, arena_v, bt, active, pos,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            policy=policy, rope=rope)
+        return self._decode_ffn(blk, x + h, policy)
+
     def decode_step(self, state, tokens, *, policy=None):
         """One token per slot: tokens (B, 1) -> logits (B, 1, V).  The KV
-        caches in ``state`` are updated in place; the returned state carries
-        them and the advanced positions."""
+        caches (or the paged arena) in ``state`` are updated in place; the
+        returned state carries them and the advanced positions: every slot
+        advances by one with dense caches, only the ``active`` lanes with a
+        paged arena (prefilling and empty slots keep their position, and
+        their writes went to the null page)."""
         policy = resolve_policy(policy)
         cfg = self.cfg
         dtype = dtype_of(cfg.compute_dtype)
         x = apply_embedding(self.embed, tokens).to(dtype)
         pos = state["pos"]
         caches = state["caches"]
-        if caches["kind"] != "full":
+        kind = caches["kind"]
+        if kind not in ("full", "paged"):
             raise NotImplementedError(
-                f"decode cache kind {caches['kind']!r} is not ported yet")
+                f"decode cache kind {kind!r} is not ported yet")
         # the rotary tables depend on the positions only: once per step
         rope = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
         for i, blk in enumerate(self.layers):
-            # caches["k"][i] is a view: the layer writes its row in place
-            x, _ = self._decode_full_layer(
-                blk, x, {"k": caches["k"][i], "v": caches["v"][i]}, pos, -1,
-                policy, rope)
+            # caches["k"][i] is a view: the layer writes into it in place
+            if kind == "paged":
+                x = self._decode_paged_layer(
+                    blk, x, caches["k"][i], caches["v"][i],
+                    caches["block_table"], caches["active"], pos, policy,
+                    rope)
+            else:
+                x, _ = self._decode_full_layer(
+                    blk, x, {"k": caches["k"][i], "v": caches["v"][i]}, pos,
+                    -1, policy, rope)
         x = apply_rmsnorm(self.final_norm, x)
         logits = apply_unembedding(self.unembed, x, cfg.vocab_size)
-        return logits, {"caches": caches, "pos": pos + 1}
+        step = caches["active"].to(pos.dtype) if kind == "paged" else 1
+        return logits, {"caches": caches, "pos": pos + step}
+
+    def prefill_chunk(self, state, tokens, slot, n_valid, *, policy=None):
+        """Ingest one K-token chunk of a single sequence into its pages.
+
+        ``tokens`` is a fixed-size (K,) chunk, padded past ``n_valid``;
+        ``slot`` and ``n_valid`` are one-element (or 0-d) tensors on the
+        state's device, or ints, so that one captured program serves every
+        chunk of every request: nothing here reads a device value on the
+        host, and no shape depends on ``n_valid``.  The arena in ``state``
+        is written in place.  Returns the logits at the last *valid*
+        position, (1, 1, V), so that the final chunk yields the first
+        sampled token, and the state with ``pos[slot]`` advanced by
+        ``n_valid`` (a new tensor, as :meth:`decode_step` returns).
+        """
+        policy = resolve_policy(policy)
+        cfg = self.cfg
+        caches = state["caches"]
+        if caches["kind"] != "paged":
+            raise NotImplementedError(
+                "prefill_chunk requires a paged decode state "
+                "(init_decode_state(..., paged=PagedLayout))")
+        dtype = dtype_of(cfg.compute_dtype)
+        dev = state["pos"].device
+        slot = torch.as_tensor(slot, dtype=torch.int64, device=dev).reshape(1)
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int64,
+                                  device=dev).reshape(1)
+        pos0 = state["pos"].index_select(0, slot)                 # (1,)
+        row = caches["block_table"].index_select(0, slot)[0]      # (NBLK,)
+        x = apply_embedding(self.embed, tokens[None]).to(dtype)  # (1, K, D)
+        apos = (torch.arange(tokens.shape[0], device=dev) + pos0)[None, :]
+        rope = rope_tables(apos, cfg.resolved_head_dim, cfg.rope_theta)
+        for i, blk in enumerate(self.layers):
+            h = apply_rmsnorm(blk.ln1, x)
+            h, _ = attn.apply_attention_prefill_paged(
+                blk.attn, h, caches["k"][i], caches["v"][i], row, pos0,
+                n_valid, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                policy=policy, rope=rope)
+            x = self._decode_ffn(blk, x + h, policy)
+        x = apply_rmsnorm(self.final_norm, x)
+        last = x.index_select(1, n_valid - 1)                     # (1, 1, D)
+        logits = apply_unembedding(self.unembed, last, cfg.vocab_size)
+        return logits, {"caches": caches,
+                        "pos": state["pos"].index_add(0, slot, n_valid)}

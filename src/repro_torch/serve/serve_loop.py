@@ -20,8 +20,9 @@ program (``jax.jit``).  Its counterpart here is a CUDA graph: a CUDA engine
 captures ``model.decode_step`` once, at its first tick (under the first
 lane's trace context, where the JAX package traces), after one eager
 warm-up step on a side stream that builds the kernels and runs their
-one-off set-up; it then restores the decode state to what
-``init_decode_state`` made and replays the graph on every tick.  The graph
+one-off set-up (:func:`capture_graph`, which the paged engine shares); it
+then restores the decode state to what ``init_decode_state`` made and
+replays the graph on every tick.  The graph
 reads and writes static tensors that live as long as the engine: the next
 tokens (filled each tick from a pinned host buffer), the KV caches, the
 slot positions ``state["pos"]`` (the captured region writes the advanced
@@ -52,6 +53,7 @@ beats first thing (on the host, outside the graph).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import deque
 from typing import List, Optional
@@ -65,6 +67,42 @@ from repro_torch.serve.protocol import EngineBase
 
 # eager steps a CUDA engine runs on a side stream before it captures its step
 CAPTURE_WARMUP = 1
+
+
+def capture_graph(fn, written, device, warmup: int = CAPTURE_WARMUP):
+    """Capture ``fn`` (no arguments; returns a tensor) into a CUDA graph.
+
+    ``warmup`` eager calls on a side stream first build the kernel library
+    and run every launcher's one-off set-up (shared-memory opt-ins, cached
+    device attributes), as ``torch.cuda.graphs`` documents, and make
+    whatever ``fn`` caches on the device (a capture runs nothing).  They
+    write the state that ``fn`` writes, so the tensors ``written`` (all of
+    it) are copied before and restored after.  Returns (graph, the output
+    tensor the replays rewrite).  Any failure raises.
+
+    The garbage collector runs before the capture and not during it: a
+    collection that frees a dead engine (its pinned buffers, its graphs)
+    makes CUDA calls that a capture forbids, and the capture is lost."""
+    saved = [t.clone() for t in written]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+    for t, before in zip(written, saved):
+        t.copy_(before)
+    return graph, out
 
 
 @dataclasses.dataclass
@@ -305,31 +343,14 @@ class ServeEngine(EngineBase):
         return logits[:, 0].to(torch.float32)
 
     def _capture(self, warmup: int = CAPTURE_WARMUP):
-        """Capture :meth:`_decode` into a CUDA graph, once per engine.
-
-        ``warmup`` eager steps on a side stream first build the kernel
-        library and run every launcher's one-off set-up (shared-memory
-        opt-ins, cached device attributes), as ``torch.cuda.graphs``
-        documents.  They advance the positions and write KV rows, so the
-        decode state is restored afterwards to what ``init_decode_state``
-        made.  Any failure raises."""
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                self._decode()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            logits = self._decode()
-        fresh = self.model.init_decode_state(
-            self.cfg.num_slots, self.cfg.max_len, dtype=torch.float32,
-            device=dev)
-        for name in ("k", "v"):
-            self.state["caches"][name].copy_(fresh["caches"][name])
-        self.state["pos"].copy_(fresh["pos"])
-        self._graph, self._logits = graph, logits
+        """Capture :meth:`_decode` into a CUDA graph, once per engine
+        (:func:`capture_graph`); the KV caches and the positions are
+        restored afterwards to what they held before: at the first tick,
+        what ``init_decode_state`` made."""
+        caches = self.state["caches"]
+        self._graph, self._logits = capture_graph(
+            self._decode, [caches["k"], caches["v"], self.state["pos"]],
+            self.device, warmup)
 
     def run_until_drained(self, max_ticks: int = 10000):
         ticks = 0

@@ -10,6 +10,7 @@ rtol/atol 1e-4 (summation order), bfloat16 rtol/atol 2e-2.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -611,3 +612,210 @@ def test_capture_restores_the_initial_state_and_failures_raise(card):
         assert eng._graph is None and eng.completed == []
     finally:
         del model.decode_step
+
+
+# ---------------------------------------------------------------------------
+# the paged engine: the decode step and the prefill chunk, each captured once
+# ---------------------------------------------------------------------------
+
+def _paged_collect(model, cfg, *, backend, eager=False, slots=2, max_len=64,
+                   num_pages=None, prompts=None, max_new=5, **sampling):
+    """Serve ``prompts`` (default: three random ones of 5 to 40 tokens) on
+    the paged engine, chunks of 16; returns (engine, [(program, uid,
+    position, logits row)] for every row the sampler reads, in call order,
+    {uid: tokens}).  Program ``"prefill"`` is a request's last chunk.  The
+    rows of masked lanes are not kept: they may read the null page, whose
+    content is not deterministic."""
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.paged import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import Request
+
+    eng = PagedServeEngine(
+        model, PagedServeConfig(num_slots=slots, max_len=max_len,
+                                page_size=8, num_pages=num_pages,
+                                prefill_chunk=16, seed=0, **sampling),
+        policy=ExecPolicy(mode="packed", backend=backend), device="cuda",
+        metrics=obs.MetricsRegistry(), _eager=eager)
+    seen, program = [], ["decode"]
+    finish, sample = eng._finish_prefill, eng.sampler.sample
+
+    def in_prefill(*args):
+        program[0] = "prefill"
+        try:
+            return finish(*args)
+        finally:
+            program[0] = "decode"
+
+    def record(logits, uid, pos):
+        seen.append((program[0], uid, pos, np.array(logits, copy=True)))
+        return sample(logits, uid, pos)
+
+    eng._finish_prefill = in_prefill
+    eng.sampler = types.SimpleNamespace(sample=record)  # (a frozen dataclass)
+    if prompts is None:
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, rng.integers(5, 41),
+                                dtype=np.int32) for _ in range(3)]
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=max_new))
+    eng.run_until_drained()
+    del eng._finish_prefill                  # no reference cycle left
+    return eng, seen, {r.uid: list(r.output) for r in eng.completed}
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8, top_k=8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+def test_paged_graphs_equal_eager_and_reference(card, layout, quantize,
+                                                dtype, sampling):
+    """Each program is captured once; the captured programs give the eager
+    programs' logits bit for bit (the prefill chunk's and the decode
+    step's) and their tokens; in float32 compute also backend
+    ``reference``'s tokens and the dense engine's."""
+    model, cfg = _graph_model(card, layout=layout, quantize=quantize,
+                              dtype=dtype)
+    eng, lg, tg = _paged_collect(model, cfg, backend="cuda", **sampling)
+    _, le, te = _paged_collect(model, cfg, backend="cuda", eager=True,
+                               **sampling)
+    assert eng.captures == eng.prefill.captures == 1
+    assert eng.prefill.dispatches > 3            # several chunks replayed
+    assert [e[:3] for e in lg] == [e[:3] for e in le]
+    assert {e[0] for e in lg} == {"prefill", "decode"}
+    for (kind, uid, pos, a), (*_, b) in zip(lg, le):
+        assert np.array_equal(a, b), (kind, uid, pos, np.abs(a - b).max())
+    assert tg == te and len(tg) == 3
+    if dtype == "float32":
+        _, _, tr = _paged_collect(model, cfg, backend="reference",
+                                  **sampling)
+        assert tg == tr
+        prompts = [eng.completed[i].prompt for i in
+                   np.argsort([r.uid for r in eng.completed])]
+        _, _, dense = _collect(model, cfg, backend="cuda", max_len=64,
+                               prompts=prompts, **sampling)
+        assert dense == tg
+
+
+def test_paged_preemption_on_the_card_keeps_the_tokens(card):
+    model, cfg = _graph_model(card, layout="xwT", quantize=None,
+                              dtype="float32")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (30, 21, 38, 12)]
+    _, _, want = _paged_collect(model, cfg, backend="cuda", slots=4,
+                                prompts=prompts, max_new=8)
+    eng, _, got = _paged_collect(model, cfg, backend="cuda", slots=4,
+                                 num_pages=14, prompts=prompts, max_new=8)
+    assert eng.metrics.counter("serve_preempt_total").value >= 1
+    assert got == want
+    assert eng.captures == eng.prefill.captures == 1
+
+
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+def test_paged_wrappers_count_warmup_and_capture_on_their_bodies(card,
+                                                                 layout):
+    """The wrappers count the warm-up and the capture of each program only,
+    whatever the prompts: 7 x layers x 2 for the chunk (x of 16 rows: the
+    gather body) and 7 x layers x 2 for the step (the serving body)."""
+    from repro_torch.kernels.demm_block_spmm import demm_block_spmm
+    from repro_torch.kernels.demm_xwT import demm_xwT
+
+    model, cfg = _graph_model(card, layout=layout, quantize=None,
+                              dtype="bfloat16")
+    kern = demm_xwT if layout == "xwT" else demm_block_spmm
+    serving = "bulk" if layout == "xwT" else "cluster"
+    per = 7 * cfg.num_layers * 2
+    for lengths in ((4, 9), (40, 33, 17)):
+        before = kern.launches
+        by_body = dict(kern.body_launches)
+        rng = np.random.default_rng(len(lengths))
+        prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+                   for n in lengths]
+        eng, _, _ = _paged_collect(model, cfg, backend="cuda",
+                                   prompts=prompts)
+        assert kern.launches - before == 2 * per
+        assert kern.body_launches["gather"] - by_body["gather"] == per
+        assert kern.body_launches[serving] - by_body[serving] == per
+        assert eng.prefill.dispatches == sum(-(-n // 16) for n in lengths)
+
+
+def test_paged_captures_restore_the_state_and_failures_raise(card):
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.paged import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import Request
+
+    model, cfg = _graph_model(card, layout="xwT", quantize=None,
+                              dtype="bfloat16")
+
+    def engine():
+        return PagedServeEngine(
+            model, PagedServeConfig(num_slots=2, max_len=32, page_size=8,
+                                    prefill_chunk=16),
+            policy=ExecPolicy(mode="packed", backend="cuda"), device="cuda",
+            metrics=obs.MetricsRegistry())
+
+    eng = engine()
+    eng.submit(Request(uid=0, prompt=np.arange(20, dtype=np.int32),
+                       max_new_tokens=3))
+    with torch.inference_mode():
+        eng._admit()
+        eng._sync_control()
+        # the first chunk: warm-up + capture, the state restored, then one
+        # replay: the positions advance by one chunk, not two
+        eng.prefill.step(eng.state, eng._work[0], 0, 0)
+        torch.cuda.synchronize()
+        assert eng.prefill.captures == 1
+        assert eng.state["pos"].tolist() == [16, 0]
+    # a program that cannot be captured raises; nothing runs it eagerly
+    eng = engine()
+    chunk = model.prefill_chunk
+
+    def unsafe(*a, **kw):
+        torch.cuda.synchronize()                 # not allowed in a capture
+        return chunk(*a, **kw)
+
+    model.prefill_chunk = unsafe
+    try:
+        eng.submit(Request(uid=0, prompt=np.arange(5, dtype=np.int32),
+                           max_new_tokens=2))
+        with pytest.raises(RuntimeError):
+            eng.step()
+        assert eng.prefill._graph is None and eng.completed == []
+    finally:
+        del model.prefill_chunk
+
+
+def test_capture_holds_the_garbage_collector_off(card):
+    """An engine that dies in a reference cycle is freed by a collection; a
+    collection during a capture that frees it (its pinned staging buffers,
+    its graphs) makes CUDA calls a capture forbids and loses the capture.
+    ``capture_graph`` collects first and holds the collector off while it
+    captures: here the dead engine becomes garbage inside the capture, among
+    enough allocations to start collections."""
+    import gc
+    from repro_torch.serve.serve_loop import capture_graph
+
+    model, cfg = _graph_model(card, layout="xwT", quantize=None,
+                              dtype="bfloat16")
+    dead, _, _ = _paged_collect(model, cfg, backend="cuda")
+    dead.itself = dead                       # freed only by a collection
+    holder = [dead]
+    del dead
+    x = torch.zeros(4, device=card)
+
+    def fn():
+        holder.clear()
+        junk = [[] for _ in range(50000)]    # noqa: F841 (allocations)
+        return x + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(100, 1, 1)
+    try:
+        graph, out = capture_graph(fn, [x], card, warmup=0)
+    finally:
+        gc.set_threshold(*threshold)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert out.tolist() == [1.0] * 4 and gc.isenabled()

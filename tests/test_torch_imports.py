@@ -25,7 +25,10 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert "triton" not in sys.modules
 for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm",
-          "repro_torch.kernels.demm_q8", "repro_torch.kernels.demm_xwT"):
+          "repro_torch.kernels.demm_q8", "repro_torch.kernels.demm_xwT",
+          "repro_torch.paged", "repro_torch.paged.engine",
+          "repro_torch.paged.kv_cache", "repro_torch.paged.prefill",
+          "repro_torch.paged.scheduler"):
     assert n in names, n
 print("IMPORTED", len(names))
 """
@@ -60,6 +63,7 @@ def test_serving_refuses_to_start_without_a_cuda_device():
     from repro_torch.configs.base import get_arch
     from repro_torch.launch.serve import main, run_serve
     from repro_torch.models.families import build_model
+    from repro_torch.paged import PagedServeConfig
     from repro_torch.serve import ServeConfig, make_engine
 
     cfg = get_arch("stablelm_3b").reduced()
@@ -69,9 +73,15 @@ def test_serving_refuses_to_start_without_a_cuda_device():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_engine(model, ServeConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_engine(model, PagedServeConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_serve(model, cfg.vocab_size, paged=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg, device="cuda")
     with pytest.raises(SystemExit):
         main(["--requests", "1"])                    # CLI default: cuda
+    with pytest.raises(SystemExit):
+        main(["--requests", "1", "--paged"])
 
 
 def test_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):

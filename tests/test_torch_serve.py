@@ -121,13 +121,17 @@ def test_unported_engine_options_raise(setup):
         with pytest.raises(NotImplementedError):
             make_engine(model, cfg, device="cpu", **kw)
 
-    class PagedServeConfig:
+    # the paged engine is ported: only its unported options are refused
+    from repro_torch.paged import PagedServeConfig
+    with pytest.raises(NotImplementedError):
+        make_engine(model, PagedServeConfig(), device="cpu", spec=object())
+
+    class OtherConfig:
         pass
 
-    with pytest.raises(NotImplementedError):
-        make_engine(model, PagedServeConfig(), device="cpu")
-    with pytest.raises(TypeError):
-        make_engine(model, object(), device="cpu")
+    for config in (OtherConfig(), object()):
+        with pytest.raises(TypeError):
+            make_engine(model, config, device="cpu")
 
 
 # ---------------------------------------------------------------------------
