@@ -107,6 +107,37 @@ unless all of them held:
    8g       — 2 layers, float32, the four modes: paged tokens equal the
               dense engine's and backend ``reference``'s (logits allclose,
               rtol 1e-3), and a 13-page arena preempts and keeps the tokens.
+9. tune     — the autotuner (``repro_torch.tune``) on the card, with a
+              tuning cache in a temporary directory of this run's own.  In
+              each of the four modes, on phase 4/5's packed model (after
+              phase 8): ``autotune_packed_tree(model, 4)`` tunes 3 problems,
+              each selecting ``cuda`` at no more than its default's time in
+              the tuner's own table (device time on CUDA-graph replays of a
+              ring of weight copies larger than L2), every candidate the
+              pruner kept measured or refused — and, before it was timed,
+              its output within phase 3's tolerance of the default's and
+              its launcher's shared memory what ``tune.smem_bytes``
+              counted (the tuner raises otherwise) — and each selected
+              setting, launched on the model's own weights, within phase
+              3's tolerance of the plain version; then ``--backend auto`` on
+              the dense engine (``run_serve``) and on the paged engine:
+              every decode-width lookup a cache hit, the wrappers' counts
+              of phases 4/8 on the expected bodies, the dispatch counter on
+              the resolved backend ``cuda``, 224 launches a replay on the
+              device, and each captured program's logits bit-equal to its
+              eager program's under ``auto``; then
+              ``autotune_packed_tree(model, 32)`` tunes the gather bodies a
+              prefill chunk runs (its selected settings held to the plain
+              version as at 4 rows), and a chunk's device time is profiled
+              under the default and the tuned params in turns; the last
+              chunk's logits under the tuned params lie within 5e-2
+              (relative L2) of the default params'.  6g also
+              serves its 2-layer float32 models with an engine built with
+              ``autotune=True`` under ``auto``: the tokens of ``cuda`` and
+              ``reference``, logits allclose (rtol 1e-3).  K5:
+              ``autotune_spmm`` at Cd 4 and 256 on the three shapes, the
+              measure-only ``block_spmm`` measured beside it.  ``--sweep``
+              measures more candidates a problem.
 7. times    — per kernel and shape at Bx = 4 with bfloat16 activations (what
               the main path launches; K5 at Cd = 4 and 256): CUDA-event
               medians of the kernel over a ring of weight copies larger than
@@ -128,7 +159,8 @@ unless all of them held:
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
-"flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...}}``
+"flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
+"tune": {...}}``
 (per kernel: wrapper launches on the dense and the paged path, error, times,
 bound, its gather body at Bx = 32; per serve run: ticks, decode-step time,
 tokens/s, device launches per replay), and one JSON object ``{"ok": true,
@@ -175,13 +207,6 @@ BATCHES = (1, 4, 37, 256)
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -746,19 +771,21 @@ def spmm_path(gen):
             "max_abs_err_vs_reference": worst}
 
 
-def serve_collect(model, cfg, backend, eager=False):
-    """Greedy serve on 2 slots, keeping every tick's logits; ``eager`` runs
-    the decode step eagerly instead of replaying its captured graph (the
-    engine's measurement hook)."""
+def serve_collect(model, cfg, backend, eager=False, slots=2,
+                  autotune=False):
+    """Greedy serve on ``slots`` slots, keeping every tick's logits;
+    ``eager`` runs the decode step eagerly instead of replaying its captured
+    graph (the engine's measurement hook); ``autotune`` has the engine tune
+    its packed weights at ``slots`` rows first."""
     import numpy as np
     from repro_torch import obs
     from repro_torch.core.sparse_linear import ExecPolicy
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    engine = ServeEngine(model, ServeConfig(num_slots=2, max_len=48),
+    engine = ServeEngine(model, ServeConfig(num_slots=slots, max_len=48),
                          policy=ExecPolicy(mode="packed", backend=backend),
                          device=DEVICE, metrics=obs.MetricsRegistry(),
-                         _eager=eager)
+                         autotune=autotune, _eager=eager)
     rng = np.random.default_rng(1)
     for i in range(3):
         prompt = rng.integers(0, cfg.vocab_size, rng.integers(4, 9),
@@ -807,14 +834,15 @@ def check_backends_agree(cfg_full):
     return report
 
 
-def graph_vs_eager(model, cfg, label):
-    """Phase 4g/5g: the captured step against the eager step on the same
-    model: the same tokens, and bit-equal logits on every tick.  Returns
-    the report and the captured step's logits and tokens."""
+def graph_vs_eager(model, cfg, label, backend="cuda", slots=2):
+    """Phase 4g/5g (and 9 under ``auto``): the captured step against the
+    eager step on the same model: the same tokens, and bit-equal logits on
+    every tick.  Returns the report and the captured step's logits and
+    tokens."""
     import numpy as np
 
-    lg, tg = serve_collect(model, cfg, "cuda")
-    le, te = serve_collect(model, cfg, "cuda", eager=True)
+    lg, tg = serve_collect(model, cfg, backend, slots=slots)
+    le, te = serve_collect(model, cfg, backend, eager=True, slots=slots)
     if len(lg) != len(le) or tg != te:
         raise AssertionError(f"{label}: graph and eager steps give different "
                              f"tokens: {tg} vs {te}")
@@ -831,7 +859,9 @@ def check_graph_modes(cfg_full):
     """Phase 6g: full width, 2 layers, float32 compute, in the four serving
     modes: the captured step's tokens equal the eager step's and backend
     ``reference``'s (its logits bit-equal to the eager step's, allclose to
-    the reference's at rtol 1e-3)."""
+    the reference's at rtol 1e-3).  Phase 9's leg on the same models: an
+    engine built with ``autotune=True`` under backend ``auto`` gives the
+    tokens of ``cuda`` and ``reference``, its logits allclose to both."""
     import numpy as np
     from repro_torch.launch.pack_tree import pack_tree
     from repro_torch.models.families import build_model
@@ -858,6 +888,21 @@ def check_graph_modes(cfg_full):
                 worst = max(worst, float(np.abs(a - b).max()))
             entry["tokens_equal_reference"] = True
             entry["max_abs_logit_diff_vs_reference"] = worst
+            la, ta = serve_collect(model, cfg, "auto", autotune=True)
+            if ta != tg or len(la) != len(lg):
+                raise AssertionError(f"{label}: auto and cuda tokens "
+                                     f"differ: {ta} vs {tg}")
+            entry["auto"] = {"tokens_equal_cuda_and_reference": True}
+            for backend, other in (("cuda", lg), ("reference", lr)):
+                diff = 0.0
+                for t, (a, b) in enumerate(zip(la, other)):
+                    a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+                    if not np.allclose(a, b, rtol=1e-3, atol=1e-3):
+                        raise AssertionError(
+                            f"{label} tick {t}: auto logits differ from "
+                            f"{backend}'s, max abs {np.abs(a - b).max()}")
+                    diff = max(diff, float(np.abs(a - b).max()))
+                entry["auto"][f"max_abs_logit_diff_vs_{backend}"] = diff
             report[label] = entry
     return report
 
@@ -1033,13 +1078,13 @@ def submit_all(engine, prompts, max_new, uid0=0):
         engine.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=max_new))
 
 
-def drain_recording(engine, prompts, max_new):
+def drain_recording(engine, prompts, max_new, uid0=0):
     """Serve ``prompts`` (uid = index) to the end, keeping every logits row
     the sampler reads, in call order, as (program, uid, position, row):
     ``"prefill"`` for a request's last chunk, ``"decode"`` for a decode
     step's lane.  (The rows of masked lanes are not kept: they may read the
     null page, whose content is not deterministic.)  Returns (that list,
-    {uid: tokens})."""
+    {uid: tokens}).  Request ``i`` gets uid ``uid0 + i``."""
     import numpy as np
 
     seen, program = [], ["decode"]
@@ -1058,10 +1103,11 @@ def drain_recording(engine, prompts, max_new):
 
     engine._finish_prefill = in_prefill
     engine.sampler = types.SimpleNamespace(sample=record)  # (a frozen dataclass)
-    submit_all(engine, prompts, max_new)
+    submit_all(engine, prompts, max_new, uid0)
     engine.run_until_drained()
     del engine._finish_prefill              # no reference cycle left
-    return seen, {r.uid: list(r.output) for r in engine.completed}
+    return seen, {r.uid: list(r.output) for r in engine.completed
+                  if r.uid >= uid0}
 
 
 def pass_report(engine, requests, t0, t1):
@@ -1205,16 +1251,17 @@ def page_gather_ms(engine, cfg):
             "bound_ms_per_tick": 1e3 * nbytes * len(calls) / HBM_BYTES_PER_S}
 
 
-def graph_equals_eager_paged(model, cfg, prompts, max_new, label):
+def graph_equals_eager_paged(model, cfg, prompts, max_new, label,
+                             backend="cuda"):
     """Both captured programs against the eager programs on the same model
     and prompts: bit-equal logits of every request's last chunk and of every
     decode step, the same tokens, one capture of each program."""
     import numpy as np
 
-    graph = paged_engine(model)
+    graph = paged_engine(model, backend=backend)
     lg, tg = drain_recording(graph, prompts, max_new)
-    le, te = drain_recording(paged_engine(model, eager=True), prompts,
-                             max_new)
+    le, te = drain_recording(paged_engine(model, backend=backend, eager=True),
+                             prompts, max_new)
     if (graph.captures, graph.prefill.captures) != (1, 1):
         raise AssertionError(f"{label}: captures {graph.captures} (decode), "
                              f"{graph.prefill.captures} (prefill); expected "
@@ -1436,6 +1483,358 @@ def paged_cli(cfg):
             or got["prefill_dispatches"] < 12 or got["decode_dispatches"] < 1:
         raise AssertionError(f"launch.serve --paged: {got}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# phase 9: tune — the autotuner on the card, serving under backend "auto"
+# ---------------------------------------------------------------------------
+
+# candidates measured per problem, and CUDA-graph replays per candidate
+TUNE_KW = dict(max_measure=5, warmup=1, iters=3)
+TUNE_SWEEP_KW = dict(max_measure=16, warmup=1, iters=7)
+# a prefill chunk's logits under the tuned params against the default
+# params' (relative L2): bfloat16 through 32 layers, the projections' sums in
+# another order; a wrong kernel setting gives an error of order 1
+CHUNK_LOGITS_RTOL = 5e-2
+PRUNED = ("pruned_geometry", "pruned_smem", "pruned_rank")
+
+
+def tuned_rows(results, label):
+    """One row per tuned problem of ``autotune_packed_tree``: the body, the
+    default's and the selected candidate's device us (the tuner's own
+    table), the tuned params, and the candidates by status.  Raises unless
+    every problem selected ``cuda`` at a time no longer than its default's
+    and every candidate the pruner kept was measured or refused."""
+    from collections import Counter
+    from repro_torch import tune
+
+    rows = []
+    for key, res in results.items():
+        default = res.default
+        statuses = Counter(c.status for c in res.candidates)
+        kept = [c for c in res.candidates if c.status not in PRUNED]
+        if res.best.backend != "cuda":
+            raise AssertionError(f"{label} {key}: selected "
+                                 f"{res.best.backend}, expected cuda")
+        if res.best.measured_us > default.measured_s * 1e6:
+            raise AssertionError(f"{label} {key}: tuned {res.best} slower "
+                                 f"than the default {default.row()}")
+        bad = [c.row() for c in kept if c.status not in ("measured",
+                                                          "refused")]
+        if bad:
+            raise AssertionError(f"{label} {key}: candidates neither "
+                                 f"measured nor refused: {bad}")
+        rows.append({"key": key, "body": tune.cuda_body(res.problem),
+                     "default_us": default.measured_s * 1e6,
+                     "tuned_us": res.best.measured_us,
+                     "tuned_params": res.best.params,
+                     "default_over_tuned": default.measured_s * 1e6
+                     / res.best.measured_us,
+                     "candidates": dict(statuses),
+                     "refused": [c.row() for c in kept
+                                 if c.status == "refused"]})
+    return rows
+
+
+def check_selected(model, results, batch, label):
+    """Each tuned problem's selected params, launched through the registered
+    ``cuda`` variant (what ``backend="auto"`` dispatches) on one of the
+    model's own packed weights with ``batch`` random rows, against the plain
+    version on the same operands at phase 3's tolerance.  Returns the max
+    abs error by problem key."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.core.sparsity import LAYOUT_BLOCK, PackedWeight
+
+    gen = torch.Generator(device=DEVICE).manual_seed(batch)
+    dtype = getattr(torch, model.cfg.compute_dtype)
+    err = {}
+    for pw in (mod for mod in model.modules()
+               if isinstance(mod, PackedWeight)):
+        o, k = pw.dense_shape
+        x = torch.randn((batch, k), generator=gen, device=DEVICE).to(dtype)
+        if pw.layout == LAYOUT_BLOCK:
+            p = tune.Problem.for_xwT_block(x.shape, pw, dtype, x.device)
+            args = (x, pw.values, pw.indices, pw.active_groups)
+        else:
+            p = tune.Problem.for_xwT(x.shape, (o, k), pw.cfg, dtype,
+                                     x.device, quantized=pw.qdtype is not None,
+                                     duplicates=pw.has_duplicates)
+            args = (x, pw.values, pw.indices)
+        args += (pw.scales,) if pw.qdtype is not None else ()
+        key = tune.problem_key(p)
+        if key in err:
+            continue
+        best = results[key].best
+        got = tune.get_variant(p.op, best.backend).call(
+            *args, pw.cfg, (o, k), duplicates=pw.has_duplicates,
+            **best.params)
+        want = tune.get_variant(p.op, "reference").call(*args, pw.cfg, (o, k))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got, want, **TOL[model.cfg.compute_dtype],
+            msg=lambda m: f"{label} {key} tuned {best.params}: {m}")
+        err[key] = float((got - want).abs().max())
+    if set(err) != set(results):
+        raise AssertionError(f"{label}: checked {sorted(err)}, tuned "
+                             f"{sorted(results)}")
+    return err
+
+
+def swapped_registry():
+    """A fresh default metrics registry (the tuning cache's and the
+    dispatch counters' home) and the one it replaced."""
+    from repro_torch import obs
+    prev = obs.default_registry()
+    reg = obs.MetricsRegistry()
+    obs.set_default_registry(reg)
+    return reg, prev
+
+
+def cache_counts(reg, width):
+    """Hits and misses of the tuning cache in ``reg`` for problems of
+    ``width`` activation rows (from the ``tune_cache_resolve`` events),
+    and the dispatch counter by (op, backend)."""
+    outcome = {"hit": 0, "miss": 0}
+    for e in reg.trace.named("tune_cache_resolve"):
+        if f"|r{width}|" in e.get("key", ""):
+            outcome[e["outcome"]] += 1
+    snap = json.loads(json.dumps(reg.snapshot()))
+    dispatch = {f"{c['labels']['op']}/{c['labels']['backend']}": c["value"]
+                for c in snap["counters"]
+                if c["name"] == "kernel_dispatch_total"}
+    return outcome, dispatch
+
+
+def serve_auto(model, cfg, *, layout, quantize, expect):
+    """Phase 9's dense serve under ``--backend auto`` (tuned at 4 rows):
+    every decode-width lookup hits the cache, the wrappers launch the
+    mode's kernel 7 x layers x (warm-up + capture) times on its serving
+    body, the dispatch counter carries the resolved backend ``cuda``, and a
+    profiled window shows 7 x layers launches per replay on that body."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.serve.serve_loop import CAPTURE_WARMUP
+
+    reg, prev = swapped_registry()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        engine = run_serve(model, cfg.vocab_size, packed=True, layout=layout,
+                           quantize=quantize, backend="auto", requests=4,
+                           slots=4, max_new=8, max_len=64, seed=0,
+                           device=DEVICE, metrics=obs.MetricsRegistry())
+        counts, body_counts = read_counts(), read_body_counts()
+        outcome, dispatch = cache_counts(reg, 4)
+    finally:
+        obs.set_default_registry(prev)
+    per = 7 * cfg.num_layers * (CAPTURE_WARMUP + 1)
+    want = {name: 0 for name in KERNELS}
+    want[expect] = per
+    body = SERVING_BODY[expect]
+    if counts != want or (expect in body_counts
+                          and body_counts[expect][body] != per):
+        raise AssertionError(f"auto: launch counts {counts}, by body "
+                             f"{body_counts}: expected {want}, all on {body}")
+    if outcome["miss"] or not outcome["hit"]:
+        raise AssertionError(f"auto at decode width: cache {outcome}, "
+                             "expected hits only")
+    if set(k.split("/")[1] for k in dispatch) != {"cuda"} \
+            or sum(dispatch.values()) != per:
+        raise AssertionError(f"auto: dispatches {dispatch}, expected {per} "
+                             "on the resolved backend cuda")
+    if not all(len(r.output) == 8 for r in engine.completed) or \
+            not np.isfinite(engine.last_logits[:, :cfg.vocab_size]).all():
+        raise AssertionError("auto: incomplete requests or non-finite "
+                             "logits")
+    return {"launches": counts[expect], "cache": outcome,
+            "dispatch": dispatch,
+            "device_launches_per_replay": profiled_replays(engine, cfg,
+                                                           expect)}
+
+
+def paged_auto(model, cfg, mode, expect):
+    """Phase 9's paged serve under ``--backend auto``: 4 prompts, no cache
+    miss at decode width (the chunk's 32-row problems miss once each and
+    take the heuristic, the default params), each program captured once
+    with the wrappers' counts of phase 8, and both programs' logits
+    bit-equal to the eager programs' under ``auto``.  Returns the report
+    and the engine (its chunk program runs the default params)."""
+    import torch
+
+    from repro_torch import obs
+
+    prompts = paged_prompts(cfg.vocab_size, n=4, seed=13, hi=160)
+    per = 7 * cfg.num_layers
+    reg, prev = swapped_registry()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        engine = paged_engine(model, backend="auto")
+        submit_all(engine, prompts, 8)
+        engine.run_until_drained()
+        counts, body_counts = read_counts(), read_body_counts()
+        decode, _ = cache_counts(reg, 4)
+        chunk, dispatch = cache_counts(reg, PAGED["prefill_chunk"])
+    finally:
+        obs.set_default_registry(prev)
+    want = {name: 0 for name in KERNELS}
+    want[expect] = 4 * per
+    serving = SERVING_BODY[expect]
+    if counts != want or (expect in body_counts and body_counts[expect]
+                          != {PREFILL_BODY: 2 * per, serving: 2 * per}):
+        raise AssertionError(f"paged auto: launch counts {counts}, by body "
+                             f"{body_counts}: expected {want}")
+    if decode["miss"] or not decode["hit"]:
+        raise AssertionError(f"paged auto at decode width: cache {decode}, "
+                             "expected hits only")
+    if set(k.split("/")[1] for k in dispatch) != {"cuda"}:
+        raise AssertionError(f"paged auto: dispatches {dispatch}")
+    return {"launches": counts[expect], "cache_decode_width": decode,
+            "cache_chunk_width": chunk, "dispatch": dispatch,
+            "graph_vs_eager": graph_equals_eager_paged(
+                model, cfg, prompts[:2], 6, mode, backend="auto")}, engine
+
+
+def chunk_turns(model, cfg, expect, default):
+    """A prefill chunk's device time under the default params and under the
+    tuned ones, in turns (default, tuned, tuned, default): ``default`` is
+    the paged engine of :func:`paged_auto` (its chunk program captured
+    before tuning at chunk width, on the heuristic), the tuned one a fresh
+    engine under ``auto`` after it.  Each is warmed (both programs
+    captured) and given 4 prompts of 129 tokens; each turn profiles one
+    tick of 4 non-final chunks, which must launch the mode's kernel 7 x
+    layers times a chunk on the gather body and nothing else; then one
+    decode tick of each, 7 x layers launches on the serving body.  Last,
+    both serve 2 fresh prompts of 129 tokens: the logits of each request's
+    last chunk under the tuned params must lie within
+    ``CHUNK_LOGITS_RTOL`` (relative L2) of the default params' — the
+    tunables change only the order of a reduction, so a wrong setting shows
+    as an error of order 1.  Returns the device ms of each turn and that
+    comparison."""
+    import numpy as np
+
+    engines = {"default": default,
+               "tuned": paged_engine(model, backend="auto")}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, 129, dtype=np.int32)
+               for _ in range(4)]
+    submit_all(engines["tuned"], prompts[:1], 1, uid0=900)
+    engines["tuned"].run_until_drained()     # captures both programs
+    for engine in engines.values():
+        submit_all(engine, prompts, 3, uid0=1000)
+        engine.step()                        # the first chunk of each
+    per = 7 * cfg.num_layers
+    want = {(expect, PREFILL_BODY): per * 4}
+    ms = {"default": [], "tuned": []}
+    for name in ("default", "tuned", "tuned", "default"):
+        window = profiled_window(engines[name], 1)
+        if (window["prefill_dispatches"], window["decode_dispatches"],
+                window["demm"]) != (4, 0, want):
+            raise AssertionError(f"chunk window ({name}): {window}")
+        ms[name].append(window["device_ms"] / 4)
+    want = {(expect, SERVING_BODY[expect]): per}
+    for name, engine in engines.items():
+        while not engine._decode_mask.all():
+            engine.step()
+        window = profiled_window(engine, 1)
+        if (window["prefill_dispatches"], window["decode_dispatches"],
+                window["demm"]) != (0, 1, want):
+            raise AssertionError(f"decode window ({name}): {window}")
+        engine.run_until_drained()
+    fresh = [rng.integers(0, cfg.vocab_size, 129, dtype=np.int32)
+             for _ in range(2)]
+    rows = {name: [e for e in drain_recording(engine, fresh, 2, uid0=2000)[0]
+                   if e[0] == "prefill"]
+            for name, engine in engines.items()}
+    if [e[1:3] for e in rows["tuned"]] != [e[1:3] for e in rows["default"]] \
+            or len(rows["tuned"]) != 2:
+        raise AssertionError(f"chunk logits: rows {rows}")
+    # the true vocabulary only: the padding columns hold -1e30
+    pairs = [(a[-1][:cfg.vocab_size].astype(np.float64),
+              b[-1][:cfg.vocab_size].astype(np.float64))
+             for a, b in zip(rows["tuned"], rows["default"])]
+    rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+           for a, b in pairs]
+    if not max(rel) <= CHUNK_LOGITS_RTOL:
+        raise AssertionError(f"chunk logits under the tuned params differ "
+                             f"from the default params' by {rel} (relative "
+                             f"L2), more than {CHUNK_LOGITS_RTOL}")
+    return ms, {"rel_l2": rel,
+                "bit_equal": [bool(np.array_equal(a, b)) for a, b in pairs]}
+
+
+def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
+    """Phase 9 in one mode on phase 4/5's packed model: tune at decode
+    width (3 problems), serve under ``auto`` on the dense and the paged
+    engine, then tune at chunk width (the gather bodies) and time a chunk
+    under the tuned and the default params, in turns."""
+    import torch
+    from repro_torch import tune
+
+    t0 = time.time()
+    res4 = tune.autotune_packed_tree(model, 4, **kw)
+    if len(res4) != 3:
+        raise AssertionError(f"{mode}: {len(res4)} problems at Bx = 4, "
+                             "expected 3")
+    entry = {"mode": mode, "kernel": expect,
+             "bx4": tuned_rows(res4, mode),
+             "tune_s_bx4": time.time() - t0,
+             "bx4_vs_plain": check_selected(model, res4, 4, mode)}
+    entry["dense_auto"] = serve_auto(model, cfg, layout=layout,
+                                     quantize=quantize, expect=expect)
+    entry["dense_graph_vs_eager"] = graph_vs_eager(
+        model, cfg, mode, backend="auto", slots=4)[0]
+    entry["paged_auto"], default = paged_auto(model, cfg, mode, expect)
+    t0 = time.time()
+    res32 = tune.autotune_packed_tree(model, PAGED["prefill_chunk"], **kw)
+    entry["bx32"] = tuned_rows(res32, mode)
+    entry["tune_s_bx32"] = time.time() - t0
+    entry["bx32_vs_plain"] = check_selected(model, res32,
+                                            PAGED["prefill_chunk"], mode)
+    if {r["body"] for r in entry["bx32"]} != {"gather"}:
+        raise AssertionError(f"{mode}: Bx = 32 bodies "
+                             f"{[r['body'] for r in entry['bx32']]}")
+    entry["chunk_device_ms"], entry["chunk_logits_tuned_vs_default"] = \
+        chunk_turns(model, cfg, expect, default)
+    del default
+    torch.cuda.empty_cache()
+    return entry
+
+
+def tune_spmm(gen, kw):
+    """Phase 9, K5 off the serving path: ``autotune_spmm`` on the three
+    projection shapes with B (K, 4) and (K, 256) bfloat16 — the gather body
+    at 4 columns, the tiled body at 256 — each selecting ``cuda`` at no more
+    than its default's time; the measure-only ``block_spmm`` (host repack,
+    then K2) is measured beside it and never selected."""
+    import torch
+    from repro_torch import tune
+    from repro_torch.core.sparsity import SparsityConfig
+
+    rows = []
+    for label, o, k, n, m in MAIN_SHAPES:
+        vals, idx = make_packed(o, k, n, m, gen)
+        for cd in (4, 256):
+            b = torch.randn((k, cd), generator=gen,
+                            device=gen.device).to(torch.bfloat16)
+            res = tune.autotune_spmm(vals, idx, b, SparsityConfig(n, m),
+                                     (o, k), duplicates=False, **kw)
+            key = tune.problem_key(res.problem)
+            row = tuned_rows({key: res}, f"spmm {label} Cd={cd}")[0]
+            row["block_spmm_us"] = {
+                str(c.params): c.measured_s * 1e6 for c in res.candidates
+                if c.backend == "block_spmm" and c.status == "measured"}
+            if not row["block_spmm_us"]:
+                raise AssertionError(f"spmm {label} Cd={cd}: the "
+                                     "measure-only block_spmm was not "
+                                     "measured")
+            rows.append(row)
+        del vals, idx
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1986,7 +2385,8 @@ def main(argv=None) -> int:
                          "and K4's cluster sizes against their gather body, "
                          "K5's rows_per_block in {8, 16, 32, 64} at Cd = 4, "
                          "its tile and stages at Cd = 256, and both K5 "
-                         "bodies at Cd 16-256")
+                         "bodies at Cd 16-256; phase 9 measures up to 16 "
+                         "candidates a problem")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a steady window of decode ticks of "
                          "the four serving modes (both layouts, float and "
@@ -2013,6 +2413,7 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch.configs.base import get_arch
+    from repro_torch.device import nvidia_smi_line
     from repro_torch.kernels import _build
     from repro_torch.models.families import build_model
 
@@ -2049,10 +2450,20 @@ def main(argv=None) -> int:
         log(f"stopped after phase 3 as asked ({time.time() - t_start:.1f} s)")
         return 0
 
+    # 9. (run inside 4-8's loop) a tuning cache of this run's own
+    import shutil
+    import tempfile
+    from repro_torch import tune
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    tune.set_default_cache(tune.TuneCache(os.path.join(tune_dir,
+                                                       "tune_cache.json")))
+    tune_kw = TUNE_SWEEP_KW if args.sweep else TUNE_KW
+
     # 4./5. serve at full width, xwT layout; 4b/5b block layout on a fresh
     # model of the same seed (packing is in place)
     cfg = get_arch("stablelm_3b")
-    serve, graph, profiles, paged = {}, {}, [], {}
+    serve, graph, profiles, paged, tuned = {}, {}, [], {}, {}
+    t_tune = 0.0
     for layout in ("xwT", "block"):
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
@@ -2081,6 +2492,13 @@ def main(argv=None) -> int:
             paged[mode] = paged_full_width(model, cfg, mode, kernel)
             log(f"[8 paged] {mode} ({time.time() - t0:.1f} s): "
                 f"{json.dumps(paged[mode])}")
+            t0 = time.time()
+            tuned[mode] = tune_full_width(model, cfg, mode, kernel,
+                                          layout=layout, quantize=quantize,
+                                          kw=tune_kw)
+            t_tune += time.time() - t0
+            log(f"[9 tune] {mode} ({time.time() - t0:.1f} s): "
+                f"{json.dumps(tuned[mode])}")
             if args.profile:             # graph and eager, paired
                 for eager in (False, True, True, False):
                     profiles.append(profile_ticks(model, cfg, mode,
@@ -2093,9 +2511,40 @@ def main(argv=None) -> int:
     # 6. backends agree end to end
     agree = check_backends_agree(get_arch("stablelm_3b"))
     log(f"[6 agree] cuda vs reference, 2 layers float32: {json.dumps(agree)}")
+    t0 = time.time()
     graph["2 layers float32"] = check_graph_modes(get_arch("stablelm_3b"))
-    log(f"[6g graph] graph vs eager vs reference, 2 layers float32, four "
-        f"modes: {json.dumps(graph['2 layers float32'])}")
+    tuned["2 layers float32"] = {mode: r["auto"] for mode, r
+                                 in graph["2 layers float32"].items()}
+    log(f"[6g graph] graph vs eager vs reference, and [9 tune] auto with "
+        f"autotune vs cuda vs reference, 2 layers float32, four modes "
+        f"({time.time() - t0:.1f} s): "
+        f"{json.dumps(graph['2 layers float32'])}")
+    t0 = time.time()
+    tuned["spmm"] = tune_spmm(gen, tune_kw)
+    t_tune += time.time() - t0
+    log(f"[9 tune] autotune_spmm at Cd 4 and 256 ({time.time() - t0:.1f} "
+        f"s): {json.dumps(tuned['spmm'])}")
+    log("[9 tune] mode | problem | body | default us | tuned us | tuned "
+        "params | default / tuned")
+    for mode, r in tuned.items():
+        for row in (r.get("bx4", []) + r.get("bx32", [])
+                    if mode.startswith("--") else r if mode == "spmm"
+                    else []):
+            log(f"[9 tune] {mode} | {row['key']} | {row['body']} | "
+                f"{row['default_us']:.2f} | {row['tuned_us']:.2f} | "
+                f"{json.dumps(row['tuned_params'])} | "
+                f"{row['default_over_tuned']:.3f}")
+        if "chunk_device_ms" in r:
+            log(f"[9 tune] {mode} | prefill chunk device ms, default params "
+                f"{r['chunk_device_ms']['default']}, tuned "
+                f"{r['chunk_device_ms']['tuned']}; last-chunk logits tuned "
+                f"vs default {r['chunk_logits_tuned_vs_default']}; selected "
+                f"params vs plain, max abs err "
+                f"{max(r['bx4_vs_plain'].values()):.3g} (Bx = 4), "
+                f"{max(r['bx32_vs_plain'].values()):.3g} (Bx = 32)")
+    log(f"[9 tune] {t_tune:.1f} s in all")
+    tune.set_default_cache(None)
+    shutil.rmtree(tune_dir, ignore_errors=True)
     t0 = time.time()
     paged_gate = paged_gates(get_arch("stablelm_3b"))
     log(f"[8g paged] paged vs dense vs reference, preemption, 2 layers "
@@ -2214,7 +2663,8 @@ def main(argv=None) -> int:
     log(json.dumps({"kernels": kernels, "serve": list(serve.values()),
                     "spmm": spmm, "agree": agree, "graph": graph,
                     "flight": flight, "paged": list(paged.values()),
-                    "paged_gates": paged_gate, "paged_cli": cli}))
+                    "paged_gates": paged_gate, "paged_cli": cli,
+                    "tune": tuned}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,8 @@ for the CPU by name."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -16,3 +18,15 @@ def require_device(device) -> torch.device:
             "available; pass device='cpu' (--device cpu) to run on the CPU "
             "on purpose")
     return device
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them: the stamp every
+    measurement on the card is kept with (a card set below its maximum
+    power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]

@@ -127,9 +127,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.demm_spmm_tc_launch.argtypes = [p, i, p, p, p, *[i] * 5, *[ll] * 3,
                                         *[i] * 6, p]
     lib.demm_empty_launch.argtypes = [i, i, i, i, i, p]
+    lib.demm_last_launch_smem.argtypes = []
     for fn in (lib.demm_xwt_launch, lib.demm_xwt_q8_launch,
                lib.demm_block_spmm_launch, lib.demm_block_spmm_q8_launch,
-               lib.demm_spmm_tc_launch, lib.demm_empty_launch):
+               lib.demm_spmm_tc_launch, lib.demm_empty_launch,
+               lib.demm_last_launch_smem):
         fn.restype = i
 
 
@@ -149,3 +151,10 @@ def load_library() -> ctypes.CDLL:
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def last_launch_smem() -> int:
+    """Dynamic shared memory (bytes) of the last DeMM kernel the library
+    launched, as its launcher planned it (the autotuner holds
+    ``tune.smem_bytes`` against this)."""
+    return int(load_library().demm_last_launch_smem())

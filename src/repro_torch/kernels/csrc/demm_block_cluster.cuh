@@ -288,6 +288,7 @@ static int launch_cluster_bt(const int32_t* ag, W w, const int32_t* idx, const X
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
+  last_launch_smem = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = geo.csize;

@@ -248,6 +248,7 @@ static int launch_block_bt(const int32_t* active_groups, W weights, const int32_
   const long long blocks_x = static_cast<long long>(geo.r / geo.block_r) * geo.parts;
   if (blocks_x > 0x7fffffffLL) return kErrBadShape;
   dim3 grid(static_cast<unsigned>(blocks_x), col_tiles);
+  last_launch_smem = smem;
   kernel<<<grid, kThreads, smem, stream>>>(active_groups, weights, indices, b, c, geo);
   return static_cast<int>(cudaGetLastError());
 }

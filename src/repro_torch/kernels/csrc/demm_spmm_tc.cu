@@ -109,6 +109,7 @@ int launch_tc(const void* b, long long s_bk, const void* values, const int32_t* 
                      geo.ibox, BM, CU_TENSOR_MAP_SWIZZLE_NONE))
     return kErrTensorMap;
   dim3 grid(static_cast<unsigned>(row_tiles), col_tiles);
+  demm::last_launch_smem = static_cast<int>(smem);
   kernel<<<grid, 128 * (WGS + 1), smem, stream>>>(b_map, v_map, i_map, c, geo);
   return static_cast<int>(cudaGetLastError());
 }

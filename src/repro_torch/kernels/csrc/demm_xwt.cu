@@ -73,6 +73,10 @@ extern "C" int demm_xwt_launch(const void* x, const void* values, const int32_t*
   return demm::kErrBadDtype;
 }
 
+// The dynamic shared memory (bytes) of the last DeMM kernel this library
+// launched (demm_empty_launch's not included).
+extern "C" int demm_last_launch_smem() { return demm::last_launch_smem; }
+
 // The launch floor: an empty kernel on `blocks` CTAs of `threads` threads in
 // clusters of `cluster`, with `smem` bytes of dynamic shared memory -- what a
 // launch of that shape costs before any work is done.  A measurement aid

@@ -324,6 +324,7 @@ static int start_bulk(const XT* x, W weights, const int32_t* indices, float* y,
     opted_in[dev] = smem;
   }
   const unsigned blocks = static_cast<unsigned>((geo.o + geo.rows - 1) / geo.rows);
+  last_launch_smem = smem;
   kernel<<<blocks, kBulkThreads, smem, stream>>>(x, weights, indices, y, geo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -366,6 +366,11 @@ xwt_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__ indi
 
 constexpr int kMaxDevices = 64;
 
+// The dynamic shared memory of the last kernel this library launched, set by
+// every launcher just before its launch (host bookkeeping, one copy for the
+// whole library): the autotuner holds its shared-memory model against it.
+inline int last_launch_smem = 0;
+
 // A device attribute, asked for once per device and kept.  (Internal linkage:
 // the cached values belong to this library alone.)
 template <cudaDeviceAttr ATTR>
@@ -421,6 +426,7 @@ static int launch_bt(const XT* x, W weights, const int32_t* indices, float* y, i
   }
   dim3 grid((o + rows_per_block - 1) / rows_per_block, (bx + BT - 1) / BT);
   if (grid.y > 65535u) return kErrBadShape;   // more activation tiles than a grid holds
+  last_launch_smem = smem;
   kernel<<<grid, kThreads, smem, stream>>>(x, weights, indices, y, bx, k, o, g, m, ne,
                                            rows_per_block, chunk_groups);
   return static_cast<int>(cudaGetLastError());

@@ -149,6 +149,19 @@ def demm_block_spmm_plain(active_groups: torch.Tensor, values: torch.Tensor,
 CLUSTER_MAX_CD = 8
 
 
+def cluster_fits(cd: int, m: int, block_r: int, ne: int, b_size: int,
+                 value_size: int, b_col_stride: int) -> bool:
+    """:func:`cluster_takes` on shapes and element sizes alone (B = xᵀ,
+    every array 16-byte aligned): ``cd`` columns of B of ``b_size`` bytes,
+    ``b_col_stride`` elements between them (x's row length K), values of
+    ``value_size`` bytes.  The autotuner reads a problem's body here."""
+    return (cd <= CLUSTER_MAX_CD
+            and (cd == 1 or (b_col_stride * b_size) % 16 == 0)
+            and (m * b_size) % 16 == 0
+            and (block_r * ne * value_size) % 16 == 0
+            and block_r % 4 == 0 and 256 % block_r == 0)
+
+
 def cluster_takes(values: torch.Tensor, indices: torch.Tensor,
                   b: torch.Tensor, m: int,
                   scales: Optional[torch.Tensor] = None) -> bool:
@@ -161,14 +174,10 @@ def cluster_takes(values: torch.Tensor, indices: torch.Tensor,
     its ``block_r`` scales; ``block_r`` a power of two up to 256.  The C++
     ``cluster_takes`` refuses what lies outside this."""
     block_r, ne = values.shape[-2], values.shape[-1]
-    es = b.element_size()
-    cd = b.shape[1]
     arrays = (values, indices, b) + (() if scales is None else (scales,))
-    return (cd <= CLUSTER_MAX_CD and b.stride(0) == 1
-            and (cd == 1 or (b.stride(1) * es) % 16 == 0)
-            and (m * es) % 16 == 0
-            and (block_r * ne * values.element_size()) % 16 == 0
-            and block_r % 4 == 0 and 256 % block_r == 0
+    return (b.stride(0) == 1
+            and cluster_fits(b.shape[1], m, block_r, ne, b.element_size(),
+                             values.element_size(), b.stride(1))
             and all(t.data_ptr() % 16 == 0 for t in arrays))
 
 

@@ -91,6 +91,17 @@ TILED_MAX_M = 128
 TILED_MAX_NE = 8
 
 
+def tiled_fits(g: int, ne: int, m: int, b_bf16: bool, b_row_bytes: int,
+               value_size: int) -> bool:
+    """:func:`_tiled_takes` on shapes and element sizes alone (B's rows
+    contiguous, every array 16-byte aligned): ``b_row_bytes`` bytes between
+    B's rows, values of ``value_size`` bytes.  The autotuner reads a
+    problem's body here."""
+    return (b_bf16 and b_row_bytes % 16 == 0
+            and (g * ne * value_size) % 16 == 0 and (g * ne * 4) % 16 == 0
+            and m <= TILED_MAX_M and ne <= TILED_MAX_NE)
+
+
 def _tiled_takes(values: torch.Tensor, indices: torch.Tensor,
                  b: torch.Tensor, m: int) -> bool:
     """What the tiled body can take at all — the terms of its tensor maps and
@@ -99,12 +110,11 @@ def _tiled_takes(values: torch.Tensor, indices: torch.Tensor,
     groups of at most ``TILED_MAX_M`` columns; at most ``TILED_MAX_NE``
     pairs."""
     g, ne = values.shape[1], values.shape[2]
-    return (b.dtype == torch.bfloat16 and b.ndim == 2 and b.stride(1) == 1
-            and (b.stride(0) * b.element_size()) % 16 == 0
-            and (g * ne * values.element_size()) % 16 == 0
-            and (g * ne * indices.element_size()) % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (b, values, indices))
-            and m <= TILED_MAX_M and ne <= TILED_MAX_NE)
+    return (b.ndim == 2 and b.stride(1) == 1
+            and tiled_fits(g, ne, m, b.dtype == torch.bfloat16,
+                           b.stride(0) * b.element_size(),
+                           values.element_size())
+            and all(t.data_ptr() % 16 == 0 for t in (b, values, indices)))
 
 
 def spmm_body(values: torch.Tensor, indices: torch.Tensor, b: torch.Tensor,

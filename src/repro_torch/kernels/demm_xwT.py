@@ -150,6 +150,27 @@ def _x_tile(bx: int) -> int:
     return next(t for t in (1, 2, 4, 8) if bx <= t) if bx <= 8 else 8
 
 
+def xwt_body_of(bx: int, k: int, g: int, ne: int, x_size: int,
+                value_size: int, scale_bytes: int = 0,
+                duplicates: bool = True) -> str:
+    """:func:`xwt_body`'s rule on shapes and element sizes alone (operands
+    taken 16-byte aligned): ``bx`` rows of x of ``x_size`` bytes each
+    activation, ``g`` groups of ``ne`` pairs a row, values of
+    ``value_size`` bytes, ``scale_bytes`` staged scales a row (K3's per-group
+    scales, ``4·G``; 0 otherwise).  The autotuner reads a problem's body
+    here, without tensors."""
+    pairs = g * ne
+    tile = 8 if duplicates else _x_tile(bx)
+    x_bytes = -(-k // 16) * 16 * tile * x_size  # K in whole 16-column blocks
+    row_bytes = pairs * (value_size + 4) + scale_bytes
+    fits = BULK_HEAD_BYTES + x_bytes + 2 * row_bytes <= BULK_SMEM_BYTES
+    if (bx <= BULK_MAX_BX and (k * x_size) % 16 == 0
+            and (pairs * value_size) % 16 == 0 and (pairs * 4) % 16 == 0
+            and scale_bytes % 16 == 0 and fits):
+        return "bulk"
+    return "gather"
+
+
 def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
              m: int, *, duplicates: bool = True,
              scales: Optional[torch.Tensor] = None) -> str:
@@ -161,22 +182,16 @@ def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     16-byte multiples; every array the bulk copies read 16-byte aligned; and
     the transposed x tile (the widest tile with ``duplicates``) beside two
     rows of pairs and their staged scales within a block's shared memory —
-    ``"gather"`` otherwise.  This is the one statement of the rule: the CUDA
-    launchers only refuse what the bulk body cannot take."""
+    ``"gather"`` otherwise.  This is the one statement of the rule
+    (:func:`xwt_body_of` on the shapes): the CUDA launchers only refuse what
+    the bulk body cannot take."""
     bx, k = x.shape
-    g = values.shape[1]
-    pairs = g * values.shape[2]
-    es, ves = x.element_size(), values.element_size()
+    g, ne = values.shape[1], values.shape[2]
     staged = [] if scales is None or scales.ndim == 1 else [scales]
-    scale_bytes = 4 * g if staged else 0         # a row's staged scales
-    tile = 8 if duplicates else _x_tile(bx)
-    x_bytes = -(-k // 16) * 16 * tile * es      # K in whole 16-column blocks
-    row_bytes = pairs * (ves + 4) + scale_bytes
-    fits = BULK_HEAD_BYTES + x_bytes + 2 * row_bytes <= BULK_SMEM_BYTES
-    if (bx <= BULK_MAX_BX and (k * es) % 16 == 0 and (pairs * ves) % 16 == 0
-            and (pairs * 4) % 16 == 0 and scale_bytes % 16 == 0 and fits
-            and all(t.data_ptr() % 16 == 0
-                    for t in (x, values, indices, *staged))):
+    body = xwt_body_of(bx, k, g, ne, x.element_size(), values.element_size(),
+                       4 * g if staged else 0, duplicates)
+    if body == "bulk" and all(t.data_ptr() % 16 == 0
+                              for t in (x, values, indices, *staged)):
         return "bulk"
     return "gather"
 

@@ -5,6 +5,15 @@ Backend dispatch routes through the ``repro_torch.tune`` kernel registry:
   * ``reference`` — the kernel's plain PyTorch version (scatter + matmul).
   * ``cuda``      — the hand-written CUDA kernel.  For a CUDA tensor it
                     launches or raises; nothing falls back.
+  * ``auto``      — resolved per problem (shapes, dtype, pattern, block
+                    geometry, duplicates, the operand's device) through the
+                    ``repro_torch.tune`` cache: a measured entry, else the
+                    heuristic default (``cuda`` with the wrapper's own
+                    heuristics on a CUDA tensor, ``reference`` on the CPU).
+                    A pure host lookup — it runs where the matmul is
+                    dispatched (an engine's warm-up step and capture), never
+                    at a replay.  The tuned params merge with the call's own
+                    (``duplicates``).
 
 New variants registered via ``repro_torch.tune.register_variant`` become
 valid backend strings here with no further changes.
@@ -14,7 +23,8 @@ training slice of the port.  Tier views and shard-stacked weights are not
 ported either.
 
 Observability (``repro_torch.obs``): every dispatch increments a
-``kernel_dispatch_total{op, backend}`` counter on the default registry and
+``kernel_dispatch_total{op, backend}`` counter (the *resolved* backend under
+``auto``) on the default registry and
 runs the selected variant under an ``obs.annotate("demm/<op>/<backend>")``
 NVTX range; the first dispatch of each (op, backend) pair on a registry also
 leaves a ``kernel_dispatch`` trace event.
@@ -100,6 +110,11 @@ def demm_matmul_block(x: torch.Tensor, pw: PackedWeight,
     """
     from repro_torch import obs, tune
 
+    params = {}
+    if backend == "auto":
+        choice = tune.resolve_xwT_block(x.shape, pw, x.dtype,
+                                        device=x.device)
+        backend, params = choice.backend, choice.params
     op = "xwT_block_q8" if pw.qdtype is not None else "xwT_block"
     variant = tune.get_variant(op, backend)
     _count_dispatch(op, backend)
@@ -108,7 +123,18 @@ def demm_matmul_block(x: torch.Tensor, pw: PackedWeight,
         args += (pw.scales,)
     with obs.annotate(f"demm/{op}/{backend}"):
         return variant.call(*args, pw.cfg, tuple(pw.dense_shape),
-                            duplicates=pw.has_duplicates)
+                            duplicates=pw.has_duplicates, **params)
+
+
+def _resolve(resolver, backend, params, *shape_args, device, **kw):
+    """``backend="auto"``: the tuned (backend, params), the call's own
+    params laid over them; otherwise unchanged.  The key's duplicates flag
+    is what the call launches (the wrappers' default: True)."""
+    if backend != "auto":
+        return backend, params
+    choice = resolver(*shape_args, device=device,
+                      duplicates=bool(params.get("duplicates", True)), **kw)
+    return choice.backend, {**choice.params, **params}
 
 
 def demm_matmul_xwT(x, values, indices, cfg: SparsityConfig, w_shape,
@@ -116,6 +142,8 @@ def demm_matmul_xwT(x, values, indices, cfg: SparsityConfig, w_shape,
     """y = x @ W_sparseᵀ; x (B, K), W packed (O, G, Ne) for dense (O, K)."""
     from repro_torch import obs, tune
 
+    backend, params = _resolve(tune.resolve_xwT, backend, params, x.shape,
+                               w_shape, cfg, x.dtype, device=x.device)
     variant = tune.get_variant("xwT", backend)
     _count_dispatch("xwT", backend)
     with obs.annotate(f"demm/xwT/{backend}"):
@@ -128,6 +156,9 @@ def demm_matmul_xwT_q8(x, values, indices, scales, cfg: SparsityConfig,
     (O, G) per group (``repro_torch.quant`` granularities)."""
     from repro_torch import obs, tune
 
+    backend, params = _resolve(tune.resolve_xwT_q8, backend, params,
+                               x.shape, w_shape, cfg, x.dtype,
+                               device=x.device)
     variant = tune.get_variant("xwT_q8", backend)
     _count_dispatch("xwT_q8", backend)
     with obs.annotate(f"demm/xwT_q8/{backend}"):
@@ -141,7 +172,13 @@ def demm_spmm(values, indices, b, cfg: SparsityConfig, a_shape,
     ``a_shape`` (R, K), B (K, Cd)."""
     from repro_torch import obs, tune
 
+    backend, params = _resolve(tune.resolve_spmm, backend, params, a_shape,
+                               b.shape, cfg, b.dtype, device=b.device)
     variant = tune.get_variant("spmm", backend)
+    if variant.measure_only:
+        raise ValueError(
+            f"backend {backend!r} is measure-only (host repacking); use it "
+            "through repro_torch.tune.autotune_spmm")
     _count_dispatch("spmm", backend)
     with obs.annotate(f"demm/spmm/{backend}"):
         return variant.call(values, indices, b, cfg, tuple(a_shape),

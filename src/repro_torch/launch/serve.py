@@ -15,9 +15,16 @@ refines the scales from per-row to per-(row, group).
 
 ``--backend cuda`` (the default) runs every packed projection through the
 hand-written CUDA kernels; ``--backend reference`` runs their plain PyTorch
-versions.  ``--device`` defaults to ``cuda`` and the program refuses to start
-without a CUDA device; ``--device cpu`` runs on the CPU on purpose (reduced
-configs, tests).
+versions; ``--backend auto`` resolves each projection through the tuning
+cache (``repro_torch.tune``: measured params, else the heuristic default —
+``cuda`` on the card, ``reference`` on the CPU).  ``--autotune`` (which
+implies ``--backend auto``) first measures every packed projection's
+tunables at the decode batch, on CUDA-graph replays, and persists them to
+the port's cache (``results/tune_cache_torch.json``, or
+``$REPRO_TORCH_TUNE_CACHE``; delete the file to start cold).  ``--device``
+defaults to ``cuda`` and the program refuses to start without a CUDA
+device; ``--device cpu`` runs on the CPU on purpose (reduced configs,
+tests).
 
 On a CUDA device the engine captures its decode step once as a CUDA graph
 and replays it every tick (``repro_torch.serve.serve_loop``).
@@ -90,11 +97,11 @@ def _trace_prompt(seed: int, uid: int, length: int, vocab: int):
 def run_serve(model, vocab_size: int, *, packed: bool = True,
               layout: str = "xwT", quantize=None,
               granularity: str = "per_row", backend: str = "cuda",
-              requests: int = 8, slots: int = 4, max_new: int = 16,
-              max_len: int = 128, seed: int = 0, temperature: float = 0.0,
-              top_k: int = 0, device="cuda", metrics=None,
-              paged: bool = False, page_size: int = 16, max_pages=None,
-              prefill_chunk: int = 32, scheduler: str = "fcfs",
+              autotune: bool = False, requests: int = 8, slots: int = 4,
+              max_new: int = 16, max_len: int = 128, seed: int = 0,
+              temperature: float = 0.0, top_k: int = 0, device="cuda",
+              metrics=None, paged: bool = False, page_size: int = 16,
+              max_pages=None, prefill_chunk: int = 32, scheduler: str = "fcfs",
               trace_replay=None, recorder=None):
     """Pack (optionally) and serve ``requests`` random prompts; returns the
     drained engine.  The reusable core of ``main()``.
@@ -112,7 +119,9 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     serve_bench-format JSONL trace at its logical arrival ticks instead of
     ``requests`` random prompts (prompt tokens from ``(seed, uid)``).
     ``recorder`` (a :class:`~repro_torch.obs.FlightRecorder`) is attached
-    to the engine.
+    to the engine.  ``autotune=True`` has the engine measure the packed
+    weights' kernel tunables at ``slots`` rows before it captures anything
+    (meaningful with ``backend="auto"``, which reads them).
     """
     device = require_device(device)
     mode = "masked"
@@ -132,7 +141,8 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
                                 temperature=temperature, top_k=top_k,
                                 seed=seed)
     engine = make_engine(model, serve_cfg, policy=policy, device=device,
-                         metrics=metrics, recorder=recorder)
+                         metrics=metrics, recorder=recorder,
+                         autotune=autotune)
     if trace_replay:
         rows = _load_trace(trace_replay)
         t0 = time.time()
@@ -223,7 +233,14 @@ def main(argv=None):
     # valid backends come from the registry, so variants added via
     # repro_torch.tune.register_variant are immediately servable
     from repro_torch import tune
-    ap.add_argument("--backend", default="cuda")
+    ap.add_argument("--backend", default="cuda",
+                    help="a registered variant of the layout's op (cuda, "
+                         "reference) or auto (the tuning cache's choice per "
+                         "projection)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the packed projections' kernel tunables "
+                         "at the decode batch before serving and persist "
+                         "them (implies --backend auto)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the metrics snapshot here after the drain "
                          "(.prom/.txt => Prometheus text exposition, "
@@ -263,6 +280,8 @@ def main(argv=None):
                          "stall->dump path); exits nonzero if no dump "
                          "appears")
     args = ap.parse_args(argv)
+    if args.autotune:
+        args.backend = "auto"
     if args.force_stall and not args.flight_dir:
         ap.error("--force-stall needs --flight-dir (there is no watchdog "
                  "to trip without a flight recorder)")
@@ -275,11 +294,11 @@ def main(argv=None):
     if args.quantize:
         op += "_q8"
     valid = {v.name for v in tune.variants_for(op)}
-    if args.backend not in valid:
+    if args.backend != "auto" and args.backend not in valid:
         ap.error(f"--backend {args.backend} is not a registered {op} "
                  f"variant for --layout {args.layout}"
                  + (f" --quantize {args.quantize}" if args.quantize else "")
-                 + f" (valid: {sorted(valid)})")
+                 + f" (valid: {sorted(valid)} or 'auto')")
     try:
         device = require_device(args.device)
     except RuntimeError as e:
@@ -308,7 +327,8 @@ def main(argv=None):
         engine = run_serve(model, cfg.vocab_size, packed=args.packed,
                            layout=args.layout, quantize=args.quantize,
                            granularity=args.quantize_granularity,
-                           backend=args.backend, requests=args.requests,
+                           backend=args.backend, autotune=args.autotune,
+                           requests=args.requests,
                            slots=args.slots, max_new=args.max_new,
                            max_len=args.max_len, seed=args.seed,
                            temperature=args.temperature, top_k=args.top_k,

@@ -70,6 +70,9 @@ def run_metadata() -> dict:
     return {
         "host": socket.gethostname(),
         "platform": "gpu" if on_gpu else "cpu",
+        # the shared snapshot schema (benchmarks/metrics_schema.json) names
+        # the stack's JAX version; the port runs without JAX
+        "jax": "not used",
         "device": torch.cuda.get_device_name(0) if on_gpu else "cpu",
         "torch": torch.__version__,
         "cuda": torch.version.cuda,

@@ -35,9 +35,14 @@ raises; nothing runs the step eagerly in its place.  ``_eager=True`` runs
 both programs eagerly on the card (a measurement and test hook); the CPU
 engine is always eager.
 
-Speculative decoding, autotuning and sharding plans are not ported to this
-engine yet and are refused by name.  Layering: this module never imports
-``repro_torch.models``; the model is handed in by the caller.
+``autotune=True`` measures every packed weight at ``num_slots`` rows
+before the arena is allocated and anything is captured
+(``repro_torch.tune.autotune_packed_tree``); under ``backend="auto"`` the
+decode step then resolves from measured entries and the prefill chunk's
+problems by heuristic, as in the reference.  Speculative decoding and
+sharding plans are not ported to this engine yet and are refused by name.
+Layering: this module never imports ``repro_torch.models``; the model is
+handed in by the caller.
 """
 
 from __future__ import annotations
@@ -87,11 +92,9 @@ class PagedServeEngine(EngineBase):
         from repro_torch.core.sparse_linear import resolve_policy
         from repro_torch.spec.sampling import ReplaySafeSampler
 
-        for name, given in (("spec", spec is not None),
-                            ("autotune", bool(autotune))):
-            if given:
-                raise NotImplementedError(
-                    f"PagedServeEngine({name}=) is not ported yet")
+        if spec is not None:
+            raise NotImplementedError(
+                "PagedServeEngine(spec=) is not ported yet")
         self.device = require_device(device)
         if model.device.type != self.device.type:
             raise ValueError(
@@ -100,6 +103,12 @@ class PagedServeEngine(EngineBase):
         self.model = model
         self.cfg = cfg
         self.policy = resolve_policy(policy)
+        if autotune and self.policy.mode == "packed":
+            # at the decode batch, before the arena and any capture; the
+            # prefill chunk's problems then resolve by heuristic, as in the
+            # reference
+            from repro_torch import tune
+            tune.autotune_packed_tree(model, cfg.num_slots)
         self.layout = PagedLayout.for_serve(
             cfg.max_len, page_size=cfg.page_size, num_pages=cfg.num_pages,
             num_slots=cfg.num_slots)

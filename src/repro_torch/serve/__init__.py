@@ -19,7 +19,8 @@ __all__ = ["Engine", "EngineBase", "Request", "ServeConfig", "ServeEngine",
 
 
 def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
-                plan=None, replicas: int = 1, spec=None, recorder=None):
+                plan=None, replicas: int = 1, spec=None, recorder=None,
+                autotune: bool = False):
     """Build a serving engine for ``config`` on ``device``.
 
     * ``config`` — :class:`ServeConfig` selects the dense-cache
@@ -31,6 +32,10 @@ def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
       captured CUDA graph.
     * ``recorder`` — a :class:`~repro_torch.obs.FlightRecorder` the engine
       attaches to (event rings + a tick stall watchdog).
+    * ``autotune`` — measure every packed weight's kernel tunables at
+      ``config.num_slots`` rows before anything is captured
+      (``repro_torch.tune.autotune_packed_tree``), so ``backend="auto"``
+      resolves from measured entries.
     * ``plan`` / ``replicas`` > 1 / ``spec`` name parts of the system that
       are not ported yet.
     """
@@ -48,10 +53,10 @@ def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
     if isinstance(config, PagedServeConfig):
         return PagedServeEngine(model, config, policy=policy,
                                 metrics=metrics, device=device,
-                                recorder=recorder)
+                                recorder=recorder, autotune=autotune)
     if not isinstance(config, ServeConfig):
         raise TypeError(
             f"make_engine: unknown config type {type(config).__name__!r} "
             "(expected ServeConfig or PagedServeConfig)")
     return ServeEngine(model, config, policy=policy, metrics=metrics,
-                       device=device, recorder=recorder)
+                       device=device, recorder=recorder, autotune=autotune)

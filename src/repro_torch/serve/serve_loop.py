@@ -140,7 +140,8 @@ class ServeConfig:
 
 class ServeEngine(EngineBase):
     def __init__(self, model, cfg: ServeConfig, *, policy=None, metrics=None,
-                 device="cuda", recorder=None, _eager: bool = False):
+                 device="cuda", recorder=None, autotune: bool = False,
+                 _eager: bool = False):
         from repro_torch.core.sparse_linear import resolve_policy
         from repro_torch.spec.sampling import ReplaySafeSampler
 
@@ -152,6 +153,13 @@ class ServeEngine(EngineBase):
         self.model = model
         self.cfg = cfg
         self.policy = resolve_policy(policy)
+        if autotune and self.policy.mode == "packed":
+            # measure every packed weight at the decode batch before the
+            # cache is allocated and anything is captured, so that
+            # backend="auto" resolves from measured entries at the warm-up
+            # step and the capture
+            from repro_torch import tune
+            tune.autotune_packed_tree(model, cfg.num_slots)
         # the KV cache is float32 whatever the compute dtype
         self.state = model.init_decode_state(
             cfg.num_slots, cfg.max_len, dtype=torch.float32,

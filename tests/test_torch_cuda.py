@@ -819,3 +819,215 @@ def test_capture_holds_the_garbage_collector_off(card):
     graph.replay()
     torch.cuda.synchronize()
     assert out.tolist() == [1.0] * 4 and gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# the autotuner and backend="auto" on the card (repro_torch.tune)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path):
+    from repro_torch import tune
+    cache = tune.TuneCache(str(tmp_path / "tune_cache_torch.json"))
+    tune.set_default_cache(cache)
+    yield cache
+    tune.set_default_cache(None)
+
+
+@pytest.mark.parametrize("op", ["xwT", "xwT_q8", "xwT_block",
+                                "xwT_block_q8"])
+@pytest.mark.parametrize("bx", [4, 32])
+def test_auto_never_resolves_to_the_plain_version_on_the_card(card,
+                                                              tune_cache,
+                                                              op, bx):
+    """A CUDA tensor under ``auto`` runs the kernel (heuristic and tuned
+    alike), equal to backend ``cuda``; a ``reference`` entry for its problem
+    raises before anything runs."""
+    from repro_torch import obs, tune
+    from repro_torch.core.sparsity import PackedWeight, pack, prune
+    from repro_torch.kernels import ops
+
+    cfg = SparsityConfig(5, 80)
+    w = prune(torch.randn(256, 640, device=card), cfg)
+    pk = pack(w, cfg)
+    pw = (pack_block(w, cfg) if "block" in op else
+          PackedWeight(pk.values, pk.indices, cfg=cfg, dense_shape=(256, 640)))
+    if op.endswith("_q8"):
+        pw = quantize_packed(pw)
+    x = torch.randn(bx, 640, device=card).to(torch.bfloat16)
+    reg, prev = obs.MetricsRegistry(), obs.default_registry()
+    obs.set_default_registry(reg)
+    try:
+        heuristic = ops.demm_matmul_packed(x, pw, backend="auto")
+        tune.autotune_packed_tree(torch.nn.ModuleList([pw]), bx,
+                                  torch.bfloat16, persist=False,
+                                  max_measure=3, iters=2)
+        tuned = ops.demm_matmul_packed(x, pw, backend="auto")
+    finally:
+        obs.set_default_registry(prev)
+    want = ops.demm_matmul_packed(x, pw, backend="cuda")
+    torch.testing.assert_close(heuristic, want, rtol=0, atol=0)
+    torch.testing.assert_close(tuned, want, **TOL[torch.bfloat16])
+    backends = {c["labels"]["backend"] for c in reg.snapshot(
+        meta=False)["counters"] if c["name"] == "kernel_dispatch_total"}
+    assert backends == {"cuda"}
+    p = (tune.Problem.for_xwT_block(x.shape, pw, x.dtype, card)
+         if "block" in op else
+         tune.Problem.for_xwT(x.shape, (256, 640), cfg, x.dtype, card,
+                              quantized=op.endswith("_q8")))
+    tune_cache.put(p, tune.TunedConfig("reference", {}, 1.0, "tuned"))
+    with pytest.raises(RuntimeError, match="does not dispatch on 'cuda'"):
+        ops.demm_matmul_packed(x, pw, backend="auto")
+
+
+@pytest.mark.parametrize("op", ["xwT", "xwT_q8", "spmm"])
+@pytest.mark.parametrize("rows", [4, 32, 256])
+def test_tuned_is_no_slower_than_the_default(card, tune_cache, op, rows):
+    from repro_torch import tune
+    from repro_torch.core.sparsity import PackedWeight, pack, prune
+
+    cfg = SparsityConfig(5, 80)
+    pk = pack(prune(torch.randn(2560, 2560, device=card), cfg), cfg)
+    x = torch.randn(rows, 2560, device=card).to(torch.bfloat16)
+    if op == "spmm":
+        res = tune.autotune_spmm(pk.values, pk.indices, x.T.contiguous(),
+                                 cfg, (2560, 2560), duplicates=False,
+                                 persist=False, max_measure=4, iters=3)
+    elif op == "xwT_q8":
+        q = quantize_packed(PackedWeight(pk.values, pk.indices, cfg=cfg,
+                                         dense_shape=(2560, 2560)))
+        res = tune.autotune_xwT_q8(x, q.values, q.indices, q.scales, cfg,
+                                   (2560, 2560), duplicates=False,
+                                   persist=False, max_measure=4, iters=3)
+    else:
+        res = tune.autotune_xwT(x, pk.values, pk.indices, cfg, (2560, 2560),
+                                duplicates=False, persist=False,
+                                max_measure=4, iters=3)
+    assert res.best.backend == "cuda"
+    assert res.best.measured_us <= res.default.measured_s * 1e6
+    kept = [c for c in res.candidates if not c.status.startswith("pruned")]
+    assert kept and all(c.status in ("measured", "refused") for c in kept)
+    # device time of a launch, not the ~30-50 us of issuing one
+    assert res.best.measured_us < 200
+
+
+@pytest.mark.parametrize("op,rows", [
+    ("xwT", 4), ("xwT", 32), ("xwT_q8", 4), ("xwT_q8", 32), ("xwT_block", 4),
+    ("xwT_block", 32), ("xwT_block_q8", 4), ("xwT_block_q8", 32), ("spmm", 4),
+    ("spmm", 256)])
+@pytest.mark.parametrize("o,k,n,m", [(2560, 2560, 5, 80), (2560, 6912, 3, 48)])
+def test_smem_bytes_is_what_every_launcher_asks_for(card, op, rows, o, k, n,
+                                                    m):
+    """Every candidate of the grid at two full-width stablelm_3b shapes,
+    launched once through the registered ``cuda`` variant: its launcher asks
+    for the dynamic shared memory ``tune.smem_bytes`` counts, and a
+    candidate counted over the budget is refused before it launches."""
+    from repro_torch import tune
+    from repro_torch.core.sparsity import PackedWeight, pack, prune
+    from repro_torch.kernels._build import last_launch_smem
+    from repro_torch.kernels.demm_xwT import LaunchRefused
+
+    cfg = SparsityConfig(n, m)
+    w = prune(torch.randn(o, k, device=card), cfg)
+    x = torch.randn(rows, k, device=card).to(torch.bfloat16)
+    quant = op.endswith("_q8")
+    if op == "spmm":
+        pk = pack(w, cfg)
+        p = tune.Problem.for_spmm((o, k), (k, rows), cfg, x.dtype, card,
+                                  value_bytes=pk.values.element_size())
+        args = (pk.values, pk.indices, x.T.contiguous())
+    elif op.startswith("xwT_block"):
+        pw = pack_block(w, cfg)
+        pw = quantize_packed(pw) if quant else pw
+        p = tune.Problem.for_xwT_block(x.shape, pw, x.dtype, card)
+        args = (x, pw.values, pw.indices, pw.active_groups)
+        args += (pw.scales,) if quant else ()
+    else:
+        pk = pack(w, cfg)
+        pw = PackedWeight(pk.values, pk.indices, cfg=cfg, dense_shape=(o, k))
+        pw = quantize_packed(pw) if quant else pw
+        p = tune.Problem.for_xwT(x.shape, (o, k), cfg, x.dtype, card,
+                                 quantized=quant,
+                                 value_bytes=pw.values.element_size())
+        args = (x, pw.values, pw.indices) + ((pw.scales,) if quant else ())
+    v = tune.get_variant(op, "cuda")
+    launched = refused = 0
+    for c in tune.enumerate_candidates(p, include_measure_only=False):
+        if tune.geometry_refusal(p, c.backend, c.params) is not None:
+            continue
+        counted = tune.smem_bytes(p, "cuda", c.params)
+        if counted > tune.DEFAULT_SMEM_BUDGET:
+            with pytest.raises(LaunchRefused):
+                v.call(*args, cfg, (o, k), duplicates=False, **c.params)
+            refused += 1
+            continue
+        v.call(*args, cfg, (o, k), duplicates=False, **c.params)
+        assert last_launch_smem() == counted, (c.params, counted)
+        launched += 1
+    torch.cuda.synchronize()
+    assert launched > 0
+
+
+def test_a_refused_candidate_is_refused_and_launching_goes_on(card,
+                                                              tune_cache,
+                                                              monkeypatch):
+    """A rows_per_block the block gather body's launcher refuses (300 does
+    not divide its 256 threads), let past the pruner: the candidate is
+    ``refused`` (nothing was launched) and the process launches on."""
+    from repro_torch import tune
+    from repro_torch.core.sparsity import prune
+    from repro_torch.tune import autotune as tat
+    from repro_torch.tune import registry as treg
+
+    monkeypatch.setattr(tat, "geometry_refusal", lambda *a, **kw: None)
+    monkeypatch.setattr(treg, "BLOCK_GATHER_ROWS", (8, 300))
+    cfg = SparsityConfig(5, 80)
+    pw = pack_block(prune(torch.randn(256, 640, device=card), cfg), cfg)
+    x = torch.randn(32, 640, device=card).to(torch.bfloat16)
+    res = tune.autotune_xwT_block(x, pw, persist=False, iters=2)
+    status = {c.params.get("rows_per_block"): c.status
+              for c in res.candidates}
+    assert status[300] == "refused" and status[8] == "measured"
+    assert res.best.params.get("rows_per_block") != 300
+    got = demm_block_spmm(pw.active_groups, pw.values, pw.indices, x.T, cfg,
+                          r=256, duplicates=False)
+    torch.testing.assert_close(
+        got, demm_block_spmm_plain(pw.active_groups, pw.values, pw.indices,
+                                   x.T, cfg, r=256), **TOL[torch.bfloat16])
+
+
+def test_no_measurement_happens_during_a_capture(card, tune_cache,
+                                                 monkeypatch):
+    """An engine built with ``autotune=True`` measures in its constructor
+    only, never while a capture is open; its captured step under ``auto``
+    gives backend ``cuda``'s tokens and ``reference``'s (float32)."""
+    from repro_torch.tune import autotune as tat
+
+    real, seen = tat.measure, []
+
+    def watched(calls, **kw):
+        seen.append(torch.cuda.is_current_stream_capturing())
+        return real(calls, **kw)
+
+    monkeypatch.setattr(tat, "measure", watched)
+    model, cfg = _graph_model(card, layout="xwT", quantize="int8",
+                              dtype="float32")
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    eng = ServeEngine(model, ServeConfig(num_slots=2, max_len=32),
+                      policy=ExecPolicy(mode="packed", backend="auto"),
+                      device="cuda", metrics=obs.MetricsRegistry(),
+                      autotune=True)
+    built = len(seen)
+    assert built > 0 and not any(seen)
+    del eng
+    eng, _, auto = _collect(model, cfg, backend="auto")
+    assert eng._graph is not None and len(seen) == built
+    _, _, cuda = _collect(model, cfg, backend="cuda")
+    _, _, ref = _collect(model, cfg, backend="reference")
+    assert auto == cuda == ref
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            tat._check_not_capturing()

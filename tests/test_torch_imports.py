@@ -2,6 +2,7 @@
 neither ``jax`` nor the JAX package, needs no compiler, and the serving entry
 points refuse to run without a CUDA device unless the CPU is asked for."""
 
+import json
 import os
 import subprocess
 import sys
@@ -28,7 +29,9 @@ for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm"
           "repro_torch.kernels.demm_q8", "repro_torch.kernels.demm_xwT",
           "repro_torch.paged", "repro_torch.paged.engine",
           "repro_torch.paged.kv_cache", "repro_torch.paged.prefill",
-          "repro_torch.paged.scheduler"):
+          "repro_torch.paged.scheduler", "repro_torch.tune",
+          "repro_torch.tune.autotune", "repro_torch.tune.cache",
+          "repro_torch.tune.registry"):
     assert n in names, n
 print("IMPORTED", len(names))
 """
@@ -55,6 +58,43 @@ def test_chip_smoke_imports_only_the_port():
             mod = s.split()[1]
             assert mod != "jax" and not mod.startswith("jax.")
             assert mod != "repro" and not mod.startswith("repro.")
+
+
+@pytest.mark.parametrize("script,args", [
+    ("benchmarks/torch_kernel_bench.py",
+     ["--autotune", "--quick", "--device", "cpu"]),
+    ("benchmarks/torch_serve_bench.py",
+     ["--device", "cpu", "--requests", "3", "--max-new", "2",
+      "--max-prompt", "8", "--packed"])])
+def test_bench_scripts_run_without_jax_or_the_jax_package(script, args,
+                                                          tmp_path):
+    """Each script, run on the CPU in a process of its own, loads neither
+    ``jax`` nor ``repro`` (and its source imports neither)."""
+    for line in open(os.path.join(REPO, script)).read().splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            mod = s.split()[1]
+            assert mod != "jax" and not mod.startswith("jax.")
+            assert mod != "repro" and not mod.startswith("repro.")
+    argv = [script, *args, "--out", str(tmp_path / "out.json")]
+    if "kernel" in script:
+        argv += ["--cache", str(tmp_path / "cache.json")]
+    snippet = (f"import runpy, sys\n"
+               f"sys.argv = {argv!r}\n"
+               f"try:\n    runpy.run_path({script!r}, run_name='__main__')\n"
+               f"except SystemExit as e:\n    assert not e.code, e.code\n"
+               f"bad = sorted(m for m in sys.modules if m == 'jax' or "
+               f"m.startswith('jax.') or m == 'repro' or "
+               f"m.startswith('repro.'))\n"
+               f"assert not bad, bad\nprint('CLEAN')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env["REPRO_TORCH_TUNE_CACHE"] = str(tmp_path / "tune_cache.json")
+    proc = subprocess.run([sys.executable, "-c", snippet], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "CLEAN" in proc.stdout, (
+        proc.stdout + proc.stderr)
+    assert json.load(open(tmp_path / "out.json"))
 
 
 def test_serving_refuses_to_start_without_a_cuda_device():
@@ -98,10 +138,15 @@ def test_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
                and c["labels"] == {"backend": "reference", "op": "xwT_q8"}
                for c in snap["counters"])
     assert snap["meta"]["platform"] in ("cpu", "gpu")
-    for bad in ("pallas", "pallas_interpret", "auto"):
+    for bad in ("pallas", "pallas_interpret"):
         with pytest.raises(SystemExit):
             main(["--device", "cpu", "--packed", "--backend", bad])
     assert "not a registered xwT variant" in capsys.readouterr().err
+    # auto is accepted: it resolves each projection through the tuning
+    # cache (tests/test_torch_tune.py holds what it resolves to)
+    main(["--device", "cpu", "--requests", "1", "--max-new", "2",
+          "--max-len", "24", "--packed", "--backend", "auto"])
+    assert "served" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         main(["--device", "cpu", "--packed", "--layout", "block",
               "--quantize", "int8", "--backend", "block_spmm"])

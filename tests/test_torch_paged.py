@@ -633,11 +633,15 @@ def test_make_engine_builds_the_paged_engine(setup):
     eng = make_engine(tmodel, cfg, device="cpu",
                       metrics=tobs.MetricsRegistry())
     assert isinstance(eng, PagedServeEngine) and isinstance(eng, Engine)
-    for kw in ({"spec": object()}, {"autotune": True}):
-        with pytest.raises(NotImplementedError):
-            PagedServeEngine(tmodel, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        PagedServeEngine(tmodel, cfg, device="cpu", spec=object())
     with pytest.raises(NotImplementedError):
         make_engine(tmodel, cfg, device="cpu", spec=object())
+    # autotune is ported: the engine builds (the masked model here has no
+    # packed weight to tune; tests/test_torch_tune.py tunes packed ones)
+    eng = PagedServeEngine(tmodel, cfg, device="cpu", autotune=True,
+                           metrics=tobs.MetricsRegistry())
+    assert isinstance(eng, PagedServeEngine)
     with pytest.raises(ValueError):              # the model is on the CPU
         PagedServeEngine(tmodel, cfg, device="meta")
 
