@@ -6,6 +6,7 @@ engine against the dense-cache engine (the counterpart of
         --trace benchmarks/traces/tiny_trace.jsonl [--full] \\
         [--packed [--layout block] [--quantize int8]] \\
         [--backend auto --autotune] [--compute-dtype bfloat16] \\
+        [--sparsity 8:16 --spec 6:16 [--spec-gamma 4]] \\
         [--device cuda|cpu] [--out PATH]
 
 The main path's sizes (full width, pages of 16, max_len 512, a fully
@@ -30,7 +31,8 @@ engine is warmed by one short request first, so captures stay out of the
 timed replay).  Arrivals are logical engine ticks, so admission order,
 preemptions and every token are deterministic; only latencies differ.  It
 writes ``BENCH_serve_h100.json`` (``--device cpu``:
-``BENCH_serve_torch_cpu.json``) with, per engine, p50/p99 TTFT and
+``results/BENCH_serve_torch_cpu.json``, out of the repository's tracked
+files: a CPU run measures no device) with, per engine, p50/p99 TTFT and
 end-to-end latency, decode tokens/s and prefill tokens/s (a prefill-only
 drain, ``max_new=1``), and the checks of ``serve_bench.py``:
 
@@ -48,8 +50,18 @@ enough that the two engines' attention (a dense cache against gathered
 pages), which sums in another order, flips greedy tokens.  ``--packed``
 serves the packed weights through the
 kernels (``--backend cuda``, or ``auto`` with ``--autotune``, which tunes at
-the decode batch in each engine's constructor).  ``--spec`` (speculative
-decoding) is not ported yet and is refused by name.
+the decode batch in each engine's constructor).
+
+``--spec N:M`` (with ``--packed``) adds the speculative leg of
+``serve_bench.py``: a packed non-speculative dense engine and a packed
+speculative one (``repro_torch.spec``, draft tier N:M, ``--spec-gamma``
+tokens a window) replay the same trace, and the leg reports the acceptance
+rate, committed tokens per full-tier (verify) dispatch and the spec /
+non-spec tokens/s ratio, gating token identity (float32) and
+``--min-acceptance``.  Pair it with ``--sparsity`` (e.g. ``--sparsity 8:16
+--spec 6:16``) so that the packed pattern has a tier the draft can narrow.
+The packed model is tier-sorted once before any leg runs, so every leg
+reads the same pair order.
 """
 
 from __future__ import annotations
@@ -231,30 +243,40 @@ def main(argv=None) -> int:
                     help="cuda (default; refused without one) or cpu")
     ap.add_argument("--out", default=None,
                     help="output JSON (default BENCH_serve_h100.json; "
-                         "--device cpu: BENCH_serve_torch_cpu.json)")
+                         "--device cpu: results/BENCH_serve_torch_cpu.json)")
     ap.add_argument("--min-prefill-speedup", type=float, default=None,
                     help="fail unless chunked prefill beats token-by-token "
                          "ingest by this factor (tokens/s)")
     ap.add_argument("--slo-ttft-ms", type=float, default=None)
     ap.add_argument("--slo-e2e-ms", type=float, default=None)
+    ap.add_argument("--sparsity", default=None, metavar="N:M",
+                    help="override the arch's N:M pattern on every sparse "
+                         "linear (pair with --spec so that the draft tier "
+                         "can narrow the packed weights)")
     ap.add_argument("--spec", default=None, metavar="N:M",
-                    help="not ported yet (speculative decoding); refused")
+                    help="run the speculative leg with this draft tier "
+                         "(needs --packed; repro_torch.spec)")
+    ap.add_argument("--spec-gamma", type=int, default=4,
+                    help="tokens drafted per speculation window")
+    ap.add_argument("--min-acceptance", type=float, default=0.5,
+                    help="spec leg: fail if the draft acceptance rate is at "
+                         "or below this")
     args = ap.parse_args(argv)
-    if args.spec is not None:
-        ap.error("--spec: speculative decoding is not ported to "
-                 "repro_torch yet (ROADMAP Queue 1 item 4)")
     if args.autotune:
         args.backend = "auto"
-    if (args.quantize or args.backend == "auto") and not args.packed:
-        ap.error("--quantize / --backend auto / --autotune apply to the "
-                 "packed weights; add --packed")
+    if (args.quantize or args.backend == "auto" or args.spec) \
+            and not args.packed:
+        ap.error("--quantize / --backend auto / --autotune / --spec apply "
+                 "to the packed weights; add --packed")
     try:
         device = require_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    out_path = args.out or ("BENCH_serve_torch_cpu.json"
+    out_path = args.out or (os.path.join("results",
+                                         "BENCH_serve_torch_cpu.json")
                             if device.type == "cpu"
                             else "BENCH_serve_h100.json")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
 
     trace = (load_trace(args.trace) if args.trace else
              poisson_trace(args.requests, args.rate, args.seed,
@@ -263,9 +285,18 @@ def main(argv=None) -> int:
     if not args.full:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+    if args.sparsity:
+        from repro_torch.core.sparsity import SparsityConfig
+        from repro_torch.spec import parse_tier
+        n, m = parse_tier(args.sparsity)
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(n, m, 1))
     model = build_model(cfg, device=device, seed=args.seed)
     if args.packed:
         pack_tree(model, layout=args.layout, quantize=args.quantize)
+    if args.spec:
+        from repro_torch.spec import SpecConfig, tier_sort_tree
+        spec = SpecConfig(draft=args.spec, gamma=args.spec_gamma)
+        tier_sort_tree(model)    # in place: every leg reads this order
     policy = ExecPolicy(mode="packed" if args.packed else "masked",
                         backend=args.backend)
     vocab = cfg.vocab_size
@@ -318,6 +349,46 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
+    # -- the speculative leg (packed weights, draft tier = --spec) ----------
+    spec_stats = None
+    if args.spec:
+        runs = {}
+        for name, leg_spec in (("base", None), ("spec", spec)):
+            engine = make_engine(
+                model, ServeConfig(num_slots=args.slots, max_len=args.max_len),
+                policy=policy, metrics=MetricsRegistry(), device=device,
+                spec=leg_spec)
+            _warmup(engine, vocab, _WARM_UID)
+            dt, _, _ = replay(engine, _requests(trace, args.seed, vocab),
+                              sync)
+            reqs = [r for r in engine.completed if r.uid < _WARM_UID]
+            runs[name] = (engine, reqs, dt)
+        (_, b_reqs, b_dt), (s_eng, s_reqs, s_dt) = runs["base"], runs["spec"]
+        b_tps = sum(len(r.output) for r in b_reqs) / b_dt
+        s_tps = sum(len(r.output) for r in s_reqs) / s_dt
+        sm = s_eng._spec_metrics
+        spec_stats = {
+            **lat_stats(s_reqs),
+            "slo_report": slo_report(s_reqs, slo_cfg),
+            "draft": args.spec, "gamma": args.spec_gamma,
+            "tier_report": str(s_eng.tier_report),
+            "tokens_per_sec": s_tps,
+            "baseline_tokens_per_sec": b_tps,
+            "speedup": s_tps / b_tps,
+            "drafted": int(sm.drafted.value),
+            "accepted": int(sm.accepted.value),
+            "acceptance_rate": sm.accepted.value / max(sm.drafted.value, 1),
+            "tokens_per_dispatch": (sm._committed_total
+                                    / max(sm._verify_dispatches, 1)),
+            "verify_dispatches": sm._verify_dispatches,
+            "spec_captures": s_eng.spec_captures,
+            "token_identical": ({r.uid: list(r.output) for r in s_reqs}
+                                == {r.uid: list(r.output) for r in b_reqs}),
+        }
+        del runs, s_eng
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
     paged, legacy = legs["paged"], legs["legacy"]
     p_out, l_out = paged.pop("outputs"), legacy.pop("outputs")
     token_identical = p_out == l_out
@@ -344,6 +415,7 @@ def main(argv=None) -> int:
                  "max_pages": args.max_pages,
                  "prefill_chunk": args.prefill_chunk,
                  "scheduler": args.scheduler, "packed": args.packed,
+                 "sparsity": args.sparsity,
                  "layout": args.layout, "quantize": args.quantize,
                  "backend": args.backend, "autotune": args.autotune,
                  "generated_by": "benchmarks/torch_serve_bench.py "
@@ -355,7 +427,7 @@ def main(argv=None) -> int:
         "token_identical": token_identical,
         "requests_identical": identical,
         "prefill_speedup": speedup,
-        "spec": None,
+        "spec": spec_stats,
     }
     with open(out_path, "w") as f:
         json.dump(blob, f, indent=2)
@@ -373,6 +445,15 @@ def main(argv=None) -> int:
           f"prefill dispatches")
     print(f"  prefill speedup {speedup:.2f}x, token_identical="
           f"{token_identical} ({identical:.1%} of requests)")
+    if spec_stats:
+        print(f"  spec   draft {spec_stats['draft']} gamma "
+              f"{spec_stats['gamma']}: acceptance "
+              f"{spec_stats['acceptance_rate']:.3f} "
+              f"({spec_stats['accepted']}/{spec_stats['drafted']}), "
+              f"{spec_stats['tokens_per_dispatch']:.2f} tokens/dispatch, "
+              f"{spec_stats['tokens_per_sec']:8.1f} tok/s "
+              f"({spec_stats['speedup']:.2f}x packed non-spec), "
+              f"token_identical={spec_stats['token_identical']}")
     print(f"wrote {out_path}")
 
     failures = []
@@ -382,6 +463,20 @@ def main(argv=None) -> int:
     if args.min_prefill_speedup and speedup < args.min_prefill_speedup:
         failures.append(f"prefill speedup {speedup:.2f}x < required "
                         f"{args.min_prefill_speedup}x")
+    if spec_stats:
+        if (not spec_stats["token_identical"]
+                and cfg.compute_dtype == "float32"):
+            failures.append("speculative decode diverged from the packed "
+                            "non-spec stream")
+        if spec_stats["acceptance_rate"] <= args.min_acceptance:
+            failures.append(
+                f"spec acceptance {spec_stats['acceptance_rate']:.3f} <= "
+                f"required {args.min_acceptance}")
+        if spec_stats["tokens_per_dispatch"] <= 1.0:
+            failures.append(
+                f"spec tokens/dispatch {spec_stats['tokens_per_dispatch']:.2f}"
+                " <= 1 (speculation commits no extra tokens per full-tier "
+                "dispatch)")
     if failures:
         print("\nFAIL:")
         for msg in failures:

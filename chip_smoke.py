@@ -44,7 +44,15 @@ unless all of them held:
                 scales; chunk counts, one-row and ragged tiles, a ring of
                 row chunks larger than shared memory, duplicates) while Bx >
                 8 and an x tile larger than shared memory take the gather
-                body.
+                body;
+              * draft tiers: K1, K3 (per-row and per-group scales), K2 and K4
+                on the prefix views ``[..., :t]`` of the stored tensors (the
+                operand's data_ptr the full tier's), at the three full-width
+                shapes at 8:16 (t in {6, 4, 1}) and at the default 5:80 and
+                3:48 (t in {2, 4} below n), Bx in {1, 4, 37}, x in float32
+                and bfloat16, each on the full tier's body (bulk / cluster
+                at Bx <= 8, gather at 37), plus duplicates inside the prefix
+                and across its edge.
               Tolerances: float32 rtol/atol 1e-4 (summation order), bfloat16
               rtol/atol 2e-2.
 4. serve    — full-width stablelm_3b, random weights from a seed, packed,
@@ -156,13 +164,43 @@ unless all of them held:
    7p       — K1-K4 at x of 32 rows, as a prefill chunk launches them, each
               asserted to run its gather body: the same timing rows
               (``prefill_bx32`` of each kernel in the ``kernels`` line).
+   7s       — K1-K4 with their weights stored at 8:16, reading the prefix
+              of t in {8, 6, 4} pairs a group, x of 4 and of 32 rows: a
+              draft-tier launch against the full tier's, per layer, with the
+              bound of the bytes the tier needs (``tier_8_16`` of each
+              kernel in the ``kernels`` line).
+10. spec    — self-speculative decoding (``repro_torch.spec``) in the four
+              modes on full-width stablelm_3b at ``--sparsity 8:16``, draft
+              6:16, γ = 4, 4 slots.  At max_len 16 (the windows shrink near
+              it, so every width W runs), on the dense and the paged engine:
+              token streams equal to the plain engine's, greedy and at
+              temperature 0.8 / top-k 8; counted from reset, one capture of
+              the draft step, one of the verify program per width W that
+              ran, the plain step only if it ran (and, paged, the prefill
+              chunk once), the wrappers launching the mode's kernel 7 x 32 x
+              2 per captured decode step on its serving body and nothing
+              else; the draft graph's nodes launch 7 x 32 kernels of that
+              body and a verify graph's of width W 7 x 32 x W (read from
+              the graph itself, its DOT dump); the draft and verify graphs
+              (and the dense full step's) give their eager programs' logits
+              bit for bit over the first 2 windows (4 steps).  Then, timed,
+              the paged engine at the main path's sizes (phase 8's engine
+              and prompts, 16 new tokens, bfloat16): a pass with and one
+              without spec after a warm-up pass that captures every program
+              (tokens equal), acceptance, committed tokens per verify,
+              tokens/s, and the device times of a full-step, a draft and a
+              verify replay (CUDA events).  10g: the checked passes at 2
+              layers float32 against backend ``reference`` (tokens equal,
+              window logits allclose, rtol 1e-3); 10c: ``launch.serve
+              --full --packed --sparsity 8:16 --spec-draft 6:16
+              --spec-gamma 4``, dense and ``--paged``.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
-"tune": {...}}``
-(per kernel: wrapper launches on the dense and the paged path, error, times,
-bound, its gather body at Bx = 32; per serve run: ticks, decode-step time,
+"tune": {...}, "spec": {...}}``
+(per kernel: wrapper launches on the dense, the paged and the speculative
+path, error, times, bound, its gather body at Bx = 32; per serve run: ticks, decode-step time,
 tokens/s, device launches per replay), and one JSON object ``{"ok": true,
 "device": ...}``.
 
@@ -175,6 +213,7 @@ device busy share, device launches per tick, tokens/s.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -566,6 +605,24 @@ def check_kernels(gen):
     # rows of pairs not 16-byte aligned (G x Ne = 30): the gather body
     run_spmm("gather unaligned pair rows", 100, 480, 5, 80, (256,),
              dtypes=("bfloat16",), expect="gather")
+    # draft tiers: K1-K4 on the prefix view [..., :t] of a stored stream,
+    # read in place at the stored pitch, on every body
+    tier_cases = [(label, o, k, 8, 16, (6, 4, 1))
+                  for label, o, k, _, _ in MAIN_SHAPES]
+    tier_cases += [(label, o, k, n, m, tuple(t for t in (2, 4) if t < n))
+                   for label, o, k, n, m in MAIN_SHAPES]
+    for label, o, k, n, m, tiers in tier_cases:
+        for t in tiers:
+            run_tier(f"{label} tier", o, k, n, m, t, (1, 4, 37), fns, gen,
+                     compare, bodies)
+    # duplicates inside the prefix and across its edge
+    for t in (6, 4):
+        run_tier("wq/wk/wv/wo tier duplicates", 2560, 2560, 8, 16, t, (1, 4),
+                 fns, gen, compare, bodies, duplicates=True)
+    # inf in x where only slots past the prefix point
+    for t in (6, 1):
+        run_tier_inf(2560, 2560, 8, 16, t, fns, gen)
+        n_cases += 1
     for name, want in (("demm_xwT", {"bulk", "gather"}),
                        ("demm_xwT_q8", {"bulk", "gather"}),
                        ("demm_block_spmm", {"cluster", "gather"}),
@@ -575,6 +632,177 @@ def check_kernels(gen):
             raise AssertionError(f"{name} ran the bodies {bodies[name]}, "
                                  f"expected {want}")
     return err, n_cases
+
+
+def tier_views(full, t):
+    """The prefix views ``[..., :t]`` a draft tier hands the wrappers,
+    asserted to start at the full tensors' storage (no copy)."""
+    views = [a[..., :t] for a in full]
+    for v, a in zip(views, full):
+        if v.data_ptr() != a.data_ptr() or v.is_contiguous() and t < a.shape[-1]:
+            raise AssertionError("a tier view is not a prefix view of the "
+                                 "full tier's tensor")
+    return views
+
+
+def run_tier(label, o, k, n, m, t, batches, fns, gen, compare, bodies, *,
+             duplicates=False):
+    """K1, K3 (per-row and per-group scales), K2 and K4 on a draft tier:
+    the first ``t`` of the ``n`` pairs stored per group, read in place.
+    Each launch must take the body the full tier takes (bulk / cluster at
+    Bx <= 8, gather at Bx = 37; the bulk and cluster bodies copy the
+    stored spans) and hold against the plain version on the same views.
+    ``duplicates``: slots 0 and 1 of every group on one column (inside the
+    prefix) and slots t-1 and t (across its edge)."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.kernels.demm_block_spmm import block_body
+    from repro_torch.kernels.demm_q8 import block_q8_body
+    from repro_torch.kernels.demm_xwT import xwt_body
+    from repro_torch.quant import quantize_packed
+
+    full_cfg, cfg = SparsityConfig(n, m), SparsityConfig(t, m)
+    g = k // m
+    vals, idx = make_packed(o, k, n, m, gen)
+    dense = make_dense(o, k, n, m, gen)
+    pw = pack_block(dense, full_cfg)
+    if duplicates:
+        vals = torch.randn(vals.shape, generator=gen, device=gen.device)
+        dv = torch.randn(pw.values.shape, generator=gen, device=gen.device)
+        di = pw.indices.clone()
+        for a in (idx, di):
+            a[..., 1] = a[..., 0]
+            a[..., t] = a[..., t - 1]
+        pw = pw.replace(values=dv, indices=di)
+    qw = quantize_packed(pw)
+    kern, plain = fns["demm_xwT"]
+    kern_q, plain_q = fns["demm_xwT_q8"]
+    kb, plain_b = fns["demm_block_spmm"]
+    kbq, plain_bq = fns["demm_block_spmm_q8"]
+    v, i = tier_views((vals, idx), t)
+    bv, bi = tier_views((pw.values, pw.indices), t)
+    qv, qi = tier_views((qw.values, qw.indices), t)
+    for bx in batches:
+        for dtype in ("float32", "bfloat16"):
+            x = torch.randn((bx, k), generator=gen, device=gen.device)
+            x = x.to(getattr(torch, dtype))
+            what = (f"{label} O={o} K={k} {n}:{m} t={t} Bx={bx} x={dtype}"
+                    + (" duplicates" if duplicates else ""))
+            body = xwt_body(x, v, i, m, duplicates=duplicates)
+            if body != xwt_body(x, vals, idx, m, duplicates=duplicates) or \
+                    body != ("gather" if bx > 8 else "bulk"):
+                raise AssertionError(f"{what}: K1 would take its {body} "
+                                     "body")
+            before = kern.body_launches[body]
+            compare("demm_xwT", kern(x, v, i, cfg, duplicates=duplicates),
+                    plain(x, v, i, cfg), dtype, f"{what} {body}", False)
+            if kern.body_launches[body] != before + 1:
+                raise AssertionError(f"{what}: K1 did not launch its {body} "
+                                     "body")
+            bodies["demm_xwT"].add(body)
+            for per_group in (False, True):
+                q, scales = make_q8(o, g, n, per_group, gen)
+                if duplicates:
+                    q[0] = 0
+                (qx,) = tier_views((q,), t)
+                tag = what + (" per_group" if per_group else " per_row")
+                body = xwt_body(x, qx, i, m, duplicates=duplicates,
+                                scales=scales)
+                if body != xwt_body(x, q, idx, m, duplicates=duplicates,
+                                    scales=scales):
+                    raise AssertionError(f"{tag}: K3's tier body {body} is "
+                                         "not its full tier's")
+                before = kern_q.body_launches[body]
+                compare("demm_xwT_q8",
+                        kern_q(x, qx, i, scales, cfg, duplicates=duplicates),
+                        plain_q(x, qx, i, scales, cfg), dtype,
+                        f"{tag} {body}", False)
+                if kern_q.body_launches[body] != before + 1:
+                    raise AssertionError(f"{tag}: K3 did not launch its "
+                                         f"{body} body")
+                bodies["demm_xwT_q8"].add(body)
+            b = x.T
+            serving = "gather" if bx > 8 else "cluster"
+            body = block_body(pw.active_groups, bv, bi, b, m)
+            body_q = block_q8_body(qv, qi, qw.scales, b, m)
+            if (body, body_q) != (serving, serving):
+                raise AssertionError(f"{what}: K2 / K4 would take their "
+                                     f"{body} / {body_q} bodies")
+            before = kb.body_launches[body]
+            compare("demm_block_spmm",
+                    kb(pw.active_groups, bv, bi, b, cfg, r=o,
+                       duplicates=duplicates),
+                    plain_b(pw.active_groups, bv, bi, b, cfg, r=o), dtype,
+                    f"{what} block {body}", False)
+            if kb.body_launches[body] != before + 1:
+                raise AssertionError(f"{what}: K2 did not launch its {body} "
+                                     "body")
+            compare("demm_block_spmm_q8",
+                    kbq(qw.active_groups, qv, qi, qw.scales, b, cfg, r=o,
+                        duplicates=duplicates),
+                    plain_bq(qw.active_groups, qv, qi, qw.scales, b, cfg,
+                             r=o), dtype, f"{what} block q8 {body_q}", False)
+            bodies["demm_block_spmm"].add(body)
+            bodies["demm_block_spmm_q8"].add(body_q)
+
+
+def run_tier_inf(o, k, n, m, t, fns, gen):
+    """K1, K3 (per-row and per-group scales), K2 and K4 on a draft tier
+    whose prefix slots name columns 0..t-1 of their group and whose slots
+    past it columns m-n+t..m-1, where x holds inf: on every body (Bx 1
+    and 4, bulk / cluster; 37, gather) the output must be finite and
+    bit-equal to the output on x without the inf, since a slot past the
+    prefix is not multiplied."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.quant import quantize_packed
+
+    cfg, g = SparsityConfig(t, m), k // m
+    cols = torch.tensor([s if s < t else m - n + s for s in range(n)],
+                        dtype=torch.int32, device=gen.device)
+    vals, _ = make_packed(o, k, n, m, gen)
+    idx = cols.expand(o, g, n).contiguous()
+    pw = pack_block(make_dense(o, k, n, m, gen), SparsityConfig(n, m))
+    pw = pw.replace(indices=cols.expand(pw.indices.shape).contiguous())
+    qw = quantize_packed(pw)
+    tail = (torch.arange(g, device=gen.device)[:, None] * m
+            + torch.arange(m - n + t, m, device=gen.device)).reshape(-1)
+    v, i = tier_views((vals, idx), t)
+    bv, bi = tier_views((pw.values, pw.indices), t)
+    qv, qi = tier_views((qw.values, qw.indices), t)
+    kern = fns["demm_xwT"][0]
+    kern_q = fns["demm_xwT_q8"][0]
+    kb = fns["demm_block_spmm"][0]
+    kbq = fns["demm_block_spmm_q8"][0]
+    for bx in (1, 4, 37):
+        for dtype in ("float32", "bfloat16"):
+            x = torch.randn((bx, k), generator=gen, device=gen.device)
+            x = x.to(getattr(torch, dtype))
+            x_inf = x.clone()
+            x_inf[:, tail] = float("inf")
+            calls = {"demm_xwT": lambda x: kern(x, v, i, cfg,
+                                                duplicates=False),
+                     "demm_block_spmm": lambda x: kb(
+                         pw.active_groups, bv, bi, x.T, cfg, r=o,
+                         duplicates=False),
+                     "demm_block_spmm_q8": lambda x: kbq(
+                         qw.active_groups, qv, qi, qw.scales, x.T, cfg, r=o,
+                         duplicates=False)}
+            for per_group in (False, True):
+                q, scales = make_q8(o, g, n, per_group, gen)
+                (qx,) = tier_views((q,), t)
+                calls[f"demm_xwT_q8 per_group={per_group}"] = (
+                    lambda x, qx=qx, scales=scales: kern_q(
+                        x, qx, i, scales, cfg, duplicates=False))
+            for name, call in calls.items():
+                want, got = call(x), call(x_inf)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(got).all() and torch.equal(got,
+                                                                  want)):
+                    raise AssertionError(
+                        f"{name} t={t} Bx={bx} x={dtype}: inf at columns "
+                        "only slots past the prefix name changed the "
+                        "output")
 
 
 # ---------------------------------------------------------------------------
@@ -1838,6 +2066,478 @@ def tune_spmm(gen, kw):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: self-speculative decoding (repro_torch.spec) on both engines
+# ---------------------------------------------------------------------------
+
+SPEC_SPARSITY, SPEC_DRAFT, SPEC_GAMMA = "8:16", "6:16", 4
+# the checked passes: prompts of 3-7 tokens and max_len 16, so that the
+# windows shrink near max_len (widths below γ + 1 run too)
+SPEC_NEW, SPEC_MAX_LEN = 10, 16
+SPEC_SAMPLED = dict(temperature=0.8, top_k=8, seed=3)
+EAGER_WINDOWS = 2
+# the timed pass: the paged engine at the main path's sizes (phase 8's
+# engine and prompts, PAGED_NEW new tokens each); a warm-up pass of short
+# prompts captures every program first
+SPEC_WARM_PROMPT = 40
+
+
+def spec_model(cfg_full, layout, quantize=None, **over):
+    """The model phase 10 serves: stablelm_3b at 8:16 (``--sparsity
+    8:16``), random weights from seed 0, packed in ``layout`` (then
+    quantized), tier-sorted once so that every engine below reads one pair
+    order."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.spec import parse_tier, tier_sort_tree
+
+    cfg = dataclasses.replace(cfg_full, sparsity=SparsityConfig(
+        *parse_tier(SPEC_SPARSITY), 1), **over)
+    model = pack_tree(build_model(cfg, device=DEVICE, seed=0), layout=layout,
+                      quantize=quantize)
+    tier_sort_tree(model)
+    torch.cuda.synchronize()
+    return cfg, model
+
+
+def spec_prompts(vocab, n=4, seed=21):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(3, 8)), dtype=np.int32)
+            for _ in range(n)]
+
+
+def spec_engine(model, paged, spec, backend="cuda", eager=False,
+                sampled=False, max_len=SPEC_MAX_LEN):
+    """A dense or paged engine of 4 slots on ``model``, with ``spec`` (the
+    draft 6:16, γ = 4) or without; ``eager`` runs every program eagerly.
+    The paged engine has phase 8's pages and chunks."""
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.paged import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    kw = SPEC_SAMPLED if sampled else {}
+    common = dict(policy=ExecPolicy(mode="packed", backend=backend),
+                  device=DEVICE, metrics=obs.MetricsRegistry(),
+                  spec=SpecConfig(SPEC_DRAFT, SPEC_GAMMA) if spec else None,
+                  _eager=eager)
+    if paged:
+        return PagedServeEngine(model, PagedServeConfig(
+            **{**PAGED, "max_len": max_len}, **kw), **common)
+    return ServeEngine(model, ServeConfig(num_slots=4, max_len=max_len,
+                                          **kw), **common)
+
+
+def spec_drive(engine, prompts, uid0=0, records=None, max_new=SPEC_NEW):
+    """Serve ``prompts`` to the drain (or until ``records`` ticks are
+    recorded), recording every window's draft and verify logits of its
+    lanes (or, without spec, every tick's logits).  Returns (tokens by uid
+    of the completed requests, the records, wall seconds)."""
+    import time as _time
+    from repro_torch.serve import Request
+
+    n0 = len(engine.completed)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=uid0 + i, prompt=p,
+                              max_new_tokens=max_new))
+    logs = []
+    t0 = _time.perf_counter()
+    while _busy(engine) and (records is None or len(logs) < records):
+        spec = getattr(engine, "_spec", None) is not None
+        if spec:
+            engine.last_window_logits = None
+        before = engine.last_logits
+        engine.step()
+        if spec and engine.last_window_logits is not None:
+            w = engine.last_window_logits
+            logs.append(("window", w["draft"][:, w["lanes"]],
+                         w["verify"][w["lanes"]]))
+        elif engine.last_logits is not None and engine.last_logits is not \
+                before:
+            logs.append(("step", engine.last_logits))
+    dt = _time.perf_counter() - t0
+    done = engine.completed[n0:]
+    return {r.uid - uid0: list(r.output) for r in done}, logs, dt
+
+
+def _busy(engine):
+    if any(r is not None for r in engine.active):
+        return True
+    queue = getattr(engine, "queue", None)
+    return len(queue if queue is not None else engine.sched) > 0
+
+
+def same_logs(a, b, what, exact=True, tol=None):
+    """Two recordings of one token stream: the same kinds of ticks with
+    bit-equal (``exact``) or allclose logits; returns the largest
+    difference."""
+    import numpy as np
+    if [x[0] for x in a] != [x[0] for x in b]:
+        raise AssertionError(f"{what}: the ticks differ")
+    worst = 0.0
+    for t, (x, y) in enumerate(zip(a, b)):
+        for u, v in zip(x[1:], y[1:]):
+            if exact and not np.array_equal(u, v):
+                raise AssertionError(
+                    f"{what} tick {t}: logits differ, max abs "
+                    f"{np.abs(u - v).max()}")
+            if not exact and not np.allclose(u, v, **tol):
+                raise AssertionError(
+                    f"{what} tick {t}: logits not allclose, max abs "
+                    f"{np.abs(u - v).max()}")
+            worst = max(worst, float(np.abs(u - v).max()))
+    return worst
+
+
+def graph_device_ms(graph, replays=5, windows=3):
+    """Device time of one replay of ``graph``: CUDA events around
+    ``replays`` replays queued behind one more, so that the device is
+    still busy while the host submits them (a graph of thousands of
+    nodes), divided by ``replays``; the median of ``windows`` such
+    windows."""
+    import torch
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        graph.replay()
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / replays)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def graphs_kept():
+    """Every CUDA graph made inside keeps its node graph (``keep_graph``:
+    instantiated at its first replay), so that :func:`graph_kernel_counts`
+    can read it."""
+    import torch
+    made = torch.cuda.CUDAGraph
+
+    def kept():
+        return made(keep_graph=True)
+
+    torch.cuda.CUDAGraph = kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def graph_kernel_counts(graph) -> dict:
+    """DeMM kernels by (kernel, body) among the nodes of ``graph``
+    (captured under :func:`graphs_kept`): what each of its replays
+    launches on the device, read from the graph itself through its DOT
+    dump (``cudaGraphDebugDotPrint``, which names the function of every
+    kernel node), so that no profiler record can go missing.  Returns
+    (counts, the number of kernel nodes)."""
+    import re
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    # a kernel node's label: {KERNEL | {ID | <id> (topoId: <n>) |
+    # <function>\<\<\<grid,block,smem\>\>\>} | ...}
+    names = re.findall(r"\{ID \| [^|]*\| ([^|}]*?)\\<\\<\\<", dot)
+    counts, kernels = {}, len(names)
+    for name in names:
+        kb = device_kernel_of(name)
+        if kb is not None:
+            counts[kb] = counts.get(kb, 0) + 1
+    return counts, kernels
+
+
+def graph_launches(graph, expect, want_launches, what):
+    """``graph`` launches exactly ``want_launches`` kernels of ``expect``
+    on its serving body and no other DeMM kernel, each replay."""
+    got, kernels = graph_kernel_counts(graph)
+    want = {(expect, SERVING_BODY[expect]): want_launches}
+    if got != want:
+        raise AssertionError(f"{what}: the graph's nodes launch {got} "
+                             f"({kernels} kernel nodes), expected {want}")
+    return {"demm": want_launches, "kernel_nodes": kernels}
+
+
+def spec_counted(engine, cfg, expect, paged):
+    """The spec engine's counted pass (from reset to drain): one capture of
+    the draft step, one of the verify program for each width W that ran,
+    the plain step captured only if it ran (and, on the paged engine, the
+    prefill chunk once); the wrappers launched ``expect`` 7 x layers x 2
+    (warm-up + capture) times per captured decode step, on its serving body
+    (the chunk's on the gather body), nothing else."""
+    per = 7 * cfg.num_layers
+    windows = dict(engine.spec_windows)
+    widths = sorted(w for w in windows if w > 1)
+    plain = windows.get(1, 0) > 0
+    caps = engine.spec_captures
+    want_caps = {"draft": 1 if widths else 0,
+                 "verify": {w: 1 for w in widths}}
+    prefill_caps = engine.prefill.captures if paged else 1
+    if caps != want_caps or engine.captures != int(plain) or \
+            prefill_caps != 1:
+        raise AssertionError(f"captures {caps}, plain step "
+                             f"{engine.captures}; windows {windows}: expected "
+                             f"{want_caps} and {int(plain)}")
+    steps = (1 if widths else 0) + sum(widths) + int(plain)
+    counts, bodies = read_counts(), read_body_counts()
+    want = {name: 0 for name in KERNELS}
+    want[expect] = 2 * per * steps + (2 * per if paged else 0)
+    if counts != want:
+        raise AssertionError(f"spec launch counts {counts}, windows "
+                             f"{windows}: expected {want}")
+    if expect in bodies:
+        serving = SERVING_BODY[expect]
+        want_b = {serving: 2 * per * steps}
+        if paged:
+            want_b[PREFILL_BODY] = 2 * per
+        got_b = {k: v for k, v in bodies[expect].items() if v}
+        if got_b != want_b:
+            raise AssertionError(f"{expect} launches by body {got_b}: "
+                                 f"expected {want_b}")
+    return {"windows": {str(w): n for w, n in sorted(windows.items())},
+            "captures": {"draft": caps["draft"],
+                         "verify": {str(w): n for w, n
+                                    in caps["verify"].items()},
+                         "plain": engine.captures},
+            "launches": counts[expect]}
+
+
+def spec_rates(engine):
+    sm = engine._spec_metrics
+    return {"drafted": int(sm.drafted.value),
+            "accepted": int(sm.accepted.value),
+            "committed": sm._committed_total,
+            "acceptance_rate": sm.accepted.value / max(sm.drafted.value, 1),
+            "verify_dispatches": sm._verify_dispatches,
+            "tokens_per_verify": (sm._committed_total
+                                  / max(sm._verify_dispatches, 1))}
+
+
+def spec_full_width(cfg, model, mode, expect):
+    """Phase 10 in one mode on the 8:16 model, dense and paged engines, at
+    max_len 16: spec streams equal to the non-spec streams (greedy; then
+    sampled, the same captured engines given the sampler of temperature
+    0.8, top-k 8), the counted pass, the launches of each graph read from
+    its nodes (224 a draft replay, 224 x W a verify replay), and the draft
+    and verify graphs (and, dense, the full step's) bit-equal to their
+    eager programs over the first windows.  Then :func:`spec_timed`.
+    ``seconds``: where the phase's time went."""
+    import torch
+    from repro_torch.spec import ReplaySafeSampler
+    prompts = spec_prompts(cfg.vocab_size)
+    out = {"mode": mode, "kernel": expect}
+    per = 7 * cfg.num_layers
+    for paged in (False, True):
+        name = "paged" if paged else "dense"
+        clock = [time.time()]
+        seconds = {}
+
+        def lap(what):
+            seconds[what] = time.time() - clock[0]
+            clock[0] = time.time()
+
+        base = spec_engine(model, paged, False)
+        base_tok, base_logs, _ = spec_drive(base, prompts)
+        torch.cuda.synchronize()
+        reset_counts()                   # just before the spec path ...
+        spec = spec_engine(model, paged, True)
+        with graphs_kept():
+            tok, logs, _ = spec_drive(spec, prompts)
+        torch.cuda.synchronize()
+        entry = spec_counted(spec, cfg, expect, paged)   # ... just after
+        if tok != base_tok:
+            raise AssertionError(f"{mode} {name}: spec tokens {tok} differ "
+                                 f"from the plain engine's {base_tok}")
+        entry.update(spec_rates(spec))
+        graphs = spec._spec_graphs
+        entry["graph_launches"] = {
+            "draft": graph_launches(graphs["draft"][0], expect, per,
+                                    f"{mode} {name} draft"),
+            **{f"verify_W{w}": graph_launches(graphs[w][0], expect, per * w,
+                                              f"{mode} {name} verify W={w}")
+               for w in sorted(k for k in graphs if k != "draft")}}
+        lap("first_pass_with_captures")
+        # sampled: the same engines, the sampler swapped (host side only)
+        for eng in (base, spec):
+            eng.sampler = ReplaySafeSampler(**SPEC_SAMPLED)
+        s_base, _, _ = spec_drive(base, prompts, uid0=200)
+        s_spec, _, _ = spec_drive(spec, prompts, uid0=200)
+        if s_base != s_spec:
+            raise AssertionError(f"{mode} {name}: sampled spec tokens differ")
+        entry["sampled_tokens_equal"] = entry["greedy_tokens_equal"] = True
+        lap("sampled_passes")
+        # the eager programs on the same stream: bit-equal logits over the
+        # first EAGER_WINDOWS windows (ticks)
+        eager = spec_engine(model, paged, True, eager=True)
+        _, elogs, _ = spec_drive(eager, prompts, records=EAGER_WINDOWS)
+        same_logs(logs[:EAGER_WINDOWS], elogs,
+                  f"{mode} {name} draft/verify graph vs eager")
+        entry["draft_verify_logits_bit_equal"] = len(elogs)
+        if not paged:
+            ebase = spec_engine(model, paged, False, eager=True)
+            _, blogs, _ = spec_drive(ebase, prompts,
+                                     records=2 * EAGER_WINDOWS)
+            same_logs(base_logs[:2 * EAGER_WINDOWS], blogs,
+                      f"{mode} full step graph vs eager")
+            entry["full_step_logits_bit_equal"] = len(blogs)
+            del ebase
+        lap("eager_passes")
+        entry["seconds"] = seconds
+        out[name] = entry
+        del base, spec, eager
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    out["timed"] = spec_timed(cfg, model, mode)
+    out["timed"]["seconds"] = time.time() - t0
+    return out
+
+
+def spec_timed(cfg, model, mode):
+    """The paged engine at the main path's sizes (phase 8's: max_len 512,
+    pages of 16, chunks of 32, its 8 prompts, PAGED_NEW new tokens each,
+    the model's compute dtype), with and without spec: after a warm-up
+    pass that captures every program, one timed pass each (host clock,
+    the spec tokens equal to the plain tokens), acceptance and committed
+    tokens per verify over it, and the device time of a replay of the full
+    step, the draft step and each verify width used (CUDA events)."""
+    import numpy as np
+    import torch
+    prompts = paged_prompts(cfg.vocab_size)
+    warm = [np.resize(p, SPEC_WARM_PROMPT).astype(np.int32)
+            for p in prompts[:4]]
+    max_len = PAGED["max_len"]
+    base = spec_engine(model, True, False, max_len=max_len)
+    spec = spec_engine(model, True, True, max_len=max_len)
+    passes = {}
+    for eng, name in ((base, "plain"), (spec, "spec")):
+        spec_drive(eng, warm, uid0=500, max_new=2 * SPEC_GAMMA + 2)
+        torch.cuda.synchronize()
+        if name == "spec":
+            before, windows0 = spec_rates(eng), dict(eng.spec_windows)
+            captured = json.dumps(eng.spec_captures)
+        passes[name] = spec_drive(eng, prompts, max_new=PAGED_NEW)
+        torch.cuda.synchronize()
+    if json.dumps(spec.spec_captures) != captured or base.captures != 1:
+        raise AssertionError(f"{mode} timed: the timed pass captured a "
+                             f"program ({spec.spec_captures}, plain step "
+                             f"{base.captures})")
+    tok, _, dt = passes["spec"]
+    if tok != passes["plain"][0]:
+        raise AssertionError(f"{mode} timed: spec tokens differ from the "
+                             "plain engine's")
+    after = spec_rates(spec)
+    drafted, accepted, committed, verifies = (
+        after[k] - before[k] for k in ("drafted", "accepted", "committed",
+                                       "verify_dispatches"))
+    n_tok = sum(len(v) for v in tok.values())
+    graphs = spec._spec_graphs
+    out = {"engine": "paged", "max_len": max_len,
+           "prompt_tokens": [len(p) for p in prompts],
+           "new_tokens": n_tok,
+           "windows": {str(w): n - windows0.get(w, 0)
+                       for w, n in sorted(spec.spec_windows.items())},
+           "acceptance_rate": accepted / max(drafted, 1),
+           "tokens_per_verify": committed / max(verifies, 1),
+           "drain_s": {"spec": dt, "plain": passes["plain"][2]},
+           "tokens_per_s": {"spec": n_tok / dt,
+                            "plain": n_tok / passes["plain"][2]},
+           "device_ms": {
+               "full_step": graph_device_ms(base._graph),
+               "draft": graph_device_ms(graphs["draft"][0]),
+               **{f"verify_W{w}": graph_device_ms(graphs[w][0])
+                  for w in sorted(k for k in graphs if k != "draft")}}}
+    del base, spec
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_gates(cfg_full):
+    """Phase 10g: 2 layers, float32, the four modes, both engines: the spec
+    engine on backend ``cuda`` against backend ``reference`` (tokens equal,
+    the windows' logits allclose at rtol 1e-3) and against the plain
+    engine's tokens."""
+    import torch
+    report = {}
+    for layout in ("xwT", "block"):
+        for quantize in (None, "int8"):
+            mode = f"--layout {layout}" + (" --quantize int8" if quantize
+                                           else "")
+            cfg, model = spec_model(cfg_full, layout, quantize, num_layers=2,
+                                    compute_dtype="float32")
+            prompts = spec_prompts(cfg.vocab_size)
+            r = {}
+            for paged in (False, True):
+                name = "paged" if paged else "dense"
+                plain, _, _ = spec_drive(spec_engine(model, paged, False),
+                                         prompts)
+                tc, lc, _ = spec_drive(spec_engine(model, paged, True),
+                                       prompts)
+                tr, lr, _ = spec_drive(spec_engine(model, paged, True,
+                                                   backend="reference"),
+                                       prompts)
+                if not tc == tr == plain:
+                    raise AssertionError(f"{mode} {name}: tokens differ "
+                                         f"(cuda {tc}, reference {tr}, plain "
+                                         f"{plain})")
+                r[name] = {"tokens_equal": True,
+                           "max_abs_logit_diff": same_logs(
+                               lc, lr, f"{mode} {name} cuda vs reference",
+                               exact=False, tol=dict(rtol=1e-3, atol=1e-3))}
+            report[mode] = r
+            del model
+            torch.cuda.empty_cache()
+    return report
+
+
+def spec_cli(cfg, paged):
+    """``launch.serve --full --packed --sparsity 8:16 --spec-draft 6:16
+    --spec-gamma 4`` (``--paged``) as a user runs it: every request
+    completes and the draft proposed tokens that the verifier accepted."""
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch.serve import main as serve_main
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_spec_")
+    metrics_out = os.path.join(out_dir, "metrics.json")
+    prev = obs.default_registry()
+    obs.set_default_registry(obs.MetricsRegistry())
+    try:
+        serve_main(["--arch", cfg.name, "--full", "--packed", "--sparsity",
+                    SPEC_SPARSITY, "--spec-draft", SPEC_DRAFT, "--spec-gamma",
+                    str(SPEC_GAMMA), "--max-len", "64", "--requests", "4",
+                    "--max-new", "8",
+                    "--metrics-out", metrics_out]
+                   + (["--paged"] if paged else []))
+        with open(metrics_out) as f:
+            snap = json.load(f)
+    finally:
+        obs.set_default_registry(prev)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counters = {c["name"]: c["value"] for c in snap["counters"]
+                if not c["labels"]}
+    got = {k: counters.get(k) for k in (
+        "serve_requests_completed_total", "spec_draft_tokens_total",
+        "spec_accepted_tokens_total", "serve_tokens_total")}
+    if got["serve_requests_completed_total"] != 4 \
+            or not got["spec_draft_tokens_total"] \
+            or not got["spec_accepted_tokens_total"]:
+        raise AssertionError(f"launch.serve --spec-draft: {got}")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -2195,6 +2895,72 @@ def time_shape(label, o, k, n, m, gen, *, sweep=(), block_sweep=()):
     del r, wr, w, dense
     torch.cuda.empty_cache()
     return out
+
+
+def tier_times(gen, tiers=(8, 6, 4)):
+    """Phase 7s: what a draft-tier launch costs against the full tier's.
+    K1, K3 (per-row scales), K2 and K4 at the three projection shapes
+    stored at 8:16, x bf16 of 4 rows (the bulk / cluster bodies) and of 32
+    rows (the gather bodies), reading the prefix views ``[..., :t]`` for t
+    in ``tiers`` (8: the full tier); device ms per launch from a graph of a
+    ring of weight copies larger than L2 (``time_ring``).  The bound counts
+    the bytes the tier needs: x, y and the prefix's pairs (t of 8 per
+    group), scales and group ids."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, pack_block
+    from repro_torch.quant import quantize_packed
+
+    fns = kernel_fns()
+    n, m = 8, 16
+    rows = []
+    for label, o, k, _, _ in MAIN_SHAPES:
+        g = k // m
+        vals, idx = make_packed(o, k, n, m, gen)
+        q, scales = make_q8(o, g, n, False, gen)
+        pw = pack_block(make_dense(o, k, n, m, gen), SparsityConfig(n, m))
+        qw = quantize_packed(pw)
+        kernels = {
+            "demm_xwT": ((vals, idx), lambda x, c, v, i: fns["demm_xwT"][0](
+                x, v, i, c, duplicates=False), 8),
+            "demm_xwT_q8": ((q, idx, scales), lambda x, c, v, i, s:
+                            fns["demm_xwT_q8"][0](x, v, i, s, c,
+                                                  duplicates=False), 5),
+            "demm_block_spmm": (
+                (pw.values, pw.indices, pw.active_groups),
+                lambda x, c, v, i, a: fns["demm_block_spmm"][0](
+                    a, v, i, x.T, c, r=o, duplicates=False), 8),
+            "demm_block_spmm_q8": (
+                (qw.values, qw.indices, qw.active_groups, qw.scales),
+                lambda x, c, v, i, a, s: fns["demm_block_spmm_q8"][0](
+                    a, v, i, s, x.T, c, r=o, duplicates=False), 5)}
+        for bx in (4, 32):
+            x = torch.randn((bx, k), generator=gen,
+                            device=gen.device).to(torch.bfloat16)
+            for name, (tensors, call, pair_bytes) in kernels.items():
+                nbytes = sum(t.numel() * t.element_size() for t in tensors)
+                copies = ring(tensors, nbytes)
+                extra = nbytes - sum(t.numel() * t.element_size()
+                                     for t in tensors[:2])
+                for t in tiers:
+                    cfg = SparsityConfig(t, m)
+                    calls = [lambda c=c: call(x, cfg, c[0][..., :t],
+                                              c[1][..., :t], *c[2:])
+                             for c in copies]
+                    ms, _ = time_ring(calls)
+                    need = (tensors[0].numel() // n * t * pair_bytes + extra
+                            + x.numel() * 2 + bx * o * 4)
+                    rows.append({"kernel": name, "shape": label, "Bx": bx,
+                                 "t": t, "ms": ms,
+                                 "bound_ms": 1e3 * need / HBM_BYTES_PER_S})
+        del vals, idx, q, scales, pw, qw
+        torch.cuda.empty_cache()
+    per_layer = {}
+    for r in rows:
+        key = (r["kernel"], r["Bx"], r["t"])
+        acc = per_layer.setdefault(key, {"ms": 0.0, "bound_ms": 0.0})
+        acc["ms"] += LAYER_MIX[r["shape"]] * r["ms"]
+        acc["bound_ms"] += LAYER_MIX[r["shape"]] * r["bound_ms"]
+    return rows, per_layer
 
 
 def launch_floor():
@@ -2565,6 +3331,59 @@ def main(argv=None) -> int:
             f"{r['decode_tick']['device_ms']:.3f} | "
             f"{100 * r['decode_tick']['busy_share']:.1f} % | "
             f"{r['page_gather']['ms_per_tick']:.3f}")
+    # 10. self-speculative decoding: full width at 8:16, draft 6:16, the
+    # four modes on both engines; 10g at 2 layers float32; 10c the CLI
+    from repro_torch.launch.pack_tree import pack_tree
+    spec = {}
+    t10 = time.time()
+    for layout in ("xwT", "block"):
+        t0 = time.time()
+        cfg10, model = spec_model(cfg, layout)
+        log(f"[10 spec] built and packed {cfg10.name} at {SPEC_SPARSITY} "
+            f"--layout {layout} ({time.time() - t0:.1f} s; "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak)")
+        float_kernel, q8_kernel = (("demm_xwT", "demm_xwT_q8")
+                                   if layout == "xwT" else
+                                   ("demm_block_spmm", "demm_block_spmm_q8"))
+        for kernel, quantize in ((float_kernel, None), (q8_kernel, "int8")):
+            mode = f"--layout {layout}" + (f" --quantize {quantize}"
+                                           if quantize else "")
+            if quantize:
+                pack_tree(model, quantize=quantize)   # in place
+            t0 = time.time()
+            spec[mode] = spec_full_width(cfg10, model, mode, kernel)
+            log(f"[10 spec] {mode} ({time.time() - t0:.1f} s): "
+                f"{json.dumps(spec[mode])}")
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    spec["2 layers float32"] = spec_gates(cfg)
+    log(f"[10g spec] cuda vs reference vs plain, 2 layers float32, four "
+        f"modes, both engines ({time.time() - t0:.1f} s): "
+        f"{json.dumps(spec['2 layers float32'])}")
+    t0 = time.time()
+    spec["cli"] = {"dense": spec_cli(cfg, False), "paged": spec_cli(cfg, True)}
+    log(f"[10c spec cli] launch.serve --full --packed --sparsity "
+        f"{SPEC_SPARSITY} --spec-draft {SPEC_DRAFT} --spec-gamma "
+        f"{SPEC_GAMMA} [--paged] ({time.time() - t0:.1f} s): "
+        f"{json.dumps(spec['cli'])}")
+    log(f"[10 spec] {time.time() - t10:.1f} s in all; {smi}")
+    log("[10 spec] mode | acceptance | tokens per verify | device ms: full "
+        "step, draft, verify W | tokens/s spec / plain (paged engine, "
+        f"max_len {PAGED['max_len']}, phase 8's prompts, {PAGED_NEW} new)")
+    for mode, r in spec.items():
+        if not mode.startswith("--"):
+            continue
+        e = r["timed"]
+        ms = e["device_ms"]
+        log(f"[10 spec] {mode} | {e['acceptance_rate']:.4f} | "
+            f"{e['tokens_per_verify']:.4f} | {ms['full_step']:.4f}, "
+            f"{ms['draft']:.4f}, "
+            + ", ".join(f"{k[-2:]} {v:.4f}" for k, v in ms.items()
+                        if k.startswith("verify"))
+            + f" | {e['tokens_per_s']['spec']:.2f} / "
+            f"{e['tokens_per_s']['plain']:.2f}")
+
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
             "| launches/tick | tokens/s")
@@ -2602,6 +3421,20 @@ def main(argv=None) -> int:
             for entry in entries:
                 gather32[name].append(entry)
                 log(f"[7p gather Bx=32] {name} {json.dumps(entry)}")
+    t0 = time.time()
+    tier_rows, tier_layer = tier_times(gen)
+    for r in tier_rows:
+        log(f"[7s tier times] {json.dumps(r)}")
+    log("[7s tier times] kernel | Bx | ms per layer at t = 8 (full), 6, 4 "
+        "of 8:16 | bound ms at t = 8, 6, 4 | t=6 / t=8")
+    for name in KERNELS[:4]:
+        for bx in (4, 32):
+            row = [tier_layer[(name, bx, t)] for t in (8, 6, 4)]
+            log(f"[7s tier times] {name} | {bx} | "
+                + ", ".join(f"{r['ms']:.4f}" for r in row) + " | "
+                + ", ".join(f"{r['bound_ms']:.4f}" for r in row)
+                + f" | {row[1]['ms'] / row[0]['ms']:.3f}")
+    log(f"[7s tier times] {time.time() - t0:.1f} s; {smi}")
     csrc = "src/repro_torch/kernels/csrc/"
     layer = ("the 7 packed projections of one stablelm_3b decoder layer "
              "(4 x 2560x2560 5:80, 2 x 6912x2560 5:80, 1 x 2560x6912 3:48), "
@@ -2642,6 +3475,16 @@ def main(argv=None) -> int:
         # gather body at Bx = 32, as a prefill chunk launches it, per layer
         entry["launches_paged"] = sum(r["launches"] for r in paged.values()
                                       if r["kernel"] == entry["name"])
+        # the speculative engines' counted passes (draft, verify widths,
+        # plain step and, paged, the prefill chunk), dense + paged
+        entry["launches_spec"] = sum(
+            r[e]["launches"] for r in spec.values()
+            if r.get("kernel") == entry["name"] for e in ("dense", "paged"))
+        # a draft tier's launches against the full tier's, per layer, the
+        # weights stored at 8:16 (phase 7s)
+        entry["tier_8_16"] = {
+            f"Bx{bx}": {f"t{t}": tier_layer[(entry["name"], bx, t)]
+                        for t in (8, 6, 4)} for bx in (4, 32)}
         entry["prefill_bx32"] = {
             "body": "gather", **{key: sum(LAYER_MIX[e["shape"]] * e[key]
                                           for e in rows)
@@ -2664,7 +3507,7 @@ def main(argv=None) -> int:
                     "spmm": spmm, "agree": agree, "graph": graph,
                     "flight": flight, "paged": list(paged.values()),
                     "paged_gates": paged_gate, "paged_cli": cli,
-                    "tune": tuned}))
+                    "tune": tuned, "spec": spec}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

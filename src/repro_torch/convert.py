@@ -11,7 +11,8 @@ package:
 * a packed weight arrives as a dict ``{"values", "indices", "cfg": (n, m, k),
   "dense_shape": (O, K), "layout": "xwT" | "block", "qdtype": None | "int8",
   "scales": array | None}``, a block weight also with ``"active_groups"``
-  and ``"block_geom": (block_r, a_max)``.
+  and ``"block_geom": (block_r, a_max)``, a draft-tier view also with
+  ``"tier_ne": t`` (absent or None: the full tier).
 
 The JAX package stacks the layers on a leading axis — ``w (L, O, K)``,
 ``values (L, O, G, Ne)`` or ``(L, RB, A_max, block_r, Ne)``,
@@ -71,7 +72,7 @@ def _linear(node, device, layer=None):
                            _tensor(ag, device, layer).to(torch.int32)),
             block_geom=None if geom is None else tuple(geom),
             scales=None if scales is None else _tensor(scales, device, layer),
-            qdtype=node.get("qdtype"))
+            qdtype=node.get("qdtype"), tier_ne=node.get("tier_ne"))
     sp = node.get("sparsity")
     return SparseLinear(_tensor(node["w"], device, layer),
                         None if sp is None else _sparsity(sp))

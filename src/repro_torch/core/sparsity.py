@@ -16,9 +16,10 @@ packed  indices  : (R, G, N) int32   local column index within the group,
                                      value 0 (contributing nothing).
 
 Ported so far: the row-packed ``xwT`` layout, the two-level ``block`` layout
-(:func:`pack_block`) and the int8-quantized form of both.  Contraction-dim
-sharding and draft-tier views of the JAX package come with later slices of
-the port.
+(:func:`pack_block`), the int8-quantized form of both and draft-tier views
+(``PackedWeight.tier_ne``, :func:`tier_sort_packed`, :func:`narrow_tier`).
+Contraction-dim sharding of the JAX package comes with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -273,6 +274,11 @@ class PackedWeight(nn.Module):
     slots at one index (:func:`holds_duplicates`); dispatch passes it to the
     kernels, which skip their duplicate fold when it is False — always, for
     what :func:`pack` and :func:`pack_block` produce.
+
+    ``tier_ne`` makes the node a *draft-tier view* (``repro_torch.spec``):
+    the same tensors, read through only the first ``tier_ne`` of the
+    ``n_effective`` pairs of every group (:func:`narrow_tier`, at dispatch).
+    It lies in ``[1, n_effective]``; the full tier is stored as ``None``.
     """
 
     def __init__(self, values: torch.Tensor, indices: torch.Tensor, *,
@@ -282,7 +288,8 @@ class PackedWeight(nn.Module):
                  block_geom=None,
                  scales: Optional[torch.Tensor] = None,
                  qdtype: Optional[str] = None,
-                 has_duplicates: Optional[bool] = None):
+                 has_duplicates: Optional[bool] = None,
+                 tier_ne: Optional[int] = None):
         super().__init__()
         if not isinstance(cfg, SparsityConfig):
             raise TypeError(f"cfg must be a SparsityConfig, got {type(cfg)}")
@@ -352,6 +359,14 @@ class PackedWeight(nn.Module):
                 f"{vshape} for the {layout!r} layout: expected one of "
                 f"{scale_shapes} (per output row / per group for xwT, per "
                 f"row-block × group × row for block)")
+        if tier_ne is not None:
+            tier_ne = int(tier_ne)
+            if not 1 <= tier_ne <= cfg.n_effective:
+                raise ValueError(
+                    f"tier_ne={tier_ne} outside [1, n_effective="
+                    f"{cfg.n_effective}] of cfg={cfg.pattern_name()}")
+            if tier_ne == cfg.n_effective:
+                tier_ne = None      # the full tier is the canonical no-view
         self.register_buffer("values", values)
         self.register_buffer("indices", indices)
         self.register_buffer("active_groups", active_groups)
@@ -361,6 +376,7 @@ class PackedWeight(nn.Module):
         self.layout = layout
         self.block_geom = block_geom
         self.qdtype = qdtype
+        self.tier_ne = tier_ne
         self.has_duplicates = (holds_duplicates(values, indices)
                                if has_duplicates is None
                                else bool(has_duplicates))
@@ -383,7 +399,7 @@ class PackedWeight(nn.Module):
                "cfg": self.cfg, "dense_shape": self.dense_shape,
                "layout": self.layout, "active_groups": self.active_groups,
                "block_geom": self.block_geom, "scales": self.scales,
-               "qdtype": self.qdtype}
+               "qdtype": self.qdtype, "tier_ne": self.tier_ne}
         if "values" not in kw and "indices" not in kw:
             out["has_duplicates"] = self.has_duplicates
         out.update(kw)
@@ -392,10 +408,11 @@ class PackedWeight(nn.Module):
     def extra_repr(self) -> str:
         geom = f", block_geom={self.block_geom}" if self.block_geom else ""
         q = f", qdtype={self.qdtype!r}" if self.qdtype else ""
+        tier = f", tier_ne={self.tier_ne}" if self.tier_ne else ""
         return (f"values={tuple(self.values.shape)}, "
                 f"cfg={self.cfg.pattern_name()!r}, "
                 f"dense_shape={self.dense_shape}, layout={self.layout!r}"
-                f"{geom}{q}")
+                f"{geom}{q}{tier}")
 
     # ---- conversions -----------------------------------------------------
     @classmethod
@@ -420,7 +437,10 @@ class PackedWeight(nn.Module):
         return vals * expand_scales(self.scales, vals)
 
     def to_dense(self) -> torch.Tensor:
-        """Scatter back to the dense weight (dequantizing if needed)."""
+        """Scatter back to the dense weight (dequantizing if needed); a
+        draft-tier view densifies only its tier prefix."""
+        if self.tier_ne is not None:
+            return narrow_tier(self).to_dense()
         if self.layout == LAYOUT_BLOCK:
             return unpack_block(self.active_groups, self.dequantized_values(),
                                 self.indices, self.cfg, self.dense_shape)
@@ -539,6 +559,89 @@ def unpack_block(active_groups: torch.Tensor, values: torch.Tensor,
         rb, block_r, a_max, cfg.m)
     dense.scatter_add_(2, ids, per_slot.transpose(1, 2))
     return dense.reshape(r, kdim)
+
+
+# ---------------------------------------------------------------------------
+# Sparser-tier views (repro_torch.spec): one buffer, two densities
+# ---------------------------------------------------------------------------
+#
+# The inverse direction of the paper's §II-B reconfiguration: where
+# ``reconfigure_k`` serves a *denser* kN:M pattern in k passes, a *tier view*
+# serves a sparser pattern from the same stored stream by reading only the
+# first ``tier_ne`` of the ``n_effective`` {value, col_idx} pairs per group.
+# ``tier_ne`` is a static attribute of PackedWeight — the tensors are
+# untouched, so a draft-tier node shares the full tier's tensors and the
+# narrowing happens at dispatch (``kernels/ops.demm_matmul_packed``), as a
+# strided prefix view that the kernels read in place.  For the prefix to be
+# the magnitude-top-``tier_ne`` slice, the per-group entry order must be
+# magnitude-descending — ``tier_sort_packed`` establishes that invariant
+# once (full-tier compute is order-independent in exact arithmetic: the
+# plain versions scatter, the kernels sum over the Ne axis).
+
+def tier_order(pw: PackedWeight) -> torch.Tensor:
+    """The permutation of every group's pairs that :func:`tier_sort_packed`
+    applies: by descending ``|value|``, stable.  Int8 magnitudes go through
+    float32 (``abs`` of int8 -128 overflows in int8); zero-padded slots sort
+    last; equal magnitudes keep their order."""
+    mag = (pw.values.to(torch.float32) if pw.qdtype is not None
+           else pw.values).abs()
+    return torch.sort(-mag, dim=-1, stable=True).indices
+
+
+def tier_sort_packed(pw: PackedWeight) -> PackedWeight:
+    """Reorder every group's {value, col_idx} pairs by descending |value|
+    (:func:`tier_order`), both layouts.
+
+    Numerically a no-op for full-tier compute in exact arithmetic; it makes
+    any prefix ``[:t]`` of the Ne axis the exact magnitude-top-``t``
+    sub-pattern, which is what a ``tier_ne`` draft view reads.  The sort key
+    is the raw packed magnitude — valid for quantized weights too, because
+    the scale is constant along the Ne axis (per row / per group / per (rb,
+    g, row)).  Returns a new node with new tensors
+    (``repro_torch.spec.tier_sort_tree`` sorts in place)."""
+    order = tier_order(pw)
+    return pw.replace(
+        values=torch.take_along_dim(pw.values, order, dim=-1),
+        indices=torch.take_along_dim(pw.indices, order, dim=-1),
+        has_duplicates=pw.has_duplicates)
+
+
+def narrow_tier(pw: PackedWeight) -> PackedWeight:
+    """Materialize a ``tier_ne`` view: the Ne axis sliced to the tier
+    prefix and the config retagged as the sparser ``tier_ne:M`` pattern.
+    The slices are *views* (``[..., :t]``) that share the full tier's
+    storage — nothing is copied; the kernels read the prefix in place at the
+    stored pitch.  Called by kernel dispatch (``kernels/ops.py``); the full
+    tier (``tier_ne`` None) comes back unchanged."""
+    t = pw.tier_ne
+    if t is None:
+        return pw
+    # a prefix holds no duplicate the full tier lacks: no host sync here
+    return pw.replace(
+        values=pw.values[..., :t], indices=pw.indices[..., :t],
+        cfg=SparsityConfig(n=t, m=pw.cfg.m, k=1), tier_ne=None,
+        has_duplicates=pw.has_duplicates)
+
+
+def reconfigure_k(p: PackedSparse, k: int) -> PackedSparse:
+    """View a packed kN:M matrix as ``k`` sequential N:M passes.
+
+    Mirrors the paper's §II-B reconfiguration: an engine with N read ports
+    serves a kN:M pattern by reading the same B block k times.  The packed
+    (R, G, kN) tensors are reshaped to (R, G*k, N) views consumed pass by
+    pass; numerically ``sum_k demm(pass_k) == demm(full)``.
+    """
+    ne = p.cfg.n_effective
+    if ne % k:
+        raise ValueError(f"cannot split n_effective={ne} into k={k} passes")
+    n_pass = ne // k
+    r, g, _ = p.values.shape
+    return dataclasses.replace(
+        p,
+        values=p.values.reshape(r, g * k, n_pass),
+        indices=p.indices.reshape(r, g * k, n_pass),
+        cfg=SparsityConfig(n=n_pass, m=p.cfg.m, k=k),
+    )
 
 
 # ---------------------------------------------------------------------------

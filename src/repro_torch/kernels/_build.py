@@ -118,11 +118,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # pointers and the stream are c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut the addresses
-    lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 13, p]
-    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 14, p]
+    lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 14, p]
+    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 15, p]
     lib.demm_block_spmm_launch.argtypes = [p, p, p, p, p, *[i] * 8, *[ll] * 7,
                                            *[i] * 7, p]
-    lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 8,
+    lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 9,
                                               *[ll] * 4, *[i] * 5, p]
     lib.demm_spmm_tc_launch.argtypes = [p, i, p, p, p, *[i] * 5, *[ll] * 3,
                                         *[i] * 6, p]

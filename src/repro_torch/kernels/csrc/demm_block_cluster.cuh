@@ -31,6 +31,12 @@
 //     remote write -- guarantees that every CTA is running before its shared
 //     memory is written, at the cost of one wait that has long completed.)
 //
+// A tier view (the draft tier of self-speculative decoding: the first `ne`
+// of the `pitch` slots stored per (list slot, row)) is copied at the full
+// pitch -- a CTA's slice stays one contiguous span, so the copies and their
+// 16-byte rules are the full tier's -- and the compute reads only the first
+// `ne` pairs of each (list slot, row), the summing search only inside them.
+//
 // Padded list slots (group ids outside [0, G)) add nothing; padding that
 // names group 0 has all-zero values and adds exactly 0.
 //
@@ -51,6 +57,7 @@ namespace demm {
 
 struct ClusterGeom {
   int r, cd, groups, a_max, block_r, m, ne;
+  int pitch;               // pairs stored per (list slot, row); ne of them are read
   long long s_bc;          // elements between B's columns (x's rows); B's rows are contiguous
   long long s_cr, s_cc;    // element strides of C
   int csize;               // CTAs per row block (the cluster)
@@ -60,12 +67,12 @@ struct ClusterGeom {
   int lanes;               // slot lanes per row: kThreads / block_r
 };
 
-// Bytes of one list slot in a stage (values, indices, scales) and in the x
-// buffer (Cd segments of M activations).
+// Bytes of one list slot in a stage (values, indices at the stored pitch,
+// scales) and in the x buffer (Cd segments of M activations).
 template <typename W>
-__host__ __device__ inline size_t cl_slot_bytes(int block_r, int ne) {
-  return static_cast<size_t>(block_r) * ne * W::kValueBytes +
-         static_cast<size_t>(block_r) * ne * sizeof(int32_t) +
+__host__ __device__ inline size_t cl_slot_bytes(int block_r, int pitch) {
+  return static_cast<size_t>(block_r) * pitch * W::kValueBytes +
+         static_cast<size_t>(block_r) * pitch * sizeof(int32_t) +
          (W::kHasScales ? static_cast<size_t>(block_r) * sizeof(float) : 0);
 }
 template <typename XT>
@@ -142,8 +149,8 @@ block_cluster_kernel(const int32_t* __restrict__ active_groups, W weights,
   float* recv = red + static_cast<size_t>(geo.lanes) * geo.block_r * BT;   // [csize][run]
   unsigned char* stages =
       reinterpret_cast<unsigned char*>(recv + static_cast<size_t>(geo.block_r) * BT + 8);
-  const size_t vals_b = static_cast<size_t>(geo.chunk) * geo.block_r * geo.ne * W::kValueBytes;
-  const size_t idx_b = static_cast<size_t>(geo.chunk) * geo.block_r * geo.ne * sizeof(int32_t);
+  const size_t vals_b = static_cast<size_t>(geo.chunk) * geo.block_r * geo.pitch * W::kValueBytes;
+  const size_t idx_b = static_cast<size_t>(geo.chunk) * geo.block_r * geo.pitch * sizeof(int32_t);
   const size_t sc_b = W::kHasScales ? static_cast<size_t>(geo.chunk) * geo.block_r * sizeof(float) : 0;
   const size_t stage_b = vals_b + idx_b + sc_b;
   XT* xs = reinterpret_cast<XT*>(stages + geo.stages * stage_b);   // [chunk][cd][m]
@@ -168,12 +175,12 @@ block_cluster_kernel(const int32_t* __restrict__ active_groups, W weights,
     unsigned char* at = stages + (k & 1) * stage_b;
     uint64_t* bar = &bars[k & 1];
     const size_t unit = (ag_row + j0) * geo.block_r;         // first (row block, slot, row)
-    const uint32_t vb = static_cast<uint32_t>(static_cast<size_t>(n) * geo.block_r * geo.ne * W::kValueBytes);
-    const uint32_t ib = static_cast<uint32_t>(static_cast<size_t>(n) * geo.block_r * geo.ne * sizeof(int32_t));
+    const uint32_t vb = static_cast<uint32_t>(static_cast<size_t>(n) * geo.block_r * geo.pitch * W::kValueBytes);
+    const uint32_t ib = static_cast<uint32_t>(static_cast<size_t>(n) * geo.block_r * geo.pitch * sizeof(int32_t));
     const uint32_t sb = W::kHasScales ? static_cast<uint32_t>(n * geo.block_r * sizeof(float)) : 0;
     mbar_arrive_expect_tx(bar, vb + ib + sb);
-    bulk_g2s(at, weights.value_bytes() + unit * geo.ne * W::kValueBytes, vb, bar);
-    bulk_g2s(at + vals_b, indices + unit * geo.ne, ib, bar);
+    bulk_g2s(at, weights.value_bytes() + unit * geo.pitch * W::kValueBytes, vb, bar);
+    bulk_g2s(at + vals_b, indices + unit * geo.pitch, ib, bar);
     if (W::kHasScales) bulk_g2s(at + vals_b + idx_b, weights.scale_ptr() + unit, sb, bar);
   };
   if (threadIdx.x == 0) {
@@ -218,7 +225,7 @@ block_cluster_kernel(const int32_t* __restrict__ active_groups, W weights,
       const int gid = active_groups[ag_row + j0 + jl];
       if (gid < 0 || gid >= geo.groups) continue;
       const size_t unit = static_cast<size_t>(jl) * geo.block_r + r;
-      const size_t pairs = unit * geo.ne;
+      const size_t pairs = unit * geo.pitch;   // the first ne of them are read
       const float scale = ws.scale_of(unit);
       const XT* xj = xs + static_cast<size_t>(jl) * geo.cd * geo.m;
       for (int nn = 0; nn < geo.ne; ++nn) {
@@ -272,7 +279,7 @@ static int launch_cluster_bt(const int32_t* ag, W w, const int32_t* idx, const X
   const int smem_limit = device_attr<cudaDevAttrMaxSharedMemoryPerBlockOptin>(dev);
   int smem = 0;
   if (smem_limit <= 0 ||
-      !cl_plan(&geo, BT, cl_slot_bytes<W>(geo.block_r, geo.ne),
+      !cl_plan(&geo, BT, cl_slot_bytes<W>(geo.block_r, geo.pitch),
                cl_x_slot_bytes<XT>(geo.cd, geo.m), smem_limit, &smem))
     return kErrGroupTooWide;
   static int opted_in[kMaxDevices] = {0};
@@ -302,8 +309,9 @@ static int launch_cluster_bt(const int32_t* ag, W w, const int32_t* idx, const X
 }
 
 // Whether the cluster body can take these arguments: B = x^T with x's rows
-// 16-byte aligned, Cd <= 8, every copied span a multiple of 16 bytes, the
-// row block a power of two <= 256.  The choice of body is made by the caller
+// 16-byte aligned, Cd <= 8, every copied span a multiple of 16 bytes (a
+// (list slot)'s block_r x pitch values: the stored pitch, whatever a tier
+// view reads of it), the row block a power of two <= 256.  The choice of body is made by the caller
 // (kernels/demm_q8.block_q8_body states the rule); this check only asserts
 // it, refusing with a negative code what the copies cannot take.
 template <typename XT, typename W>
@@ -311,7 +319,8 @@ inline bool cluster_takes(const ClusterGeom& g, const void* values, const int32_
                           const float* scales, const XT* b) {
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   return g.cd <= 8 && g.block_r <= kThreads && kThreads % g.block_r == 0 &&
-         (static_cast<size_t>(g.block_r) * g.ne * W::kValueBytes) % 16 == 0 &&
+         g.ne >= 1 && g.ne <= g.pitch &&
+         (static_cast<size_t>(g.block_r) * g.pitch * W::kValueBytes) % 16 == 0 &&
          g.block_r % 4 == 0 && (static_cast<size_t>(g.m) * sizeof(XT)) % 16 == 0 &&
          (g.cd == 1 || (static_cast<size_t>(g.s_bc) * sizeof(XT)) % 16 == 0) &&
          aligned(values) && aligned(indices) && (!W::kHasScales || aligned(scales)) && aligned(b);

@@ -24,6 +24,12 @@
 // and written through the strides given, so the serving caller passes
 // B = x^T and C = y^T as views.
 //
+// A tier view (the draft tier of self-speculative decoding) reads the first
+// `ne` pairs of every (list slot, row) out of rows stored `s_row` pairs apart
+// (the pitch, `ne_stride` of the int8 launcher): both bodies read a prefix in
+// place; the block layout's strides are then (A_max * block_r * s_row,
+// block_r * s_row, s_row).
+//
 // Plain C interface, loaded with ctypes.  The launcher never synchronises and
 // allocates nothing; it returns cudaGetLastError() (0 on success) or a
 // negative code for arguments the kernel does not take.
@@ -39,12 +45,14 @@ int launch_body(const int32_t* ag, W w, const int32_t* indices, const XT* b, flo
   if (cluster == 0)
     return demm::launch_block<XT>(ag, w, indices, b, c, geo, duplicates, rows_per_block,
                                   stream);
-  // The cluster body reads the block layout's contiguous strides only.
-  demm::ClusterGeom cg{geo.r,    geo.cd, geo.groups, geo.a_max, geo.block_r, geo.m, geo.ne,
-                       geo.s_bc, geo.s_cr, geo.s_cc, cluster, 0, 0, 0,
-                       demm::kThreads / geo.block_r};
-  if (ag == nullptr || !geo.rows_fastest || geo.s_row != geo.ne ||
-      geo.s_j != static_cast<long long>(geo.block_r) * geo.ne ||
+  // The cluster body reads the block layout's strides only: contiguous, or
+  // a tier view's prefix of rows s_row pairs apart.
+  demm::ClusterGeom cg{geo.r,    geo.cd,   geo.groups, geo.a_max, geo.block_r,
+                       geo.m,    geo.ne,   static_cast<int>(geo.s_row),
+                       geo.s_bc, geo.s_cr, geo.s_cc,   cluster,   0,
+                       0,        0,        demm::kThreads / geo.block_r};
+  if (ag == nullptr || !geo.rows_fastest || geo.s_row < geo.ne || geo.s_row > geo.m ||
+      geo.s_j != static_cast<long long>(geo.block_r) * geo.s_row ||
       geo.s_rb != static_cast<long long>(geo.a_max) * geo.s_j || geo.s_bk != 1 ||
       cluster > 8 || cluster < -1 ||
       !demm::cluster_takes<XT, W>(cg, w.value_bytes(), indices, nullptr, b))

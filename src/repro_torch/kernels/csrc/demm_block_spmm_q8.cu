@@ -17,6 +17,11 @@
 // its size left to the launcher, 1..8 the cluster body with that many CTAs
 // per row block); both say what bounds them on an H100.
 //
+// `ne` is the pairs read per (list slot, row) and `ne_stride` the pairs stored
+// (the pitch): a tier view -- the draft tier of self-speculative decoding --
+// reads the first ne of every ne_stride in place; the full tier is ne ==
+// ne_stride.
+//
 // Plain C interface, loaded with ctypes.  The launcher never synchronises and
 // allocates nothing; it returns cudaGetLastError() (0 on success) or a
 // negative code for arguments the kernel does not take.
@@ -33,9 +38,10 @@ int launch_q8(const int32_t* ag, const int8_t* values, const int32_t* indices,
   if (cluster == 0)
     return demm::launch_block<XT>(ag, w, indices, b, c, geo, duplicates, rows_per_block,
                                   stream);
-  demm::ClusterGeom cg{geo.r,    geo.cd, geo.groups, geo.a_max, geo.block_r, geo.m, geo.ne,
-                       geo.s_bc, geo.s_cr, geo.s_cc, cluster, 0, 0, 0,
-                       demm::kThreads / geo.block_r};
+  demm::ClusterGeom cg{geo.r,    geo.cd,   geo.groups, geo.a_max, geo.block_r,
+                       geo.m,    geo.ne,   static_cast<int>(geo.s_row),
+                       geo.s_bc, geo.s_cr, geo.s_cc,   cluster,   0,
+                       0,        0,        demm::kThreads / geo.block_r};
   if (geo.s_bk != 1 || cluster > 8 || cluster < -1 ||
       !demm::cluster_takes<XT, demm::Int8Weights<XT>>(cg, values, indices, scales, b))
     return demm::kErrBadShape;
@@ -56,14 +62,14 @@ int launch_q8(const int32_t* ag, const int8_t* values, const int32_t* indices,
 extern "C" int demm_block_spmm_q8_launch(
     const int32_t* active_groups, const int8_t* values, const int32_t* indices,
     const float* scales, const void* b, float* c, int r, int k, int cd, int rb, int a_max,
-    int block_r, int m, int ne, long long s_bk, long long s_bc, long long s_cr,
-    long long s_cc, int b_dtype, int duplicates, int rows_per_block, int cluster,
-    int device, void* stream) {
+    int block_r, int m, int ne, int ne_stride, long long s_bk, long long s_bc,
+    long long s_cr, long long s_cc, int b_dtype, int duplicates, int rows_per_block,
+    int cluster, int device, void* stream) {
   demm::BlockGeom geo;
-  const long long s_row = ne;
-  const long long s_j = static_cast<long long>(block_r) * ne;
+  const long long s_row = ne_stride;
+  const long long s_j = static_cast<long long>(block_r) * ne_stride;
   const long long s_rb = static_cast<long long>(a_max) * s_j;
-  if (active_groups == nullptr || scales == nullptr ||
+  if (active_groups == nullptr || scales == nullptr || ne_stride < ne || ne_stride > m ||
       !demm::make_block_geom(&geo, r, k, cd, rb, a_max, block_r, m, ne, s_rb, s_j, s_row,
                              s_bk, s_bc, s_cr, s_cc, /*rows_fastest=*/1) ||
       rows_per_block < 0)

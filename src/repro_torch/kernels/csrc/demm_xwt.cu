@@ -9,6 +9,10 @@
 //     per CTA with 16-byte loads;
 //   * otherwise the gather body of demm_xwt_common.cuh (many small blocks,
 //     each staging its x tile, warps striding over a row's pairs).
+// `ne` is the slots read per group and `ne_stride` the slots stored per group
+// (the pitch of the values and indices): a tier view -- the draft tier of
+// self-speculative decoding -- reads the first ne of every ne_stride slots in
+// place; the full tier is ne == ne_stride.
 // The caller picks (`bulk`: 0 the gather body, 1 the bulk body;
 // kernels/demm_xwT.xwt_body states the rule).  `rows_per_block` is the rows
 // of a gather block or of a bulk CTA, `chunks` the bulk body's row chunks
@@ -24,30 +28,31 @@ namespace {
 
 template <typename XT, typename W>
 int launch_body(const XT* x, W w, const int32_t* indices, float* y, int bx, int k, int o,
-                int g, int m, int ne, int duplicates, int rows_per_block, int bulk,
-                int chunks, cudaStream_t stream) {
+                int g, int m, int ne, int pitch, int duplicates, int rows_per_block,
+                int bulk, int chunks, cudaStream_t stream) {
   if (bulk == 0)
-    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates,
+    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, pitch, duplicates,
                                rows_per_block, stream);
   if (bulk != 1) return demm::kErrBadShape;
-  demm::BulkGeom geo{bx, k, o, g, m, ne, rows_per_block, 0, 0};
+  demm::BulkGeom geo{bx, k, o, g, m, ne, pitch, rows_per_block, 0, 0};
   // 16 slot lanes (a half warp) a row at every tile
   return demm::launch_bulk<XT, 16>(x, w, indices, y, geo, duplicates, chunks, 0, stream);
 }
 
 template <typename XT>
 int launch_values(const XT* x, const void* values, int v_dtype, const int32_t* indices,
-                  float* y, int bx, int k, int o, int g, int m, int ne, int duplicates,
-                  int rows_per_block, int bulk, int chunks, cudaStream_t stream) {
+                  float* y, int bx, int k, int o, int g, int m, int ne, int pitch,
+                  int duplicates, int rows_per_block, int bulk, int chunks,
+                  cudaStream_t stream) {
   if (v_dtype == demm::kFloat32) {
     demm::FloatWeights<XT, float> w{static_cast<const float*>(values)};
-    return launch_body<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates, rows_per_block,
-                           bulk, chunks, stream);
+    return launch_body<XT>(x, w, indices, y, bx, k, o, g, m, ne, pitch, duplicates,
+                           rows_per_block, bulk, chunks, stream);
   }
   if (v_dtype == demm::kBFloat16) {
     demm::FloatWeights<XT, __nv_bfloat16> w{static_cast<const __nv_bfloat16*>(values)};
-    return launch_body<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates, rows_per_block,
-                           bulk, chunks, stream);
+    return launch_body<XT>(x, w, indices, y, bx, k, o, g, m, ne, pitch, duplicates,
+                           rows_per_block, bulk, chunks, stream);
   }
   return demm::kErrBadDtype;
 }
@@ -56,20 +61,22 @@ int launch_values(const XT* x, const void* values, int v_dtype, const int32_t* i
 
 extern "C" int demm_xwt_launch(const void* x, const void* values, const int32_t* indices,
                                float* y, int bx, int k, int o, int g, int m, int ne,
-                               int x_dtype, int v_dtype, int duplicates, int rows_per_block,
-                               int bulk, int chunks, int device, void* stream) {
-  if (!demm::shapes_ok(bx, k, o, g, m, ne, rows_per_block)) return demm::kErrBadShape;
+                               int ne_stride, int x_dtype, int v_dtype, int duplicates,
+                               int rows_per_block, int bulk, int chunks, int device,
+                               void* stream) {
+  if (!demm::shapes_ok(bx, k, o, g, m, ne, ne_stride, rows_per_block))
+    return demm::kErrBadShape;
   demm::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == demm::kFloat32)
     return launch_values<float>(static_cast<const float*>(x), values, v_dtype, indices, y,
-                                bx, k, o, g, m, ne, duplicates, rows_per_block, bulk,
-                                chunks, s);
+                                bx, k, o, g, m, ne, ne_stride, duplicates, rows_per_block,
+                                bulk, chunks, s);
   if (x_dtype == demm::kBFloat16)
     return launch_values<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), values,
-                                        v_dtype, indices, y, bx, k, o, g, m, ne, duplicates,
-                                        rows_per_block, bulk, chunks, s);
+                                        v_dtype, indices, y, bx, k, o, g, m, ne, ne_stride,
+                                        duplicates, rows_per_block, bulk, chunks, s);
   return demm::kErrBadDtype;
 }
 

@@ -39,6 +39,15 @@
 //     its compute, latency-bound at one CTA per SM, ran on well after the
 //     last bytes had landed.)
 //
+// A tier view (the draft tier of self-speculative decoding: the first `ne`
+// of the `pitch` slots stored per group) is copied at the full pitch -- the
+// spans stay whole rows, so the copies and their 16-byte rules are the full
+// tier's -- and the compute folds only the first `ne` slots of each group:
+// a slot past them weighs 0 (the summing search, too, looks only inside the
+// prefix).  So a draft launch moves the full tier's bytes; reading only the
+// prefix's bytes would need a copy per group, or a 2-D tensor map whose
+// inner box (ne slots) is rarely a 16-byte multiple.
+//
 // K1 and K3 both run it.  The weight policy W is a template parameter
 // (FloatWeights for K1; Int8BulkWeights for K3, its scale unit fixed at
 // compile time): per-group scales come into shared memory with the chunk's
@@ -68,6 +77,7 @@ constexpr int kBulkHeadBytes = 128;    // the mbarriers, before the x tile
 
 struct BulkGeom {
   int bx, k, o, g, m, ne;
+  int pitch;         // slots stored per group (ne of them are read)
   int rows;          // output rows per CTA
   int chunk_rows;    // rows per chunk (one mbarrier each; bulk_plan)
   int stages;        // chunks in flight at once (all of them, or a ring; bulk_plan)
@@ -97,12 +107,12 @@ __host__ __device__ inline size_t bulk_x_bytes(int k) {
   return static_cast<size_t>((k + 15) & ~15) * sizeof(XVec<XT, BT>);
 }
 
-// Bytes of one output row in a stage: its pairs (values, then indices) and
-// its staged scales (K3 per group: G floats), each a 16-byte multiple (the
-// launcher checks).
+// Bytes of one output row in a stage: its pairs (values, then indices) at
+// the stored pitch and its staged scales (K3 per group: G floats), each a
+// 16-byte multiple (the launcher checks).
 template <typename W>
-__host__ __device__ inline size_t bulk_row_bytes(int g, int ne) {
-  return static_cast<size_t>(g) * ne * (W::kValueBytes + sizeof(int32_t)) +
+__host__ __device__ inline size_t bulk_row_bytes(int g, int pitch) {
+  return static_cast<size_t>(g) * pitch * (W::kValueBytes + sizeof(int32_t)) +
          static_cast<size_t>(g) * W::kStagedScaleBytes;
 }
 
@@ -152,7 +162,7 @@ xwt_bulk_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__
   XVec<XT, BT>* xs = reinterpret_cast<XVec<XT, BT>*>(smem_raw + kBulkHeadBytes);  // [k]
   unsigned char* stage0 = smem_raw + kBulkHeadBytes + bulk_x_bytes<XT, BT>(geo.k);
 
-  const int pairs = geo.g * geo.ne;                         // per output row
+  const int pairs = geo.g * geo.pitch;                      // per output row, stored
   const size_t sc_row = static_cast<size_t>(geo.g) * W::kStagedScaleBytes;
   const size_t vals_b = static_cast<size_t>(geo.chunk_rows) * pairs * W::kValueBytes;
   const size_t scs_at = vals_b + static_cast<size_t>(geo.chunk_rows) * pairs * sizeof(int32_t);
@@ -216,16 +226,17 @@ xwt_bulk_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__
   // A row of a chunk belongs to LANES slot lanes (8 or 16); each lane reads
   // kBulkUnit adjacent pairs with one vector load of indices and one of
   // values, then the next unit `stride` pairs on.  A lane's (group, slot)
-  // position advances by a fixed step with a carry.
+  // position in the stored pairs advances by a fixed step with a carry; a
+  // tier view's slots past ne are read and not multiplied.
   constexpr int rows_per_pass = kBulkThreads / LANES;
   constexpr int stride = LANES * kBulkUnit;
   const int rlane = threadIdx.x / LANES;
   const int sl = threadIdx.x % LANES;
   const int p0 = kBulkUnit * sl;
-  const int step_g = stride / geo.ne;
-  const int step_n = stride % geo.ne;
-  const int lane_g = p0 / geo.ne;
-  const int lane_n = p0 - lane_g * geo.ne;
+  const int step_g = stride / geo.pitch;
+  const int step_n = stride % geo.pitch;
+  const int lane_g = p0 / geo.pitch;
+  const int lane_n = p0 - lane_g * geo.pitch;
   for (int c = 0; c < nchunks; ++c) {
     const int s = c % geo.stages;
     const int r0 = row0 + c * geo.chunk_rows;
@@ -262,7 +273,7 @@ xwt_bulk_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__
         nj[0] = nn;
 #pragma unroll
         for (int j = 1; j < kBulkUnit; ++j) {
-          const bool carry = nj[j - 1] + 1 == geo.ne;
+          const bool carry = nj[j - 1] + 1 == geo.pitch;
           nj[j] = carry ? 0 : nj[j - 1] + 1;
           gj[j] = carry ? gj[j - 1] + 1 : gj[j - 1];
         }
@@ -278,13 +289,19 @@ xwt_bulk_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__
         }
 #pragma unroll
         for (int j = 0; j < kBulkUnit; ++j) {
+          // a slot past a tier view's prefix is not multiplied: an inf or
+          // NaN in x at its column must not reach the sum
+          const bool in = nj[j] < geo.ne;
           const XVec<XT, BT> xv = xs[bulk_swizzle(gj[j] * geo.m + idx[j])];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) acc[b] = fmaf(w[j], to_float<XT>(xv.v[b]), acc[b]);
+          for (int b = 0; b < BT; ++b) {
+            const float prod = fmaf(w[j], to_float<XT>(xv.v[b]), acc[b]);
+            acc[b] = in ? prod : acc[b];
+          }
         }
         g += step_g;
         nn += step_n;
-        if (nn >= geo.ne) { nn -= geo.ne; ++g; }
+        if (nn >= geo.pitch) { nn -= geo.pitch; ++g; }
       }
 #pragma unroll
       for (int b = 0; b < BT; ++b) {
@@ -343,7 +360,7 @@ static int launch_bulk_bt(const XT* x, W weights, const int32_t* indices, float*
   if (geo.rows <= 0) geo.rows = bulk_auto_rows(geo.o, sms);
   if (geo.rows > geo.o) geo.rows = geo.o;
   int smem = 0;
-  if (!bulk_plan(&geo, chunks, bulk_x_bytes<XT, BT>(geo.k), bulk_row_bytes<W>(geo.g, geo.ne),
+  if (!bulk_plan(&geo, chunks, bulk_x_bytes<XT, BT>(geo.k), bulk_row_bytes<W>(geo.g, geo.pitch),
                  smem_limit, &smem))
     return kErrGroupTooWide;
   if constexpr (LANES == 0) {
@@ -357,9 +374,9 @@ static int launch_bulk_bt(const XT* x, W weights, const int32_t* indices, float*
 
 // Whether the bulk body can take these arguments: Bx <= 8; x's rows (K
 // activations) a multiple of 16 bytes and x 16-byte aligned; a row's values,
-// its indices and its staged scales each a multiple of 16 bytes (G*Ne*value
-// bytes, G*Ne*4, G*4 for K3's per-group scales) and those arrays 16-byte
-// aligned.  The choice of body is made by the caller
+// its indices and its staged scales each a multiple of 16 bytes (G*pitch*value
+// bytes, G*pitch*4, G*4 for K3's per-group scales: the stored row, whatever
+// a tier view reads of it) and those arrays 16-byte aligned.  The choice of body is made by the caller
 // (kernels/demm_xwT.xwt_body states the rule); this check only asserts it,
 // refusing what the copies cannot take.  (Shared memory is checked by the
 // stage plan.)
@@ -367,8 +384,8 @@ template <typename XT, typename W>
 inline bool bulk_takes(const BulkGeom& g, const void* x, const W& weights,
                        const int32_t* indices) {
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const size_t pairs = static_cast<size_t>(g.g) * g.ne;
-  return g.bx >= 1 && g.bx <= kBulkMaxBt &&
+  const size_t pairs = static_cast<size_t>(g.g) * g.pitch;
+  return g.bx >= 1 && g.bx <= kBulkMaxBt && g.ne >= 1 && g.ne <= g.pitch &&
          (static_cast<size_t>(g.k) * sizeof(XT)) % 16 == 0 &&
          (pairs * W::kValueBytes) % 16 == 0 && (pairs * sizeof(int32_t)) % 16 == 0 &&
          (static_cast<size_t>(g.g) * W::kStagedScaleBytes) % 16 == 0 &&

@@ -10,6 +10,11 @@
 // in float32.  A padded slot is value 0 at index 0 and adds exactly 0.  The
 // dense weight is never formed.
 //
+// A tier view (the draft tier of self-speculative decoding) reads only the
+// first `ne` of the `pitch` slots stored per group: the operands are a prefix
+// of a (O, G, pitch) stream, every group's slots `pitch` apart.  The full
+// tier is pitch == ne.
+//
 // Duplicate indices (two slots of one group at one column) follow the TPU
 // kernel's scatter matrix: their values are summed in the activation type, in
 // slot order, before the one product with x (fold_slot below).  The FOLD
@@ -226,7 +231,8 @@ struct Int8BulkWeights {
 // an earlier slot of the group has the same index (that slot carries the sum),
 // else this slot's value plus every later slot at its index, rounded to the
 // activation type after each add, in slot order.  The group's pairs are
-// adjacent, so the search reads L1-resident lines.
+// adjacent, so the search reads L1-resident lines.  `ne` is the slots read: a
+// tier view's fold looks only inside its prefix.
 template <bool FOLD, typename XT, typename W>
 __device__ __forceinline__ float fold_slot(const W& weights, const int32_t* __restrict__ indices,
                                            size_t group, int n, int ne, int idx) {
@@ -266,7 +272,7 @@ template <typename XT, int BT, bool FOLD, typename W>
 __global__ void __launch_bounds__(kThreads)
 xwt_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__ indices,
            float* __restrict__ y, int bx, int k, int o_total, int g_total, int m, int ne,
-           int rows_per_block, int chunk_groups) {
+           int pitch, int rows_per_block, int chunk_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   XVec<XT, BT>* xs = reinterpret_cast<XVec<XT, BT>*>(smem_raw);   // [chunk_k] columns
 
@@ -275,7 +281,7 @@ xwt_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__ indi
   const int b0 = blockIdx.y * BT;
   const int row0 = blockIdx.x * rows_per_block;
   const int row_end = min(row0 + rows_per_block, o_total);
-  const int slots_per_row = g_total * ne;
+  const int slots_per_row = g_total * pitch;   // stored; ne of every pitch are read
   const int step_g = 32 / ne;
   const int step_n = 32 % ne;
 
@@ -320,23 +326,25 @@ xwt_kernel(const XT* __restrict__ x, W weights, const int32_t* __restrict__ indi
 #pragma unroll
       for (int b = 0; b < BT; ++b) acc[b] = 0.f;
 
-      // A lane's pairs are 32 apart: its (group, slot) position advances by a
-      // fixed step with a carry, so the division is paid once per row.
+      // A lane's pairs are 32 apart in the read slots: its (group, slot)
+      // position advances by a fixed step with a carry, so the division is
+      // paid once per row; the slot is stored at g * pitch + n.
       int g = (s0 + lane) / ne;
       int n = (s0 + lane) - g * ne;
 #pragma unroll 4
       for (int s = s0 + lane; s < s1; s += 32) {
-        const int idx = indices[row_base + s];
+        const size_t at = row_base + static_cast<size_t>(g) * pitch + n;
+        const int idx = indices[at];
         const int col = (g - g0) * m + idx;
         // the main path (no duplicates) keeps its one load per pair as it
         // was before the fold existed: measured 9 % faster than routing it
         // through fold_slot<false>
         float w;
         if constexpr (FOLD)
-          w = weights.finish(fold_slot<true, XT>(weights, indices, row_base + s - n, n, ne, idx),
+          w = weights.finish(fold_slot<true, XT>(weights, indices, at - n, n, ne, idx),
                              weights.xwt_scale(o, g));
         else
-          w = weights.load(row_base + s, o, g);
+          w = weights.load(at, o, g);
         const XVec<XT, BT> xv = xs[col];
 #pragma unroll
         for (int b = 0; b < BT; ++b) acc[b] = fmaf(w, to_float<XT>(xv.v[b]), acc[b]);
@@ -399,7 +407,8 @@ inline int auto_rows_per_block(int o, int smem, int smem_limit, int sm_count) {
 
 template <typename XT, int BT, bool FOLD, typename W>
 static int launch_bt(const XT* x, W weights, const int32_t* indices, float* y, int bx, int k,
-              int o, int g, int m, int ne, int rows_per_block, cudaStream_t stream) {
+              int o, int g, int m, int ne, int pitch, int rows_per_block,
+              cudaStream_t stream) {
   auto kernel = xwt_kernel<XT, BT, FOLD, W>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -427,7 +436,7 @@ static int launch_bt(const XT* x, W weights, const int32_t* indices, float* y, i
   dim3 grid((o + rows_per_block - 1) / rows_per_block, (bx + BT - 1) / BT);
   if (grid.y > 65535u) return kErrBadShape;   // more activation tiles than a grid holds
   last_launch_smem = smem;
-  kernel<<<grid, kThreads, smem, stream>>>(x, weights, indices, y, bx, k, o, g, m, ne,
+  kernel<<<grid, kThreads, smem, stream>>>(x, weights, indices, y, bx, k, o, g, m, ne, pitch,
                                            rows_per_block, chunk_groups);
   return static_cast<int>(cudaGetLastError());
 }
@@ -436,11 +445,12 @@ static int launch_bt(const XT* x, W weights, const int32_t* indices, float* y, i
 // (8 for anything larger; the grid's second dimension walks the tiles).
 template <typename XT, bool FOLD, typename W>
 int launch_fold(const XT* x, W weights, const int32_t* indices, float* y, int bx, int k,
-                int o, int g, int m, int ne, int rows_per_block, cudaStream_t stream) {
-  if (bx <= 1) return launch_bt<XT, 1, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
-  if (bx <= 2) return launch_bt<XT, 2, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
-  if (bx <= 4) return launch_bt<XT, 4, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
-  return launch_bt<XT, 8, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
+                int o, int g, int m, int ne, int pitch, int rows_per_block,
+                cudaStream_t stream) {
+  if (bx <= 1) return launch_bt<XT, 1, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
+  if (bx <= 2) return launch_bt<XT, 2, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
+  if (bx <= 4) return launch_bt<XT, 4, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
+  return launch_bt<XT, 8, FOLD, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
 }
 
 // `duplicates` == 0 promises that no group holds two non-zero slots at one
@@ -450,11 +460,11 @@ int launch_fold(const XT* x, W weights, const int32_t* indices, float* y, int bx
 // instead of four keeps the build short.
 template <typename XT, typename W>
 int launch_xt(const XT* x, W weights, const int32_t* indices, float* y, int bx, int k,
-              int o, int g, int m, int ne, int duplicates, int rows_per_block,
+              int o, int g, int m, int ne, int pitch, int duplicates, int rows_per_block,
               cudaStream_t stream) {
   if (duplicates)
-    return launch_bt<XT, 8, true, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
-  return launch_fold<XT, false, W>(x, weights, indices, y, bx, k, o, g, m, ne, rows_per_block, stream);
+    return launch_bt<XT, 8, true, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
+  return launch_fold<XT, false, W>(x, weights, indices, y, bx, k, o, g, m, ne, pitch, rows_per_block, stream);
 }
 
 // Make `device` current for the launch and restore the caller's afterwards.
@@ -472,8 +482,10 @@ struct DeviceGuard {
   ~DeviceGuard() { if (switched) cudaSetDevice(prev); }
 };
 
-inline bool shapes_ok(int bx, int k, int o, int g, int m, int ne, int rows_per_block) {
-  return bx >= 1 && o >= 1 && g >= 1 && m >= 1 && ne >= 1 && ne <= m &&
+// `ne` slots read of the `pitch` stored per group (a tier view: ne < pitch).
+inline bool shapes_ok(int bx, int k, int o, int g, int m, int ne, int pitch,
+                      int rows_per_block) {
+  return bx >= 1 && o >= 1 && g >= 1 && m >= 1 && ne >= 1 && ne <= pitch && pitch <= m &&
          static_cast<long long>(g) * m == k && rows_per_block >= 0;
 }
 

@@ -13,6 +13,8 @@
 //     copies at entry, x staged once per CTA; a per-row scale is read once
 //     per row pass into a register, a per-group one from shared memory;
 //   * otherwise the gather body of demm_xwt_common.cuh with Int8Weights.
+// `ne` is the slots read per group and `ne_stride` the slots stored (the
+// pitch), as for K1: a tier view reads a prefix of every group in place.
 // The caller picks (`bulk`: 0 the gather body, 1 the bulk body;
 // kernels/demm_xwT.xwt_body states the rule).  `rows_per_block` is the rows
 // of a gather block or of a bulk CTA, `chunks` the bulk body's row chunks
@@ -30,15 +32,15 @@ namespace {
 template <typename XT>
 int launch_body(const XT* x, const int8_t* values, const int32_t* indices,
                 const float* scales, float* y, int bx, int k, int o, int g, int m, int ne,
-                int scale_cols, int duplicates, int rows_per_block, int bulk, int chunks,
-                int lanes, cudaStream_t stream) {
+                int pitch, int scale_cols, int duplicates, int rows_per_block, int bulk,
+                int chunks, int lanes, cudaStream_t stream) {
   if (bulk == 0) {
     demm::Int8Weights<XT> w{values, scales, scale_cols};
-    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, duplicates,
+    return demm::launch_xt<XT>(x, w, indices, y, bx, k, o, g, m, ne, pitch, duplicates,
                                rows_per_block, stream);
   }
   if (bulk != 1) return demm::kErrBadShape;
-  demm::BulkGeom geo{bx, k, o, g, m, ne, rows_per_block, 0, 0};
+  demm::BulkGeom geo{bx, k, o, g, m, ne, pitch, rows_per_block, 0, 0};
   // slot lanes per row: 8 or 16, chosen at each launch
   if (scale_cols == 1)
     return demm::launch_bulk<XT, 0>(x, demm::Int8BulkWeights<XT, false>{values, scales},
@@ -51,22 +53,23 @@ int launch_body(const XT* x, const int8_t* values, const int32_t* indices,
 
 extern "C" int demm_xwt_q8_launch(const void* x, const int8_t* values,
                                   const int32_t* indices, const float* scales, float* y,
-                                  int bx, int k, int o, int g, int m, int ne, int x_dtype,
-                                  int scale_cols, int duplicates, int rows_per_block,
-                                  int bulk, int chunks, int lanes, int device,
-                                  void* stream) {
-  if (!demm::shapes_ok(bx, k, o, g, m, ne, rows_per_block)) return demm::kErrBadShape;
+                                  int bx, int k, int o, int g, int m, int ne,
+                                  int ne_stride, int x_dtype, int scale_cols, int duplicates,
+                                  int rows_per_block, int bulk, int chunks, int lanes,
+                                  int device, void* stream) {
+  if (!demm::shapes_ok(bx, k, o, g, m, ne, ne_stride, rows_per_block))
+    return demm::kErrBadShape;
   if (scale_cols != 1 && scale_cols != g) return demm::kErrBadShape;
   demm::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == demm::kFloat32)
     return launch_body<float>(static_cast<const float*>(x), values, indices, scales, y, bx, k,
-                              o, g, m, ne, scale_cols, duplicates, rows_per_block, bulk,
-                              chunks, lanes, s);
+                              o, g, m, ne, ne_stride, scale_cols, duplicates, rows_per_block,
+                              bulk, chunks, lanes, s);
   if (x_dtype == demm::kBFloat16)
     return launch_body<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), values, indices,
-                                      scales, y, bx, k, o, g, m, ne, scale_cols, duplicates,
-                                      rows_per_block, bulk, chunks, lanes, s);
+                                      scales, y, bx, k, o, g, m, ne, ne_stride, scale_cols,
+                                      duplicates, rows_per_block, bulk, chunks, lanes, s);
   return demm::kErrBadDtype;
 }

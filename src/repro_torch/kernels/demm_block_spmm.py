@@ -46,6 +46,7 @@ import torch
 from repro_torch.core.sparsity import DEFAULT_BLOCK_R, SparsityConfig, pack_block
 from repro_torch.kernels.demm_xwT import (
     _DTYPE_CODE,
+    prefix_pitch,
     raise_on_launch_error,
     scatter_groups,
 )
@@ -71,8 +72,10 @@ def pack_block_sparse(
 
 def check_block_args(active_groups, values, indices, b, cfg: SparsityConfig,
                      r: int, value_dtypes):
-    """Shape/dtype/device/contiguity checks shared by the float and int8
-    block wrappers.  Returns (rb, a_max, block_r, ne, k, cd)."""
+    """Shape/dtype/device/layout checks shared by the float and int8 block
+    wrappers: active_groups contiguous; values and indices contiguous, or
+    prefix views of one stored pitch (a draft tier).  Returns (rb, a_max,
+    block_r, ne, pitch, k, cd)."""
     if values.ndim != 4 or b.ndim != 2:
         raise ValueError(f"expected values (RB, A_max, block_r, Ne) and B "
                          f"(K, Cd), got {tuple(values.shape)} and "
@@ -104,9 +107,13 @@ def check_block_args(active_groups, values, indices, b, cfg: SparsityConfig,
                     ("active_groups", active_groups)):
         if t.device != b.device:
             raise ValueError(f"{name} on {t.device}, B on {b.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return rb, a_max, block_r, ne, k, cd
+    if not active_groups.is_contiguous():
+        raise ValueError("active_groups must be contiguous")
+    pitch = prefix_pitch(values, "values")
+    if prefix_pitch(indices, "indices") != pitch:
+        raise ValueError(f"values and indices are stored at different "
+                         f"pitches: {values.stride()} vs {indices.stride()}")
+    return rb, a_max, block_r, ne, pitch, k, cd
 
 
 def block_output(b: torch.Tensor, r: int) -> torch.Tensor:
@@ -154,7 +161,9 @@ def cluster_fits(cd: int, m: int, block_r: int, ne: int, b_size: int,
     """:func:`cluster_takes` on shapes and element sizes alone (B = xᵀ,
     every array 16-byte aligned): ``cd`` columns of B of ``b_size`` bytes,
     ``b_col_stride`` elements between them (x's row length K), values of
-    ``value_size`` bytes.  The autotuner reads a problem's body here."""
+    ``value_size`` bytes, ``ne`` pairs stored per (list slot, row) (a tier
+    view's stored pitch: its spans are copied whole).  The autotuner reads a
+    problem's body here."""
     return (cd <= CLUSTER_MAX_CD
             and (cd == 1 or (b_col_stride * b_size) % 16 == 0)
             and (m * b_size) % 16 == 0
@@ -173,7 +182,7 @@ def cluster_takes(values: torch.Tensor, indices: torch.Tensor,
     ·Ne·value bytes``) and, as ``block_r`` is a multiple of 4, its indices and
     its ``block_r`` scales; ``block_r`` a power of two up to 256.  The C++
     ``cluster_takes`` refuses what lies outside this."""
-    block_r, ne = values.shape[-2], values.shape[-1]
+    block_r, ne = values.shape[-2], prefix_pitch(values, "values")
     arrays = (values, indices, b) + (() if scales is None else (scales,))
     return (b.stride(0) == 1
             and cluster_fits(b.shape[1], m, block_r, ne, b.element_size(),
@@ -210,7 +219,9 @@ def demm_block_spmm(active_groups: torch.Tensor, values: torch.Tensor,
     takes :func:`demm_block_spmm_plain`, and only because it lies on the CPU.
     ``duplicates=False`` promises that no (row, list slot) holds two non-zero
     slots at one index (``PackedWeight.has_duplicates``) and skips the
-    kernel's summing search.  ``rows_per_block`` (rows per thread block,
+    kernel's summing search.  ``values`` and ``indices`` may be a draft
+    tier's prefix view ``[..., :t]`` (``demm_xwT.prefix_pitch``), read in
+    place at their stored pitch.  ``rows_per_block`` (rows per thread block,
     dividing 256) tunes the gather body, ``cluster_size`` (CTAs per row
     block, 1-8) the cluster body; left open, the launcher sizes them to the
     card.
@@ -232,7 +243,7 @@ def demm_block_spmm_on(body: Optional[str], active_groups: torch.Tensor,
     — a measurement hook for timing one body against the other
     (``chip_smoke.py --sweep``), not a serving entry point.  A launch counts
     on ``demm_block_spmm.launches``."""
-    rb, a_max, block_r, ne, k, cd = check_block_args(
+    rb, a_max, block_r, ne, pitch, k, cd = check_block_args(
         active_groups, values, indices, b, cfg, r,
         (torch.float32, torch.bfloat16))
     chosen = block_body(active_groups, values, indices, b, cfg.m)
@@ -254,7 +265,8 @@ def demm_block_spmm_on(body: Optional[str], active_groups: torch.Tensor,
     code = lib.demm_block_spmm_launch(
         active_groups.data_ptr(), values.data_ptr(), indices.data_ptr(),
         b.data_ptr(), c.data_ptr(), r, k, cd, rb, a_max, block_r, cfg.m, ne,
-        a_max * block_r * ne, block_r * ne, ne, b.stride(0), b.stride(1),
+        a_max * block_r * pitch, block_r * pitch, pitch, b.stride(0),
+        b.stride(1),
         c.stride(0), c.stride(1), 1, _DTYPE_CODE[b.dtype],
         _DTYPE_CODE[values.dtype], int(bool(duplicates)),
         int(rows_per_block or 0), cluster, b.device.index,

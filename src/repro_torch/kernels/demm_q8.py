@@ -92,7 +92,8 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
                 duplicates: bool = True,
                 rows_per_block: Optional[int] = None) -> torch.Tensor:
     """y (Bx, O) float32 = x (Bx, K) @ W_q8ᵀ; int8 values (O, G, Ne) with
-    float32 scales (O,) or (O, G).
+    float32 scales (O,) or (O, G); values and indices contiguous or a draft
+    tier's prefix view (``demm_xwT.prefix_pitch``).
 
     A CUDA tensor launches the hand-written kernel (the body
     ``demm_xwT.xwt_body`` names given the scales: K1's bulk row-tile body at
@@ -122,7 +123,8 @@ def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
     --sweep``), not a serving entry point.  A launch counts on
     ``demm_xwT_q8.launches`` and by body on
     ``demm_xwT_q8.body_launches``."""
-    bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg, (torch.int8,))
+    bx, k, o, g, ne, pitch = check_xwT_args(x, values, indices, cfg,
+                                            (torch.int8,))
     _check_scales(scales, x, ((o,), (o, g)))
     chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates,
                       scales=scales)
@@ -141,7 +143,7 @@ def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
     y = torch.empty((bx, o), dtype=torch.float32, device=x.device)
     code = lib.demm_xwt_q8_launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(),
-        scales.data_ptr(), y.data_ptr(), bx, k, o, g, cfg.m, ne,
+        scales.data_ptr(), y.data_ptr(), bx, k, o, g, cfg.m, ne, pitch,
         _DTYPE_CODE[x.dtype], 1 if scales.ndim == 1 else g,
         int(bool(duplicates)), int(rows_per_block or 0),
         int((body or chosen) == "bulk"), int(chunks or 0), int(lanes or 0),
@@ -193,7 +195,8 @@ def demm_block_spmm_q8(active_groups: torch.Tensor, values: torch.Tensor,
     (RB, A_max, block_r, Ne) and float32 scales (RB, A_max, block_r).
 
     Same contract as ``demm_block_spmm`` (B may be any strided view, C comes
-    back in B's orientation); a CPU tensor takes
+    back in B's orientation, values and indices may be a draft tier's prefix
+    view); a CPU tensor takes
     :func:`demm_block_spmm_q8_plain`, and only because it lies on the CPU.
     The body is :func:`block_q8_body`'s; ``rows_per_block`` tunes the gather
     body, ``cluster_size`` (CTAs per row block, 1-8) the cluster body; left
@@ -217,7 +220,7 @@ def demm_block_spmm_q8_on(body: Optional[str], active_groups: torch.Tensor,
     one) — a measurement hook for timing one body against the other
     (``chip_smoke.py --sweep``), not a serving entry point.  A launch counts
     on ``demm_block_spmm_q8.launches``."""
-    rb, a_max, block_r, ne, k, cd = check_block_args(
+    rb, a_max, block_r, ne, pitch, k, cd = check_block_args(
         active_groups, values, indices, b, cfg, r, (torch.int8,))
     _check_scales(scales, b, ((rb, a_max, block_r),))
     chosen = block_q8_body(values, indices, scales, b, cfg.m)
@@ -239,7 +242,7 @@ def demm_block_spmm_q8_on(body: Optional[str], active_groups: torch.Tensor,
     code = lib.demm_block_spmm_q8_launch(
         active_groups.data_ptr(), values.data_ptr(), indices.data_ptr(),
         scales.data_ptr(), b.data_ptr(), c.data_ptr(), r, k, cd, rb, a_max,
-        block_r, cfg.m, ne, b.stride(0), b.stride(1), c.stride(0),
+        block_r, cfg.m, ne, pitch, b.stride(0), b.stride(1), c.stride(0),
         c.stride(1),
         _DTYPE_CODE[b.dtype], int(bool(duplicates)),
         int(rows_per_block or 0), cluster, b.device.index,

@@ -31,6 +31,11 @@ kernel's scatter matrix):
 path tells the kernel (``duplicates=False``) and skips the summing search; a
 call that does not say so gets the instantiation that sums, which is always
 right.
+
+A draft tier (``core.sparsity.narrow_tier``) hands the wrappers the prefix
+view ``[..., :t]`` of the stored ``(O, G, Ne)`` tensors: :func:`prefix_pitch`
+reads the stored pitch from its strides and the kernels read the first ``t``
+slots of every group in place; nothing is copied.
 """
 
 from __future__ import annotations
@@ -51,9 +56,36 @@ _ERRORS = {-1: "unsupported dtype",
            -4: "cuTensorMapEncodeTiled refused a tensor map (B, values or "
                "indices)"}
 
+def prefix_pitch(t: torch.Tensor, name: str = "operand") -> int:
+    """The slots stored per group of a packed operand ``(..., Ne)``: ``Ne``
+    for a contiguous tensor, else ``P`` for the prefix view ``[..., :Ne]`` of
+    a contiguous ``(..., P)`` tensor — strides those of the contiguous tensor
+    with the last dim ``P >= Ne``, and its storage holding all ``P`` slots of
+    every row, which the bulk copies read.  Raises on any other layout: the
+    wrappers never copy an operand."""
+    ne = t.shape[-1]
+    if t.is_contiguous():
+        return ne
+    pitch = t.stride(-2) if t.ndim >= 2 else 0
+    ok = t.ndim >= 2 and pitch >= ne and (ne == 1 or t.stride(-1) == 1)
+    want = pitch
+    for d in range(t.ndim - 2, -1, -1):
+        ok = ok and (t.shape[d] == 1 or t.stride(d) == want)
+        want *= t.shape[d]
+    rows = t.numel() // max(ne, 1)
+    ok = ok and ((t.storage_offset() + rows * pitch) * t.element_size()
+                 <= t.untyped_storage().nbytes())
+    if not ok:
+        raise ValueError(
+            f"{name} {tuple(t.shape)} with strides {t.stride()} is neither "
+            f"contiguous nor a prefix view [..., :n] of a contiguous tensor")
+    return pitch
+
+
 def check_xwT_args(x, values, indices, cfg: SparsityConfig, value_dtypes):
-    """Shape/dtype/device/contiguity checks shared by the float and int8
-    wrappers.  Returns (bx, k, o, g, ne)."""
+    """Shape/dtype/device/layout checks shared by the float and int8
+    wrappers: x contiguous; values and indices contiguous, or prefix views of
+    one stored pitch (a draft tier).  Returns (bx, k, o, g, ne, pitch)."""
     if x.ndim != 2 or values.ndim != 3:
         raise ValueError(f"expected x (Bx, K) and values (O, G, Ne), got "
                          f"{tuple(x.shape)} and {tuple(values.shape)}")
@@ -80,10 +112,13 @@ def check_xwT_args(x, values, indices, cfg: SparsityConfig, value_dtypes):
     for name, t in (("values", values), ("indices", indices)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("values", values), ("indices", indices)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return bx, k, o, g, ne
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    pitch = prefix_pitch(values, "values")
+    if prefix_pitch(indices, "indices") != pitch:
+        raise ValueError(f"values and indices are stored at different "
+                         f"pitches: {values.stride()} vs {indices.stride()}")
+    return bx, k, o, g, ne, pitch
 
 
 class LaunchRefused(ValueError):
@@ -155,7 +190,8 @@ def xwt_body_of(bx: int, k: int, g: int, ne: int, x_size: int,
                 duplicates: bool = True) -> str:
     """:func:`xwt_body`'s rule on shapes and element sizes alone (operands
     taken 16-byte aligned): ``bx`` rows of x of ``x_size`` bytes each
-    activation, ``g`` groups of ``ne`` pairs a row, values of
+    activation, ``g`` groups of ``ne`` pairs a row (the stored pitch: a
+    tier view's rows are copied whole), values of
     ``value_size`` bytes, ``scale_bytes`` staged scales a row (K3's per-group
     scales, ``4·G``; 0 otherwise).  The autotuner reads a problem's body
     here, without tensors."""
@@ -183,10 +219,10 @@ def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     the transposed x tile (the widest tile with ``duplicates``) beside two
     rows of pairs and their staged scales within a block's shared memory —
     ``"gather"`` otherwise.  This is the one statement of the rule
-    (:func:`xwt_body_of` on the shapes): the CUDA launchers only refuse what
-    the bulk body cannot take."""
+    (:func:`xwt_body_of` on the shapes, a tier view's at its stored pitch):
+    the CUDA launchers only refuse what the bulk body cannot take."""
     bx, k = x.shape
-    g, ne = values.shape[1], values.shape[2]
+    g, ne = values.shape[1], prefix_pitch(values, "values")
     staged = [] if scales is None or scales.ndim == 1 else [scales]
     body = xwt_body_of(bx, k, g, ne, x.element_size(), values.element_size(),
                        4 * g if staged else 0, duplicates)
@@ -203,7 +239,9 @@ def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
 
     A CUDA tensor launches the hand-written kernel (building the library at
     first use; the body :func:`xwt_body` names) or raises; a CPU tensor takes
-    :func:`demm_xwT_plain`, and only because it lies on the CPU.
+    :func:`demm_xwT_plain`, and only because it lies on the CPU.  ``values``
+    and ``indices`` may be a draft tier's prefix view (:func:`prefix_pitch`),
+    read in place.
     ``duplicates=False`` promises that no group holds two non-zero slots at
     one index (``PackedWeight.has_duplicates``) and launches the kernel
     without its summing search.  ``rows_per_block`` (output rows per thread
@@ -226,8 +264,8 @@ def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
     a measurement hook for timing one body against the other and the chunk
     counts (``chip_smoke.py --sweep``), not a serving entry point.  A launch
     counts on ``demm_xwT.launches``."""
-    bx, k, o, g, ne = check_xwT_args(x, values, indices, cfg,
-                                     (torch.float32, torch.bfloat16))
+    bx, k, o, g, ne, pitch = check_xwT_args(x, values, indices, cfg,
+                                            (torch.float32, torch.bfloat16))
     chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates)
     if body not in (None, "bulk", "gather"):
         raise ValueError(f"body must be 'bulk' or 'gather', got {body!r}")
@@ -242,7 +280,7 @@ def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
     y = torch.empty((bx, o), dtype=torch.float32, device=x.device)
     code = lib.demm_xwt_launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
-        bx, k, o, g, cfg.m, ne, _DTYPE_CODE[x.dtype],
+        bx, k, o, g, cfg.m, ne, pitch, _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[values.dtype], int(bool(duplicates)),
         int(rows_per_block or 0), int((body or chosen) == "bulk"),
         int(chunks or 0),

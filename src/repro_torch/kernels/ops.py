@@ -19,8 +19,11 @@ New variants registered via ``repro_torch.tune.register_variant`` become
 valid backend strings here with no further changes.
 
 Forward only: the sparse-aware gradients of the JAX package come with the
-training slice of the port.  Tier views and shard-stacked weights are not
-ported either.
+training slice of the port.  Shard-stacked weights are not ported either.
+A draft-tier view (``PackedWeight.tier_ne``, ``repro_torch.spec``) is
+narrowed to prefix views of its tensors before any dispatch decision, so
+``auto`` keys on the narrowed problem, as the JAX package does, and the
+kernels read the prefix in place.
 
 Observability (``repro_torch.obs``): every dispatch increments a
 ``kernel_dispatch_total{op, backend}`` counter (the *resolved* backend under
@@ -40,7 +43,9 @@ from repro_torch.core.sparsity import (
     LAYOUTS,
     PackedWeight,
     SparsityConfig,
+    narrow_tier,
 )
+
 
 def _count_dispatch(op: str, backend: str):
     """Dispatch audit: the counter moves on every call (the port dispatches
@@ -72,7 +77,14 @@ def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
     k-reconfiguration), dense shape, block geometry, qdtype and whether any
     group holds duplicate indices come from the weight's static attributes,
     so call sites never re-derive them.
+
+    A draft-tier view (``pw.tier_ne`` set) shares the full tier's tensors;
+    :func:`~repro_torch.core.sparsity.narrow_tier` turns it into views of
+    their first ``tier_ne`` pairs per group and the sparser config, and the
+    narrowed weight is dispatched like any other (no copy).
     """
+    if pw.tier_ne is not None:
+        return demm_matmul_packed(x, narrow_tier(pw), backend)
     if pw.layout == LAYOUT_BLOCK:
         if pw.values.ndim != 4:
             raise ValueError(

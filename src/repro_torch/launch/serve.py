@@ -36,6 +36,13 @@ per dispatch, the chunk program captured once as a second CUDA graph), and a
 ``--scheduler fcfs|priority`` admission/preemption policy (with
 ``--trace-replay``, the priorities come from the trace).
 
+``--spec-draft N:M`` turns on self-speculative decoding
+(``repro_torch.spec``): each tick drafts ``--spec-gamma`` tokens at the
+sparser tier N:M of the same packed tensors (pair it with ``--sparsity``,
+e.g. ``--sparsity 8:16 --spec-draft 6:16``, so the packed pattern has a tier
+to narrow) and verifies the window in one full-tier program; it requires
+``--packed``, and the token stream is the one served without it.
+
 ``--temperature``/``--top-k`` select replay-safe coupled sampling (0 =
 greedy).  ``--trace-replay trace.jsonl`` replays a
 ``benchmarks/serve_bench.py`` trace at its logical arrival ticks, with prompt
@@ -102,7 +109,8 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
               temperature: float = 0.0, top_k: int = 0, device="cuda",
               metrics=None, paged: bool = False, page_size: int = 16,
               max_pages=None, prefill_chunk: int = 32, scheduler: str = "fcfs",
-              trace_replay=None, recorder=None):
+              trace_replay=None, recorder=None, spec_draft=None,
+              spec_gamma: int = 4):
     """Pack (optionally) and serve ``requests`` random prompts; returns the
     drained engine.  The reusable core of ``main()``.
 
@@ -121,9 +129,21 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     ``recorder`` (a :class:`~repro_torch.obs.FlightRecorder`) is attached
     to the engine.  ``autotune=True`` has the engine measure the packed
     weights' kernel tunables at ``slots`` rows before it captures anything
-    (meaningful with ``backend="auto"``, which reads them).
+    (meaningful with ``backend="auto"``, which reads them).  ``spec_draft``
+    ("N:M") turns on self-speculative decoding (``repro_torch.spec``):
+    ``spec_gamma`` tokens drafted per window at the sparser tier of the same
+    packed tensors, verified in one full-tier program; the token stream is
+    identical with and without it.
     """
     device = require_device(device)
+    spec = None
+    if spec_draft is not None:
+        from repro_torch.spec import SpecConfig
+        if not packed:
+            raise ValueError(
+                "--spec-draft requires --packed: the draft tier is a view "
+                "of the packed weight tensors")
+        spec = SpecConfig(draft=spec_draft, gamma=spec_gamma)
     mode = "masked"
     if packed:
         model = pack_tree(model, layout=layout, quantize=quantize,
@@ -142,7 +162,7 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
                                 seed=seed)
     engine = make_engine(model, serve_cfg, policy=policy, device=device,
                          metrics=metrics, recorder=recorder,
-                         autotune=autotune)
+                         autotune=autotune, spec=spec)
     if trace_replay:
         rows = _load_trace(trace_replay)
         t0 = time.time()
@@ -213,6 +233,14 @@ def main(argv=None):
                     help="override the arch's N:M sparsity pattern before "
                          "init/packing (e.g. 8:16)")
     ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--spec-draft", default=None, metavar="N:M",
+                    help="self-speculative decoding (repro_torch.spec): "
+                         "draft at this sparser tier of the packed tensors "
+                         "(e.g. 6:16 on an 8:16-packed model), verify each "
+                         "window in one full-tier program; requires "
+                         "--packed")
+    ap.add_argument("--spec-gamma", type=int, default=4,
+                    help="tokens drafted per speculation window")
     ap.add_argument("--layout", choices=("xwT", "block"), default="xwT",
                     help="packed-weight layout for --packed: the row-packed "
                          "xwT stream or the two-level block format "
@@ -288,6 +316,9 @@ def main(argv=None):
     if args.quantize and not args.packed:
         ap.error("--quantize applies to the packed serving form; add "
                  "--packed")
+    if args.spec_draft and not args.packed:
+        ap.error("--spec-draft requires --packed (the draft tier is a view "
+                 "of the packed weight tensors)")
     # fail invalid layout/backend pairs here, not deep inside the first
     # decode step
     op = "xwT_block" if args.layout == "block" else "xwT"
@@ -338,17 +369,27 @@ def main(argv=None):
                            prefill_chunk=args.prefill_chunk,
                            scheduler=args.scheduler,
                            trace_replay=args.trace_replay,
-                           recorder=recorder)
+                           recorder=recorder, spec_draft=args.spec_draft,
+                           spec_gamma=args.spec_gamma)
     dt = engine.drain_seconds
     mode = "packed" if args.packed else "masked"
     total_tokens = sum(len(r.output) for r in engine.completed)
     tag = mode if not args.quantize else f"{mode}+{args.quantize}"
     if args.paged:
         tag += "+paged"
+    if args.spec_draft:
+        tag += f"+spec{args.spec_draft}"
     log.info("served", requests=len(engine.completed), tokens=total_tokens,
              seconds=round(dt, 3),
              tok_s=round(total_tokens / max(dt, 1e-9), 1), mode=tag,
              backend=args.backend, device=str(device))
+    sm = getattr(engine, "_spec_metrics", None)
+    if sm is not None and sm.drafted.value:
+        log.info("speculation",
+                 drafted=sm.drafted.value, accepted=sm.accepted.value,
+                 acceptance=round(sm.accepted.value / sm.drafted.value, 3),
+                 tokens_per_dispatch=round(
+                     sm._committed_total / max(sm._verify_dispatches, 1), 3))
     for r in engine.completed[:3]:
         log.info(f"  req {r.uid}: prompt[:4]={r.prompt[:4].tolist()} "
                  f"-> {r.output[:8]}")

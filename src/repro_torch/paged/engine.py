@@ -14,6 +14,13 @@ The engine tick is admit → prefill → decode:
    their writes go to the null page, so the two programs interleave freely
    within a tick.
 
+Speculative decoding (``spec=SpecConfig(...)``): the decode phase drafts γ
+tokens with the draft-tier view of the packed tensors, verifies the window in
+one full-tier program, commits each lane's accepted prefix + the
+correcting/bonus token and trims the pages beyond the committed tokens in the
+same tick (``repro_torch.spec.decode``); the stream is token-identical to the
+plain decode at any temperature, preemption included.
+
 Page exhaustion preempts: the victim's pages are freed, the request is
 requeued with its prompt + generated-so-far output, and a later admission
 re-prefills it — the preempt/resume cycle is token-identical to an
@@ -39,8 +46,11 @@ engine is always eager.
 before the arena is allocated and anything is captured
 (``repro_torch.tune.autotune_packed_tree``); under ``backend="auto"`` the
 decode step then resolves from measured entries and the prefill chunk's
-problems by heuristic, as in the reference.  Speculative decoding and
-sharding plans are not ported to this engine yet and are refused by name.
+problems by heuristic, as in the reference.  With ``spec=`` the draft step
+and each verify width are graphs of their own (``serve_loop.SpecPrograms``),
+all reading the same control tensors; the plain decode step is captured only
+if a window clamps to a plain step near ``max_len``.  Sharding plans are not
+ported to this engine yet.
 Layering: this module never imports ``repro_torch.models``; the model is
 handed in by the caller.
 """
@@ -57,10 +67,11 @@ import torch
 from repro_torch import obs
 from repro_torch.device import require_device
 from repro_torch.paged.kv_cache import PagedKVCache, PagedLayout
-from repro_torch.paged.prefill import ChunkedPrefill, Staged
+from repro_torch.paged.prefill import ChunkedPrefill
 from repro_torch.paged.scheduler import SchedConfig, Scheduler, Stage
 from repro_torch.serve.protocol import EngineBase
-from repro_torch.serve.serve_loop import Request, capture_graph
+from repro_torch.serve.serve_loop import (Request, SpecPrograms, Staged,
+                                          capture_graph)
 
 
 @dataclasses.dataclass
@@ -76,14 +87,15 @@ class PagedServeConfig:
     sched: SchedConfig = dataclasses.field(default_factory=SchedConfig)
 
 
-class PagedServeEngine(EngineBase):
+class PagedServeEngine(SpecPrograms, EngineBase):
     """Slot-batched serving with a shared paged KV arena.
 
     Same surface as :class:`~repro_torch.serve.serve_loop.ServeEngine`
     (``submit`` / ``step`` / ``run_until_drained`` / ``completed``) plus the
     paged internals: ``kv`` (arena bookkeeping), ``sched`` (admission /
     preemption policy), ``prefill`` (the chunk program) and ``captures``
-    (captures of the decode step: one on a CUDA engine).
+    (captures of the decode step: one on a CUDA engine; with ``spec=``,
+    ``spec_captures`` counts the draft step's and each verify width's).
     """
 
     def __init__(self, model, cfg: PagedServeConfig, *, policy=None,
@@ -92,9 +104,6 @@ class PagedServeEngine(EngineBase):
         from repro_torch.core.sparse_linear import resolve_policy
         from repro_torch.spec.sampling import ReplaySafeSampler
 
-        if spec is not None:
-            raise NotImplementedError(
-                "PagedServeEngine(spec=) is not ported yet")
         self.device = require_device(device)
         if model.device.type != self.device.type:
             raise ValueError(
@@ -103,6 +112,11 @@ class PagedServeEngine(EngineBase):
         self.model = model
         self.cfg = cfg
         self.policy = resolve_policy(policy)
+        self._spec = spec
+        if spec is not None:
+            # the tier-sort invariant before anything is tuned or captured
+            from repro_torch.spec.tiers import tier_sort_tree
+            tier_sort_tree(model)
         if autotune and self.policy.mode == "packed":
             # at the decode batch, before the arena and any capture; the
             # prefill chunk's problems then resolve by heuristic, as in the
@@ -205,6 +219,20 @@ class PagedServeEngine(EngineBase):
             help="submit -> completion (quantile sketch)")
         self._m_pages_free.set(self.kv.pages_free)
         self._setup_recorder(recorder)
+        if spec is not None:
+            self._setup_spec(spec)
+
+    def _setup_spec(self, spec):
+        """:meth:`SpecPrograms._setup_spec` and the draft and verify
+        dispatch counters."""
+        super()._setup_spec(spec)
+        m = self.metrics
+        self._m_disp_draft = m.counter(
+            "serve_step_dispatch_total",
+            help="program invocations per program", program="draft")
+        self._m_disp_verify = m.counter(
+            "serve_step_dispatch_total",
+            help="program invocations per program", program="verify")
 
     # -- submission ---------------------------------------------------------
 
@@ -443,18 +471,34 @@ class PagedServeEngine(EngineBase):
                      if r is not None])
                 self._preempt(victim)
 
-    def _decode(self) -> torch.Tensor:
+    def _decode(self, model=None, tokens=None) -> torch.Tensor:
         """The decode step on the engine's static tensors: the arena is
         written in place and the advanced positions are copied back into
-        ``state["pos"]``.  Returns the (slots, V) float32 logits."""
-        logits, new = self.model.decode_step(self.state, self._tokens,
-                                             policy=self.policy)
+        ``state["pos"]``.  Returns the (slots, V) float32 logits.  ``model``
+        / ``tokens``: the draft model and its token input (default: the full
+        model and ``_tokens``)."""
+        logits, new = (model or self.model).decode_step(
+            self.state, self._tokens if tokens is None else tokens,
+            policy=self.policy)
         self.state["pos"].copy_(new["pos"])
         return logits[:, 0].to(torch.float32)
 
     def _run_decode(self) -> int:
-        """One batched decode step over the decode-ready lanes (the JAX
-        engine's plain branch; its speculative branch is not ported)."""
+        """The decode phase: one speculation window over the decode-ready
+        lanes with ``spec=``, clamped so that no lane's window crosses
+        ``max_len`` (a plain step where it cannot draft a token), else one
+        batched decode step."""
+        if self._spec is not None and self._decode_mask.any():
+            g_eff = self._spec_gamma(max(
+                int(self._pos[i]) for i in range(self.cfg.num_slots)
+                if self._decode_mask[i]))
+            if g_eff >= 1:
+                return self._run_decode_spec(g_eff)
+            # a lane is one token from max_len: a plain step instead
+        return self._run_decode_plain()
+
+    def _run_decode_plain(self) -> int:
+        """One batched decode step over the decode-ready lanes."""
         self._grow_or_preempt(lambda i: int(self._pos[i]) + 1)
         if not self._decode_mask.any():
             return 0
@@ -466,11 +510,8 @@ class PagedServeEngine(EngineBase):
         with obs.use_context(self._request_context(self.active[first])):
             if self._use_graph:
                 if self._graph is None:
-                    caches = self.state["caches"]
                     self._graph, self._logits = capture_graph(
-                        self._decode,
-                        [caches["k"], caches["v"], self.state["pos"]],
-                        self.device)
+                        self._decode, self._written(), self.device)
                     self.captures += 1
                 self._graph.replay()
                 logits = self._logits
@@ -501,6 +542,35 @@ class PagedServeEngine(EngineBase):
                 self._complete(i, req, now)
         self._page_gauges()
         return n
+
+    def _run_decode_spec(self, g_eff: int) -> int:
+        """One speculation window over the decode-ready lanes
+        (:meth:`SpecPrograms._speculate`): grow pages for the whole window
+        first; the control tensors are pushed again before the verify (the
+        draft steps advanced ``pos`` in place); after the commit, each lane
+        still serving goes back to its last valid input and its pages
+        beyond the committed tokens are trimmed (same tick — rejected
+        drafts never hold arena capacity across ticks)."""
+        # positions pos .. pos+g_eff are written -> pos+g_eff+1 tokens
+        self._grow_or_preempt(lambda i: int(self._pos[i]) + g_eff + 1)
+        lanes = [i for i in range(self.cfg.num_slots)
+                 if self._decode_mask[i]]
+        if not lanes:
+            return 0
+        self._sync_control()
+
+        def lane_end(i, p, valid, finished):
+            if not finished:
+                self._pos[i] = p + valid
+                self.kv.note_tokens(i, p + valid)
+                self.kv.trim(i, p + valid)
+
+        self._speculate(lanes, self._pos.copy(), g_eff,
+                        prompt_input=lambda i, j: None,
+                        push_pos0=self._sync_control, lane_end=lane_end,
+                        dispatched=(self._m_disp_draft, self._m_disp_verify))
+        self._page_gauges()
+        return len(lanes)
 
     # -- public loop --------------------------------------------------------
 

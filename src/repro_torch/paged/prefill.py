@@ -22,37 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.serve.serve_loop import capture_graph
-
-
-class Staged:
-    """Device tensors that a captured program reads, refilled from the host.
-
-    Each :meth:`push` writes numpy values into pinned host buffers (plain
-    ones on the CPU) and copies them into ``targets`` without blocking.  A
-    pinned buffer may be rewritten only once its last copy has run, so a
-    push first waits on the event recorded after the previous one's copies:
-    the host then runs at most one program ahead of the device.
-    """
-
-    def __init__(self, *targets: torch.Tensor):
-        self.targets = targets
-        self.cuda = targets[0].device.type == "cuda"
-        self._stage = [torch.empty(t.shape, dtype=t.dtype,
-                                   pin_memory=self.cuda) for t in targets]
-        self._views = [s.numpy() for s in self._stage]
-        self._copied = None
-
-    def push(self, *values):
-        if self._copied is not None:
-            self._copied.synchronize()
-        for view, value in zip(self._views, values):
-            view[...] = value
-        for target, stage in zip(self.targets, self._stage):
-            target.copy_(stage, non_blocking=self.cuda)
-        if self.cuda:
-            self._copied = torch.cuda.Event()
-            self._copied.record()
+from repro_torch.serve.serve_loop import Staged, capture_graph
 
 
 class ChunkedPrefill:

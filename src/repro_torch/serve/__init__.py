@@ -5,8 +5,9 @@ the protocol surface ``submit`` / ``step`` / ``run_until_drained`` (aliases
 ``tick``/``drain`` — see :mod:`repro_torch.serve.protocol`), as does
 :class:`repro_torch.paged.PagedServeEngine` (a shared paged KV arena, chunked
 prefill, scheduled admission and preemption).  :func:`make_engine` is the one
-construction path; replica routing, sharding plans and speculative decoding
-are not ported yet and are refused by name.
+construction path; ``spec=`` turns on self-speculative decoding in either
+engine (``repro_torch.spec``).  Replica routing and sharding plans are not
+ported yet and are refused by name.
 """
 
 from __future__ import annotations
@@ -36,16 +37,19 @@ def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
       ``config.num_slots`` rows before anything is captured
       (``repro_torch.tune.autotune_packed_tree``), so ``backend="auto"``
       resolves from measured entries.
-    * ``plan`` / ``replicas`` > 1 / ``spec`` name parts of the system that
-      are not ported yet.
+    * ``spec`` — a :class:`repro_torch.spec.SpecConfig`: draft γ tokens per
+      tick at its sparser tier of the same packed tensors and verify them in
+      one full-tier program (the committed stream is the non-speculative
+      one, token for token).
+    * ``plan`` / ``replicas`` > 1 name parts of the system that are not
+      ported yet.
     """
     from repro_torch.core.sparse_linear import resolve_policy
     from repro_torch.paged import PagedServeConfig, PagedServeEngine
 
     policy = resolve_policy(policy, None, None)
     for name, given in (("plan", plan is not None),
-                        ("replicas > 1", replicas > 1),
-                        ("spec", spec is not None)):
+                        ("replicas > 1", replicas > 1)):
         if given:
             raise NotImplementedError(
                 f"make_engine({name}) is not ported yet; only the "
@@ -53,10 +57,12 @@ def make_engine(model, config, *, policy=None, metrics=None, device="cuda",
     if isinstance(config, PagedServeConfig):
         return PagedServeEngine(model, config, policy=policy,
                                 metrics=metrics, device=device,
-                                recorder=recorder, autotune=autotune)
+                                recorder=recorder, autotune=autotune,
+                                spec=spec)
     if not isinstance(config, ServeConfig):
         raise TypeError(
             f"make_engine: unknown config type {type(config).__name__!r} "
             "(expected ServeConfig or PagedServeConfig)")
     return ServeEngine(model, config, policy=policy, metrics=metrics,
-                       device=device, recorder=recorder, autotune=autotune)
+                       device=device, recorder=recorder, autotune=autotune,
+                       spec=spec)

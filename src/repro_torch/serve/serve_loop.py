@@ -36,7 +36,14 @@ once-per-trace meaning.
 
 Sampling: ``ServeConfig(temperature=, top_k=, seed=)`` selects the replay-safe
 coupled sampler (``repro_torch.spec.sampling``) — greedy argmax at
-``temperature == 0``.
+``temperature == 0``.  Speculative decoding: pass
+``spec=SpecConfig(draft="N:M", gamma=G)`` and the engine drafts γ tokens per
+tick with the *draft-tier* view of the same packed tensors, then verifies the
+whole window in one full-tier program (``repro_torch.spec.decode``).  The
+committed stream is token-identical to the non-speculative engine at any
+temperature.  On a CUDA engine the draft step and each verify width are
+graphs of their own (:class:`SpecPrograms`); the plain step is captured only
+if a window ever clamps to a plain step near ``max_len``.
 
 Observability (``repro_torch.obs``): the engine instruments the full request
 lifecycle on its :class:`~repro_torch.obs.MetricsRegistry` (the process
@@ -67,6 +74,36 @@ from repro_torch.serve.protocol import EngineBase
 
 # eager steps a CUDA engine runs on a side stream before it captures its step
 CAPTURE_WARMUP = 1
+
+
+class Staged:
+    """Device tensors that a captured program reads, refilled from the host.
+
+    Each :meth:`push` writes numpy values into pinned host buffers (plain
+    ones on the CPU) and copies them into ``targets`` without blocking.  A
+    pinned buffer may be rewritten only once its last copy has run, so a
+    push first waits on the event recorded after the previous one's copies:
+    the host then runs at most one program ahead of the device.
+    """
+
+    def __init__(self, *targets: torch.Tensor):
+        self.targets = targets
+        self.cuda = targets[0].device.type == "cuda"
+        self._stage = [torch.empty(t.shape, dtype=t.dtype,
+                                   pin_memory=self.cuda) for t in targets]
+        self._views = [s.numpy() for s in self._stage]
+        self._copied = None
+
+    def push(self, *values):
+        if self._copied is not None:
+            self._copied.synchronize()
+        for view, value in zip(self._views, values):
+            view[...] = value
+        for target, stage in zip(self.targets, self._stage):
+            target.copy_(stage, non_blocking=self.cuda)
+        if self.cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
 
 
 def capture_graph(fn, written, device, warmup: int = CAPTURE_WARMUP):
@@ -105,6 +142,220 @@ def capture_graph(fn, written, device, warmup: int = CAPTURE_WARMUP):
     return graph, out
 
 
+class SpecPrograms:
+    """The draft step, the verify program and the speculation window of a
+    speculative engine, shared by :class:`ServeEngine` and
+    ``paged.PagedServeEngine``.  The engine provides ``model``, ``policy``,
+    ``cfg``, ``device``, ``metrics``, ``state``, ``_use_graph``,
+    ``_decode(model, tokens)`` (its decode step on its static tensors) and
+    the request loop's slots, sampler, next tokens, metrics and
+    ``_complete``.  On a CUDA engine each program
+    is a graph of its own: the draft step (its kernels read other operands
+    than the full step's, so it cannot replay that graph) captured the
+    first time it runs, and the verify program once for each window width
+    W, when W first runs, each with its own static (slots, W) token buffer
+    and memory pool (the widths are captured lazily, so their replays do
+    not come in the order of their captures)."""
+
+    def _setup_spec(self, spec):
+        """The draft model (a view of the sorted model), the verify
+        program, the static token inputs of the draft and verify programs
+        and the ``spec_*`` metric families."""
+        from repro_torch.spec.decode import (SpecMetrics, guard_cache_kinds,
+                                             make_multistep)
+        from repro_torch.spec.tiers import derive_draft_tier
+
+        guard_cache_kinds(self.state)
+        self.draft_model, self.tier_report = derive_draft_tier(self.model,
+                                                               spec.draft)
+        self._multistep = make_multistep(self.model, self.policy)
+        self._spec_metrics = SpecMetrics(self.metrics)
+        slots = self.cfg.num_slots
+        self._draft_tok = torch.zeros((slots, 1), dtype=torch.int64,
+                                      device=self.device)
+        self._draft_in = Staged(self._draft_tok)
+        self._window = {}        # W -> (static (slots, W) tokens, Staged)
+        self._spec_graphs = {}   # "draft" or W -> (graph, logits output)
+        self.spec_captures = {"draft": 0, "verify": {}}
+        # ticks by window width W (1: a plain step, near max_len)
+        self.spec_windows = {}
+        self.last_window_logits = None
+
+    def _written(self):
+        """The state tensors every program writes, which a capture's
+        warm-up restores."""
+        caches = self.state["caches"]
+        return [caches["k"], caches["v"], self.state["pos"]]
+
+    def _spec_program(self, key, fn) -> torch.Tensor:
+        """Run a draft or verify program: on a CUDA engine the replay of
+        its graph (captured here the first time ``key`` runs), else ``fn``
+        eagerly."""
+        if not self._use_graph:
+            return fn()
+        hit = self._spec_graphs.get(key)
+        if hit is None:
+            hit = self._spec_graphs[key] = capture_graph(
+                fn, self._written(), self.device)
+            if key == "draft":
+                self.spec_captures["draft"] += 1
+            else:
+                v = self.spec_captures["verify"]
+                v[key] = v.get(key, 0) + 1
+        hit[0].replay()
+        return hit[1]
+
+    def _run_draft(self, tokens: np.ndarray) -> np.ndarray:
+        """One draft-tier decode step of the whole batch on ``tokens``
+        (slots,); returns its logits (slots, V) on the host."""
+        self._draft_in.push(tokens[:, None])
+        return self._spec_program(
+            "draft", lambda: self._decode(self.draft_model,
+                                          self._draft_tok)).cpu().numpy()
+
+    def _run_verify(self, window: np.ndarray) -> np.ndarray:
+        """The full-tier verify program over ``window`` (slots, W) from the
+        positions in ``state["pos"]``; returns logits (slots, W, V) on the
+        host."""
+        w = window.shape[1]
+        if w not in self._window:
+            toks = torch.zeros((self.cfg.num_slots, w), dtype=torch.int64,
+                               device=self.device)
+            self._window[w] = (toks, Staged(toks))
+        toks, staged = self._window[w]
+        staged.push(window)
+
+        def verify():
+            logits, new = self._multistep(self.state, toks)
+            self.state["pos"].copy_(new["pos"])
+            return logits.to(torch.float32)
+
+        return self._spec_program(w, verify).cpu().numpy()
+
+    def _spec_gamma(self, top: int) -> int:
+        """γ_eff of this tick's window: γ clamped so that no lane (``top``:
+        the largest position among them) writes past ``max_len``.  Counts
+        the tick in ``spec_windows`` by its width (1: a plain step, when
+        γ_eff < 1)."""
+        g_eff = min(self._spec.gamma, self.cfg.max_len - 1 - top)
+        w = g_eff + 1 if g_eff >= 1 else 1
+        self.spec_windows[w] = self.spec_windows.get(w, 0) + 1
+        return g_eff
+
+    def _speculate(self, lanes, pos0, g_eff, *, prompt_input, push_pos0,
+                   lane_end, dispatched=None):
+        """One speculation window over ``lanes`` (``spec.decode`` sets out
+        the three stages): γ_eff draft-tier steps propose tokens, one
+        full-tier verify program checks every window position from the
+        pre-draft positions ``pos0``, then each lane commits its accepted
+        prefix + the correcting/bonus token.  The draft steps write the
+        state in place (KV at the window's positions, the advanced ``pos``),
+        so ``push_pos0()`` moves ``pos`` back before the verify, which
+        rewrites every window position's KV.
+
+        What differs between the engines comes in as callables:
+        ``prompt_input(i, j)`` is the prompt token lane ``i`` feeds as window
+        input ``j + 1`` (None once its prompt is fed: the draft proposes
+        there); ``lane_end(i, p, valid, finished)`` takes a lane's window
+        start ``p`` and the window inputs it keeps; ``dispatched``: the
+        draft and verify dispatch counters, if the engine has them."""
+        t0 = time.perf_counter()
+        W = g_eff + 1
+        window = np.zeros((self.cfg.num_slots, W), np.int64)
+        window[:, 0] = self._next_tok[:, 0]
+        is_draft = np.zeros((self.cfg.num_slots, g_eff), bool)
+        drafts = []
+        with obs.use_context(self._request_context(self.active[lanes[0]])):
+            for j in range(g_eff):
+                d_logits = self._run_draft(window[:, j])
+                drafts.append(d_logits)
+                if dispatched:
+                    dispatched[0].inc()
+                for i in lanes:
+                    tok = prompt_input(i, j)
+                    if tok is None:
+                        # the draft proposes with the SAME (rid, pos) key
+                        # the verifier samples with — acceptance iff equal
+                        tok = self.sampler.sample(
+                            d_logits[i], self.active[i].uid,
+                            int(pos0[i]) + j + 1)
+                        is_draft[i, j] = True
+                    window[i, j + 1] = tok
+            push_pos0()
+            f_logits = self._run_verify(window)
+        if dispatched:
+            dispatched[1].inc()
+        self.last_logits = f_logits[:, 0]
+        self.last_window_logits = {"lanes": list(lanes),
+                                   "draft": np.stack(drafts),
+                                   "verify": f_logits}
+        window_dt = time.perf_counter() - t0
+        now = time.monotonic()
+        drafted = accepted = committed = 0
+        for i in lanes:
+            req = self.active[i]
+            p = int(pos0[i])
+            valid, finished = W, False  # window inputs this lane keeps
+            lane_accepted = lane_committed = 0
+            for j in range(W):
+                nxt = prompt_input(i, j)
+                if nxt is not None:     # input j + 1 is still the prompt's
+                    self._m_prefill.inc()
+                    if j == g_eff:      # the window ends mid-prompt
+                        self._next_tok[i, 0] = nxt
+                    continue
+                tok = self.sampler.sample(f_logits[i, j], req.uid, p + j + 1)
+                if j < g_eff and is_draft[i, j]:
+                    drafted += 1
+                    ok = int(window[i, j + 1]) == tok
+                    accepted += ok
+                    lane_accepted += ok
+                req.output.append(tok)
+                committed += 1
+                lane_committed += 1
+                self._m_tokens.inc()
+                if len(req.output) == 1:
+                    req.first_token_ts = now
+                    self._m_ttft.observe(now - req.submit_ts)
+                    self._sk_ttft.observe(now - req.submit_ts)
+                    self.trace.event("request_first_token", uid=req.uid,
+                                     trace_id=req.trace_id)
+                if (len(req.output) >= req.max_new_tokens or
+                        (req.eos_id is not None and tok == req.eos_id) or
+                        p + j + 1 >= self.cfg.max_len - 1):
+                    valid, finished = j + 1, True
+                    self._complete(i, req, now)
+                    break
+                if j < g_eff and int(window[i, j + 1]) != tok:
+                    # the first mismatch truncates the window; the committed
+                    # full-tier token opens the next one
+                    valid = j + 1
+                    self._next_tok[i, 0] = tok
+                    break
+                if j == g_eff:
+                    # every draft accepted: the bonus token rides along
+                    self._next_tok[i, 0] = tok
+            lane_end(i, p, valid, finished)
+            # every drafted-but-uncommitted proposal is wasted work
+            # (drafts past a truncation point too, discarded unexamined)
+            lane_rejected = int(is_draft[i].sum()) - lane_accepted
+            if lane_rejected > 0:
+                req.rejected_draft_tokens += lane_rejected
+                self._spec_metrics.observe_wasted(lane_rejected)
+            if lane_committed:
+                self.trace.event("spec_commit", uid=req.uid,
+                                 trace_id=req.trace_id,
+                                 committed=lane_committed,
+                                 accepted=lane_accepted,
+                                 rejected=lane_rejected)
+        if committed:
+            per_tok = window_dt / committed
+            for _ in range(committed):
+                self._m_tok_lat.observe(per_tok)
+                self._sk_tok.observe(per_tok)
+        self._spec_metrics.observe_window(drafted, accepted, committed)
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -138,10 +389,10 @@ class ServeConfig:
     seed: int = 0               # sampling seed (keys the per-position RNG)
 
 
-class ServeEngine(EngineBase):
+class ServeEngine(SpecPrograms, EngineBase):
     def __init__(self, model, cfg: ServeConfig, *, policy=None, metrics=None,
                  device="cuda", recorder=None, autotune: bool = False,
-                 _eager: bool = False):
+                 spec=None, _eager: bool = False):
         from repro_torch.core.sparse_linear import resolve_policy
         from repro_torch.spec.sampling import ReplaySafeSampler
 
@@ -153,6 +404,13 @@ class ServeEngine(EngineBase):
         self.model = model
         self.cfg = cfg
         self.policy = resolve_policy(policy)
+        self._spec = spec
+        if spec is not None:
+            # the tier-sort invariant (every group's pairs magnitude-
+            # descending, in place) before anything is tuned or captured,
+            # so that the draft's prefix is exact magnitude pruning
+            from repro_torch.spec.tiers import tier_sort_tree
+            tier_sort_tree(model)
         if autotune and self.policy.mode == "packed":
             # measure every packed weight at the decode batch before the
             # cache is allocated and anything is captured, so that
@@ -174,6 +432,7 @@ class ServeEngine(EngineBase):
         self._use_graph = self.device.type == "cuda" and not _eager
         self._graph = None       # captured at the first tick
         self._logits = None      # the graph's logits output (slots, V) f32
+        self.captures = 0        # captures of the plain decode step
         self.queue: deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * cfg.num_slots
         self._fed: List[int] = [0] * cfg.num_slots    # prompt tokens fed
@@ -221,6 +480,9 @@ class ServeEngine(EngineBase):
             "serve_e2e_seconds_sketch",
             help="submit -> completion (quantile sketch)")
         self._setup_recorder(recorder)
+        if spec is not None:
+            self._setup_spec(spec)
+            self._pos_in = Staged(self.state["pos"])
 
     def submit(self, req: Request):
         req.output = []
@@ -281,6 +543,13 @@ class ServeEngine(EngineBase):
         self._m_slots.set(len(lanes))
         if not lanes:
             return 0
+        if self._spec is not None:
+            # a copy: on the CPU the state's tensor is the host array
+            pos0 = self.state["pos"].cpu().numpy().copy()
+            g_eff = self._spec_gamma(max(int(pos0[i]) for i in lanes))
+            if g_eff >= 1:
+                return self._spec_window(t_tick, lanes, pos0, g_eff)
+            # a lane is one token from max_len: a plain step instead
         return self._plain_step(t_tick, lanes)
 
     def _plain_step(self, t_tick, lanes) -> int:
@@ -340,13 +609,16 @@ class ServeEngine(EngineBase):
         self._graph.replay()
         return self._logits
 
-    def _decode(self) -> torch.Tensor:
+    def _decode(self, model=None, tokens=None) -> torch.Tensor:
         """The decode step on the engine's static tensors: the KV caches
-        are written in place and the advanced positions are copied back
-        into ``state["pos"]``, so the step reads and writes the same tensors
-        every time (what a CUDA graph needs)."""
-        logits, new = self.model.decode_step(self.state, self._tokens,
-                                             policy=self.policy)
+        are written in place and the advanced positions are copied back into
+        ``state["pos"]``, so the step reads and writes the same tensors
+        every time (what a CUDA graph needs).  ``model`` / ``tokens``: the
+        draft model and its token input (default: the full model and
+        ``_tokens``)."""
+        logits, new = (model or self.model).decode_step(
+            self.state, self._tokens if tokens is None else tokens,
+            policy=self.policy)
         self.state["pos"].copy_(new["pos"])
         return logits[:, 0].to(torch.float32)
 
@@ -355,10 +627,34 @@ class ServeEngine(EngineBase):
         (:func:`capture_graph`); the KV caches and the positions are
         restored afterwards to what they held before: at the first tick,
         what ``init_decode_state`` made."""
-        caches = self.state["caches"]
         self._graph, self._logits = capture_graph(
-            self._decode, [caches["k"], caches["v"], self.state["pos"]],
-            self.device, warmup)
+            self._decode, self._written(), self.device, warmup)
+        self.captures += 1
+
+    def _spec_window(self, t_tick, lanes, pos0, g_eff) -> int:
+        """One speculation window (:meth:`SpecPrograms._speculate`).  A lane
+        still in its prompt feeds its next prompt tokens as window inputs
+        (they commit nothing); ``pos`` is pushed back to ``pos0`` before
+        the verify and to each lane's last valid input after it (stale
+        draft KV beyond it is masked by attention and overwritten by the
+        next window)."""
+        new_pos = np.asarray(pos0, np.int64).copy()
+
+        def prompt_input(i, j):
+            req, fed = self.active[i], self._fed[i] + j + 1
+            return req.prompt[fed] if fed < len(req.prompt) else None
+
+        def lane_end(i, p, valid, finished):
+            self._fed[i] += valid
+            new_pos[i] = p + valid
+
+        self._speculate(lanes, pos0, g_eff, prompt_input=prompt_input,
+                        push_pos0=lambda: self._pos_in.push(pos0),
+                        lane_end=lane_end)
+        self._pos_in.push(new_pos)
+        self._m_slots.set(sum(r is not None for r in self.active))
+        self._m_tick.observe(time.perf_counter() - t_tick)
+        return sum(r is not None for r in self.active)
 
     def run_until_drained(self, max_ticks: int = 10000):
         ticks = 0

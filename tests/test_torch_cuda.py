@@ -1031,3 +1031,222 @@ def test_no_measurement_happens_during_a_capture(card, tune_cache,
     with pytest.raises(RuntimeError, match="capture"):
         with torch.cuda.graph(torch.cuda.CUDAGraph()):
             tat._check_not_capturing()
+
+
+# ---------------------------------------------------------------------------
+# draft tiers: K1-K4 on a prefix view, and the spec engines' graphs
+# ---------------------------------------------------------------------------
+
+# (n, m, O, K): the stored pattern; the tiers t below n are read in place
+TIER_SHAPES = [(8, 16, 256, 512), (5, 80, 384, 640), (3, 48, 128, 1536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bx", [1, 4, 37])
+@pytest.mark.parametrize("n,m,o,k", TIER_SHAPES)
+def test_tier_prefix_kernels_match_plain_versions(card, n, m, o, k, bx,
+                                                  dtype):
+    """K1, K3 (per-row and per-group scales), K2 and K4 on the prefix views
+    ``[..., :t]`` of the stored tensors: no copy (the operand's data_ptr is
+    the full tier's), the full tier's body (bulk / cluster at Bx <= 8,
+    gather above), the plain version's result on the same views."""
+    g = k // m
+    x, vals, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed=n + bx)
+    dense = unpack(vals, idx, SparsityConfig(n, m), (o, k))
+    pw = pack_block(dense, SparsityConfig(n, m))
+    qw = quantize_packed(pw)
+    q = torch.randint(-127, 128, vals.shape, generator=gen, device=card,
+                      dtype=torch.int32).to(torch.int8)
+    for t in range(1, n):
+        cfg = SparsityConfig(t, m)
+        v, i = vals[..., :t], idx[..., :t]
+        assert v.data_ptr() == vals.data_ptr() and not v.is_contiguous()
+        body = xwt_body(x, v, i, m, duplicates=False)
+        assert body == xwt_body(x, vals, idx, m, duplicates=False)
+        before = dict(demm_xwT.body_launches)
+        got = demm_xwT(x, v, i, cfg, duplicates=False)
+        torch.cuda.synchronize()
+        assert demm_xwT.body_launches[body] == before[body] + 1
+        torch.testing.assert_close(got, demm_xwT_plain(x, v, i, cfg),
+                                   **TOL[dtype])
+        for shape in ((o,), (o, g)):
+            scales = torch.rand(shape, generator=gen, device=card) * 0.02
+            scales += 1e-3
+            qv = q[..., :t]
+            assert xwt_body(x, qv, i, m, duplicates=False, scales=scales) \
+                == xwt_body(x, q, idx, m, duplicates=False, scales=scales)
+            torch.testing.assert_close(
+                demm_xwT_q8(x, qv, i, scales, cfg, duplicates=False),
+                demm_xwT_q8_plain(x, qv, i, scales, cfg), **TOL[dtype])
+        bv, bi = pw.values[..., :t], pw.indices[..., :t]
+        assert bv.data_ptr() == pw.values.data_ptr()
+        b = x.T
+        body = block_body(pw.active_groups, bv, bi, b, m)
+        assert body == block_body(pw.active_groups, pw.values, pw.indices,
+                                  b, m) == ("cluster" if bx <= 8
+                                            else "gather")
+        before = dict(demm_block_spmm.body_launches)
+        got = demm_block_spmm(pw.active_groups, bv, bi, b, cfg, r=o,
+                              duplicates=False)
+        torch.cuda.synchronize()
+        assert demm_block_spmm.body_launches[body] == before[body] + 1
+        torch.testing.assert_close(
+            got, demm_block_spmm_plain(pw.active_groups, bv, bi, b, cfg,
+                                       r=o), **TOL[dtype])
+        qv, qi = qw.values[..., :t], qw.indices[..., :t]
+        assert block_q8_body(qv, qi, qw.scales, b, m) == body
+        torch.testing.assert_close(
+            demm_block_spmm_q8(qw.active_groups, qv, qi, qw.scales, b, cfg,
+                               r=o, duplicates=False),
+            demm_block_spmm_q8_plain(qw.active_groups, qv, qi, qw.scales, b,
+                                     cfg, r=o), **TOL[dtype])
+
+
+@pytest.mark.parametrize("bx", [4, 37])
+def test_tier_duplicates_fold_inside_the_prefix_only(card, bx):
+    """Slots 0 and 1 of every group on one column (inside a prefix of 4)
+    and slots 3 and 4 (across its edge): the summing instantiations of K1
+    and K2 fold only inside the prefix, as the plain versions do."""
+    n, m, o, k, t = 8, 16, 256, 512, 4
+    x, vals, idx, _ = _inputs(card, n, m, o, k // m, bx, torch.float32,
+                              seed=bx)
+    idx[..., 1] = idx[..., 0]
+    idx[..., t] = idx[..., t - 1]
+    cfg = SparsityConfig(t, m)
+    v, i = vals[..., :t], idx[..., :t]
+    torch.testing.assert_close(demm_xwT(x, v, i, cfg, duplicates=True),
+                               demm_xwT_plain(x, v, i, cfg),
+                               **TOL[torch.float32])
+    pw = pack_block(unpack(vals, idx.sort(dim=-1).values,
+                           SparsityConfig(n, m), (o, k)), SparsityConfig(n, m))
+    di = pw.indices.clone()
+    di[..., 1] = di[..., 0]
+    di[..., t] = di[..., t - 1]
+    bv, bi = pw.values[..., :t], di[..., :t]
+    torch.testing.assert_close(
+        demm_block_spmm(pw.active_groups, bv, bi, x.T, cfg, r=o,
+                        duplicates=True),
+        demm_block_spmm_plain(pw.active_groups, bv, bi, x.T, cfg, r=o),
+        **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("bx", [4, 37])
+def test_tier_slots_past_the_prefix_are_not_multiplied(card, bx):
+    """The prefix slots name columns 0..t-1 of their group, the slots past
+    it the last columns, where x holds inf: K1, K3, K2 and K4 give a
+    finite output, bit-equal to the one without the inf (the bulk and
+    cluster bodies at Bx 4, the gather bodies at 37)."""
+    n, m, o, k, t = 8, 16, 256, 512, 6
+    g = k // m
+    x, vals, _, gen = _inputs(card, n, m, o, g, bx, torch.float32, seed=bx)
+    cols = torch.tensor([s if s < t else m - n + s for s in range(n)],
+                        dtype=torch.int32, device=card)
+    idx = cols.expand(o, g, n).contiguous()
+    pw = pack_block(unpack(vals, idx, SparsityConfig(n, m), (o, k)),
+                    SparsityConfig(n, m))
+    qw = quantize_packed(pw)
+    q = torch.ones(vals.shape, dtype=torch.int8, device=card)
+    scales = torch.full((o, g), 1e-2, device=card)
+    cfg = SparsityConfig(t, m)
+    x_inf = x.clone()
+    x_inf.view(bx, g, m)[..., m - n + t:] = float("inf")
+    calls = [
+        lambda x: demm_xwT(x, vals[..., :t], idx[..., :t], cfg,
+                           duplicates=False),
+        lambda x: demm_xwT_q8(x, q[..., :t], idx[..., :t], scales, cfg,
+                              duplicates=False),
+        lambda x: demm_block_spmm(pw.active_groups, pw.values[..., :t],
+                                  pw.indices[..., :t], x.T, cfg, r=o,
+                                  duplicates=False),
+        lambda x: demm_block_spmm_q8(qw.active_groups, qw.values[..., :t],
+                                     qw.indices[..., :t], qw.scales, x.T,
+                                     cfg, r=o, duplicates=False)]
+    for call in calls:
+        want, got = call(x), call(x_inf)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want)
+
+
+def test_wrappers_refuse_a_view_that_is_not_a_prefix(card):
+    """A non-contiguous operand that is not a prefix of a contiguous tensor
+    (a suffix, rows not at the pitch) raises before anything launches; the
+    wrappers never copy it into shape."""
+    n, m, o, g = 8, 16, 256, 32
+    x, vals, idx, gen = _inputs(card, n, m, o, g, 4, torch.float32, seed=1)
+    cfg = SparsityConfig(5, m)
+    strided = torch.stack([idx, idx], dim=1)[:, 0][..., :5]
+    before = (demm_xwT.launches, demm_xwT_q8.launches)
+    scales = torch.ones((o,), device=card)
+    q = vals.to(torch.int8)
+    for v, i in ((vals[..., 3:], idx[..., 3:]), (vals[..., :5], strided)):
+        with pytest.raises(ValueError, match="prefix view"):
+            demm_xwT(x, v, i, cfg)
+        with pytest.raises(ValueError, match="prefix view"):
+            demm_xwT_q8(x, q[..., 3:], i, scales, cfg)
+    assert (demm_xwT.launches, demm_xwT_q8.launches) == before
+
+
+def _spec_collect(model, cfg, *, paged, spec, eager=False, backend="cuda"):
+    """Serve three prompts on a dense or paged engine of 2 slots (max_len
+    24: the windows shrink near it) and keep every window's draft and
+    verify logits of its lanes."""
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.paged import PagedServeConfig, PagedServeEngine
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.spec import SpecConfig
+
+    kw = dict(policy=ExecPolicy(mode="packed", backend=backend),
+              device="cuda", metrics=obs.MetricsRegistry(), _eager=eager,
+              spec=SpecConfig("6:16", 4) if spec else None)
+    eng = (PagedServeEngine(model, PagedServeConfig(num_slots=2, max_len=24,
+                                                    page_size=8), **kw)
+           if paged else
+           ServeEngine(model, ServeConfig(num_slots=2, max_len=24), **kw))
+    rng = np.random.default_rng(4)
+    for uid in range(3):
+        eng.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, rng.integers(3, 9), dtype=np.int32),
+            max_new_tokens=12))
+    windows = []
+    while (len(eng.queue if hasattr(eng, "queue") else eng.sched)
+           or any(r is not None for r in eng.active)):
+        if spec:
+            eng.last_window_logits = None
+        eng.step()
+        w = getattr(eng, "last_window_logits", None)
+        if w is not None:
+            windows.append((w["draft"][:, w["lanes"]],
+                            w["verify"][w["lanes"]]))
+    return eng, windows, {r.uid: list(r.output) for r in eng.completed}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+def test_spec_graphs_equal_eager_and_plain_tokens(card, layout, quantize,
+                                                  paged):
+    """The draft step's graph and each verify width's graph give the eager
+    programs' logits bit for bit; one capture of the draft step and one per
+    verify width used; the tokens are the plain engine's and, in float32,
+    backend ``reference``'s."""
+    from repro_torch.launch.pack_tree import pack_tree
+    cfg = dataclasses.replace(get_arch("stablelm_3b").reduced(),
+                              compute_dtype="float32",
+                              sparsity=SparsityConfig(8, 16))
+    model = pack_tree(build_model(cfg, device=card, seed=0), layout=layout,
+                      quantize=quantize)
+    eng, lg, tg = _spec_collect(model, cfg, paged=paged, spec=True)
+    _, le, te = _spec_collect(model, cfg, paged=paged, spec=True, eager=True)
+    _, _, tp = _spec_collect(model, cfg, paged=paged, spec=False)
+    _, _, tr = _spec_collect(model, cfg, paged=paged, spec=True,
+                             backend="reference")
+    assert eng.tier_report.narrowed > 0
+    widths = sorted(w for w in eng.spec_windows if w > 1)
+    assert eng.spec_captures == {"draft": 1,
+                                 "verify": {w: 1 for w in widths}}
+    assert len(lg) == len(le) > 0
+    for t, ((da, va), (db, vb)) in enumerate(zip(lg, le)):
+        assert np.array_equal(da, db), (t, "draft", np.abs(da - db).max())
+        assert np.array_equal(va, vb), (t, "verify", np.abs(va - vb).max())
+    assert tg == te == tp == tr and len(tg) == 3

@@ -548,8 +548,9 @@ def test_body_choice_limits_match_the_launchers():
     takes = takes[:takes.index("\n}\n")]
     assert re.search(rf"g\.cd <= {kb.CLUSTER_MAX_CD}\b", takes)
     # the span rule is written over the value width (1, 2 or 4 bytes), as
-    # cluster_takes states it with values.element_size()
-    assert "g.block_r) * g.ne * W::kValueBytes) % 16 == 0" in takes
+    # cluster_takes states it with values.element_size(), and over the
+    # stored pitch (a tier view's spans are copied whole)
+    assert "g.block_r) * g.pitch * W::kValueBytes) % 16 == 0" in takes
     assert "g.block_r % 4 == 0" in takes
     bulk = "demm_xwt_bulk.cuh"
     assert kx.BULK_MAX_BX == _header_constant("kBulkMaxBt", bulk)

@@ -628,15 +628,38 @@ def test_arena_exhaustion_without_preemption_raises(setup):
 
 
 def test_make_engine_builds_the_paged_engine(setup):
-    _, tcfg, _, _, tmodel = setup
+    _, tcfg, _, params, tmodel = setup
     cfg = PagedServeConfig(num_slots=2, max_len=32, page_size=8)
     eng = make_engine(tmodel, cfg, device="cpu",
                       metrics=tobs.MetricsRegistry())
     assert isinstance(eng, PagedServeEngine) and isinstance(eng, Engine)
-    with pytest.raises(NotImplementedError):
-        PagedServeEngine(tmodel, cfg, device="cpu", spec=object())
-    with pytest.raises(NotImplementedError):
-        make_engine(tmodel, cfg, device="cpu", spec=object())
+    # speculative decoding is ported (it was refused by name before): the
+    # paged engine with spec=, built directly and through make_engine,
+    # serves the stream of the one without it
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.core.sparsity import PackedWeight
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.spec import SpecConfig, tier_sort_tree
+    packed = tier_sort_tree(pack_tree(to_torch_model(params, tcfg)))
+    # the densest node's pattern: the draft narrows it
+    pw = max((m for m in packed.modules()
+              if isinstance(m, PackedWeight)),
+             key=lambda m: m.cfg.n_effective)
+    spec = SpecConfig(f"{pw.cfg.n_effective // 2}:{pw.cfg.m}", gamma=3)
+    policy = ExecPolicy(mode="packed", backend="reference")
+    streams = []
+    for build, s in ((PagedServeEngine, None), (PagedServeEngine, spec),
+                     (make_engine, spec)):
+        e = build(packed, cfg, device="cpu", policy=policy, spec=s,
+                  metrics=tobs.MetricsRegistry())
+        for i, p in enumerate(_prompts(tcfg, (9, 5, 7))):
+            e.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        e.run_until_drained()
+        streams.append({r.uid: list(r.output) for r in e.completed})
+        assert isinstance(e, PagedServeEngine)
+    assert streams[0] == streams[1] == streams[2]
+    assert e.tier_report.narrowed > 0
+    assert e._spec_metrics._verify_dispatches > 0
     # autotune is ported: the engine builds (the masked model here has no
     # packed weight to tune; tests/test_torch_tune.py tunes packed ones)
     eng = PagedServeEngine(tmodel, cfg, device="cpu", autotune=True,

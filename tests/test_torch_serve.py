@@ -117,14 +117,43 @@ def test_unported_engine_options_raise(setup):
     _, tcfg, _, params = setup
     model = to_torch_model(params, tcfg)
     cfg = ServeConfig(num_slots=1, max_len=8)
-    for kw in ({"plan": object()}, {"replicas": 2}, {"spec": object()}):
-        with pytest.raises(NotImplementedError):
-            make_engine(model, cfg, device="cpu", **kw)
-
-    # the paged engine is ported: only its unported options are refused
     from repro_torch.paged import PagedServeConfig
-    with pytest.raises(NotImplementedError):
-        make_engine(model, PagedServeConfig(), device="cpu", spec=object())
+    for config in (cfg, PagedServeConfig()):
+        for kw in ({"plan": object()}, {"replicas": 2}):
+            with pytest.raises(NotImplementedError):
+                make_engine(model, config, device="cpu", **kw)
+
+    # spec= is ported (it was refused by name before): both engines build
+    # with it on a packed model and serve the stream of the plain engine
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.core.sparsity import PackedWeight
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.paged import PagedServeEngine
+    from repro_torch.spec import SpecConfig, tier_sort_tree
+    packed = tier_sort_tree(pack_tree(to_torch_model(params, tcfg)))
+    # the densest node's pattern: the draft narrows it
+    pw = max((m for m in packed.modules()
+              if isinstance(m, PackedWeight)),
+             key=lambda m: m.cfg.n_effective)
+    spec = SpecConfig(f"{pw.cfg.n_effective // 2}:{pw.cfg.m}", gamma=2)
+    policy = ExecPolicy(mode="packed", backend="reference")
+    prompt = np.random.default_rng(2).integers(0, tcfg.vocab_size, 6,
+                                               dtype=np.int32)
+    streams = []
+    for config, s, kind in ((ServeConfig(num_slots=1, max_len=24), None,
+                             ServeEngine),
+                            (ServeConfig(num_slots=1, max_len=24), spec,
+                             ServeEngine),
+                            (PagedServeConfig(num_slots=1, max_len=24,
+                                              page_size=8), spec,
+                             PagedServeEngine)):
+        e = make_engine(packed, config, policy=policy, device="cpu",
+                        metrics=tobs.MetricsRegistry(), spec=s)
+        assert isinstance(e, kind)
+        e.submit(Request(uid=0, prompt=prompt, max_new_tokens=5))
+        e.run_until_drained()
+        streams.append(e.completed[0].output)
+    assert streams[0] == streams[1] == streams[2] and len(streams[0]) == 5
 
     class OtherConfig:
         pass

@@ -760,7 +760,23 @@ def test_serve_bench_replays_the_trace_on_both_engines(tmp_path):
 
 
 def test_serve_bench_refuses_spec_by_name(tmp_path):
+    """``--spec`` without ``--packed`` is refused by name; with it the
+    speculative leg runs (it was refused as not ported before): token
+    identity with the packed non-spec engine, acceptance above the default
+    gate and more than one committed token per verify dispatch."""
     proc = _bench(["benchmarks/torch_serve_bench.py", "--device", "cpu",
                    "--spec", "6:16"], tmp_path)
     assert proc.returncode == 2 and "--spec" in proc.stderr
-    assert "not ported" in proc.stderr
+    assert "--packed" in proc.stderr
+    out = tmp_path / "s.json"
+    proc = _bench(["benchmarks/torch_serve_bench.py", "--device", "cpu",
+                   "--trace", "benchmarks/traces/tiny_trace.jsonl",
+                   "--max-pages", "16", "--packed", "--sparsity", "8:16",
+                   "--spec", "6:16", "--spec-gamma", "4", "--out", str(out)],
+                  tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    spec = json.loads(out.read_text())["spec"]
+    assert spec["token_identical"] is True
+    assert spec["acceptance_rate"] > 0.5 and spec["drafted"] > 0
+    assert spec["tokens_per_dispatch"] > 1
+    assert spec["draft"] == "6:16" and spec["gamma"] == 4
