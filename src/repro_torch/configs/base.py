@@ -2,8 +2,8 @@
 
 Every architecture is a frozen ``ArchConfig``.  Reduced configs for CPU tests
 are derived with ``reduced()``.  The field set matches the JAX package's
-``configs/base.py`` so a config reads the same on both sides; only
-``stablelm_3b`` (family ``dense``, full attention) is ported so far.
+``configs/base.py`` so a config reads the same on both sides; the dense
+decoders (full attention, sliding window, local:global) are ported so far.
 """
 
 from __future__ import annotations
@@ -166,7 +166,8 @@ ARCH_IDS = [
     "xlstm_125m",
 ]
 
-PORTED_ARCH_IDS = ["stablelm_3b"]
+PORTED_ARCH_IDS = ["gemma3_1b", "internlm2_20b", "stablelm_3b",
+                   "h2o_danube_1_8b"]
 
 
 def get_arch(arch_id: str) -> ArchConfig:

@@ -1,11 +1,17 @@
-"""Attention: grouped-query decode against a dense KV cache, causal chunk
-attention for prefill, and the paged-arena paths.
+"""Attention: grouped-query attention with full, sliding-window and
+local:global patterns; decode against a dense KV cache, whole-sequence and
+chunked prefill through a chunked online-softmax attention, and the
+paged-arena paths.
 
 Decode computes one new token against a cache of S past tokens, as one stable
-softmax reduction over S.  A prefill chunk of T queries attends to a cache of
-S positions under the causal mask (:func:`flash_attention`).  Scores and
-softmax are float32.  These are plain tensor ops here as they are plain array
-ops in the JAX package.
+softmax reduction over S.  Prefill (a whole sequence, or a chunk of one that
+continues at ``q_offset``) runs :func:`flash_attention`: an outer loop over
+query chunks and an inner loop over key chunks with an online-softmax
+accumulator, so that the scores held at once are O(q_chunk * kv_chunk)
+instead of O(T * S); with a window known when the call is made, the inner
+loop visits only the key chunks that meet the band.  Scores and softmax are
+float32.  These are plain tensor ops here as they are plain array ops in the
+JAX package.
 
 The paged KV cache: one arena of fixed-size pages shared by every sequence,
 reached through per-sequence block tables (``repro_torch.paged``).  The JAX
@@ -78,43 +84,102 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=-1):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
-                    q_offset=0):
-    """Causal attention of T queries against S keys.  Returns (B, T, Hq, Dh)
-    in q's dtype.
+                    static_window: Optional[int] = None, q_offset=0,
+                    q_chunk: int = 512, kv_chunk: int = 1024):
+    """Chunked online-softmax attention of T queries against S keys.
+    Returns (B, T, Hq, Dh) in q's dtype.
 
-    q (B, T, Hq, Dh); k, v (B, S, Hkv, Dh).  ``q_offset`` is the absolute
-    position of ``q[:, 0]`` (a prefill continuation): an int or a tensor of
-    one element on q's device, so that a captured program reads it anew on
-    every replay.  Query t sees key s iff s <= q_offset + t (and, with a
-    window, s > q_offset + t - window): the triangle inside the chunk and
-    every earlier chunk.  For a query at t < n_valid of a padded chunk this
-    excludes every position at or beyond ``q_offset + n_valid``, which holds
-    nothing this sequence wrote.
+    q (B, T, Hq, Dh); k, v (B, S, Hkv, Dh).  The queries go in chunks of
+    ``q_chunk`` and, for each, the keys in chunks of ``kv_chunk`` with a
+    running (max, sum, output) accumulator in float32, so that the scores
+    held at once are (B, Hq, q_chunk, kv_chunk) whatever T and S; T and S
+    are padded to whole chunks and the padded keys masked.  Query t sees
+    key s iff s <= q_offset + t when ``causal`` and, with a window w > 0, s
+    > q_offset + t - w.
 
-    The JAX package runs the same mask as an online softmax over KV chunks
-    (so that 32k-token prefill fits); a serving chunk of 32 queries against
-    at most ``max_len`` keys fits whole, so this is one masked softmax, the
-    normalisation applied after the value product as there.
+    ``q_offset`` is the absolute position of ``q[:, 0]`` (a prefill
+    continuation): an int, or a tensor of one element on q's device so that
+    a captured program reads it anew on every replay.  Nothing here reads
+    it on the host and no shape depends on it.
+
+    ``static_window`` (an int known when the call is made: the sliding-
+    window archs, gemma3's local layers) sets the window and makes the key
+    loop visit only the ``min(n_kv, (W + q_chunk - 2) // kv_chunk + 2)``
+    chunks that can meet a query chunk's band, from the one holding position
+    ``q0 - W + 1`` clipped into the key range, instead of all ``S /
+    kv_chunk``.  The band's first chunk depends on ``q_offset``: with a
+    tensor ``q_offset`` the chunk is gathered by a device index.
     """
     b, t, hq, dh = q.shape
     s = k.shape[1]
+    dev, out_dtype = q.device, q.dtype
     scale = dh ** -0.5
-    logits = _gqa_scores(q, k) * scale                  # (B, Hq, T, S)
-    if causal or _windowed(window):
-        q_pos = (torch.arange(t, device=q.device) + q_offset)[:, None]
-        kv_pos = torch.arange(s, device=q.device)[None, :]
-        mask = (kv_pos <= q_pos if causal else
-                torch.ones((t, s), dtype=torch.bool, device=q.device))
-        if _windowed(window):
-            mask = mask & (kv_pos > q_pos - window)
-        logits = torch.where(mask[None, None], logits,
-                             torch.full((), NEG_INF, dtype=logits.dtype,
-                                        device=logits.device))
-    m = logits.max(dim=-1, keepdim=True).values
-    p = torch.exp(logits - m)
-    denom = p.sum(dim=-1).clamp_min(1e-30)               # (B, Hq, T)
-    out = _gqa_out(p, v) / denom.transpose(1, 2)[..., None]
-    return out.to(q.dtype)
+    q_chunk = min(q_chunk, t)
+    kv_chunk = min(kv_chunk, s)
+    tp = -(-t // q_chunk) * q_chunk
+    sp = -(-s // kv_chunk) * kv_chunk
+    # float32 once here: the products below take float32 operands (exact
+    # casts), so that the loops cast nothing
+    f32 = torch.float32
+    qp = torch.nn.functional.pad(q.to(f32), (0, 0, 0, 0, 0, tp - t))
+    kp = torch.nn.functional.pad(k.to(f32), (0, 0, 0, 0, 0, sp - s))
+    vp = torch.nn.functional.pad(v.to(f32), (0, 0, 0, 0, 0, sp - s))
+    n_q, n_kv = tp // q_chunk, sp // kv_chunk
+    if static_window is not None and static_window > 0:
+        window = static_window
+        n_band = min(n_kv, (static_window + q_chunk - 2) // kv_chunk + 2)
+    else:
+        n_band = n_kv
+    windowed = _windowed(window)
+    q_pos_base = torch.arange(q_chunk, device=dev)
+    band_base = torch.arange(n_band * kv_chunk, device=dev)
+    neg = torch.full((), NEG_INF, dtype=f32, device=dev)
+    outs = []
+    for qi in range(n_q):
+        qc = qp[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = q_pos_base + qi * q_chunk + q_offset
+        if n_band < n_kv:
+            # the first chunk that can hold position q0 - W + 1
+            first = qi * q_chunk + q_offset - window + 1
+            if isinstance(first, torch.Tensor):
+                base = torch.div(first, kv_chunk, rounding_mode="floor") \
+                    .clamp(0, n_kv - n_band)
+            else:
+                base = min(max(first // kv_chunk, 0), n_kv - n_band)
+        else:
+            base = 0
+        # the positions of the band's keys and the mask of the whole band,
+        # (q_chunk, n_band * kv_chunk), once per query chunk
+        kv_pos = (band_base + base * kv_chunk).reshape(-1)
+        mask = (kv_pos < s)[None, :]                   # padding
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if windowed:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        acc = torch.zeros((b, hq, q_chunk, dh), dtype=f32, device=dev)
+        m_run = torch.full((b, hq, q_chunk), NEG_INF, dtype=f32, device=dev)
+        l_run = torch.zeros((b, hq, q_chunk), dtype=f32, device=dev)
+        for j in range(n_band):
+            cols = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            if isinstance(base, torch.Tensor):
+                kc = kp.index_select(1, kv_pos[cols])
+                vc = vp.index_select(1, kv_pos[cols])
+            else:
+                ki = base + j
+                kc = kp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+                vc = vp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            logits = _gqa_scores(qc, kc) * scale      # (B, Hq, qc, kc) f32
+            logits = torch.where(mask[None, None, :, cols], logits, neg)
+            m_new = torch.maximum(m_run, logits.max(dim=-1).values)
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _gqa_out(p, vc).transpose(1, 2)
+            m_run = m_new
+        out = acc / l_run.clamp_min(1e-30)[..., None]     # (B, Hq, qc, Dh)
+        outs.append(out.transpose(1, 2))                   # (B, qc, Hq, Dh)
+    out = torch.cat(outs, dim=1)[:, :t] if n_q > 1 else outs[0][:, :t]
+    return out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +286,31 @@ def _project_qkv(attn: Attention, x, kv_x, num_heads, num_kv_heads, head_dim,
             v.reshape(b, skv, num_kv_heads, head_dim))
 
 
+def apply_attention(attn: Attention, x, *, num_heads, num_kv_heads,
+                    head_dim, rope_theta, positions=None, causal=True,
+                    window=-1, static_window=None, kv_x=None, policy=None,
+                    q_chunk=512, kv_chunk=1024):
+    """Whole-sequence self-attention (``kv_x`` None) or cross-attention
+    (``kv_x`` an encoder's output; non-causal, no rotary embedding) of x (B,
+    T, D) -> (B, T, D).  ``positions`` (T,) or (B, T) default to 0..T-1;
+    ``window`` / ``static_window`` as :func:`flash_attention` takes them."""
+    b, t, _ = x.shape
+    cross = kv_x is not None
+    q, k, v = _project_qkv(attn, x, kv_x if cross else x, num_heads,
+                           num_kv_heads, head_dim, policy)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(t, device=x.device)
+        rope = rope_tables(positions, head_dim, rope_theta)
+        q = apply_rope(q, positions, rope_theta, rope)
+        k = apply_rope(k, positions, rope_theta, rope)
+    out = flash_attention(q, k, v, causal=causal and not cross,
+                          window=window, static_window=static_window,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = out.reshape(b, t, num_heads * head_dim)
+    return apply_linear(attn.wo, out, policy=policy)
+
+
 def _write_kv(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor):
     """Replace row ``pos[b]`` of ``cache[b]`` with ``new[b, 0]``, in place.
 
@@ -305,9 +395,15 @@ def apply_attention_prefill_paged(attn: Attention, x, arena_k, arena_v,
     padding of a last partial chunk, whose KV goes to the null page).  The
     chunk's KV is written into the sequence's pages first, then the K
     queries attend to the gathered cache with ``q_offset=pos0``
-    (:func:`flash_attention`).  ``rope`` takes the :func:`rope_tables` of
-    the chunk's positions when the caller has them.  Returns (out (1, K,
-    D), (arena_k, arena_v)).
+    (:func:`flash_attention` in one query chunk and one key chunk of the
+    whole gathered length, unbanded: nothing about it depends on ``pos0``
+    but the mask, so the chunk stays capturable).  One key chunk because
+    eager PyTorch and a CUDA graph do not fuse the online softmax's
+    per-chunk steps as XLA does: the reference's ``kv_chunk=128`` costs
+    the chunk more launches and device time and saves nothing at a
+    (1, H, K, S) float32 score tile.  ``rope`` takes the
+    :func:`rope_tables` of the chunk's positions when the caller has them.
+    Returns (out (1, K, D), (arena_k, arena_v)).
     """
     b, k_tok, _ = x.shape
     q, k_new, v_new = _project_qkv(attn, x, x, num_heads, num_kv_heads,
@@ -321,7 +417,8 @@ def apply_attention_prefill_paged(attn: Attention, x, arena_k, arena_v,
     scatter_chunk_pages(arena_v, row_table, pos0, v_new[0], n_valid)
     k_c = gather_pages(arena_k, row_table[None])
     v_c = gather_pages(arena_v, row_table[None])
-    out = flash_attention(q, k_c, v_c, causal=True, q_offset=pos0)
+    out = flash_attention(q, k_c, v_c, causal=True, q_offset=pos0,
+                          q_chunk=k_tok, kv_chunk=k_c.shape[1])
     out = out.reshape(b, k_tok, num_heads * head_dim)
     return apply_linear(attn.wo, out, policy=policy), (arena_k, arena_v)
 

@@ -106,6 +106,30 @@ def apply_rmsnorm(norm: RMSNorm, x, eps: float = 1e-6):
     return norm(x, eps)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, scale: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.scale = nn.Parameter(scale, requires_grad=False)
+        self.bias = nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x, eps: float = 1e-5):
+        dt = x.dtype
+        x = x.to(torch.float32)
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps)
+        return (y * self.scale + self.bias).to(dt)
+
+
+def init_layernorm(d: int, *, device, dtype=torch.float32) -> LayerNorm:
+    return LayerNorm(torch.ones((d,), dtype=dtype, device=device),
+                     torch.zeros((d,), dtype=dtype, device=device))
+
+
+def apply_layernorm(norm: LayerNorm, x, eps: float = 1e-5):
+    return norm(x, eps)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -106,6 +106,17 @@ class Staged:
             self._copied.record()
 
 
+def state_tensors(state) -> List[torch.Tensor]:
+    """Every tensor leaf of a decode state (nested dicts; the ``kind`` tags
+    and a paged layout are not tensors), in the dicts' order: the same
+    order for two states that one ``init_decode_state`` made."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for v in state.values() for t in state_tensors(v)]
+    return []
+
+
 def capture_graph(fn, written, device, warmup: int = CAPTURE_WARMUP):
     """Capture ``fn`` (no arguments; returns a tensor) into a CUDA graph.
 
@@ -422,6 +433,26 @@ class ServeEngine(SpecPrograms, EngineBase):
         self.state = model.init_decode_state(
             cfg.num_slots, cfg.max_len, dtype=torch.float32,
             device=model.device)
+        # what a claimed slot is reset to: each state tensor's slot axis
+        # (where a one-slot and a two-slot state's shapes differ, both made
+        # on the meta device, without memory) and the one value the fresh
+        # state holds in it (0 for caches and ``pos``, -1 for ``slot_pos``)
+        one, two = (model.init_decode_state(n, cfg.max_len,
+                                            dtype=torch.float32,
+                                            device="meta") for n in (1, 2))
+        self._slot_init = []
+        for cur, a, b in zip(state_tensors(self.state), state_tensors(one),
+                             state_tensors(two)):
+            ax = next((d for d, (m, n) in enumerate(zip(a.shape, b.shape))
+                       if m != n), None)
+            if ax is None:
+                continue
+            lo, hi = (v.item() for v in cur.aminmax())
+            if lo != hi:
+                raise ValueError(f"a fresh decode state tensor of shape "
+                                 f"{tuple(cur.shape)} holds more than one "
+                                 f"value ({lo} .. {hi})")
+            self._slot_init.append((cur, ax, lo))
         # the next tokens: the host loop writes ``_next_tok``, a numpy view
         # of a (pinned, on a CUDA engine) host buffer that is copied into
         # the step's static input each tick (on the CPU they are one tensor)
@@ -509,14 +540,18 @@ class ServeEngine(SpecPrograms, EngineBase):
                                  trace_id=req.trace_id)
 
     def _reset_slot(self, i):
-        """Restore slot ``i``'s state region to its initial value: position
-        0 and a zeroed cache row.  (KV caches self-mask stale entries through
-        ``cache_len``; zeroing keeps the state equal to the reference's.)
-        The state's tensors are rewritten in place."""
-        caches = self.state["caches"]
-        caches["k"][:, i] = 0
-        caches["v"][:, i] = 0
-        self.state["pos"][i] = 0
+        """Restore slot ``i``'s region of every state tensor to its initial
+        value, in place: position 0, zeroed caches, ring slots empty
+        (``slot_pos`` -1).  (Attention masks stale entries by position;
+        resetting keeps the state equal to the reference's.)"""
+        for cur, ax, value in self._slot_init:
+            cur.select(ax, i).fill_(value)
+
+    def _written(self):
+        """Every tensor of the decode state: what a capture's warm-up
+        writes and restores (the caches of any kind, ring positions and
+        ``pos``)."""
+        return state_tensors(self.state)
 
     def _complete(self, i, req, now):
         req.complete_ts = now

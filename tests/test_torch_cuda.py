@@ -614,6 +614,43 @@ def test_capture_restores_the_initial_state_and_failures_raise(card):
         del model.decode_step
 
 
+# windowed decoders with rings of 8 (a local, a global and a tail layer in
+# gemma3; every layer a ring in h2o), so that the rings wrap in a few ticks
+WINDOWED = {"gemma3_1b": dict(num_layers=3, local_global_ratio=1,
+                              local_window=8),
+            "h2o_danube_1_8b": dict(window=8)}
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+@pytest.mark.parametrize("layout", ["xwT", "block"])
+@pytest.mark.parametrize("arch", list(WINDOWED))
+def test_graph_ring_step_equals_eager_step_and_reference(card, arch, layout,
+                                                         quantize):
+    """The captured ring-buffer step (slot = pos % W and ``slot_pos``
+    written on the device, every ring tensor restored after the capture's
+    warm-up) gives the eager step's logits bit for bit through the wrap, its
+    tokens, and in float32 backend ``reference``'s tokens."""
+    from repro_torch.launch.pack_tree import pack_tree
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
+                              compute_dtype="float32", **WINDOWED[arch])
+    model = pack_tree(build_model(cfg, device=card, seed=0), layout=layout,
+                      quantize=quantize)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (11, 5, 9)]
+    eng, lg, tg = _collect(model, cfg, backend="cuda", prompts=prompts,
+                           max_new=8)
+    _, le, te = _collect(model, cfg, backend="cuda", eager=True,
+                         prompts=prompts, max_new=8)
+    _, _, tr = _collect(model, cfg, backend="reference", prompts=prompts,
+                        max_new=8)
+    assert eng._graph is not None and eng.captures == 1
+    assert len(lg) == len(le)
+    for t, (a, b) in enumerate(zip(lg, le)):
+        assert np.array_equal(a, b), (t, np.abs(a - b).max())
+    assert tg == te == tr and len(tg) == 3
+
+
 # ---------------------------------------------------------------------------
 # the paged engine: the decode step and the prefill chunk, each captured once
 # ---------------------------------------------------------------------------

@@ -148,17 +148,18 @@ def test_port_packing_equals_reference_packing(setup):
 
 def test_unported_parts_raise():
     import dataclasses
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import MoEConfig, get_arch
     from repro_torch.models.families import build_model
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("gemma3_1b")
+        get_arch("olmoe_1b_7b")
     with pytest.raises(KeyError):
         get_arch("no_such_arch")
     cfg = get_arch("stablelm_3b").reduced()
     with pytest.raises(NotImplementedError):
         build_model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, attention="swa"), device="cpu")
+        build_model(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 64)),
+                    device="cpu")
     model = build_model(cfg, device="cpu", seed=1)
     with pytest.raises(ValueError, match="unknown layout"):
         pack_tree(model, layout="tiles")
