@@ -232,13 +232,46 @@ unless all of them held:
    7w       — K1-K4 at every projection shape of gemma3_1b and
               h2o_danube_1_8b at Bx = 4 (``gemma3`` and ``h2o`` of each
               kernel in the ``kernels`` line: per layer and per shape).
+12. train   — the training path.  12a: the packed ops under autograd —
+              ``xwT``, ``xwT_q8`` (per-row and per-group scales), ``block``
+              and ``block_q8`` at stablelm_3b's three projection shapes and
+              gemma3's 1:1 gate/up shape, Bx 4 (bulk / cluster bodies) and
+              32 (gather bodies), x float32 and bfloat16, every fifth row
+              under-full: the forward through ``cuda`` (K1-K4, counted by
+              the wrappers, on the body their rule names) within phase 3's
+              tolerance of ``reference``'s; the gradients at x and the
+              float operand (values; an int8 weight's scales) through
+              ``cuda`` against autograd through the plain dense product
+              x @ W_denseᵀ (W_dense built from that operand; phase 3's
+              tolerance for x's dtype, its atol grown with the sum's
+              length), at every slot but the padded ones, whose gradients
+              are exactly 0, and bit-equal to those through ``reference``
+              (by construction: the same backward ops); and a
+              packed 2-layer full-width model differentiated under remat
+              ``none`` (K1 7 x 2 launches) and ``full`` (7 x 2 x 2: the
+              backward relaunches each layer's forward), bit-equal.  12b:
+              ``launch.train.main(--arch stablelm_3b --steps 4 --batch 2
+              --seq 256 --lr 1e-3)`` at full width on the masked dense step
+              the reference launcher runs (no DeMM kernel launched; loss
+              falls, the launcher's own check), its step times, peak device
+              memory and checkpoint (params, AdamW m and v) bytes and save
+              seconds; then ``launch.serve --full --ckpt-dir --packed
+              --layout xwT`` (backend cuda), and the restored weights in
+              float32 compute served through ``cuda`` and ``reference``
+              with equal tokens.  12c: reduced stablelm_3b, float32,
+              ``--sparsify 8:128 --qat int8`` under the supervisor for 12
+              steps, uninterrupted and with ``inject_failure_once(6)``:
+              parameters, AdamW state and mask state bit-equal; the baked
+              final masks verified; packed int8 in both layouts, ``cuda``
+              tokens = ``reference`` tokens.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
-"tune": {...}, "spec": {...}, "windowed": {...}}``
-(per kernel: wrapper launches on the dense, the paged and the speculative
-path, error, times, bound, its gather body at Bx = 32; per serve run: ticks, decode-step time,
+"tune": {...}, "spec": {...}, "windowed": {...}, "train": {...}}``
+(per kernel: wrapper launches on the dense, the paged, the speculative and
+the training path, error, times, bound, its gather body at Bx = 32; per
+serve run: ticks, decode-step time,
 tokens/s, device launches per replay), and one JSON object ``{"ok": true,
 "device": ...}``.
 
@@ -253,8 +286,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3157,6 +3192,467 @@ def windowed_times(gen, rows_by_shape):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: training (launch.train), the packed ops under autograd, and the
+# trained checkpoint served packed
+# ---------------------------------------------------------------------------
+
+# 12a: one stablelm_3b layer's projection shapes and gemma3's 1:1 gate/up
+TRAIN_SHAPES = MAIN_SHAPES + [("gemma3 gate/up", 6912, 1152, 1, 1)]
+TRAIN_BX = (4, 32)
+# 12b: full width through the entry point, then its checkpoint served
+TRAIN_FULL_ARGS = ["--arch", "stablelm_3b", "--steps", "4", "--batch", "2",
+                   "--seq", "256", "--lr", "1e-3", "--log-every", "1"]
+# 12c: reduced, float32 compute, the sparsify + QAT path with a restart
+TRAIN_SPARSE_STEPS, TRAIN_FAIL_AT = 12, 6
+
+
+def train_ops(w, cfg):
+    """{op: (kernel, PackedWeight)} of the dense ``w``: the four packed
+    forms a training step can run through K1-K4."""
+    from repro_torch.core.sparsity import PackedWeight, pack_block
+    from repro_torch.quant import quantize_packed
+    xwt = PackedWeight.from_dense(w, cfg)
+    blk = pack_block(w, cfg)
+    return {"xwT": ("demm_xwT", xwt),
+            "xwT_q8": ("demm_xwT_q8", quantize_packed(xwt)),
+            "xwT_q8/per_group": ("demm_xwT_q8",
+                                 quantize_packed(xwt,
+                                                 granularity="per_group")),
+            "block": ("demm_block_spmm", blk),
+            "block_q8": ("demm_block_spmm_q8", quantize_packed(blk))}
+
+
+def grads_through(pw, x, dy, backend):
+    """y and the gradients of sum(y * dy) at x and the float operand (the
+    values of a float weight, the scales of an int8 one), through
+    ``ops.demm_matmul_packed`` on ``backend``, on leaves of their own."""
+    import torch
+    from repro_torch.kernels import ops
+    xl = x.clone().requires_grad_(True)
+    if pw.qdtype is None:
+        p = pw.values.clone().requires_grad_(True)
+        pw = pw.replace(values=p, has_duplicates=False)
+    else:
+        p = pw.scales.clone().requires_grad_(True)
+        pw = pw.replace(scales=p)
+    y = ops.demm_matmul_packed(xl, pw, backend=backend)
+    gx, gp = torch.autograd.grad((y * dy).sum(), [xl, p])
+    return y.detach(), gx, gp
+
+
+def dense_grads(pw, x, dy):
+    """The gradients of sum(y * dy) at x and the float operand (as in
+    ``grads_through``), by autograd through the plain dense product y =
+    x @ W_denseᵀ in float32, W_dense built from that operand as a leaf (the
+    values scattered, or the int8 values times the scales), with no packed
+    op in the way: what a wrong backward of K1-K4's autograd functions
+    would disagree with."""
+    import torch
+    from repro_torch.core.sparsity import (LAYOUT_BLOCK, expand_scales,
+                                           unpack, unpack_block)
+    xl = x.to(torch.float32).requires_grad_(True)
+    if pw.qdtype is None:
+        p = pw.values.to(torch.float32).requires_grad_(True)
+        vals = p
+    else:
+        p = pw.scales.to(torch.float32).requires_grad_(True)
+        vals = pw.values.to(torch.float32) * expand_scales(p, pw.values)
+    shape = tuple(pw.dense_shape)
+    if pw.layout == LAYOUT_BLOCK:
+        w = unpack_block(pw.active_groups, vals, pw.indices, pw.cfg, shape)
+    else:
+        w = unpack(vals, pw.indices, pw.cfg, shape)
+    y = xl @ w.T
+    return torch.autograd.grad((y * dy).sum(), [xl, p])
+
+
+def grad_tol(dtype, terms):
+    """12a's tolerance on a gradient against ``dense_grads``: phase 3's for
+    x's dtype (dx comes back in it; the float operand's gradient is float32
+    either way), its atol grown as sqrt(terms / F32_TERMS) past F32_TERMS
+    products a sum, as phase 3 grows it for the forward."""
+    tol = dict(TOL[dtype])
+    if terms > F32_TERMS:
+        tol["atol"] *= (terms / F32_TERMS) ** 0.5
+    return tol
+
+
+def train_grads(gen):
+    """12a: the packed ops' gradients through the ``cuda`` forward (K1-K4)
+    agree with autograd through the plain dense product (``dense_grads``,
+    tolerance ``grad_tol``) everywhere but at padded slots, which get
+    exactly 0; they equal those through the ``reference`` forward bit for
+    bit (which holds by construction: the backward is the same tensor ops
+    on the same saved operands, so only the forward differs, held to phase
+    3's tolerance); every ``cuda`` forward launched its kernel on the body
+    the wrapper's rule names."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig, unpack
+    from repro_torch.kernels.demm_block_spmm import block_body
+    from repro_torch.kernels.demm_xwT import xwt_body
+
+    reset_counts()
+    want = {name: 0 for name in KERNELS}
+    want_b = {name: {b: 0 for b in bodies}
+              for name, bodies in read_body_counts().items()}
+    err, gerr, cases, padded = {}, {}, 0, 0
+    for label, o, k, n, m in TRAIN_SHAPES:
+        cfg = SparsityConfig(n, m)
+        vals, idx = make_packed(o, k, n, m, gen)
+        vals[::5, :, 0] = 0.0            # every fifth row under-full
+        w = unpack(vals, idx, cfg, (o, k))
+        for op, (kernel, pw) in train_ops(w, cfg).items():
+            for bx in TRAIN_BX:
+                for dtype in ("float32", "bfloat16"):
+                    x = torch.randn((bx, k), generator=gen, device=DEVICE)
+                    x = x.to(getattr(torch, dtype))
+                    dy = torch.randn((bx, o), generator=gen, device=DEVICE)
+                    what = f"{op} {label} Bx={bx} x={dtype}"
+                    yc, gxc, gpc = grads_through(pw, x, dy, "cuda")
+                    yr, gxr, gpr = grads_through(pw, x, dy, "reference")
+                    torch.cuda.synchronize()
+                    tol = dict(TOL[dtype])
+                    if dtype == "float32" and k // m * n > F32_TERMS:
+                        tol["atol"] *= (k // m * n / F32_TERMS) ** 0.5
+                    torch.testing.assert_close(
+                        yc, yr, **tol, msg=lambda s: f"12a {what}: {s}")
+                    if not (torch.equal(gxc, gxr) and torch.equal(gpc, gpr)):
+                        raise AssertionError(
+                            f"12a {what}: gradients through cuda and "
+                            f"reference differ (dx max "
+                            f"{float((gxc - gxr).abs().max())}, d-operand "
+                            f"max {float((gpc - gpr).abs().max())})")
+                    gxd, gpd = dense_grads(pw, x, dy)
+                    pad = pw.values == 0
+                    # the longest sums: dx's over the O rows' slots on one
+                    # column, a value's over Bx, a scale's over Bx times
+                    # the slots it scales
+                    x_terms = o * n // m
+                    p_terms = bx * (1 if pw.qdtype is None else
+                                    pw.values.numel() // pw.scales.numel())
+                    torch.testing.assert_close(
+                        gxc.to(torch.float32), gxd,
+                        **grad_tol(dtype, x_terms),
+                        msg=lambda s: f"12a {what} dx vs dense: {s}")
+                    keep = ~pad if pw.qdtype is None else slice(None)
+                    torch.testing.assert_close(
+                        gpc.to(torch.float32)[keep], gpd[keep],
+                        **grad_tol("float32", p_terms),
+                        msg=lambda s: f"12a {what} d-operand vs dense: {s}")
+                    gerr[kernel] = max(
+                        gerr.get(kernel, 0.0),
+                        float((gxc.to(torch.float32) - gxd).abs().max()),
+                        float((gpc.to(torch.float32)[keep]
+                               - gpd[keep]).abs().max()))
+                    if pw.qdtype is None:
+                        if not bool(pad.any()) or bool(gpc[pad].any()):
+                            raise AssertionError(
+                                f"12a {what}: padded slots' gradient not 0 "
+                                f"(or no padded slot)")
+                        padded += int(pad.sum())
+                    e = float((yc - yr).abs().max())
+                    err[kernel] = max(err.get(kernel, 0.0), e)
+                    want[kernel] += 1
+                    if kernel in ("demm_xwT", "demm_xwT_q8"):
+                        body = xwt_body(x, pw.values, pw.indices, m,
+                                        duplicates=False,
+                                        scales=pw.scales)
+                        rule = "bulk" if bx <= 8 else "gather"
+                    elif kernel == "demm_block_spmm":
+                        body = block_body(pw.active_groups, pw.values,
+                                          pw.indices, x.T, m)
+                        rule = ("cluster" if bx <= 8 and
+                                (m * x.element_size()) % 16 == 0
+                                else "gather")
+                    else:
+                        body = rule = None
+                    if body != rule:
+                        raise AssertionError(f"12a {what}: body {body}, "
+                                             f"expected {rule}")
+                    if body is not None:
+                        want_b[kernel][body] += 1
+                    cases += 1
+    counts, bodies = read_counts(), read_body_counts()
+    if counts != want or bodies != want_b:
+        raise AssertionError(f"12a: launches {counts} by body {bodies}, "
+                             f"expected {want} by body {want_b}")
+    return {"cases": cases, "padded_slots_checked": padded,
+            "forward_max_abs_err": err, "launches": counts,
+            "launches_by_body": bodies,
+            "grads_vs_dense_max_abs_err": gerr,
+            "grads_bit_equal_cuda_vs_reference": True}
+
+
+def train_remat_relaunch():
+    """12a, remat: a packed 2-layer full-width stablelm_3b (xwT, bf16
+    compute, one sequence of 32 tokens: K1's gather body) differentiated at
+    every float tensor under ``remat="none"`` and ``"full"``.  Expected K1
+    launches: 7 x 2 forward, and under ``full`` 7 x 2 more when the
+    backward recomputes each layer; the recomputed forward is the first
+    again, so loss and gradients are bit-equal across the two."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.train.train_loop import train_params
+
+    base = dataclasses.replace(get_arch("stablelm_3b"), num_layers=2)
+    rng = torch.Generator(device=DEVICE)
+    rng.manual_seed(5)
+    tokens = torch.randint(0, base.vocab_size, (1, 33), generator=rng,
+                           device=DEVICE)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    out, launches = {}, {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model = pack_tree(build_model(cfg, device=DEVICE, seed=3))
+        leaves = {n: t.clone().requires_grad_(True)
+                  for n, t in train_params(model).items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, _ = torch.func.functional_call(
+            model, leaves, (batch,),
+            {"policy": ExecPolicy(mode="packed", backend="cuda")})
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        launches[remat] = read_counts()["demm_xwT"]
+        out[remat] = (loss.detach(), grads)
+        del model, leaves
+    want = {"none": 7 * 2, "full": 7 * 2 * 2}
+    if launches != want:
+        raise AssertionError(f"12a remat: K1 launches {launches}, expected "
+                             f"{want}")
+    same = torch.equal(out["none"][0], out["full"][0]) and all(
+        torch.equal(a, b) for a, b in zip(out["none"][1], out["full"][1]))
+    if not same:
+        raise AssertionError("12a remat: the recomputed forward changed the "
+                             "loss or the gradients")
+    return {"launches": launches, "loss": float(out["none"][0]),
+            "bit_equal": True}
+
+
+def serve_tokens(model, cfg, backend, **kw):
+    """{uid: tokens} of ``run_serve`` on the packed ``model`` (4 requests
+    of 8 new tokens), and the wrappers' launches in it."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch.serve import run_serve
+    torch.cuda.synchronize()
+    reset_counts()
+    engine = run_serve(model, cfg.vocab_size, packed=True, backend=backend,
+                       requests=4, slots=4, max_new=8, max_len=64, seed=0,
+                       device=DEVICE, metrics=obs.MetricsRegistry(), **kw)
+    torch.cuda.synchronize()
+    out = {r.uid: list(r.output) for r in engine.completed}
+    if len(out) != 4 or any(len(t) != 8 or not all(
+            0 <= v < cfg.vocab_size for v in t) for t in out.values()):
+        raise AssertionError(f"serving {backend}: bad outputs {out}")
+    return out, read_counts()
+
+
+def restored_model(cfg, ckpt_dir):
+    from repro_torch.launch.serve import restore_checkpoint
+    from repro_torch.models.families import build_model
+    model = build_model(cfg, device=DEVICE, seed=0)
+    step = restore_checkpoint(model, ckpt_dir)
+    return model, step
+
+
+def train_full_width(tmp):
+    """12b: ``launch.train.main`` at full width on the plain masked path
+    (no DeMM kernel runs in it), then its checkpoint served packed: the CLI
+    (``launch.serve --ckpt-dir --packed --layout xwT``, backend cuda, bf16
+    compute), and the restored weights in float32 compute through
+    ``cuda`` and ``reference`` with equal tokens (float32: the backends'
+    sums in another order must not flip a bf16 rounding, phase 6's
+    reason)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+
+    ckpt_dir = os.path.join(tmp, "full")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    summary = train_main(TRAIN_FULL_ARGS + ["--ckpt-dir", ckpt_dir])
+    train_s = time.time() - t0
+    gc.collect()              # the trainer's closures hold the model
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"12b: the masked train step launched DeMM "
+                             f"kernels {counts}")
+    del summary["params"]                # the trained tensors
+    losses = summary["losses"]
+    report = {
+        "losses": losses, "step_seconds": summary["step_seconds"],
+        "step_seconds_after_first": summary["step_seconds"][1:],
+        "peak_device_gb": summary["peak_device_bytes"] / 1e9,
+        "ckpt_gb": summary["ckpt_bytes"] / 1e9,
+        "ckpt_save_seconds": summary["ckpt_save_seconds"],
+        "n_params": summary["n_params"], "train_main_seconds": train_s}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    engine = serve_main(["--arch", "stablelm_3b", "--full", "--ckpt-dir",
+                         ckpt_dir, "--packed", "--layout", "xwT",
+                         "--requests", "4", "--max-new", "8", "--backend",
+                         "cuda"])
+    cli_launches = read_counts()
+    if len(engine.completed) != 4 or not cli_launches["demm_xwT"]:
+        raise AssertionError(f"12b: the CLI served {len(engine.completed)} "
+                             f"requests, K1 launches {cli_launches}")
+    report["cli_serve_seconds"] = time.time() - t0
+    report["cli_tokens"] = {r.uid: list(r.output) for r in engine.completed}
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cfg = dataclasses.replace(get_arch("stablelm_3b"),
+                              compute_dtype="float32")
+    model, step = restored_model(cfg, ckpt_dir)
+    report["restore_seconds"] = time.time() - t0
+    tok_c, launch_c = serve_tokens(model, cfg, "cuda")
+    tok_r, _ = serve_tokens(model, cfg, "reference")
+    if tok_c != tok_r:
+        raise AssertionError(f"12b: cuda tokens {tok_c} != reference "
+                             f"{tok_r}")
+    report.update(tokens_f32=tok_c, cuda_equals_reference=True,
+                  launches_serve=cli_launches["demm_xwT"]
+                  + launch_c["demm_xwT"])
+    del model
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return report
+
+
+def sparse_run(model, cfg, ckpt_dir, injector):
+    """The reduced sparsify 8:128 + QAT int8 run under the supervisor, as
+    ``launch.train --sparsify 8:128 --qat int8`` drives it."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.sparsetrain import SparseTrainRecipe, SparseTrainer
+    from repro_torch.sparsetrain.masks import parse_schedule
+    from repro_torch.train.fault_tolerance import (SupervisorConfig,
+                                                   TrainingSupervisor)
+    from repro_torch.train.train_loop import train_params
+
+    steps = TRAIN_SPARSE_STEPS
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, total_steps=steps, warmup_steps=2)
+    trainer = SparseTrainer(model, opt_cfg, SparseTrainRecipe(
+        parse_schedule("8:128", steps, update_every=2), qat="int8"))
+    params = {n: p.clone() for n, p in train_params(model).items()}
+    trainer.init_state(params)
+    opt = adamw.init(opt_cfg, params)
+    sup = TrainingSupervisor(
+        SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=4), trainer.train_step,
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8),
+        extra_state=trainer)
+    p, o, m, restarts = sup.run(params, opt, steps, failure_injector=injector)
+    return p, o, trainer, restarts, float(m["loss"])
+
+
+def train_sparse_restart(tmp):
+    """12c: the reduced sparsify + QAT run, uninterrupted and with an
+    injected failure at step 6 (restored from step 4): parameters, AdamW
+    state and mask state bit-equal; the baked final masks verified; the
+    baked weights packed int8 in both layouts serve the same tokens through
+    ``cuda`` and ``reference``."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.launch.train import verify_final_masks
+    from repro_torch.models.families import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault_tolerance import inject_failure_once
+
+    cfg = dataclasses.replace(get_arch("stablelm_3b").reduced(),
+                              compute_dtype="float32")
+    model = build_model(cfg, device=DEVICE, seed=0)
+    torch.cuda.synchronize()
+    reset_counts()
+    pa, oa, ta, ra, loss_a = sparse_run(model, cfg, os.path.join(tmp, "a"),
+                                        None)
+    pb, ob, tb, rb, loss_b = sparse_run(
+        model, cfg, os.path.join(tmp, "b"),
+        inject_failure_once(TRAIN_FAIL_AT))
+    if any(read_counts().values()):
+        raise AssertionError("12c: the masked train step launched DeMM "
+                             "kernels")
+    if (ra, rb) != (0, 1):
+        raise AssertionError(f"12c: restarts {ra}, {rb}")
+    diff = [n for n in pa if not (torch.equal(pa[n], pb[n])
+                                  and torch.equal(oa.m[n], ob.m[n])
+                                  and torch.equal(oa.v[n], ob.v[n]))]
+    diff += [n for n, mk in ta.state["masks"].items()
+             if not torch.equal(mk, tb.state["masks"][n])]
+    if diff or int(oa.step) != int(ob.step) or \
+            int(ta.state["phase"]) != int(tb.state["phase"]) or \
+            int(ta.state["last_update"]) != int(tb.state["last_update"]):
+        raise AssertionError(f"12c: the restarted run differs from the "
+                             f"uninterrupted one at {diff[:5]}")
+    baked = ta.finalize(pa)
+    n_sparse = verify_final_masks(baked, ta.sparsity)
+    ckpt_dir = os.path.join(tmp, "baked")
+    ckpt.save({"params": baked, "opt": oa, "extra": ta.extra_state()},
+              ckpt_dir, TRAIN_SPARSE_STEPS)
+    report = {"steps": TRAIN_SPARSE_STEPS, "failed_at": TRAIN_FAIL_AT,
+              "final_loss": loss_a, "bitwise_equal_after_restart": True,
+              "sparse_linears_verified": n_sparse, "serve": {}}
+    launches = {}
+    for layout in ("xwT", "block"):
+        served, _ = restored_model(cfg, ckpt_dir)
+        pack_tree(served, layout=layout, quantize="int8")
+        tok_c, lc = serve_tokens(served, cfg, "cuda")
+        tok_r, _ = serve_tokens(served, cfg, "reference")
+        if tok_c != tok_r:
+            raise AssertionError(f"12c {layout} int8: cuda tokens {tok_c} "
+                                 f"!= reference {tok_r}")
+        kernel = mode_kernel(layout, "int8")
+        if not lc[kernel] or sum(lc.values()) != lc[kernel]:
+            raise AssertionError(f"12c {layout} int8: launches {lc}")
+        launches[kernel] = lc[kernel]
+        report["serve"][layout] = {"tokens": tok_c, "launches": lc[kernel],
+                                   "cuda_equals_reference": True}
+    report["launches"] = launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    return report
+
+
+def train_phase(gen):
+    """Phase 12 in full; returns the ``train`` report."""
+    import tempfile
+    t12 = time.time()
+    report = {}
+    t0 = time.time()
+    report["grads"] = train_grads(gen)
+    report["remat"] = train_remat_relaunch()
+    log(f"[12a train grads] K1-K4 under autograd, cuda vs the dense "
+        f"product's autograd and vs reference "
+        f"({time.time() - t0:.1f} s): {json.dumps(report['grads'])}; remat "
+        f"{json.dumps(report['remat'])}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.time()
+        report["full_width"] = train_full_width(tmp)
+        log(f"[12b train full width] launch.train "
+            f"{' '.join(TRAIN_FULL_ARGS)}, then launch.serve --ckpt-dir "
+            f"--packed ({time.time() - t0:.1f} s): "
+            f"{json.dumps(report['full_width'])}")
+        t0 = time.time()
+        report["sparse_restart"] = train_sparse_restart(
+            os.path.join(tmp, "sparse"))
+        log(f"[12c train sparsify+qat] reduced, {TRAIN_SPARSE_STEPS} steps, "
+            f"failure at {TRAIN_FAIL_AT} ({time.time() - t0:.1f} s): "
+            f"{json.dumps(report['sparse_restart'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = time.time() - t12
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -4017,6 +4513,17 @@ def main(argv=None) -> int:
             f"{json.dumps(e['eager_step_split_ms'])} | "
             f"{e['prefill_rel_l2_gap']:.3g}")
 
+    # 12. training: the packed ops under autograd, full-width
+    # launch.train and its checkpoint served packed, the reduced sparsify +
+    # QAT run restarted
+    train = train_phase(gen)
+    fw = train["full_width"]
+    log(f"[12 train] {train['seconds']:.1f} s in all; full width: losses "
+        f"{fw['losses']}, step s after the first "
+        f"{fw['step_seconds_after_first']}, peak {fw['peak_device_gb']:.2f} "
+        f"GB, checkpoint {fw['ckpt_gb']:.2f} GB in "
+        f"{fw['ckpt_save_seconds']:.1f} s; {smi}")
+
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
             "| launches/tick | tokens/s")
@@ -4131,6 +4638,18 @@ def main(argv=None) -> int:
                                  for key in ("ms", "plain_ms", "bound_ms",
                                              "library_ms")},
             "shapes": rows}
+    # phase 12's launches: the forwards under autograd (12a, the remat
+    # check's K1 launches included) and the trained checkpoints served
+    # (12b: K1, 12c: K3 and K4)
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_train"] = (
+            train["grads"]["launches"][name]
+            + (sum(train["remat"]["launches"].values())
+               if name == "demm_xwT" else 0)
+            + (train["full_width"]["launches_serve"]
+               if name == "demm_xwT" else 0)
+            + train["sparse_restart"]["launches"].get(name, 0))
     # the windowed decoders' projections (phase 7w), per layer of each
     rows_by_shape = {}
     for name in KERNELS[:4]:
@@ -4164,7 +4683,8 @@ def main(argv=None) -> int:
                     "spmm": spmm, "agree": agree, "graph": graph,
                     "flight": flight, "paged": list(paged.values()),
                     "paged_gates": paged_gate, "paged_cli": cli,
-                    "tune": tuned, "spec": spec, "windowed": windowed}))
+                    "tune": tuned, "spec": spec, "windowed": windowed,
+                    "train": train}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -230,3 +230,13 @@ def pack_params(node: SparseLinear,
     packed = pack(w, cfg)
     return PackedWeight(packed.values, packed.indices, cfg=cfg,
                         dense_shape=w.shape, layout=LAYOUT_XWT)
+
+
+def sparse_weights(model: nn.Module) -> dict:
+    """``{dotted name of the weight: SparsityConfig}`` of every masked-form
+    sparse linear (a :class:`SparseLinear` with a pattern) in ``model``, in
+    module order: the nodes that premasking, scheduled masks, fake
+    quantization and packing act on.  Packed nodes are not listed."""
+    return {f"{name}.w" if name else "w": mod.sparsity
+            for name, mod in model.named_modules()
+            if isinstance(mod, SparseLinear) and mod.sparsity is not None}

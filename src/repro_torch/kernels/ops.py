@@ -18,8 +18,21 @@ Backend dispatch routes through the ``repro_torch.tune`` kernel registry:
 New variants registered via ``repro_torch.tune.register_variant`` become
 valid backend strings here with no further changes.
 
-Forward only: the sparse-aware gradients of the JAX package come with the
-training slice of the port.  Shard-stacked weights are not ported either.
+Gradients (``torch.autograd``; the forward stays on the dispatched backend,
+on a CUDA tensor the CUDA kernel, and the backward is plain tensor ops, as
+the JAX package pairs any-backend forwards with jnp backwards):
+  dL/dx       = dy @ W_dense
+  dL/dvalues  = gather of (dyᵀ x) at the packed index positions — the
+                gradient of a sparse weight exists only at its non-zero
+                coordinates; padded slots (value 0) get exactly 0.
+  indices / active_groups are non-differentiable.
+Every op's autograd function lives in ``repro_torch.sparsetrain.vjp`` (for
+the int8 ops dx and dL/dscales exact, the int8 values non-differentiable).  A call records autograd
+history only when grad mode is on and x or a float operand requires grad;
+serving (under ``torch.inference_mode``) calls the variant directly.  A
+draft-tier view is serving-only: under grad it raises.  Shard-stacked
+weights are not ported.
+
 A draft-tier view (``PackedWeight.tier_ne``, ``repro_torch.spec``) is
 narrowed to prefix views of its tensors before any dispatch decision, so
 ``auto`` keys on the narrowed problem, as the JAX package does, and the
@@ -84,6 +97,10 @@ def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
     narrowed weight is dispatched like any other (no copy).
     """
     if pw.tier_ne is not None:
+        if _needs_grad(x, pw.values, pw.scales):
+            raise ValueError(
+                "a draft-tier view (PackedWeight.tier_ne) is serving-only: "
+                "nothing differentiates one; run the full tier under grad")
         return demm_matmul_packed(x, narrow_tier(pw), backend)
     if pw.layout == LAYOUT_BLOCK:
         if pw.values.ndim != 4:
@@ -133,9 +150,21 @@ def demm_matmul_block(x: torch.Tensor, pw: PackedWeight,
     args = (x, pw.values, pw.indices, pw.active_groups)
     if pw.qdtype is not None:
         args += (pw.scales,)
+    params = {**params, "duplicates": pw.has_duplicates}
     with obs.annotate(f"demm/{op}/{backend}"):
-        return variant.call(*args, pw.cfg, tuple(pw.dense_shape),
-                            duplicates=pw.has_duplicates, **params)
+        if _needs_grad(x, pw.values, pw.scales):
+            from repro_torch.sparsetrain import vjp
+            fn = (vjp.xwT_block_q8_grad if pw.qdtype is not None
+                  else vjp.xwT_block_grad)
+            return fn(*args, pw.cfg, tuple(pw.dense_shape), backend, params)
+        return variant.call(*args, pw.cfg, tuple(pw.dense_shape), **params)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether a call records autograd history: grad mode on and some
+    floating operand requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _resolve(resolver, backend, params, *shape_args, device, **kw):
@@ -159,6 +188,10 @@ def demm_matmul_xwT(x, values, indices, cfg: SparsityConfig, w_shape,
     variant = tune.get_variant("xwT", backend)
     _count_dispatch("xwT", backend)
     with obs.annotate(f"demm/xwT/{backend}"):
+        if _needs_grad(x, values):
+            from repro_torch.sparsetrain.vjp import xwT_grad
+            return xwT_grad(x, values, indices, cfg, tuple(w_shape), backend,
+                            params)
         return variant.call(x, values, indices, cfg, tuple(w_shape), **params)
 
 
@@ -174,6 +207,10 @@ def demm_matmul_xwT_q8(x, values, indices, scales, cfg: SparsityConfig,
     variant = tune.get_variant("xwT_q8", backend)
     _count_dispatch("xwT_q8", backend)
     with obs.annotate(f"demm/xwT_q8/{backend}"):
+        if _needs_grad(x, scales):
+            from repro_torch.sparsetrain.vjp import xwT_q8_grad
+            return xwT_q8_grad(x, values, indices, scales, cfg,
+                               tuple(w_shape), backend, params)
         return variant.call(x, values, indices, scales, cfg, tuple(w_shape),
                             **params)
 

@@ -43,6 +43,11 @@ e.g. ``--sparsity 8:16 --spec-draft 6:16``, so the packed pattern has a tier
 to narrow) and verifies the window in one full-tier program; it requires
 ``--packed``, and the token stream is the one served without it.
 
+``--ckpt-dir DIR`` (``--ckpt-step N``, default the latest) restores the
+parameters of a ``repro_torch.launch.train`` checkpoint into the model before
+it is packed and served — match ``--arch`` and ``--full`` to how it was
+trained; every leaf's shape is checked against the model first.
+
 ``--temperature``/``--top-k`` select replay-safe coupled sampling (0 =
 greedy).  ``--trace-replay trace.jsonl`` replays a
 ``benchmarks/serve_bench.py`` trace at its logical arrival ticks, with prompt
@@ -68,6 +73,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -195,6 +201,47 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     return engine
 
 
+def restore_checkpoint(model, ckpt_dir: str, step=None) -> int:
+    """Load the parameters of the ``launch.train`` checkpoint in
+    ``ckpt_dir`` (``step``, default the latest) into ``model``, in place,
+    after checking every leaf's shape against the model.  Returns the step.
+    Raises ``ValueError`` for a missing checkpoint, a missing leaf or a
+    shape that does not fit (another ``--arch``, or the other of
+    full / reduced)."""
+    from repro_torch.core.treeutil import key_path_str
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import load_params, train_params
+
+    if step is None:
+        step = ckpt.latest_step(ckpt_dir)
+        if step is None:
+            raise ValueError(f"--ckpt-dir {ckpt_dir} holds no checkpoints")
+    template = train_params(model)
+    manifest = os.path.join(ckpt_dir, f"step_{step:08d}", "manifest.json")
+    with open(manifest) as f:
+        shapes = {e["path"]: tuple(e.get("shape", ()))
+                  for e in json.load(f)["leaves"]}
+    missing = [n for n in template if key_path_str(("params", n))
+               not in shapes]
+    if missing:
+        raise ValueError(
+            f"checkpoint {ckpt_dir} step {step} lacks {len(missing)} leaves "
+            f"of the {model.cfg.name} parameters (first: {missing[0]}) — "
+            "was it trained with a different --arch?")
+    mismatch = [f"  {n}: checkpoint {shapes[key_path_str(('params', n))]} "
+                f"vs model {tuple(t.shape)}" for n, t in template.items()
+                if shapes[key_path_str(("params", n))] != tuple(t.shape)]
+    if mismatch:
+        raise ValueError(
+            f"checkpoint {ckpt_dir} step {step} does not fit the "
+            f"{model.cfg.name} config (was it trained with the other of "
+            "--full / reduced, or a different --arch?):\n"
+            + "\n".join(mismatch[:8]))
+    restored = ckpt.restore({"params": template}, ckpt_dir, step)["params"]
+    load_params(model, restored)
+    return step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="stablelm_3b")
@@ -255,6 +302,12 @@ def main(argv=None):
                          "row-block x group x row)")
     ap.add_argument("--full", action="store_true",
                     help="serve the full (non-reduced) config")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore trained params from this launch.train "
+                         "checkpoint directory before packing (--packed "
+                         "then serves the trained sparse model)")
+    ap.add_argument("--ckpt-step", type=int, default=None,
+                    help="checkpoint step to restore (default: latest)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; refused when no CUDA device is "
                          "present) or cpu")
@@ -350,6 +403,12 @@ def main(argv=None):
         n, m = parse_tier(args.sparsity)
         cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(n, m, 1))
     model = build_model(cfg, device=device, seed=args.seed)
+    if args.ckpt_dir:
+        try:
+            step = restore_checkpoint(model, args.ckpt_dir, args.ckpt_step)
+        except (OSError, ValueError) as e:
+            ap.error(str(e))
+        log.info("restored params", ckpt_dir=args.ckpt_dir, step=step)
     profile_ctx = (obs.profile(args.profile_dir) if args.profile_dir
                    else contextlib.nullcontext())
     guard_ctx = (recorder.guard() if recorder is not None
@@ -417,6 +476,7 @@ def main(argv=None):
                     "--force-stall: no flight dump appeared within 30s")
             log.info("flight dump written", dumps=recorder.dumps)
         recorder.close()
+    return engine
 
 
 if __name__ == "__main__":

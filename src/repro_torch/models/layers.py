@@ -183,6 +183,11 @@ class Embedding(nn.Module):
         self._casts = {}
 
     def forward(self, tokens):
+        if torch.is_grad_enabled() and self.table.requires_grad:
+            # under grad: the embedding op, whose backward sums the rows of
+            # repeated tokens in a fixed order on the card (an indexed read's
+            # backward accumulates with atomics, in no fixed order)
+            return torch.nn.functional.embedding(tokens, self.table)
         return self.table[tokens]
 
     def table_as(self, dtype: torch.dtype) -> torch.Tensor:
@@ -191,6 +196,8 @@ class Embedding(nn.Module):
         t = self.table
         if t.dtype == dtype:
             return t
+        if torch.is_grad_enabled() and t.requires_grad:
+            return t.to(dtype)      # a training step: the cast carries grad
         # an inference tensor has no version counter (nor can it change
         # outside inference mode)
         key = (None if t.is_inference() else t._version, t.data_ptr())

@@ -26,17 +26,27 @@ Decode caches:
   ratio, ...), ``tail`` and ``global_k`` / ``global_v`` for
   ``local_global``).
 
-Whole-sequence prefill, decode against any of these caches and chunked
-prefill into the paged arena are ported; training loss, experts and the
-other families come with later slices.
+Whole-sequence prefill, decode against any of these caches, chunked
+prefill into the paged arena and the training loss (``train_loss``, also
+the module's ``forward``, so that ``torch.func.functional_call`` runs it on
+substituted parameters) are ported; experts and the other families come
+with later slices.
+
+Training under grad rematerializes per layer (``cfg.remat``): ``full``
+recomputes a layer's forward in the backward pass, ``dots`` saves the
+matmul outputs without batch dims (``aten.mm`` / ``addmm``, as
+``dots_with_no_batch_dims_saveable`` does in the JAX package) and
+recomputes the rest, ``none`` keeps everything.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_linear import resolve_policy
@@ -135,6 +145,10 @@ class TBlock(nn.Module):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn_block, ln2, mlp
 
+    def forward(self, x, cfg, **kw):
+        """:func:`apply_tblock_seq` of this block."""
+        return apply_tblock_seq(self, x, cfg, **kw)
+
 
 def init_tblock(cfg: ArchConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32) -> TBlock:
@@ -167,6 +181,57 @@ def apply_tblock_seq(blk: TBlock, x, cfg: ArchConfig, *, window,
     x = x + h
     h = apply_mlp(blk.mlp, apply_rmsnorm(blk.ln2, x), policy=policy)
     return x + h
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products without batch dims, recompute
+    everything else."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(blk: TBlock, x, cfg: ArchConfig, **kw):
+    """One block over x under ``cfg.remat`` (plain when nothing records
+    gradients: grad mode off, or neither x nor a tensor of the block
+    requiring grad).
+
+    The block's tensors are passed to the checkpoint as inputs and put back
+    into the block (``functional_call``) each time it runs: the backward
+    pass recomputes after a caller's ``functional_call`` has restored the
+    module's own tensors, and must see the ones of the forward pass."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; expected none, full "
+                         "or dots")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return apply_tblock_seq(blk, x, cfg, **kw)
+    tensors = {**dict(blk.named_parameters()), **dict(blk.named_buffers())}
+    if not (x.requires_grad
+            or any(t.requires_grad for t in tensors.values())):
+        return apply_tblock_seq(blk, x, cfg, **kw)
+    names = list(tensors)
+
+    def run(x, *ts):
+        return torch.func.functional_call(blk, dict(zip(names, ts)),
+                                          (x, cfg), kw)
+
+    extra = {}
+    if cfg.remat == "dots":
+        extra["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(run, x, *tensors.values(), use_reentrant=False,
+                            **extra)
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over every position, in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None].to(torch.int64),
+                                dim=-1)[..., 0]
+    return (lse - gold).mean()
 
 
 def _check_ported(cfg: ArchConfig):
@@ -230,7 +295,7 @@ class DecoderLM(nn.Module):
         gemma3's local layers (a period's first ``ratio`` and the tail)."""
         cfg = self.cfg
         for blk, window in zip(self.layers, layer_windows(cfg)):
-            x = apply_tblock_seq(
+            x = _remat_layer(
                 blk, x, cfg, window=window,
                 static_window=None if window == FULL_WINDOW else window,
                 positions=positions, policy=policy)
@@ -240,6 +305,28 @@ class DecoderLM(nn.Module):
         """The embedded tokens (B, T, D) of ``batch["tokens"]`` (text only:
         the vision stub's patch embeddings belong to a family not ported)."""
         return apply_embedding(self.embed, batch["tokens"]).to(dtype)
+
+    # ---- training ----
+    def train_loss(self, batch, *, policy=None):
+        """``(loss + aux, {"xent", "aux"})`` of ``batch`` ({"tokens",
+        "targets"} (B, T)): the mean next-token cross-entropy of the whole
+        sequence (aux is 0 for the dense decoders, the experts' load-balance
+        loss in the JAX package's MoE family)."""
+        policy = resolve_policy(policy)
+        cfg = self.cfg
+        dtype = dtype_of(cfg.compute_dtype)
+        x = self._embed_inputs(batch, dtype)
+        t = x.shape[1]
+        x = self._backbone_seq(x, positions=torch.arange(t, device=x.device),
+                               policy=policy)
+        logits = apply_unembedding(self.unembed, x, cfg.vocab_size)
+        loss = softmax_xent(logits, batch["targets"])
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss + aux, {"xent": loss, "aux": aux}
+
+    def forward(self, batch, *, policy=None):
+        """The training loss (:meth:`train_loss`)."""
+        return self.train_loss(batch, policy=policy)
 
     # ---- serving ----
     def prefill(self, batch, *, max_len: Optional[int] = None, policy=None):

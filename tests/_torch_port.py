@@ -55,3 +55,30 @@ def jax_model_and_params(jcfg, seed=0):
 
 def to_torch_model(params, tcfg):
     return from_jax_params(jax_tree_to_numpy(params), tcfg, device="cpu")
+
+
+def port_named(tree):
+    """The JAX package's decoder tree (params, grads, masks or AdamW
+    moments) as ``{port parameter name: numpy array}``: the stacked layer
+    axis split into ``layers.<i>``, ``Static`` nodes and None leaves left
+    out — the names ``repro_torch.train.train_loop.train_params`` gives."""
+    out = {}
+
+    def walk(node, prefix, layer):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k, layer)
+        elif isinstance(node, Static) or node is None:
+            return
+        else:
+            a = np.asarray(node)
+            out[prefix] = a if layer is None else a[layer]
+
+    for k, v in tree.items():
+        if k == "layers":
+            n = jax.tree.leaves(v)[0].shape[0]
+            for i in range(n):
+                walk(v, f"layers.{i}", i)
+        else:
+            walk(v, k, None)
+    return out

@@ -31,7 +31,14 @@ for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm"
           "repro_torch.paged.kv_cache", "repro_torch.paged.prefill",
           "repro_torch.paged.scheduler", "repro_torch.tune",
           "repro_torch.tune.autotune", "repro_torch.tune.cache",
-          "repro_torch.tune.registry"):
+          "repro_torch.tune.registry", "repro_torch.core.treeutil",
+          "repro_torch.core.pruning", "repro_torch.data.pipeline",
+          "repro_torch.optim.adamw", "repro_torch.sparsetrain",
+          "repro_torch.sparsetrain.masks", "repro_torch.sparsetrain.qat",
+          "repro_torch.sparsetrain.recipes", "repro_torch.sparsetrain.ste",
+          "repro_torch.sparsetrain.vjp", "repro_torch.train.checkpoint",
+          "repro_torch.train.fault_tolerance",
+          "repro_torch.train.train_loop", "repro_torch.launch.train"):
     assert n in names, n
 print("IMPORTED", len(names))
 """
@@ -122,6 +129,27 @@ def test_serving_refuses_to_start_without_a_cuda_device():
         main(["--requests", "1"])                    # CLI default: cuda
     with pytest.raises(SystemExit):
         main(["--requests", "1", "--paged"])
+
+
+def test_training_refuses_to_start_without_a_cuda_device(tmp_path,
+                                                         capsys):
+    """``launch.train`` runs on the card unless ``--device cpu`` is given;
+    gradient compression is refused by name."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from repro_torch.launch.train import main
+    d = str(tmp_path / "ckpt")
+    with pytest.raises(SystemExit):
+        main(["--steps", "1", "--ckpt-dir", d])      # CLI default: cuda
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--steps", "1", "--ckpt-dir", d,
+              "--compression", "topk"])
+    err = capsys.readouterr().err
+    assert "--compression" in err and "not ported" in err
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--qat", "int8", "--ckpt-dir", d])
+    assert not os.path.exists(d)
 
 
 def test_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
