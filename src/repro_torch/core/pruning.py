@@ -60,7 +60,7 @@ def masked_weight(w: torch.Tensor, cfg: SparsityConfig) -> torch.Tensor:
     return straight_through_mask(w, prune_mask(w.detach(), cfg))
 
 
-def _top_k(score: torch.Tensor, k: int):
+def top_k_stable(score: torch.Tensor, k: int):
     """(values, indices) of the ``k`` largest along the last axis, the lower
     index first among equal values (``lax.top_k``'s order)."""
     vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
@@ -96,10 +96,10 @@ def rigl_update_mask(w: torch.Tensor, mask: torch.Tensor, grad: torch.Tensor,
     mg = mask.reshape(shape).to(torch.bool)
 
     # Keep the n_keep largest-|w| currently-active slots...
-    keep_vals, keep_idx = _top_k(torch.where(mg, wg, neg), n_keep)
+    keep_vals, keep_idx = top_k_stable(torch.where(mg, wg, neg), n_keep)
     keep_oh = _one_hot_set(shape, keep_idx, keep_vals > neg)
     # ...and regrow the n_regrow largest-|grad| slots not kept.
-    grow_vals, grow_idx = _top_k(torch.where(keep_oh, neg, gg), n_regrow)
+    grow_vals, grow_idx = top_k_stable(torch.where(keep_oh, neg, gg), n_regrow)
     grow_oh = _one_hot_set(shape, grow_idx, grow_vals > neg)
     return (keep_oh | grow_oh).reshape(r, kdim)
 

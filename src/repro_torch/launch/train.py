@@ -6,7 +6,10 @@
 trains the full-width model on the card (``--device`` defaults to ``cuda``,
 and the program refuses to start without a CUDA device); ``--device cpu``
 trains on the CPU on purpose, and then reduced (the tiny same-family config)
-unless ``--full`` is given.
+unless ``--full`` is given.  ``--arch`` takes every architecture: a
+``vision`` frontend's batches get ``patch_embeds`` and the ``audio``
+family's ``frames`` (:func:`add_frontend_inputs`, from a numpy generator
+seeded 0, as the reference makes them).
 
 The step is the JAX package's default: masked dense with the N:M masks
 applied once per step, straight-through gradients, AdamW with global-norm
@@ -45,9 +48,28 @@ import argparse
 import os
 import time
 
+import numpy as np
+
 from repro_torch import obs
 from repro_torch.configs.base import ARCH_IDS, get_arch
 from repro_torch.device import require_device
+
+
+def add_frontend_inputs(cfg, batch: dict, rng) -> dict:
+    """The stub frontends' inputs of a batch, as the reference's
+    ``launch.train.add_frontend_inputs`` makes them from its numpy
+    generator: ``patch_embeds`` (B, num_patches, D) for a ``vision``
+    frontend, ``frames`` (B, T / encoder_seq_divisor, D) for the ``audio``
+    family, standard normal float32."""
+    if cfg.frontend == "vision":
+        b, t = batch["tokens"].shape
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        b, t = batch["tokens"].shape
+        batch["frames"] = rng.standard_normal(
+            (b, t // cfg.encoder_seq_divisor, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def verify_final_masks(params: dict, sparsity: dict) -> int:
@@ -68,7 +90,8 @@ def _dir_bytes(path: str) -> int:
 
 
 def main(argv=None) -> dict:
-    """Train; returns a summary (losses by step, step seconds, restarts, the
+    """Train; returns a summary (losses and aux losses by step, step
+    seconds, restarts, the
     final checkpoint's directory, bytes and save seconds, the device's peak
     memory) and, under ``"params"``, the trained parameters."""
     ap = argparse.ArgumentParser()
@@ -132,7 +155,6 @@ def main(argv=None) -> dict:
     # the full config on the card; on the CPU reduced unless --full
     reduced = args.reduced or (device.type == "cpu" and not args.full)
 
-    import numpy as np
     import torch
 
     from repro_torch.data.pipeline import DataConfig
@@ -186,6 +208,7 @@ def main(argv=None) -> dict:
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
+    rng = np.random.default_rng(0)
     recorder = None
     if args.flight_dir:
         recorder = obs.FlightRecorder(
@@ -193,16 +216,21 @@ def main(argv=None) -> dict:
         recorder.install_signal_handlers()
     sup = TrainingSupervisor(
         SupervisorConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
-        step_fn, data_cfg, extra_state=trainer, recorder=recorder,
+        step_fn, data_cfg,
+        to_batch=lambda b: add_frontend_inputs(cfg, b, rng),
+        extra_state=trainer, recorder=recorder,
         metrics=obs.MetricsRegistry())      # this run's steps and saves only
 
     t0 = time.time()
     loss_by_step = {}       # keyed by step: a restart's replays overwrite
+    aux_by_step = {}        # the experts' load-balancing loss, if any
     orig_step = sup.train_step
 
     def logging_step(p, o, b, s):
         p, o, m = orig_step(p, o, b, s)
         loss_by_step[s] = float(m["loss"])
+        if "aux" in m:
+            aux_by_step[s] = float(m["aux"])
         if s % args.log_every == 0:
             log.info(f"step {s:5d}", loss=round(loss_by_step[s], 4),
                      gnorm=round(float(m["grad_norm"]), 3),
@@ -257,6 +285,7 @@ def main(argv=None) -> dict:
         "arch": cfg.name, "reduced": reduced, "device": str(device),
         "n_params": n_params, "restarts": restarts,
         "losses": [loss_by_step[s] for s in sorted(loss_by_step)],
+        "aux": [aux_by_step[s] for s in sorted(aux_by_step)],
         "step_seconds": [seconds_by_step[s] for s in sorted(seconds_by_step)],
         "ckpt_dir": args.ckpt_dir, "ckpt_step": args.steps,
         "ckpt_bytes": _dir_bytes(final),

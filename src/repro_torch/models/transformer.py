@@ -1,4 +1,6 @@
-"""Model assembly: the decoder LM of the ``dense`` family.
+"""Model assembly: the decoder LM (the ``dense``, ``moe`` and ``vlm``
+families), the transformer block and the per-block rematerialisation that
+every family shares.
 
     model = build_model(cfg, device=...)          # models/families.py
     logits, state = model.prefill({"tokens": tokens}, max_len=...)
@@ -13,7 +15,11 @@ Python loop over layers takes the place of the JAX package's scan over a
 stacked layer axis).  Attention is full, sliding-window (``swa``: every
 layer sees the last ``window`` positions) or ``local_global`` (gemma3:
 periods of ``local_global_ratio`` local layers with ``local_window`` and one
-global layer, then a tail of local layers).
+global layer, then a tail of local layers).  A block's feed-forward is the
+gated MLP or, with ``cfg.moe``, the experts (``models/moe.py``), whose
+load-balancing loss ``train_loss`` adds; a ``vision`` frontend prepends the
+projected patch embeddings (``batch["patch_embeds"]``) to the tokens, and
+the loss skips their positions.
 
 Decode caches:
 
@@ -29,14 +35,13 @@ Decode caches:
 Whole-sequence prefill, decode against any of these caches, chunked
 prefill into the paged arena and the training loss (``train_loss``, also
 the module's ``forward``, so that ``torch.func.functional_call`` runs it on
-substituted parameters) are ported; experts and the other families come
-with later slices.
+substituted parameters) are ported.
 
-Training under grad rematerializes per layer (``cfg.remat``): ``full``
-recomputes a layer's forward in the backward pass, ``dots`` saves the
-matmul outputs without batch dims (``aten.mm`` / ``addmm``, as
-``dots_with_no_batch_dims_saveable`` does in the JAX package) and
-recomputes the rest, ``none`` keeps everything.
+Training under grad rematerializes per block (``cfg.remat``, through
+:func:`remat_call`): ``full`` recomputes a block's forward in the backward
+pass, ``dots`` saves the matmul outputs without batch dims (``aten.mm`` /
+``addmm``, as ``dots_with_no_batch_dims_saveable`` does in the JAX package)
+and recomputes the rest, ``none`` keeps everything.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparse_linear import resolve_policy
 from repro_torch.device import require_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_embedding,
     apply_linear,
@@ -61,6 +67,7 @@ from repro_torch.models.layers import (
     apply_unembedding,
     dtype_of,
     init_embedding,
+    init_linear,
     init_mlp,
     init_rmsnorm,
     rope_tables,
@@ -139,48 +146,85 @@ def layer_windows(cfg: ArchConfig) -> list:
 
 
 class TBlock(nn.Module):
-    """Standard transformer block: attention + gated MLP, pre-norm."""
+    """Transformer block, pre-norm: attention, then the gated MLP (``mlp``)
+    or the experts (``moe``); a decoder block of the encoder-decoder family
+    also cross-attends to the encoder's output (``ln_x``, ``xattn``)
+    between the two."""
 
-    def __init__(self, ln1, attn_block, ln2, mlp):
+    def __init__(self, ln1, attn_block, ln2, mlp=None, *, moe=None,
+                 ln_x=None, xattn=None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn_block, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attn_block, ln2
+        if xattn is not None:
+            self.ln_x, self.xattn = ln_x, xattn
+        if moe is not None:
+            self.moe = moe
+        else:
+            self.mlp = mlp
 
-    def forward(self, x, cfg, **kw):
-        """:func:`apply_tblock_seq` of this block."""
-        return apply_tblock_seq(self, x, cfg, **kw)
 
-
-def init_tblock(cfg: ArchConfig, *, generator: torch.Generator, device,
+def init_tblock(cfg: ArchConfig, *, cross: bool = False,
+                generator: torch.Generator, device,
                 dtype=torch.float32) -> TBlock:
+    """A block of ``cfg``: attention sparse when ``attn_qkv`` is in the
+    sparse scope, the MLP when ``mlp`` is (the experts are dense), and with
+    ``cross`` a dense cross-attention."""
     d = cfg.d_model
     sp = cfg.sparsity
-    return TBlock(
-        init_rmsnorm(d, device=device, dtype=dtype),
-        attn.init_attention(
-            d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-            sparse=sp if "attn_qkv" in cfg.sparse_scope else None,
-            generator=generator, device=device, dtype=dtype),
-        init_rmsnorm(d, device=device, dtype=dtype),
-        init_mlp(d, cfg.d_ff,
-                 sparse=sp if "mlp" in cfg.sparse_scope else None,
-                 generator=generator, device=device, dtype=dtype))
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    heads = (d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    parts = dict(
+        ln1=init_rmsnorm(d, device=device, dtype=dtype),
+        attn_block=attn.init_attention(
+            *heads, sparse=sp if "attn_qkv" in cfg.sparse_scope else None,
+            **kw),
+        ln2=init_rmsnorm(d, device=device, dtype=dtype))
+    if cross:
+        parts["ln_x"] = init_rmsnorm(d, device=device, dtype=dtype)
+        parts["xattn"] = attn.init_attention(*heads, sparse=None, **kw)
+    if cfg.moe is not None:
+        parts["moe"] = moe_mod.init_moe(d, cfg.moe, **kw)
+    else:
+        parts["mlp"] = init_mlp(
+            d, cfg.d_ff, sparse=sp if "mlp" in cfg.sparse_scope else None,
+            **kw)
+    return TBlock(**parts)
+
+
+def block_ffn(blk: TBlock, x, cfg: ArchConfig, policy):
+    """The block's feed-forward of x (pre-norm ``ln2``, no residual): (out,
+    aux), aux the experts' load-balancing loss, a 0-d tensor, or the number
+    0.0 for an MLP (no kernel is spent on a zero)."""
+    h = apply_rmsnorm(blk.ln2, x)
+    if hasattr(blk, "moe"):
+        return moe_mod._apply_moe_local(blk.moe, h, cfg.moe)
+    return apply_mlp(blk.mlp, h, policy=policy), 0.0
 
 
 def apply_tblock_seq(blk: TBlock, x, cfg: ArchConfig, *, window,
-                     positions=None, static_window=None, policy):
-    """A block over a whole sequence x (B, T, D): causal self-attention
-    (the JAX package's cross-attention branch and non-causal encoder blocks
-    belong to the encoder-decoder family, not ported) and the gated MLP,
-    each pre-norm and residual."""
+                     positions=None, enc_out=None, causal=True,
+                     static_window=None, policy):
+    """A block over a whole sequence x (B, T, D): self-attention (causal
+    unless ``causal`` is False, as in the encoder), the cross-attention to
+    ``enc_out`` when the block has one (non-causal, no rotary embedding),
+    and the feed-forward, each pre-norm and residual.  Returns (x, aux)."""
     h = apply_rmsnorm(blk.ln1, x)
     h = attn.apply_attention(
         blk.attn, h, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        positions=positions, window=window, static_window=static_window,
-        policy=policy)
+        positions=positions, causal=causal, window=window,
+        static_window=static_window, policy=policy)
     x = x + h
-    h = apply_mlp(blk.mlp, apply_rmsnorm(blk.ln2, x), policy=policy)
-    return x + h
+    if hasattr(blk, "xattn") and enc_out is not None:
+        h = apply_rmsnorm(blk.ln_x, x)
+        h = attn.apply_attention(
+            blk.xattn, h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, causal=False, window=-1,
+            kv_x=enc_out, policy=policy)
+        x = x + h
+    h, aux = block_ffn(blk, x, cfg, policy)
+    return x + h, aux
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -193,32 +237,50 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_layer(blk: TBlock, x, cfg: ArchConfig, **kw):
-    """One block over x under ``cfg.remat`` (plain when nothing records
-    gradients: grad mode off, or neither x nor a tensor of the block
-    requiring grad).
+class _Bound(nn.Module):
+    """``fn(*modules, *args)`` as a module's forward: what a checkpoint
+    re-enters with ``functional_call`` on the modules' tensors."""
 
-    The block's tensors are passed to the checkpoint as inputs and put back
-    into the block (``functional_call``) each time it runs: the backward
+    def __init__(self, fn, modules):
+        super().__init__()
+        self.fn = fn
+        self.mods = nn.ModuleList(modules)
+
+    def forward(self, *args, **kw):
+        return self.fn(*self.mods, *args, **kw)
+
+
+def remat_call(remat: str, fn, modules, x, **kw):
+    """``fn(*modules, x, **kw)`` under ``remat`` (a config's ``remat``): a
+    layer, or a whole period of layers (the hybrid's mamba layers and
+    shared block, an xLSTM superblock) as the JAX package checkpoints its
+    scan bodies.  Plain when
+    nothing records gradients (grad mode off, or neither x nor a tensor of
+    the modules requiring grad).
+
+    The modules' tensors are passed to the checkpoint as inputs and put
+    back into them (``functional_call``) each time ``fn`` runs: the backward
     pass recomputes after a caller's ``functional_call`` has restored the
-    module's own tensors, and must see the ones of the forward pass."""
-    if cfg.remat not in ("none", "full", "dots"):
-        raise ValueError(f"unknown remat {cfg.remat!r}; expected none, full "
+    modules' own tensors, and must see the ones of the forward pass."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}; expected none, full "
                          "or dots")
-    if cfg.remat == "none" or not torch.is_grad_enabled():
-        return apply_tblock_seq(blk, x, cfg, **kw)
-    tensors = {**dict(blk.named_parameters()), **dict(blk.named_buffers())}
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*modules, x, **kw)
+    bound = _Bound(fn, modules)
+    tensors = {**dict(bound.named_parameters()),
+               **dict(bound.named_buffers())}
     if not (x.requires_grad
             or any(t.requires_grad for t in tensors.values())):
-        return apply_tblock_seq(blk, x, cfg, **kw)
+        return fn(*modules, x, **kw)
     names = list(tensors)
 
     def run(x, *ts):
-        return torch.func.functional_call(blk, dict(zip(names, ts)),
-                                          (x, cfg), kw)
+        return torch.func.functional_call(bound, dict(zip(names, ts)),
+                                          (x,), kw)
 
     extra = {}
-    if cfg.remat == "dots":
+    if remat == "dots":
         extra["context_fn"] = functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _dots_policy)
     return _ckpt.checkpoint(run, x, *tensors.values(), use_reentrant=False,
@@ -234,26 +296,30 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (lse - gold).mean()
 
 
-def _check_ported(cfg: ArchConfig):
-    if (cfg.attention not in ("full", "swa", "local_global")
-            or cfg.moe is not None or cfg.ssm is not None
-            or cfg.frontend is not None or cfg.encoder_layers):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense decoders (full, swa or local_global "
-            f"attention) are ported so far (attention={cfg.attention!r}, "
-            f"moe={cfg.moe is not None}, ssm={cfg.ssm is not None}, "
-            f"frontend={cfg.frontend!r})")
+class LM(nn.Module):
+    """What every family's model shares: the device its embedding lives on,
+    and ``forward`` = ``train_loss`` (what ``functional_call`` runs)."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def forward(self, batch, *, policy=None):
+        """The training loss (:meth:`train_loss`)."""
+        return self.train_loss(batch, policy=policy)
 
 
-class DecoderLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, embed, unembed, final_norm, layers):
+class DecoderLM(LM):
+    def __init__(self, cfg: ArchConfig, embed, unembed, final_norm, layers,
+                 patch_proj=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = embed
         self.unembed = unembed
         self.final_norm = final_norm
         self.layers = nn.ModuleList(layers)
+        if patch_proj is not None:      # the vision stub's frontend
+            self.patch_proj = patch_proj
 
     @classmethod
     def init(cls, cfg: ArchConfig, *, device,
@@ -262,7 +328,6 @@ class DecoderLM(nn.Module):
         """Random weights from ``generator`` (or a fresh one seeded with
         ``seed``), created on ``device`` layer by layer so that nothing but
         the weights themselves is ever resident."""
-        _check_ported(cfg)
         device = require_device(device)
         if generator is None:
             generator = torch.Generator(device=device)
@@ -274,11 +339,10 @@ class DecoderLM(nn.Module):
             init_embedding(cfg.padded_vocab, cfg.d_model, **kw),
             init_embedding(cfg.padded_vocab, cfg.d_model, **kw),
             init_rmsnorm(cfg.d_model, device=device, dtype=dtype),
-            [init_tblock(cfg, **kw) for _ in range(cfg.num_layers)])
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.table.device
+            [init_tblock(cfg, **kw) for _ in range(cfg.num_layers)],
+            patch_proj=(init_linear(cfg.d_model, cfg.d_model, sparse=None,
+                                    name="patch_proj", **kw)
+                        if cfg.frontend == "vision" else None))
 
     # ---- whole-sequence forward ----
     def _lg_layout(self):
@@ -289,44 +353,53 @@ class DecoderLM(nn.Module):
         return period, n_p, cfg.num_layers - n_p * period
 
     def _backbone_seq(self, x, *, positions, policy):
-        """The layers and the final norm over x (B, T, D).  Windowed layers
-        take their window as ``static_window``, so their attention visits
-        only the key chunks that meet the band: every layer of ``swa``,
-        gemma3's local layers (a period's first ``ratio`` and the tail)."""
+        """The layers and the final norm over x (B, T, D), and the sum of
+        the layers' aux losses.  Windowed layers take their window as
+        ``static_window``, so their attention visits only the key chunks
+        that meet the band: every layer of ``swa``, gemma3's local layers (a
+        period's first ``ratio`` and the tail)."""
         cfg = self.cfg
+        aux = 0.0
         for blk, window in zip(self.layers, layer_windows(cfg)):
-            x = _remat_layer(
-                blk, x, cfg, window=window,
-                static_window=None if window == FULL_WINDOW else window,
+            x, a = remat_call(
+                cfg.remat, apply_tblock_seq, [blk], x, cfg=cfg,
+                window=window, static_window=None if window == FULL_WINDOW else window,
                 positions=positions, policy=policy)
-        return apply_rmsnorm(self.final_norm, x)
+            aux = aux + a
+        return apply_rmsnorm(self.final_norm, x), aux
 
     def _embed_inputs(self, batch, dtype):
-        """The embedded tokens (B, T, D) of ``batch["tokens"]`` (text only:
-        the vision stub's patch embeddings belong to a family not ported)."""
-        return apply_embedding(self.embed, batch["tokens"]).to(dtype)
+        """The embedded tokens (B, T, D) of ``batch["tokens"]``; with the
+        vision frontend, ``batch["patch_embeds"]`` (B, P, D) projected by
+        ``patch_proj`` and put in front (B, P + T, D)."""
+        x = apply_embedding(self.embed, batch["tokens"]).to(dtype)
+        if self.cfg.frontend == "vision":
+            pe = apply_linear(self.patch_proj,
+                              batch["patch_embeds"].to(dtype))
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     # ---- training ----
     def train_loss(self, batch, *, policy=None):
         """``(loss + aux, {"xent", "aux"})`` of ``batch`` ({"tokens",
-        "targets"} (B, T)): the mean next-token cross-entropy of the whole
-        sequence (aux is 0 for the dense decoders, the experts' load-balance
-        loss in the JAX package's MoE family)."""
+        "targets"} (B, T), and "patch_embeds" with the vision frontend):
+        the mean next-token cross-entropy over the text positions, and the
+        experts' load-balancing loss summed over the layers (0 without
+        experts)."""
         policy = resolve_policy(policy)
         cfg = self.cfg
         dtype = dtype_of(cfg.compute_dtype)
         x = self._embed_inputs(batch, dtype)
         t = x.shape[1]
-        x = self._backbone_seq(x, positions=torch.arange(t, device=x.device),
-                               policy=policy)
+        x, aux = self._backbone_seq(
+            x, positions=torch.arange(t, device=x.device), policy=policy)
+        if cfg.frontend == "vision":   # only the text positions carry loss
+            x = x[:, cfg.num_patches:]
         logits = apply_unembedding(self.unembed, x, cfg.vocab_size)
         loss = softmax_xent(logits, batch["targets"])
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        if not torch.is_tensor(aux):   # no experts
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"xent": loss, "aux": aux}
-
-    def forward(self, batch, *, policy=None):
-        """The training loss (:meth:`train_loss`)."""
-        return self.train_loss(batch, policy=policy)
 
     # ---- serving ----
     def prefill(self, batch, *, max_len: Optional[int] = None, policy=None):
@@ -339,7 +412,7 @@ class DecoderLM(nn.Module):
         dtype = dtype_of(cfg.compute_dtype)
         x = self._embed_inputs(batch, dtype)
         b, t = x.shape[0], x.shape[1]
-        x = self._backbone_seq(
+        x, _ = self._backbone_seq(
             x, positions=torch.arange(t, device=x.device), policy=policy)
         logits = apply_unembedding(self.unembed, x[:, -1:], cfg.vocab_size)
         return logits, self.init_decode_state(b, max_len or t + 1,
@@ -407,9 +480,7 @@ class DecoderLM(nn.Module):
         return {"caches": caches, "pos": pos}
 
     def _decode_ffn(self, blk: TBlock, x, policy):
-        h = apply_rmsnorm(blk.ln2, x)
-        h = apply_mlp(blk.mlp, h, policy=policy)
-        return x + h
+        return x + block_ffn(blk, x, self.cfg, policy)[0]
 
     def _decode_full_layer(self, blk: TBlock, x, cache, pos, window, policy,
                            rope=None):

@@ -71,8 +71,15 @@ def premask_params(params: dict, sparsity: dict) -> dict:
 
 
 def _device_batch(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """The batch on ``device``: integer entries (tokens, targets) as int64,
+    float entries (a frontend's ``patch_embeds`` or ``frames``) as they
+    are."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = t.to(device=device, dtype=None if t.is_floating_point()
+                      else torch.int64)
+    return out
 
 
 def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,

@@ -15,6 +15,7 @@ from repro.core.sparse_linear import ExecPolicy as JPolicy
 from repro.launch.pack_tree import pack_tree as jax_pack_tree
 
 from _torch_port import jax_model_and_params, reduced_pair, to_torch_model
+from repro_torch.configs.base import ARCH_IDS
 from repro_torch.core.sparse_linear import ExecPolicy, SparseLinear
 from repro_torch.core.sparsity import PackedWeight
 from repro_torch.launch.pack_tree import pack_tree
@@ -146,20 +147,36 @@ def test_port_packing_equals_reference_packing(setup):
                             np.asarray(getattr(jpw, child)[i]))
 
 
-def test_unported_parts_raise():
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_resolves_and_builds(arch):
+    """Every id resolves to its config (the JAX package's, field for field)
+    and builds a reduced model of its family on the CPU, whose decode step
+    runs; an unknown id still raises ``KeyError``."""
     import dataclasses
-    from repro_torch.configs.base import MoEConfig, get_arch
+    from repro.configs.base import get_arch as jax_get_arch
+    from repro_torch.configs.base import get_arch
     from repro_torch.models.families import build_model
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("olmoe_1b_7b")
+    cfg = get_arch(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_get_arch(arch))
+    assert dataclasses.asdict(cfg.reduced()) == \
+        dataclasses.asdict(jax_get_arch(arch).reduced())
+    model = build_model(cfg.reduced(), device="cpu", seed=1)
+    assert type(model).__name__ == {"audio": "EncDecLM", "hybrid": "HybridLM",
+                                    "ssm": "XLSTMLM"}.get(cfg.family,
+                                                          "DecoderLM")
+    state = model.init_decode_state(2, 8, dtype=torch.float32)
+    with torch.inference_mode():
+        logits, _ = model.decode_step(state, torch.zeros((2, 1),
+                                                         dtype=torch.long))
+    assert tuple(logits.shape) == (2, 1, cfg.reduced().padded_vocab)
     with pytest.raises(KeyError):
         get_arch("no_such_arch")
+
+
+def test_pack_tree_layouts_and_the_ports_own_init():
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.families import build_model
     cfg = get_arch("stablelm_3b").reduced()
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, moe=MoEConfig(4, 2, 64)),
-                    device="cpu")
     model = build_model(cfg, device="cpu", seed=1)
     with pytest.raises(ValueError, match="unknown layout"):
         pack_tree(model, layout="tiles")
