@@ -299,11 +299,57 @@ unless all of them held:
               ``kernels`` line; ``launches_families``: its launches in
               phase 13); phase 3 checks the three shapes at Bx 1, 4, 37.
 
+14. dist    — distribution (``repro_torch.sharding``).  14a: the sharded
+              packed matmul ``ops._demm_matmul_sharded`` with no group in the
+              context (the sequential sum over the slices) at stablelm_3b's
+              row-parallel shapes (wo 2560 x 2560 at 5:80, down 2560 x 6912
+              at 3:48), tp 2 and 4, x of 4 and 32 rows in float32 and
+              bfloat16: K1, K3 and K2 on the renumbered slices against the
+              plain versions of the same slices and against the unsharded
+              kernel (phase 3's tolerance); K1-K4 on column-parallel blocks
+              of wq against the whole product's rows; the block weights'
+              per-shard a_max; one shard-local launch of each at tp 2 timed
+              against its byte bound and a bf16 ``torch.matmul`` of the local
+              dense slice (``tp2_local`` of each kernel in the ``kernels``
+              line).  14b: two ranks spawned under ``gloo`` (a ``file://``
+              rendezvous in a temporary directory, both on cuda:0; rank 0
+              loads the kernel library, the other waits for it) serve
+              full-width stablelm_3b under ``ShardingPlan(tp=2)``, ``--layout
+              xwT`` and ``--layout block``, float, phase 4's prompts on 4
+              slots, eager steps, in float32 compute and in phase 4's
+              bfloat16, every sampled token's logits kept; each leg is also
+              served on one rank in this process (a captured step; in
+              bfloat16 its tokens equal phase 4's).  In every leg: each
+              rank's logits are within ``DIST_LOGITS_GAP`` (relative L2) of
+              the one rank's at every token up to and including the first
+              one where the streams differ, and there the one rank's margin
+              between the two tokens is within twice the logits' largest
+              difference; in float32 the tokens are equal outright (in
+              bfloat16 the row-parallel sums round in another order, which
+              may move argmax at the random model's near-ties); the ranks'
+              streams and logits are equal; each rank holds its half of the
+              row-parallel packed bytes (xwT exactly half) and of the KV
+              cache (allocated at its local shape), its memory once placed
+              peaks below the one rank's through the drain, and its
+              wrappers launched the mode's kernel 7 x 32 per tick and
+              nothing else.  14c: the same world serves the 8-layer
+              full-width model in float32 under ``ShardingPlan(pp=2)`` (4
+              layers a rank, two microbatches of 2 slots), held to the same
+              8-layer model on one rank as 14b's legs are, 7 x 4 x 2 K1
+              launches a tick.  14d:
+              ``make_engine(replicas=2)`` on phase 4's xwT model (built and
+              packed again from its seed), two captured engines sharing its
+              tensors: every request's tokens equal the single engine's, one
+              capture and 7 x 32 x (warm-up + capture) launches per replica.
+              A rank that fails fails the phase; the parent joins the world
+              within 420 s (``launches_dist`` of each kernel in the
+              ``kernels`` line).
+
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
 "tune": {...}, "spec": {...}, "windowed": {...}, "train": {...},
-"families": {...}}``
+"families": {...}, "distribution": {...}}``
 (per kernel: wrapper launches on the dense, the paged, the speculative, the
 training and the families' paths, error, times, bound, its gather body at
 Bx = 32; per
@@ -1027,26 +1073,29 @@ def device_kernel_counts(prof) -> dict:
     return counts
 
 
-def profiled_replays(engine, cfg, expect, ticks=3, want=None, may_lose=0):
+def profiled_replays(engine, cfg, expect, ticks=3, want=None):
     """A ``torch.profiler`` window of ``ticks`` graph replays on a drained
     engine given 4 new requests: each replay must launch the expected kernel
     7 x layers times on its serving body on the device (or, given ``want``,
     {(kernel, body): launches} per replay), and no other DeMM kernel, while
-    no wrapper is called (the Python counters stay put).  ``may_lose``: the
-    replays whose records the profiler may drop (it has lost records of a
-    window's first or last graph launch in long runs).  With ``may_lose``
-    > 0 the window checks only that between ``ticks - may_lose`` and
-    ``ticks`` replays' launches were seen, not a per-replay count: the exact
-    per-replay count is then enforced only by :func:`graph_kernel_counts`
-    on the graph's own nodes, which the caller must check.  Every caller
-    but phase 11's (which checks the graph's nodes first) keeps
-    ``may_lose`` at 0.  Returns the launches of one replay (by body, given
-    ``want``: the window's counts)."""
+    no wrapper is called (the Python counters stay put).  The exact count
+    a replay launches is read from the captured step's own nodes
+    (:func:`graph_kernel_counts`: the engine must have captured under
+    :func:`graphs_kept`); the profiler has lost the records of part of a
+    window's first or last graph launch, so its window must see between
+    ``ticks - 1`` and ``ticks`` replays' launches of those kernels and no
+    other.  Returns the launches of one replay (given ``want``: the
+    window's counts)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Request
 
+    per = want or {(expect, SERVING_BODY[expect]): 7 * cfg.num_layers}
+    nodes, kernels = graph_kernel_counts(engine._graph)
+    if nodes != per:
+        raise AssertionError(f"the captured step's nodes launch {nodes} "
+                             f"({kernels} kernel nodes), expected {per}")
     rng = np.random.default_rng(7)
     for i in range(4):
         engine.submit(Request(uid=100 + i, max_new_tokens=50,
@@ -1064,18 +1113,16 @@ def profiled_replays(engine, cfg, expect, ticks=3, want=None, may_lose=0):
         raise AssertionError(f"graph replays called a kernel wrapper: "
                              f"{before} -> {read_counts()}")
     got = device_kernel_counts(prof)
-    per = want or {(expect, SERVING_BODY[expect]): 7 * cfg.num_layers}
     if set(got) != set(per) or not all(
-            (ticks - may_lose) * n <= got[kb] <= ticks * n
+            (ticks - 1) * n <= got[kb] <= ticks * n
             for kb, n in per.items()):
         raise AssertionError(
             f"{ticks} profiled replays launched {got} on the device: expected "
-            f"{per} per replay ({cfg.num_layers} layers), nothing else"
-            + (f" (records of up to {may_lose} replay(s) may be lost)"
-               if may_lose else ""))
+            f"{per} per replay ({cfg.num_layers} layers), nothing else (the "
+            f"records of up to one replay may be lost)")
     if want is not None:
         return got
-    return got[(expect, SERVING_BODY[expect])] // ticks
+    return per[(expect, SERVING_BODY[expect])]
 
 
 def serve_full_width(model, cfg, *, layout, quantize, expect):
@@ -1092,10 +1139,12 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
     requests, max_new = 4, 8
     torch.cuda.synchronize()
     reset_counts()                       # just before the main path ...
-    engine = run_serve(model, cfg.vocab_size, packed=True, layout=layout,
-                       quantize=quantize, backend="cuda", requests=requests,
-                       slots=4, max_new=max_new, max_len=64, seed=0,
-                       device=DEVICE, metrics=obs.MetricsRegistry())
+    with graphs_kept():                  # profiled_replays reads the graph
+        engine = run_serve(model, cfg.vocab_size, packed=True,
+                           layout=layout, quantize=quantize, backend="cuda",
+                           requests=requests, slots=4, max_new=max_new,
+                           max_len=64, seed=0, device=DEVICE,
+                           metrics=obs.MetricsRegistry())
     body = SERVING_BODY[expect]
     launches = check_step_counts(        # ... and just after
         expect, {(expect, body): 7 * cfg.num_layers}, CAPTURE_WARMUP + 1,
@@ -1125,6 +1174,7 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
         "launches": launches,
         "body": body,
         "first_output": engine.completed[0].output,
+        "outputs": {r.uid: list(r.output) for r in engine.completed},
     }
     entry["device_launches_per_replay"] = profiled_replays(engine, cfg,
                                                            expect)
@@ -1562,6 +1612,42 @@ def profiled_window(engine, ticks):
                     for k, t, c in rows[:14]]}
 
 
+def replay_window(engine, ticks, dispatches, graph, want, what):
+    """:func:`profiled_window` over ``ticks`` ticks of a paged engine that
+    must dispatch ``dispatches`` = (prefill chunks, decode steps), replays
+    of ``graph`` (captured under :func:`graphs_kept`) whose nodes launch
+    exactly ``want`` = {(kernel, body): launches} each (read from the graph
+    itself, :func:`graph_kernel_counts`).  The profiler has lost the
+    records of part of a window's first or last graph launch (784 and 888
+    of 896 DeMM records in two windows of four chunk replays on the H100),
+    so its DeMM records must name those kernels only and cover all but at
+    most one replay's launches; the window's device ms and launches are
+    scaled to the whole window by the share of DeMM records it kept (1
+    when none was lost), the share reported beside them, and its DeMM
+    launches are the graph's."""
+    replays = sum(dispatches)
+    got, kernels = graph_kernel_counts(graph)
+    if got != want:
+        raise AssertionError(f"{what}: the graph's nodes launch {got} "
+                             f"({kernels} kernel nodes), expected {want}")
+    window = profiled_window(engine, ticks)
+    seen = window["demm"]
+    if (window["prefill_dispatches"], window["decode_dispatches"]) \
+            != dispatches or set(seen) != set(want) or not all(
+                (replays - 1) * n <= seen[kb] <= replays * n
+                for kb, n in want.items()):
+        raise AssertionError(
+            f"{what}: expected {dispatches} dispatches and {want} per "
+            f"replay (the records of at most one replay lost): {window}")
+    share = sum(seen.values()) / (replays * sum(want.values()))
+    window["demm_records_share"] = share
+    window["device_ms_recorded"] = window["device_ms"]
+    window["device_ms"] /= share
+    window["device_launches"] /= share
+    window["demm"] = {kb: n * replays for kb, n in want.items()}
+    return window
+
+
 def paged_windows(engine, cfg, expect):
     """On a drained engine whose programs are captured: 4 requests of 129
     prompt tokens (5 chunks each) and 50 new tokens.  Tick 1 (host clock,
@@ -1569,7 +1655,9 @@ def paged_windows(engine, cfg, expect):
     decode step; once all 4 decode, 5 ticks on the host clock and 5 under
     the profiler.  Each prefill replay must launch the mode's kernel 7 x
     layers times on the gather body and each decode replay 7 x layers times
-    on its serving body, on the device, and no other DeMM kernel."""
+    on its serving body, and no other DeMM kernel (the graphs' nodes, and
+    the profiler's records: :func:`replay_window`); the engine's programs
+    must have been captured under :func:`graphs_kept`."""
     import numpy as np
     import torch
 
@@ -1582,14 +1670,8 @@ def paged_windows(engine, cfg, expect):
     engine.step()
     torch.cuda.synchronize()
     chunk_ms = 1e3 * (time.perf_counter() - t0) / 4
-    pre = profiled_window(engine, 1)
-    want = {(expect, PREFILL_BODY): per * 4}
-    if (pre["prefill_dispatches"], pre["decode_dispatches"]) != (4, 0) \
-            or pre["demm"] != want:
-        raise AssertionError(f"prefill window: {pre['prefill_dispatches']} "
-                             f"chunks, {pre['decode_dispatches']} steps, "
-                             f"DeMM launches {pre['demm']}: expected 4, 0, "
-                             f"{want}")
+    pre = replay_window(engine, 1, (4, 0), engine.prefill._graph,
+                        {(expect, PREFILL_BODY): per}, "prefill window")
     while not engine._decode_mask.all():
         engine.step()
     for _ in range(2):
@@ -1602,19 +1684,15 @@ def paged_windows(engine, cfg, expect):
     torch.cuda.synchronize()
     tick_ms = 1e3 * (time.perf_counter() - t0) / 5
     tokens_per_s = (engine._m_tokens.value - tok0) / (5 * tick_ms / 1e3)
-    dec = profiled_window(engine, 5)
-    want = {(expect, SERVING_BODY[expect]): per * 5}
-    if (dec["prefill_dispatches"], dec["decode_dispatches"]) != (0, 5) \
-            or dec["demm"] != want:
-        raise AssertionError(f"decode window: {dec['prefill_dispatches']} "
-                             f"chunks, {dec['decode_dispatches']} steps, "
-                             f"DeMM launches {dec['demm']}: expected 0, 5, "
-                             f"{want}")
+    dec = replay_window(engine, 5, (0, 5), engine._graph,
+                        {(expect, SERVING_BODY[expect]): per},
+                        "decode window")
     engine.run_until_drained()
     return {
         "prefill_chunk": {
             "ms_host_clock": chunk_ms,
             "device_ms": pre["device_ms"] / 4,
+            "demm_records_share": pre["demm_records_share"],
             "device_launches": pre["device_launches"] / 4,
             "demm_launches_by_body": {f"{k}/{b}": n // 4 for (k, b), n
                                       in pre["demm"].items()},
@@ -1623,6 +1701,7 @@ def paged_windows(engine, cfg, expect):
         "decode_tick": {
             "ms_host_clock": tick_ms, "tokens_per_s": tokens_per_s,
             "device_ms": dec["device_ms"] / 5,
+            "demm_records_share": dec["demm_records_share"],
             "busy_share": dec["device_ms"] / 5 / tick_ms,
             "device_launches": dec["device_launches"] / 5,
             "demm_launches_by_body": {f"{k}/{b}": n // 5 for (k, b), n
@@ -1711,7 +1790,8 @@ def paged_full_width(model, cfg, mode, expect):
     engine = paged_engine(model)
     submit_all(engine, prompts, PAGED_NEW)
     t0 = time.perf_counter()
-    ticks = engine.run_until_drained()
+    with graphs_kept():                  # paged_windows reads the graphs
+        ticks = engine.run_until_drained()
     t1 = time.perf_counter()
     counts = read_counts()               # ... and just after
     body_counts = read_body_counts()
@@ -2031,10 +2111,12 @@ def serve_auto(model, cfg, *, layout, quantize, expect):
     try:
         torch.cuda.synchronize()
         reset_counts()
-        engine = run_serve(model, cfg.vocab_size, packed=True, layout=layout,
-                           quantize=quantize, backend="auto", requests=4,
-                           slots=4, max_new=8, max_len=64, seed=0,
-                           device=DEVICE, metrics=obs.MetricsRegistry())
+        with graphs_kept():              # profiled_replays reads the graph
+            engine = run_serve(model, cfg.vocab_size, packed=True,
+                               layout=layout, quantize=quantize,
+                               backend="auto", requests=4, slots=4,
+                               max_new=8, max_len=64, seed=0, device=DEVICE,
+                               metrics=obs.MetricsRegistry())
         counts, body_counts = read_counts(), read_body_counts()
         outcome, dispatch = cache_counts(reg, 4)
     finally:
@@ -2116,13 +2198,15 @@ def chunk_turns(model, cfg, expect, default):
     captured) and given 4 prompts of 129 tokens; each turn profiles one
     tick of 4 non-final chunks, which must launch the mode's kernel 7 x
     layers times a chunk on the gather body and nothing else; then one
-    decode tick of each, 7 x layers launches on the serving body.  Last,
+    decode tick of each, 7 x layers launches on the serving body (the
+    graphs' nodes and the profiler's records, :func:`replay_window`: run
+    it under :func:`graphs_kept`, with ``default`` captured under it).  Last,
     both serve 2 fresh prompts of 129 tokens: the logits of each request's
     last chunk under the tuned params must lie within
     ``CHUNK_LOGITS_RTOL`` (relative L2) of the default params' — the
     tunables change only the order of a reduction, so a wrong setting shows
     as an error of order 1.  Returns the device ms of each turn and that
-    comparison."""
+    comparison (with each turn's ``demm_records_share``)."""
     import numpy as np
 
     engines = {"default": default,
@@ -2136,22 +2220,20 @@ def chunk_turns(model, cfg, expect, default):
         submit_all(engine, prompts, 3, uid0=1000)
         engine.step()                        # the first chunk of each
     per = 7 * cfg.num_layers
-    want = {(expect, PREFILL_BODY): per * 4}
-    ms = {"default": [], "tuned": []}
+    ms, share = {"default": [], "tuned": []}, {"default": [], "tuned": []}
     for name in ("default", "tuned", "tuned", "default"):
-        window = profiled_window(engines[name], 1)
-        if (window["prefill_dispatches"], window["decode_dispatches"],
-                window["demm"]) != (4, 0, want):
-            raise AssertionError(f"chunk window ({name}): {window}")
+        window = replay_window(engines[name], 1, (4, 0),
+                               engines[name].prefill._graph,
+                               {(expect, PREFILL_BODY): per},
+                               f"chunk window ({name})")
         ms[name].append(window["device_ms"] / 4)
-    want = {(expect, SERVING_BODY[expect]): per}
+        share[name].append(window["demm_records_share"])
     for name, engine in engines.items():
         while not engine._decode_mask.all():
             engine.step()
-        window = profiled_window(engine, 1)
-        if (window["prefill_dispatches"], window["decode_dispatches"],
-                window["demm"]) != (0, 1, want):
-            raise AssertionError(f"decode window ({name}): {window}")
+        replay_window(engine, 1, (0, 1), engine._graph,
+                      {(expect, SERVING_BODY[expect]): per},
+                      f"decode window ({name})")
         engine.run_until_drained()
     fresh = [rng.integers(0, cfg.vocab_size, 129, dtype=np.int32)
              for _ in range(2)]
@@ -2172,7 +2254,8 @@ def chunk_turns(model, cfg, expect, default):
                              f"from the default params' by {rel} (relative "
                              f"L2), more than {CHUNK_LOGITS_RTOL}")
     return ms, {"rel_l2": rel,
-                "bit_equal": [bool(np.array_equal(a, b)) for a, b in pairs]}
+                "bit_equal": [bool(np.array_equal(a, b)) for a, b in pairs],
+                "demm_records_share": share}
 
 
 def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
@@ -2196,7 +2279,8 @@ def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
                                      quantize=quantize, expect=expect)
     entry["dense_graph_vs_eager"] = graph_vs_eager(
         model, cfg, mode, backend="auto", slots=4)[0]
-    entry["paged_auto"], default = paged_auto(model, cfg, mode, expect)
+    with graphs_kept():                  # chunk_turns reads the graphs
+        entry["paged_auto"], default = paged_auto(model, cfg, mode, expect)
     t0 = time.time()
     res32 = tune.autotune_packed_tree(model, PAGED["prefill_chunk"], **kw)
     entry["bx32"] = tuned_rows(res32, mode)
@@ -2206,8 +2290,9 @@ def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
     if {r["body"] for r in entry["bx32"]} != {"gather"}:
         raise AssertionError(f"{mode}: Bx = 32 bodies "
                              f"{[r['body'] for r in entry['bx32']]}")
-    entry["chunk_device_ms"], entry["chunk_logits_tuned_vs_default"] = \
-        chunk_turns(model, cfg, expect, default)
+    with graphs_kept():
+        entry["chunk_device_ms"], entry["chunk_logits_tuned_vs_default"] = \
+            chunk_turns(model, cfg, expect, default)
     del default
     torch.cuda.empty_cache()
     return entry
@@ -2998,7 +3083,7 @@ def serve_windowed(model, cfg, layout, quantize, trace=WINDOWED_TRACE,
         raise AssertionError(f"{cfg.name} {layout} {quantize}: the graph's "
                              f"nodes launch {per_replay} ({nodes} kernel "
                              f"nodes), expected {per_step}")
-    window = profiled_replays(engine, cfg, kernel, want=per_step, may_lose=1)
+    window = profiled_replays(engine, cfg, kernel, want=per_step)
     entry = {
         "arch": cfg.name, "layout": layout, "quantize": quantize,
         "kernel": kernel, "requests": len(done), "ticks": engine.drain_ticks,
@@ -4111,6 +4196,549 @@ def family_times(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: distribution — the sharded packed matmul, TP = 2 and PP = 2
+# worlds of two ranks on the one card, and engine replicas
+# ---------------------------------------------------------------------------
+
+# stablelm_3b's row-parallel projections, and wq as the column-parallel one
+DIST_ROW_SHAPES = [("wo", 2560, 2560, 5, 80), ("down", 2560, 6912, 3, 48)]
+DIST_COL_SHAPE = ("wq", 2560, 2560, 5, 80)
+# 14c: the pipeline at full width and this many layers (two stages of 4)
+DIST_PP_LAYERS = 8
+# the parent's limit on the spawned world (both ranks joined within it)
+DIST_TIMEOUT_S = 420
+# phase 4's run, which 14b repeats under the plan
+PHASE4_RUN = dict(requests=4, slots=4, max_new=8, max_len=64, seed=0)
+# 14b / 14c's bound on the relative L2 gap between a rank's logits and the
+# single rank's, at every sampled token up to and including the first one
+# where the two streams differ (until then both decode the same sequence):
+# in bfloat16 compute the row-parallel sums and the shard-local launches
+# round in another order through 32 layers, the same kind of gap as
+# PREFILL_GAP_BF16's; a wrong slice or a lost partial sum gives a gap of
+# order 1
+DIST_LOGITS_GAP = 5e-2
+
+
+def phase4_prompts(vocab, requests=4, seed=0):
+    """The prompts ``run_serve`` draws for phase 4 (the same numpy calls in
+    the same order)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, rng.integers(4, 12), dtype=np.int32)
+            for _ in range(requests)]
+
+
+def packed_bytes(pw) -> int:
+    return sum(t.nbytes for t in (pw.values, pw.indices, pw.active_groups,
+                                  pw.scales) if t is not None)
+
+
+def col_block(pw, rank, tp):
+    """Rank ``rank``'s column-parallel block of ``pw`` (its output rows: the
+    row blocks of the block layout), as ``ShardingPlan.shard_params`` keeps
+    it."""
+    o, k = pw.dense_shape
+    n = pw.values.shape[0] // tp
+
+    def take(t):
+        return None if t is None else t[rank * n:(rank + 1) * n].clone()
+
+    return pw.replace(values=take(pw.values), indices=take(pw.indices),
+                      active_groups=take(pw.active_groups),
+                      scales=take(pw.scales), dense_shape=(o // tp, k),
+                      has_duplicates=pw.has_duplicates)
+
+
+def local_entry(name, label, kind, tp, local, x, gen):
+    """A shard-local launch timed: K1-K4 on ``local`` (a rank's slice) over
+    a ring of its copies larger than L2, its plain version, the bound of the
+    bytes the launch moves, and one bf16 ``torch.matmul`` against the local
+    dense slice."""
+    from repro_torch.kernels import ops
+
+    bx, k = x.shape
+    o = local.dense_shape[0]
+    nbytes = packed_bytes(local) + x.nbytes + bx * o * 4
+    nnz = o * (k // local.cfg.m) * local.cfg.n_effective
+    copies = [local.replace(**{n: t.clone() for n, t in (
+        ("values", local.values), ("indices", local.indices),
+        ("active_groups", local.active_groups), ("scales", local.scales))
+        if t is not None}, has_duplicates=False)
+        for _ in range(ring_size(packed_bytes(local)))]
+    kern = [lambda c=c: ops.demm_matmul_packed(x, c, "cuda") for c in copies]
+    plain = [lambda c=c: ops.demm_matmul_packed(x, c, "reference")
+             for c in copies]
+    meta = {"kernel": name, "shape": label, "split": kind, "tp": tp,
+            "O": o, "K": k,
+            "pattern": local.cfg.pattern_name(), "Bx": bx,
+            "x_dtype": "bfloat16"}
+    entry = timed_entry(meta, kern, plain, nbytes, 2 * bx * nnz)
+    entry["library_ms"] = library_ms(x, local.to_dense())
+    del copies
+    return entry
+
+
+def dist_matmul(gen):
+    """14a: ``ops._demm_matmul_sharded`` with no group in the context (the
+    meshless sequential sum over the slices) at stablelm_3b's row-parallel
+    shapes, tp 2 and 4, x of 4 and 32 rows in float32 and bfloat16: K1, K3
+    and K2 on renumbered slices against the plain versions of the same
+    slices and against the unsharded kernel, each within phase 3's
+    tolerance; K1-K4 on column-parallel blocks of wq against the rows of the
+    whole product; each block weight's per-shard a_max; and one
+    shard-local launch at tp 2 timed against its byte bound and a bf16
+    matmul of the local dense slice."""
+    import torch
+    from repro_torch.core.sparsity import (PackedWeight, SparsityConfig,
+                                           pack_block,
+                                           shard_packed_row_parallel,
+                                           shard_slice)
+    from repro_torch.kernels import ops
+    from repro_torch.quant import quantize_packed
+    from repro_torch.sharding.context import get_context
+
+    if get_context() is not None:
+        raise AssertionError("14a runs with no sharding context")
+    err = {name: 0.0 for name in KERNELS[:4]}
+    cases, a_max, timed = 0, {}, []
+
+    def check(name, got, want, dtype, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL[dtype],
+                                   msg=lambda m: f"14a {name} {what}: {m}")
+        err[name] = max(err[name], float((got - want).abs().max()))
+        cases += 1
+
+    def weights(o, k, n, m, block_q8):
+        dense = make_dense(o, k, n, m, gen)
+        cfg = SparsityConfig(n, m)
+        xwt = PackedWeight.from_dense(dense, cfg)
+        out = {"demm_xwT": xwt, "demm_xwT_q8": quantize_packed(xwt),
+               "demm_block_spmm": pack_block(dense, cfg)}
+        if block_q8:
+            out["demm_block_spmm_q8"] = quantize_packed(pack_block(dense,
+                                                                   cfg))
+        return out
+
+    xs = {}
+    for label, o, k, n, m in DIST_ROW_SHAPES:
+        for name, pw in weights(o, k, n, m, False).items():
+            for tp in (2, 4):
+                sh = shard_packed_row_parallel(pw, tp)
+                if pw.block_geom is not None:
+                    a_max[f"{label} tp{tp}"] = {
+                        "whole": pw.block_geom[1],
+                        "per_shard": sh.block_geom[1],
+                        "groups_per_shard": pw.groups // tp}
+                for bx in (4, 32):
+                    for dtype in ("float32", "bfloat16"):
+                        x = torch.randn((bx, k), generator=gen,
+                                        device=DEVICE).to(getattr(torch,
+                                                                  dtype))
+                        got = ops._demm_matmul_sharded(x, sh, "cuda")
+                        what = f"{label} tp{tp} Bx{bx} {dtype}"
+                        check(name, got, ops._demm_matmul_sharded(
+                            x, sh, "reference"), dtype, what + " vs plain")
+                        check(name, got, ops.demm_matmul_packed(
+                            x, pw, "cuda"), dtype, what + " vs unsharded")
+                        if tp == 2 and bx == 4 and dtype == "bfloat16":
+                            xs[label] = x
+                if tp == 2:
+                    timed.append(local_entry(
+                        name, label, "row", 2, shard_slice(sh, 0),
+                        xs[label][:, :k // 2].contiguous(), gen))
+    label, o, k, n, m = DIST_COL_SHAPE
+    for name, pw in weights(o, k, n, m, True).items():
+        for bx in (4, 32):
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn((bx, k), generator=gen,
+                                device=DEVICE).to(getattr(torch, dtype))
+                whole = ops.demm_matmul_packed(x, pw, "cuda")
+                for r in range(2):
+                    blk = col_block(pw, r, 2)
+                    got = ops.demm_matmul_packed(x, blk, "cuda")
+                    what = f"{label} col rank {r} Bx{bx} {dtype}"
+                    check(name, got, ops.demm_matmul_packed(
+                        x, blk, "reference"), dtype, what + " vs plain")
+                    check(name, got, whole[:, r * o // 2:(r + 1) * o // 2],
+                          dtype, what + " vs whole")
+                if bx == 4 and dtype == "bfloat16":
+                    xs[label] = x
+        timed.append(local_entry(name, label, "col", 2, col_block(pw, 0, 2),
+                                 xs[label], gen))
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": err, "a_max": a_max,
+            "tp2_local": timed}
+
+
+def dist_runs():
+    """(label, config, layout, plan) of the legs the two-rank world serves:
+    TP = 2 in both layouts in bfloat16 compute (phase 4's mode) and in
+    float32, PP = 2 at 8 layers in float32."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.sharding.plan import ShardingPlan
+
+    cfg = get_arch("stablelm_3b")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    return [(f"tp2 --layout {layout}{tag}", c, layout, ShardingPlan(tp=2))
+            for tag, c in (("", cfg), (" float32", f32))
+            for layout in ("xwT", "block")] + [
+        ("pp2 --layout xwT float32",
+         dataclasses.replace(f32, num_layers=DIST_PP_LAYERS), "xwT",
+         ShardingPlan(pp=2))]
+
+
+class LogitsRecorder:
+    """Wraps an engine's sampler and keeps the logits row (over the true
+    vocab) of every token it samples, per request, in order."""
+
+    def __init__(self, inner, vocab):
+        self.inner, self.vocab, self.rows = inner, vocab, {}
+
+    def sample(self, logits, uid, pos):
+        import numpy as np
+        self.rows.setdefault(uid, []).append(
+            np.array(logits[:self.vocab], dtype=np.float32))
+        return self.inner.sample(logits, uid, pos)
+
+
+def serve_recorded(c, layout, plan, device):
+    """Phase 4's run of ``c`` (built from seed 0, packed ``layout``, phase
+    4's prompts on 4 slots) through ``make_engine`` on ``device`` under
+    ``plan`` (None: one rank, a captured step), every sampled token's
+    logits kept.  The wrappers' counts are reset just before the engine is
+    built and read just after its drain.  Returns (the drained engine, a
+    dict of what the run measured, with ``rows``: the logits per request).
+    Memory is counted from just before the model is built: ``placed_gb``
+    what the engine holds once built, ``serve_peak_gb`` the peak from then
+    to the end of the drain."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.serve import Request, ServeConfig, make_engine
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.time()
+    model = pack_tree(build_model(c, device=device, seed=0), layout=layout)
+    whole = {n: packed_bytes(m) for n, m in model.named_modules()
+             if hasattr(m, "dense_shape")}
+    torch.cuda.synchronize()
+    reset_counts()                   # just before the main path ...
+    eng = make_engine(model, ServeConfig(
+        num_slots=PHASE4_RUN["slots"], max_len=PHASE4_RUN["max_len"]),
+        policy=ExecPolicy(mode="packed", backend="cuda", plan=plan),
+        device=device, metrics=obs.MetricsRegistry())
+    del model
+    rec = eng.sampler = LogitsRecorder(eng.sampler, c.vocab_size)
+    for uid, prompt in enumerate(phase4_prompts(c.vocab_size)):
+        eng.submit(Request(uid=uid, prompt=prompt,
+                           max_new_tokens=PHASE4_RUN["max_new"]))
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated(device) - base
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.time()
+    ticks = eng.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.time() - t1
+    counts, bodies = read_counts(), read_body_counts()   # ... after
+    caches = eng.state["caches"]
+    return eng, {
+        "outputs": {r.uid: list(r.output) for r in eng.completed},
+        "rows": rec.rows, "whole_packed": whole,
+        "ticks": ticks, "serve_s": serve_s,
+        "tokens_per_s": sum(len(r.output) for r in eng.completed) / serve_s,
+        "build_pack_s": t1 - t0, "launches": counts,
+        "launches_by_body": bodies,
+        "kv_cache_gb": (caches["k"].nbytes + caches["v"].nbytes) / 1e9,
+        "placed_gb": placed / 1e9,
+        "serve_peak_gb": (torch.cuda.max_memory_allocated(device) - base)
+        / 1e9}
+
+
+def dist_rank(rank, nprocs, init):
+    """One rank of 14b / 14c on the card: joins the two-rank ``gloo`` world
+    (both ranks on cuda:0), loads the kernel library once per world, then
+    serves each leg of :func:`dist_runs` (:func:`serve_recorded`)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels._build import load_library_once
+    from repro_torch.sharding.world import init_world
+
+    world = init_world("cuda", rank=rank, world_size=nprocs,
+                       init_method=init)
+    t0 = time.time()
+    load_library_once()
+    out = {"rank": world.rank, "backend": world.backend,
+           "device": str(world.device), "library_s": time.time() - t0}
+    for label, c, layout, plan in dist_runs():
+        eng, e = serve_recorded(c, layout, plan, world.device)
+        whole = e.pop("whole_packed")
+        if eng._use_graph or eng._graph is not None or not eng.multi_rank:
+            raise AssertionError(f"{label}: a multi-rank engine must step "
+                                 "eagerly")
+        held = {n: (getattr(m, "tp_kind", None), packed_bytes(m))
+                for n, m in eng.model.named_modules()
+                if hasattr(m, "dense_shape")}
+        row = [n for n, (kind, _) in held.items() if kind == "row"]
+        out[label] = dict(
+            e,
+            row_parallel_gb={"rank": sum(held[n][1] for n in row) / 1e9,
+                             "whole": sum(whole[n] for n in row) / 1e9},
+            packed_gb={"rank": sum(b for _, b in held.values()) / 1e9,
+                       "whole": sum(whole.values()) / 1e9},
+            layers_held=sum(type(m).__name__ == "TBlock"
+                            for m in eng.model.layers),
+            finite=bool(np.isfinite(
+                eng.last_logits[:, :c.vocab_size]).all()),
+            labels=eng._trace_labels())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_replicas(single):
+    """14d: phase 4's model (built and packed xwT again from its seed) under
+    two replicas of a captured engine sharing its tensors behind the router
+    (``make_engine(replicas=2)``), phase 4's prompts routed round-robin:
+    each replica captures its own step, the wrappers launch 7 x 32 x
+    (warm-up + capture) per replica, and every request's tokens equal the
+    single engine's (``single``: phase 4's outputs)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.serve import (ReplicaRouter, Request, ServeConfig,
+                                   make_engine)
+    from repro_torch.serve.serve_loop import CAPTURE_WARMUP
+
+    cfg = get_arch("stablelm_3b")
+    model = pack_tree(build_model(cfg, device=DEVICE, seed=0), layout="xwT")
+    torch.cuda.synchronize()
+    reset_counts()                       # just before the main path ...
+    router = make_engine(model, ServeConfig(
+        num_slots=PHASE4_RUN["slots"], max_len=PHASE4_RUN["max_len"]),
+        policy=ExecPolicy(mode="packed", backend="cuda"), device=DEVICE,
+        replicas=2)
+    if not isinstance(router, ReplicaRouter):
+        raise AssertionError("replicas=2 did not build a router")
+    for uid, prompt in enumerate(phase4_prompts(cfg.vocab_size)):
+        router.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=PHASE4_RUN["max_new"]))
+    ticks = router.run_until_drained()
+    launches = check_step_counts(        # ... and just after
+        "demm_xwT", {("demm_xwT", "bulk"): 7 * cfg.num_layers},
+        2 * (CAPTURE_WARMUP + 1), "14d replicas")
+    got = {r.uid: list(r.output) for r in router.completed}
+    if got != single:
+        raise AssertionError(f"14d: replicas' tokens {got} != the single "
+                             f"engine's {single}")
+    captures = [e.captures for e in router.replicas]
+    if captures != [1, 1]:
+        raise AssertionError(f"14d: captures per replica {captures}")
+    snap = router.metrics.snapshot(meta=False)
+    routed = [e["value"] for e in snap["counters"]
+              if e["name"] == "serve_router_requests_total"]
+    out = {"ticks": ticks, "launches": launches, "captures": captures,
+           "routed": routed, "uids_per_replica": [
+               sorted(r.uid for r in e.completed) for e in router.replicas],
+           "tokens_equal_single": True}
+    del router, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def log_dist(dist, smi):
+    """Phase 14's report lines."""
+    log(f"[14d replicas] make_engine(replicas=2) on phase 4's model: "
+        f"{json.dumps(dist['replicas'])}")
+    m = dist["matmul"]
+    log(f"[14a dist matmul] _demm_matmul_sharded with no group, {m['cases']} "
+        f"comparisons held ({m['seconds']:.1f} s); max abs err "
+        f"{json.dumps(m['max_abs_err'])}; block a_max whole / per shard: "
+        f"{json.dumps(m['a_max'])}")
+    log("[14a dist matmul] kernel | shape | split | O x K local | Bx | ms | "
+        "bound ms | plain ms | bf16 matmul ms (local dense)")
+    for e in m["tp2_local"]:
+        log(f"[14a dist matmul] {e['kernel']} | {e['shape']} | {e['split']} "
+            f"| {e['O']} x {e['K']} | {e['Bx']} | {e['ms']:.4f} | "
+            f"{e['bound_ms']:.4f} | {e['plain_ms']:.4f} | "
+            f"{e['library_ms']:.4f}")
+    for r in dist["ranks"]:
+        for label, _, _, _ in dist_runs():
+            e = {k: v for k, v in r[label].items() if k != "outputs"}
+            log(f"[14{'b' if label.startswith('tp') else 'c'} dist] rank "
+                f"{r['rank']} ({r['backend']}, {r['device']}) {label}: "
+                f"{json.dumps(e)}")
+    for label, a in dist["agreement"].items():
+        log(f"[14 dist] {label} rank 0 against one rank (logits gap bound "
+            f"{DIST_LOGITS_GAP}): {json.dumps(a)}")
+    log(f"[14 dist] memory GB (KV cache, held once placed, peak from the "
+        f"build through the drain): {json.dumps(dist['memory_gb'])}")
+    log(f"[14 dist] float32 legs: tokens equal the single rank's; every "
+        f"leg: both ranks' streams and logits equal, logits within "
+        f"{DIST_LOGITS_GAP} of one rank's up to the first differing token; "
+        f"one rank {dist['single_seconds']:.1f} s, world "
+        f"{dist['world_seconds']:.1f} s, phase {dist['seconds']:.1f} s in "
+        f"all; {smi}")
+
+
+def logits_agreement(got, want, rows, want_rows):
+    """A rank's streams ``got`` and logits ``rows`` against the single
+    rank's: for each request the first token where they differ (None:
+    none), the relative L2 gap of the logits at every sampled token up to
+    and including it, and there the single rank's margin between its token
+    and the rank's (``margin``) beside the largest logit difference of that
+    step (``max_abs_diff``)."""
+    import numpy as np
+
+    out = {}
+    for u in want:
+        first = next((i for i, (a, b) in enumerate(zip(got[u], want[u]))
+                      if a != b), None)
+        steps = len(want[u]) if first is None else first + 1
+        gaps = [float(np.linalg.norm(rows[u][j] - want_rows[u][j])
+                      / np.linalg.norm(want_rows[u][j]))
+                for j in range(steps)]
+        e = {"first_difference": first, "max_gap": max(gaps)}
+        if first is not None:
+            lw = want_rows[u][first]
+            e["margin"] = float(lw[want[u][first]] - lw[got[u][first]])
+            e["max_abs_diff"] = float(np.abs(rows[u][first] - lw).max())
+            e["logit_rms"] = float(np.sqrt(np.mean(lw ** 2)))
+        out[u] = e
+    return out
+
+
+def dist_phase(gen, single):
+    """Phase 14.  ``single``: phase 4's outputs per mode."""
+    import gc
+
+    import torch
+    from repro_torch.sharding.world import spawn_world
+
+    t_all = time.time()
+    t0 = time.time()
+    out = {"matmul": dist_matmul(gen)}
+    out["matmul"]["seconds"] = time.time() - t0
+    t0 = time.time()
+    out["replicas"] = dist_replicas(single["tp2 --layout xwT"])
+    out["replicas"]["seconds"] = time.time() - t0
+    # each leg's model served on one rank (a captured step), its logits
+    # kept; the bfloat16 legs' tokens are phase 4's
+    t0 = time.time()
+    ref = {}
+    for label, c, layout, _ in dist_runs():
+        eng, ref[label] = serve_recorded(c, layout, None, DEVICE)
+        if label in single and ref[label]["outputs"] != single[label]:
+            raise AssertionError(
+                f"14 {label}: one rank's tokens {ref[label]['outputs']} "
+                f"!= phase 4's {single[label]}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["single_seconds"] = time.time() - t0
+    t0 = time.time()
+    ranks = spawn_world(dist_rank, 2, timeout_s=DIST_TIMEOUT_S)
+    out["world_seconds"] = time.time() - t0
+    out["agreement"], out["memory_gb"] = {}, {}
+    for label, c, layout, _ in dist_runs():
+        kernel = "demm_block_spmm" if layout == "block" else "demm_xwT"
+        want = ref[label]["outputs"]
+        if ranks[0][label]["outputs"] != ranks[1][label]["outputs"]:
+            raise AssertionError(f"14 {label}: the ranks' streams differ")
+        for u, rows in ranks[0][label]["rows"].items():
+            if any((a != b).any() for a, b in zip(
+                    rows, ranks[1][label]["rows"][u])):
+                raise AssertionError(f"14 {label}: the ranks' logits "
+                                     "differ")
+        tp = label.startswith("tp")
+        for r in ranks:
+            e = r[label]
+            got = e["outputs"]
+            if c.compute_dtype == "float32" and got != want:
+                raise AssertionError(
+                    f"14 {label} rank {r['rank']}: tokens {got} != the "
+                    f"single rank's {want}")
+            agree = logits_agreement(got, want, e.pop("rows"),
+                                     ref[label]["rows"])
+            for u, a in agree.items():
+                if not a["max_gap"] <= DIST_LOGITS_GAP:
+                    raise AssertionError(
+                        f"14 {label} rank {r['rank']} request {u}: logits "
+                        f"gap {a['max_gap']} to the single rank's, more "
+                        f"than {DIST_LOGITS_GAP}")
+                if "margin" in a and not \
+                        0 <= a["margin"] <= 2 * a["max_abs_diff"]:
+                    raise AssertionError(
+                        f"14 {label} rank {r['rank']} request {u}: the "
+                        f"tokens differ at margin {a['margin']}, beyond "
+                        f"twice the logits' difference {a['max_abs_diff']}")
+            if r["rank"] == 0:
+                out["agreement"][label] = {
+                    "requests_equal": sum(got[u] == want[u] for u in want),
+                    "requests": len(want), "per_request": agree}
+            if not e["finite"]:
+                raise AssertionError(f"14 {label}: non-finite logits")
+            layers = c.num_layers // (1 if tp else 2)
+            # every tick runs the eager step: 7 projections a layer; under
+            # pp each stage runs its layers once per microbatch (2 a step)
+            per_tick = 7 * layers * (1 if tp else 2)
+            expect = {n: 0 for n in KERNELS}
+            expect[kernel] = per_tick * e["ticks"]
+            if e["launches"] != expect:
+                raise AssertionError(
+                    f"14 {label} rank {r['rank']}: launches "
+                    f"{e['launches']}, expected {expect}")
+            gb = e["row_parallel_gb"]
+            if tp and not 0 < gb["rank"] < gb["whole"]:
+                raise AssertionError(f"14 {label}: rank holds {gb}")
+            if tp and layout == "xwT" and \
+                    abs(gb["rank"] - gb["whole"] / 2) > 1e-9:
+                raise AssertionError(f"14 {label}: row-parallel bytes {gb} "
+                                     "are not half the whole's")
+            if not tp and e["layers_held"] != DIST_PP_LAYERS // 2:
+                raise AssertionError(f"14 {label}: rank holds "
+                                     f"{e['layers_held']} layers")
+            # the rank's KV cache is half the single rank's (heads over
+            # tp, layers over pp), and its memory from the model's build
+            # on, once placed, peaks below the single rank's
+            one = ref[label]
+            if abs(2 * e["kv_cache_gb"] - one["kv_cache_gb"]) > 1e-9:
+                raise AssertionError(
+                    f"14 {label} rank {r['rank']}: KV cache "
+                    f"{e['kv_cache_gb']} GB, the single rank's "
+                    f"{one['kv_cache_gb']} GB")
+            if not e["serve_peak_gb"] < one["serve_peak_gb"]:
+                raise AssertionError(
+                    f"14 {label} rank {r['rank']}: peak {e['serve_peak_gb']}"
+                    f" GB after placement, the single rank's "
+                    f"{one['serve_peak_gb']} GB")
+            out["memory_gb"].setdefault(label, {
+                "single": {k: one[k] for k in ("kv_cache_gb", "placed_gb",
+                                               "serve_peak_gb")}})[
+                f"rank{r['rank']}"] = {
+                k: e[k] for k in ("kv_cache_gb", "placed_gb",
+                                  "serve_peak_gb")}
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("two ranks on one card must take gloo")
+    out["ranks"] = ranks
+    out["seconds"] = time.time() - t_all
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -4790,6 +5418,7 @@ def main(argv=None) -> int:
         log(f"stopped after phase 3 as asked ({time.time() - t_start:.1f} s)")
         return 0
 
+
     # 9. (run inside 4-8's loop) a tuning cache of this run's own
     import shutil
     import tempfile
@@ -4826,6 +5455,7 @@ def main(argv=None) -> int:
             phase = "[5 serve q8]" if quantize else "[4 serve]"
             log(f"{phase} packed {mode}, backend cuda ({time.time() - t0:.1f}"
                 f" s with packing): {json.dumps(serve[kernel])}")
+
             graph[mode] = graph_vs_eager(model, cfg, mode)[0]
             log(f"[{phase[1]}g graph] {json.dumps(graph[mode])}")
             t0 = time.time()
@@ -4999,6 +5629,13 @@ def main(argv=None) -> int:
             + f" | {'full' if tr['full_width'] else 'reduced'} "
             + ", ".join(f"{v:.4f}" for v in tr["losses"]))
 
+    # 14. distribution: the sharded matmul (14a), replicas (14d), TP = 2
+    # (14b) and PP = 2 (14c) worlds of two ranks on the card
+    dist = dist_phase(gen, {
+        "tp2 --layout xwT": serve["demm_xwT"]["outputs"],
+        "tp2 --layout block": serve["demm_block_spmm"]["outputs"]})
+    log_dist(dist, smi)
+
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
             "| launches/tick | tokens/s")
@@ -5168,6 +5805,20 @@ def main(argv=None) -> int:
                         if k1 else 0),
             "train_ckpt_serve": (families["train"]["serve_xlstm_ckpt"][
                 "launches"] if k1 else 0)}
+    # phase 14's launches: each rank's wrapper counts in 14b (TP = 2, the
+    # float kernels of both layouts) and 14c (PP = 2, K1), and 14d's
+    # replicas (K1); the shard-local launches of 14a timed at tp 2
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_dist"] = {
+            f"{label} rank{r['rank']}": r[label]["launches"][name]
+            for r in dist["ranks"] for label, _, _, _ in dist_runs()
+            if r[label]["launches"][name]}
+        if name == "demm_xwT":
+            entry["launches_dist"]["replicas"] = dist["replicas"][
+                "launches"]
+        entry["tp2_local"] = [e for e in dist["matmul"]["tp2_local"]
+                              if e["kernel"] == name]
     # K5's tiled body does the dense count of operations: its floor, worked
     # from the shapes (not a measurement, so not in the kernels line)
     floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
@@ -5185,7 +5836,8 @@ def main(argv=None) -> int:
                     "flight": flight, "paged": list(paged.values()),
                     "paged_gates": paged_gate, "paged_cli": cli,
                     "tune": tuned, "spec": spec, "windowed": windowed,
-                    "train": train, "families": families}))
+                    "train": train, "families": families,
+                    "distribution": dist}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

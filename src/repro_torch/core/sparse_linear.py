@@ -39,6 +39,7 @@ from repro_torch.core.sparsity import (
     pack_block,
     prune,
 )
+from repro_torch.sharding.context import get_context
 
 MODES = ("dense", "masked", "packed")
 
@@ -57,6 +58,9 @@ class ExecPolicy:
       (e.g. ``{"k": 2}``) applied to the node's stored config before the
       mask/kernel runs.  For packed nodes the override must preserve
       ``n_effective`` (the packed array layout is fixed at pack time).
+    * ``plan`` — an optional ``repro_torch.sharding.ShardingPlan``: the
+      engines place the model and its decode state by it
+      (``serve.protocol.EngineBase._setup_plan``).
 
     Hashable; ``cfg_overrides`` dicts are normalized to sorted item tuples.
     """
@@ -64,6 +68,7 @@ class ExecPolicy:
     mode: str = "masked"
     backend: str = "reference"
     cfg_overrides: Union[tuple, Mapping[str, int]] = ()
+    plan: Optional[object] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -159,14 +164,51 @@ def node_sparsity(node) -> Optional[SparsityConfig]:
 def apply(node, x: torch.Tensor,
           policy: Optional[ExecPolicy] = None) -> torch.Tensor:
     """Unified linear application: dense, masked, or packed-DeMM, chosen by
-    the node's type and the :class:`ExecPolicy`."""
+    the node's type and the :class:`ExecPolicy`.  A node that
+    ``ShardingPlan.shard_params`` placed (``tp_kind`` set) runs its part of
+    the tensor-parallel product (:func:`_apply_placed`)."""
     policy = policy or DEFAULT_POLICY
+    kind = getattr(node, "tp_kind", None)
+    if kind is not None:
+        return _apply_placed(node, x, policy, kind)
+    return _apply_local(node, x, policy)
+
+
+def _apply_local(node, x, policy: ExecPolicy, reduce=None):
+    """The node's product on this rank's tensors; ``reduce`` (a sharding
+    context) sums the partial products over its tp group first, in
+    float32."""
     if isinstance(node, PackedWeight):
-        return _apply_packed(node, x, policy)
+        return _apply_packed(node, x, policy, reduce)
     cfg = node_sparsity(node)
     if cfg is None or policy.mode == "dense":
-        return apply_dense(node, x)
-    return apply_masked(node, x, policy.resolve_cfg(cfg))
+        y = apply_dense(node, x)
+    else:
+        y = apply_masked(node, x, policy.resolve_cfg(cfg))
+    if reduce is not None:
+        y = reduce.all_reduce(y.to(torch.float32)).to(x.dtype)
+    return y
+
+
+def _apply_placed(node, x, policy: ExecPolicy, kind: str):
+    """Megatron-style application of a placed linear on this rank.  ``col``:
+    x whole, the output this rank's block of rows (a node left whole
+    computes all of them and keeps its block); ``row``: x this rank's chunk
+    of the contraction dim and the partial products summed over the tp
+    group (a node left whole gathers x first and needs no sum);
+    ``replicated``: x whole, the output whole."""
+    ctx = get_context()
+    if ctx is None or ctx.tp == 1:
+        raise RuntimeError(
+            f"a linear placed as {kind!r} by a sharding plan ran outside its "
+            "sharding context (the engines install it around every step)")
+    sharded = node.tp_sharded
+    if kind == "row":
+        if sharded:
+            return _apply_local(node, x, policy, reduce=ctx)
+        return _apply_local(node, ctx.gather(x), policy)
+    y = _apply_local(node, x, policy)
+    return ctx.local_block(y) if kind == "col" and not sharded else y
 
 
 def apply_dense(node: SparseLinear, x: torch.Tensor) -> torch.Tensor:
@@ -194,12 +236,14 @@ def _reconfigure(pw: PackedWeight, cfg: SparsityConfig) -> PackedWeight:
 
 
 def _apply_packed(pw: PackedWeight, x: torch.Tensor,
-                  policy: ExecPolicy) -> torch.Tensor:
+                  policy: ExecPolicy, reduce=None) -> torch.Tensor:
     from repro_torch.kernels import ops
 
     pw = _reconfigure(pw, policy.resolve_cfg(pw.cfg))
     xs = x.reshape(-1, x.shape[-1]).contiguous()
     y = ops.demm_matmul_packed(xs, pw, backend=policy.backend)
+    if reduce is not None:      # the kernels' float32 partial products
+        y = reduce.all_reduce(y)
     return y.reshape(*x.shape[:-1], pw.out_features).to(x.dtype)
 
 

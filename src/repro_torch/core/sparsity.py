@@ -15,11 +15,12 @@ packed  indices  : (R, G, N) int32   local column index within the group,
                                      in [0, M); padded slots point at 0 with
                                      value 0 (contributing nothing).
 
-Ported so far: the row-packed ``xwT`` layout, the two-level ``block`` layout
-(:func:`pack_block`), the int8-quantized form of both and draft-tier views
-(``PackedWeight.tier_ne``, :func:`tier_sort_packed`, :func:`narrow_tier`).
-Contraction-dim sharding of the JAX package comes with a later slice of the
-port.
+Ported: the row-packed ``xwT`` layout, the two-level ``block`` layout
+(:func:`pack_block`), the int8-quantized form of both, draft-tier views
+(``PackedWeight.tier_ne``, :func:`tier_sort_packed`, :func:`narrow_tier`)
+and contraction-dim sharding (:func:`shard_packed_row_parallel`,
+:func:`unshard_packed`, :func:`shard_slice`: the per-shard active-group
+renumbering of row-parallel weights that ``repro_torch.sharding`` places).
 """
 
 from __future__ import annotations
@@ -279,6 +280,17 @@ class PackedWeight(nn.Module):
     the same tensors, read through only the first ``tier_ne`` of the
     ``n_effective`` pairs of every group (:func:`narrow_tier`, at dispatch).
     It lies in ``[1, n_effective]``; the full tier is stored as ``None``.
+
+    Contraction-dim sharding (``repro_torch.sharding``): ``shard_axis`` (a
+    mesh dim name, e.g. ``"model"``) marks the *shard-stacked* form that
+    :func:`shard_packed_row_parallel` produces: every tensor carries a
+    leading dim of size ``shards``, slice ``s`` the packing of columns
+    ``[s*K/S, (s+1)*K/S)`` renumbered to its local frame; ``dense_shape``
+    stays the global ``(O, K)`` and, for the ``block`` layout,
+    ``block_geom[1]`` is the shared per-shard ``a_max``.  A *local* slice
+    (:func:`shard_slice`) has ``shard_axis`` None, the shard-local
+    ``dense_shape`` and keeps ``shards`` as provenance, so that dispatch and
+    tuning keys (``|s{n}``) tell a shard-local problem from a global one.
     """
 
     def __init__(self, values: torch.Tensor, indices: torch.Tensor, *,
@@ -289,7 +301,8 @@ class PackedWeight(nn.Module):
                  scales: Optional[torch.Tensor] = None,
                  qdtype: Optional[str] = None,
                  has_duplicates: Optional[bool] = None,
-                 tier_ne: Optional[int] = None):
+                 tier_ne: Optional[int] = None,
+                 shard_axis: Optional[str] = None, shards: int = 1):
         super().__init__()
         if not isinstance(cfg, SparsityConfig):
             raise TypeError(f"cfg must be a SparsityConfig, got {type(cfg)}")
@@ -312,7 +325,32 @@ class PackedWeight(nn.Module):
         if len(dense_shape) != 2:
             raise ValueError(f"dense_shape must be 2-D (out, in), got "
                              f"{dense_shape}")
+        shards = int(shards)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
         vshape = tuple(values.shape)
+        # the shard-stacked form: a leading shard dim over per-shard
+        # packings of K / shards columns each
+        lead, local = (), dense_shape
+        if shard_axis is not None:
+            if not isinstance(shard_axis, str):
+                raise TypeError(f"shard_axis must be a mesh dim name (str) "
+                                f"or None, got {shard_axis!r}")
+            if shards < 2:
+                raise ValueError(
+                    "shard_axis set but shards < 2; the shard-stacked form "
+                    "needs the shard-count dim (shard_packed_row_parallel)")
+            if dense_shape[1] % shards:
+                raise ValueError(f"K={dense_shape[1]} does not split into "
+                                 f"{shards} shards")
+            if vshape[:1] != (shards,):
+                raise ValueError(
+                    f"shard-stacked {layout} values {vshape} carry "
+                    f"{vshape[0] if vshape else 0} shard slices, expected "
+                    f"shards={shards}")
+            lead, local = (shards,), (dense_shape[0],
+                                      dense_shape[1] // shards)
+            vshape = vshape[1:]
         if layout == LAYOUT_BLOCK:
             if active_groups is None:
                 raise ValueError(
@@ -326,30 +364,32 @@ class PackedWeight(nn.Module):
                 block_geom = (vshape[2], vshape[1])
             block_geom = (int(block_geom[0]), int(block_geom[1]))
             br, amax = block_geom
-            want = (dense_shape[0] // br, amax, br, cfg.n_effective)
-            if dense_shape[0] % br or dense_shape[1] % cfg.m or vshape != want:
+            want = (local[0] // br, amax, br, cfg.n_effective)
+            if local[0] % br or local[1] % cfg.m or vshape != want:
                 raise ValueError(
-                    f"values shape {vshape} is inconsistent with "
+                    f"values shape {lead + vshape} is inconsistent with "
                     f"block_geom={block_geom} over dense {dense_shape} at "
-                    f"cfg={cfg.pattern_name()}: expected {want}")
-            if tuple(active_groups.shape) != want[:2]:
+                    f"cfg={cfg.pattern_name()}: expected {lead + want}")
+            if tuple(active_groups.shape) != lead + want[:2]:
                 raise ValueError(
                     f"active_groups shape {tuple(active_groups.shape)} does "
-                    f"not match values {vshape}: expected {want[:2]}")
-            scale_shapes = (vshape[:-1],)
+                    f"not match values {lead + vshape}: expected "
+                    f"{lead + want[:2]}")
+            scale_shapes = (lead + vshape[:-1],)
         else:
             if active_groups is not None or block_geom is not None:
                 raise ValueError(
                     f"active_groups/block_geom only apply to the "
                     f"{LAYOUT_BLOCK!r} layout, not {layout!r}")
-            want = (dense_shape[0], dense_shape[1] // cfg.m, cfg.n_effective)
-            if dense_shape[1] % cfg.m or vshape != want:
+            want = (local[0], local[1] // cfg.m, cfg.n_effective)
+            if local[1] % cfg.m or vshape != want:
                 raise ValueError(
-                    f"values shape {vshape} is inconsistent with the packed "
-                    f"layout of cfg={cfg.pattern_name()} over dense "
-                    f"{dense_shape}: expected {want}")
+                    f"values shape {lead + vshape} is inconsistent with the "
+                    f"packed layout of cfg={cfg.pattern_name()} over dense "
+                    f"{dense_shape}: expected {lead + want}")
             # per output row (O,) or per (row, group) (O, G)
-            scale_shapes = (vshape[:-2], vshape[:-1])
+            scale_shapes = (lead + vshape[:-2], lead + vshape[:-1])
+        vshape = lead + vshape
         if tuple(indices.shape) != vshape:
             raise ValueError(f"indices shape {tuple(indices.shape)} does not "
                              f"match values {vshape}")
@@ -377,6 +417,8 @@ class PackedWeight(nn.Module):
         self.block_geom = block_geom
         self.qdtype = qdtype
         self.tier_ne = tier_ne
+        self.shard_axis = shard_axis
+        self.shards = shards
         self.has_duplicates = (holds_duplicates(values, indices)
                                if has_duplicates is None
                                else bool(has_duplicates))
@@ -399,7 +441,8 @@ class PackedWeight(nn.Module):
                "cfg": self.cfg, "dense_shape": self.dense_shape,
                "layout": self.layout, "active_groups": self.active_groups,
                "block_geom": self.block_geom, "scales": self.scales,
-               "qdtype": self.qdtype, "tier_ne": self.tier_ne}
+               "qdtype": self.qdtype, "tier_ne": self.tier_ne,
+               "shard_axis": self.shard_axis, "shards": self.shards}
         if "values" not in kw and "indices" not in kw:
             out["has_duplicates"] = self.has_duplicates
         out.update(kw)
@@ -409,10 +452,13 @@ class PackedWeight(nn.Module):
         geom = f", block_geom={self.block_geom}" if self.block_geom else ""
         q = f", qdtype={self.qdtype!r}" if self.qdtype else ""
         tier = f", tier_ne={self.tier_ne}" if self.tier_ne else ""
+        shard = (f", shard_axis={self.shard_axis!r}"
+                 if self.shard_axis else "")
+        shard += f", shards={self.shards}" if self.shards > 1 else ""
         return (f"values={tuple(self.values.shape)}, "
                 f"cfg={self.cfg.pattern_name()!r}, "
                 f"dense_shape={self.dense_shape}, layout={self.layout!r}"
-                f"{geom}{q}{tier}")
+                f"{geom}{q}{tier}{shard}")
 
     # ---- conversions -----------------------------------------------------
     @classmethod
@@ -438,9 +484,13 @@ class PackedWeight(nn.Module):
 
     def to_dense(self) -> torch.Tensor:
         """Scatter back to the dense weight (dequantizing if needed); a
-        draft-tier view densifies only its tier prefix."""
+        draft-tier view densifies only its tier prefix, a shard-stacked
+        weight is merged back to the global packing first
+        (:func:`unshard_packed`)."""
         if self.tier_ne is not None:
             return narrow_tier(self).to_dense()
+        if self.shard_axis is not None:
+            return unshard_packed(self).to_dense()
         if self.layout == LAYOUT_BLOCK:
             return unpack_block(self.active_groups, self.dequantized_values(),
                                 self.indices, self.cfg, self.dense_shape)
@@ -559,6 +609,184 @@ def unpack_block(active_groups: torch.Tensor, values: torch.Tensor,
         rb, block_r, a_max, cfg.m)
     dense.scatter_add_(2, ids, per_slot.transpose(1, 2))
     return dense.reshape(r, kdim)
+
+
+# ---------------------------------------------------------------------------
+# Contraction-dim sharding: the per-shard active-group renumbering pass
+# ---------------------------------------------------------------------------
+#
+# Row-parallel (y = x @ Wᵀ with the contraction dim split over ranks) is where
+# packed weights resist a plain slice: xwT indices are group-local, so the G
+# axis slices consistently, but the block layout's active_groups hold
+# data-dependent *global* group ids — a rank owning columns [s*K/S,
+# (s+1)*K/S) must drop foreign groups and renumber the rest to its local
+# frame before the kernel's address stream makes sense.  These passes
+# produce the shard-stacked form (a leading dim of size S, each slice
+# renumbered over K_local = K / S) that ``kernels.ops._demm_matmul_sharded``
+# (one process) and ``repro_torch.sharding`` (a rank keeps its slice)
+# consume; partial products are summed over the shards.  They run on the host
+# side of serving (once, before anything is captured), on any device, in the
+# tensors' own dtype.
+
+def _block_live_slots(pw: PackedWeight) -> torch.Tensor:
+    """The per-slot liveness mask ``(..., RB, A)`` of a block weight: a slot
+    is live iff any of its packed values is non-zero — exact for float
+    packings (an active group keeps >= 1 non-zero, padded slots are all
+    zero), unreliable for int8, where quantization may round a group's
+    survivors to zero."""
+    if pw.qdtype is not None:
+        raise NotImplementedError(
+            "renumbering quantized block weights is not supported (the "
+            "all-zero-slot liveness test is unreliable under int8); "
+            "ShardingPlan.renumber_params leaves them whole")
+    return (pw.values != 0).any(dim=-1).any(dim=-1)
+
+
+def _compact(live: torch.Tensor, width: int):
+    """Stable front-compaction of the live slots along the last axis: the
+    first ``width`` slot ids with live ones first (original order kept) and
+    the liveness of each."""
+    order = torch.sort((~live).to(torch.int8), dim=-1,
+                       stable=True).indices[..., :width]
+    return order, torch.gather(live, -1, order)
+
+
+def _take_slots(vals, idx, order, mask):
+    """Values and indices of the slots ``order`` (RB, A') of a block weight;
+    dead slots zeroed, an index kept only where its value is non-zero."""
+    rb, a, br, ne = order.shape[0], order.shape[1], *vals.shape[-2:]
+    at = order[:, :, None, None].expand(rb, a, br, ne)
+    v = torch.where(mask[:, :, None, None], torch.gather(vals, 1, at),
+                    torch.zeros((), dtype=vals.dtype, device=vals.device))
+    i = torch.where(v != 0, torch.gather(idx, 1, at),
+                    torch.zeros((), dtype=idx.dtype, device=idx.device))
+    return v, i.to(torch.int32)
+
+
+def shard_packed_row_parallel(pw: PackedWeight, num_shards: int, *,
+                              axis: str = "model") -> PackedWeight:
+    """Reshard a row-parallel packed weight over the contraction dim.
+
+    Returns the shard-stacked form: every tensor gains a leading dim of size
+    ``num_shards``, slice ``s`` holding the packing of columns ``[s*K/S,
+    (s+1)*K/S)`` renumbered to its local frame.  ``xwT`` needs only a
+    reshape (indices are group-local; per-row scales are repeated per
+    slice, per-group scales split with their groups); ``block`` runs the
+    renumbering pass: per (row-block, shard), foreign active groups are
+    dropped, surviving global ids are rebased by the shard's group offset,
+    and all shards share one per-shard ``a_max`` (the densest local list).
+    ``dense_shape`` stays global.  An int8 block weight raises
+    ``NotImplementedError``, as in the JAX package."""
+    num_shards = int(num_shards)
+    if num_shards == 1:
+        return pw
+    if pw.shard_axis is not None:
+        raise ValueError(f"{pw!r} is already shard-stacked")
+    g = pw.groups
+    if g % num_shards:
+        raise ValueError(
+            f"cannot split {g} groups (K={pw.in_features}, M={pw.cfg.m}) "
+            f"over {num_shards} shards")
+    gl = g // num_shards
+    kw = dict(shard_axis=axis, shards=num_shards,
+              has_duplicates=pw.has_duplicates)
+
+    if pw.layout == LAYOUT_XWT:
+        def reshard(x):   # (O, G, Ne) -> (S, O, Gl, Ne)
+            return x.reshape(x.shape[0], num_shards, gl,
+                             x.shape[-1]).transpose(0, 1).contiguous()
+        scales = pw.scales
+        if scales is not None:
+            if scales.ndim == 2:                  # per group (O, G)
+                scales = scales.reshape(-1, num_shards, gl).transpose(0, 1)
+            else:                                 # per row (O,): repeated
+                scales = scales[None].expand(num_shards, -1)
+            scales = scales.contiguous()
+        return pw.replace(values=reshard(pw.values),
+                          indices=reshard(pw.indices), scales=scales, **kw)
+
+    live = _block_live_slots(pw)
+    ag = pw.active_groups.to(torch.int64)
+    shard_of = torch.div(ag, gl, rounding_mode="floor")
+    a_max = pw.block_geom[1]
+    per = [_compact(live & (shard_of == s), a_max)
+           for s in range(num_shards)]
+    a_local = max(1, *(int(m.sum(-1).max()) for _, m in per))
+    out_v, out_i, out_a = [], [], []
+    for s, (order, mask) in enumerate(per):
+        order, mask = order[..., :a_local], mask[..., :a_local]
+        ag_s = torch.gather(ag, -1, order) - s * gl
+        out_a.append(torch.where(mask, ag_s, 0).to(torch.int32))
+        v, i = _take_slots(pw.values, pw.indices, order, mask)
+        out_v.append(v)
+        out_i.append(i)
+    return pw.replace(values=torch.stack(out_v), indices=torch.stack(out_i),
+                      active_groups=torch.stack(out_a),
+                      block_geom=(pw.block_geom[0], a_local), **kw)
+
+
+def unshard_packed(pw: PackedWeight) -> PackedWeight:
+    """Merge a shard-stacked weight back to the global packing (the inverse
+    renumbering).  Exact round trip up to ``a_max`` re-tightening and the
+    canonical active-list order — compare via :meth:`PackedWeight.to_dense`.
+    A weight that is not shard-stacked comes back unchanged."""
+    if pw.shard_axis is None:
+        return pw
+    s_count = pw.shards
+    kw = dict(shard_axis=None, shards=1, has_duplicates=pw.has_duplicates)
+    if pw.layout == LAYOUT_XWT:
+        def merge(x):     # (S, O, Gl, Ne) -> (O, G, Ne)
+            x = x.transpose(0, 1)
+            return x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+        scales = pw.scales
+        if scales is not None:
+            scales = (scales.transpose(0, 1).reshape(scales.shape[1], -1)
+                      if scales.ndim == 3 else scales[0]).contiguous()
+        return pw.replace(values=merge(pw.values), indices=merge(pw.indices),
+                          scales=scales, **kw)
+
+    live = _block_live_slots(pw)                       # (S, RB, Al)
+    gl = pw.groups // s_count
+    a_loc = pw.block_geom[1]
+    rb = live.shape[1]
+    # the per-shard lists concatenated along A in shard order (each slice
+    # ascending within its chunk, so the merged list is globally ascending)
+    offs = (torch.arange(s_count, device=live.device) * gl)[:, None, None]
+    ag_m = (pw.active_groups.to(torch.int64) + offs).transpose(0, 1) \
+        .reshape(rb, s_count * a_loc)
+
+    def cat(x):           # (S, RB, Al, br, Ne) -> (RB, S*Al, br, Ne)
+        return x.transpose(0, 1).reshape(rb, s_count * a_loc, *x.shape[-2:])
+
+    live_m = live.transpose(0, 1).reshape(rb, s_count * a_loc)
+    a_max = max(1, int(live_m.sum(-1).max()))
+    order, mask = _compact(live_m, a_max)
+    v, i = _take_slots(cat(pw.values), cat(pw.indices), order, mask)
+    ag_g = torch.where(mask, torch.gather(ag_m, -1, order), 0)
+    return pw.replace(values=v, indices=i,
+                      active_groups=ag_g.to(torch.int32),
+                      block_geom=(pw.block_geom[0], a_max), **kw)
+
+
+def shard_slice(pw: PackedWeight, s: int) -> PackedWeight:
+    """Slice ``s`` of a shard-stacked weight as a *local* PackedWeight
+    (views of the stacked tensors, no copy): ``dense_shape`` becomes the
+    shard-local ``(O, K // shards)``, ``shards`` is kept as provenance
+    (tuning keys include it) and ``shard_axis`` is None, so that standard
+    kernel dispatch applies."""
+    if pw.shard_axis is None:
+        raise ValueError(f"{pw!r} is not shard-stacked")
+    o, k = pw.dense_shape
+
+    def take(x):
+        return None if x is None else x[s]
+
+    return PackedWeight(
+        take(pw.values), take(pw.indices), cfg=pw.cfg,
+        dense_shape=(o, k // pw.shards), layout=pw.layout,
+        active_groups=take(pw.active_groups), block_geom=pw.block_geom,
+        scales=take(pw.scales), qdtype=pw.qdtype,
+        has_duplicates=pw.has_duplicates, shards=pw.shards)
 
 
 # ---------------------------------------------------------------------------

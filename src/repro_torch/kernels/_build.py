@@ -153,6 +153,24 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def load_library_once(group=None) -> ctypes.CDLL:
+    """:func:`load_library` in a world of ranks that share a build
+    directory: rank 0 loads (building on a cold directory) first, the other
+    ranks wait at a barrier and then load what it built — one build per
+    world instead of one per rank.  Without an initialised process group
+    this is :func:`load_library`."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size(group) == 1:
+        return load_library()
+    first = dist.get_rank(group) == 0
+    if first:
+        load_library()
+    dist.barrier(group)
+    return load_library() if not first else _lib
+
+
 def last_launch_smem() -> int:
     """Dynamic shared memory (bytes) of the last DeMM kernel the library
     launched, as its launcher planned it (the autotuner holds

@@ -30,8 +30,16 @@ Every op's autograd function lives in ``repro_torch.sparsetrain.vjp`` (for
 the int8 ops dx and dL/dscales exact, the int8 values non-differentiable).  A call records autograd
 history only when grad mode is on and x or a float operand requires grad;
 serving (under ``torch.inference_mode``) calls the variant directly.  A
-draft-tier view is serving-only: under grad it raises.  Shard-stacked
-weights are not ported.
+draft-tier view is serving-only: under grad it raises.
+
+A whole shard-stacked weight (``pw.shard_axis`` set, the renumbered
+row-parallel form of ``core.sparsity.shard_packed_row_parallel``) goes to
+:func:`_demm_matmul_sharded`: each slice is an ordinary packed problem over
+its chunk of the contraction dim and the partial products are summed in one
+process.  A shard-local slice (``pw.shards`` > 1, ``shard_axis`` None: what
+a rank of a tp group holds) dispatches as any other weight, with
+``|s{shards}`` in its tuning key; ``core.sparse_linear`` sums its partial
+products over the group.
 
 A draft-tier view (``PackedWeight.tier_ne``, ``repro_torch.spec``) is
 narrowed to prefix views of its tensors before any dispatch decision, so
@@ -102,6 +110,8 @@ def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
                 "a draft-tier view (PackedWeight.tier_ne) is serving-only: "
                 "nothing differentiates one; run the full tier under grad")
         return demm_matmul_packed(x, narrow_tier(pw), backend)
+    if pw.shard_axis is not None:
+        return _demm_matmul_sharded(x, pw, backend)
     if pw.layout == LAYOUT_BLOCK:
         if pw.values.ndim != 4:
             raise ValueError(
@@ -121,9 +131,38 @@ def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
     if pw.qdtype is not None:
         return demm_matmul_xwT_q8(x, pw.values, pw.indices, pw.scales,
                                   pw.cfg, pw.dense_shape, backend,
+                                  shards=pw.shards,
                                   duplicates=pw.has_duplicates)
     return demm_matmul_xwT(x, pw.values, pw.indices, pw.cfg, pw.dense_shape,
-                           backend, duplicates=pw.has_duplicates)
+                           backend, shards=pw.shards,
+                           duplicates=pw.has_duplicates)
+
+
+def _demm_matmul_sharded(x: torch.Tensor, pw: PackedWeight,
+                         backend: str = "reference") -> torch.Tensor:
+    """y = x @ Wᵀ over a whole shard-stacked row-parallel weight, in one
+    process: the sequential sum over its slices (:func:`shard_slice`, each
+    an ordinary K1-K4 problem over its chunk of the contraction dim) in
+    shard order, the JAX package's meshless path.  Outputs agree with the
+    unsharded matmul up to float summation order.  A rank of a tp group
+    holds only its slice (``ShardingPlan.shard_params``) and sums the
+    partial products over the group in ``core.sparse_linear``'s placed
+    row-parallel apply, the counterpart of the JAX package's ``shard_map``
+    island."""
+    from repro_torch.core.sparsity import shard_slice
+
+    if x.ndim != 2:
+        raise ValueError(f"sharded packed matmul needs 2-D x, got "
+                         f"{tuple(x.shape)}")
+    s_count = pw.shards
+    k_local = pw.in_features // s_count
+    y = None
+    for s in range(s_count):
+        part = demm_matmul_packed(
+            x[:, s * k_local:(s + 1) * k_local].contiguous(),
+            shard_slice(pw, s), backend)
+        y = part if y is None else y + part
+    return y
 
 
 def demm_matmul_block(x: torch.Tensor, pw: PackedWeight,
@@ -179,12 +218,16 @@ def _resolve(resolver, backend, params, *shape_args, device, **kw):
 
 
 def demm_matmul_xwT(x, values, indices, cfg: SparsityConfig, w_shape,
-                    backend: str = "reference", **params):
-    """y = x @ W_sparseᵀ; x (B, K), W packed (O, G, Ne) for dense (O, K)."""
+                    backend: str = "reference", *, shards: int = 1,
+                    **params):
+    """y = x @ W_sparseᵀ; x (B, K), W packed (O, G, Ne) for dense (O, K).
+    ``shards`` > 1 tags the shard-local problem of a renumbered row-parallel
+    slice (its own tuning key)."""
     from repro_torch import obs, tune
 
     backend, params = _resolve(tune.resolve_xwT, backend, params, x.shape,
-                               w_shape, cfg, x.dtype, device=x.device)
+                               w_shape, cfg, x.dtype, device=x.device,
+                               shards=shards)
     variant = tune.get_variant("xwT", backend)
     _count_dispatch("xwT", backend)
     with obs.annotate(f"demm/xwT/{backend}"):
@@ -196,14 +239,16 @@ def demm_matmul_xwT(x, values, indices, cfg: SparsityConfig, w_shape,
 
 
 def demm_matmul_xwT_q8(x, values, indices, scales, cfg: SparsityConfig,
-                       w_shape, backend: str = "reference", **params):
+                       w_shape, backend: str = "reference", *,
+                       shards: int = 1, **params):
     """y = x @ W_q8ᵀ; int8 values (O, G, Ne) + scales (O,) per output row or
-    (O, G) per group (``repro_torch.quant`` granularities)."""
+    (O, G) per group (``repro_torch.quant`` granularities); ``shards`` as
+    :func:`demm_matmul_xwT` takes it."""
     from repro_torch import obs, tune
 
     backend, params = _resolve(tune.resolve_xwT_q8, backend, params,
                                x.shape, w_shape, cfg, x.dtype,
-                               device=x.device)
+                               device=x.device, shards=shards)
     variant = tune.get_variant("xwT_q8", backend)
     _count_dispatch("xwT_q8", backend)
     with obs.annotate(f"demm/xwT_q8/{backend}"):

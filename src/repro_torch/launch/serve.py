@@ -46,7 +46,26 @@ to narrow) and verifies the window in one full-tier program; it requires
 ``--ckpt-dir DIR`` (``--ckpt-step N``, default the latest) restores the
 parameters of a ``repro_torch.launch.train`` checkpoint into the model before
 it is packed and served — match ``--arch`` and ``--full`` to how it was
-trained; every leaf's shape is checked against the model first.
+trained; every leaf's shape is checked against the model first.  Each rank
+restores the whole checkpoint and then keeps its shard under the plan the
+flags give.
+
+Distribution (``repro_torch.sharding``): ``--tp N`` splits the model over N
+ranks (Megatron-style: column-parallel q/k/v and gate/up, row-parallel wo
+and down with their packed weights renumbered per shard, vocab-parallel
+embedding and logits, the KV heads split), ``--pp N`` runs the layers as N
+pipeline stages (the dense engine only), one process per rank:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --tp 2 \
+        --arch stablelm_3b --full --packed
+
+Every rank serves the same requests and samples the same tokens; rank 0
+prints the summary.  The process group's backend is ``nccl`` when every rank
+has a GPU of its own, ``gloo`` otherwise (ranks sharing a GPU, or the CPU);
+the line ``world`` logs which.  Rank 0 builds the kernel library and the
+others wait for it.  A multi-rank engine steps eagerly.  ``--replicas N``
+serves N engine replicas of one model in this process behind a round-robin
+router (their metrics merged with a ``replica`` label).
 
 ``--temperature``/``--top-k`` select replay-safe coupled sampling (0 =
 greedy).  ``--trace-replay trace.jsonl`` replays a
@@ -116,7 +135,7 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
               metrics=None, paged: bool = False, page_size: int = 16,
               max_pages=None, prefill_chunk: int = 32, scheduler: str = "fcfs",
               trace_replay=None, recorder=None, spec_draft=None,
-              spec_gamma: int = 4):
+              spec_gamma: int = 4, plan=None, replicas: int = 1):
     """Pack (optionally) and serve ``requests`` random prompts; returns the
     drained engine.  The reusable core of ``main()``.
 
@@ -139,7 +158,12 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
     ("N:M") turns on self-speculative decoding (``repro_torch.spec``):
     ``spec_gamma`` tokens drafted per window at the sparser tier of the same
     packed tensors, verified in one full-tier program; the token stream is
-    identical with and without it.
+    identical with and without it.  ``plan`` (a
+    :class:`~repro_torch.sharding.plan.ShardingPlan`) places the model over
+    the ranks of the initialised process group (each rank calls this with
+    the same arguments); ``replicas`` > 1 serves through a round-robin
+    :class:`~repro_torch.serve.router.ReplicaRouter` of that many engines
+    sharing the model.
     """
     device = require_device(device)
     spec = None
@@ -155,7 +179,7 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
         model = pack_tree(model, layout=layout, quantize=quantize,
                           granularity=granularity)
         mode = "packed"
-    policy = ExecPolicy(mode=mode, backend=backend)
+    policy = ExecPolicy(mode=mode, backend=backend, plan=plan)
     if paged:
         serve_cfg = PagedServeConfig(
             num_slots=slots, max_len=max_len, page_size=page_size,
@@ -168,7 +192,7 @@ def run_serve(model, vocab_size: int, *, packed: bool = True,
                                 seed=seed)
     engine = make_engine(model, serve_cfg, policy=policy, device=device,
                          metrics=metrics, recorder=recorder,
-                         autotune=autotune, spec=spec)
+                         autotune=autotune, spec=spec, replicas=replicas)
     if trace_replay:
         rows = _load_trace(trace_replay)
         t0 = time.time()
@@ -310,7 +334,21 @@ def main(argv=None):
                     help="checkpoint step to restore (default: latest)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; refused when no CUDA device is "
-                         "present) or cpu")
+                         "present) or cpu; a rank of a multi-rank world "
+                         "takes cuda:<LOCAL_RANK mod the GPU count>")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: split the model over this "
+                         "many ranks (row-parallel packed weights renumbered "
+                         "per shard); start one process per rank with "
+                         "torchrun --nproc-per-node N")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel degree: the layers as this many "
+                         "stages, the microbatched pipelined decode step "
+                         "(dense engine only; one process per rank)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind a "
+                         "round-robin router sharing one model in this "
+                         "process; metrics merged with a replica=<i> label")
     # valid backends come from the registry, so variants added via
     # repro_torch.tune.register_variant are immediately servable
     from repro_torch import tune
@@ -372,6 +410,11 @@ def main(argv=None):
     if args.spec_draft and not args.packed:
         ap.error("--spec-draft requires --packed (the draft tier is a view "
                  "of the packed weight tensors)")
+    if args.tp < 1 or args.pp < 1 or args.replicas < 1:
+        ap.error("--tp/--pp/--replicas must be >= 1")
+    if args.pp > 1 and args.paged:
+        ap.error("--pp applies to the non-paged engine (pipelined decode "
+                 "over dense caches); drop --paged or --pp")
     # fail invalid layout/backend pairs here, not deep inside the first
     # decode step
     op = "xwT_block" if args.layout == "block" else "xwT"
@@ -389,6 +432,27 @@ def main(argv=None):
         ap.error(str(e))
 
     log = obs.get_logger("launch.serve")
+    plan = world = None
+    if args.tp > 1 or args.pp > 1:
+        from repro_torch.sharding.plan import ShardingPlan
+        from repro_torch.sharding.world import init_world
+        plan = ShardingPlan(tp=args.tp, pp=args.pp)
+        need = plan.tp * plan.pp
+        have = int(os.environ.get("WORLD_SIZE", 1))
+        if have < need:
+            ap.error(f"--tp {plan.tp} --pp {plan.pp} needs {need} ranks, "
+                     f"the world has {have}; start one process per rank "
+                     f"(torchrun --nproc-per-node {need})")
+        world = init_world(device.type)
+        device = world.device
+        log.info("world", rank=world.rank, size=world.size,
+                 backend=world.backend, device=str(device))
+        if device.type == "cuda":
+            from repro_torch.kernels._build import load_library_once
+            load_library_once()
+    if world is not None and world.rank != 0:
+        # rank 0 prints the summary; the others only their warnings
+        log = obs.StructuredLogger("launch.serve", level="warning")
     recorder = None
     if args.flight_dir:
         recorder = obs.FlightRecorder(
@@ -429,7 +493,8 @@ def main(argv=None):
                            scheduler=args.scheduler,
                            trace_replay=args.trace_replay,
                            recorder=recorder, spec_draft=args.spec_draft,
-                           spec_gamma=args.spec_gamma)
+                           spec_gamma=args.spec_gamma, plan=plan,
+                           replicas=args.replicas)
     dt = engine.drain_seconds
     mode = "packed" if args.packed else "masked"
     total_tokens = sum(len(r.output) for r in engine.completed)
@@ -438,6 +503,10 @@ def main(argv=None):
         tag += "+paged"
     if args.spec_draft:
         tag += f"+spec{args.spec_draft}"
+    if plan is not None:
+        tag += f"+tp{plan.tp}" if plan.tp > 1 else ""
+        tag += f"+pp{plan.pp}" if plan.pp > 1 else ""
+    tag += f"+dp{args.replicas}" if args.replicas > 1 else ""
     log.info("served", requests=len(engine.completed), tokens=total_tokens,
              seconds=round(dt, 3),
              tok_s=round(total_tokens / max(dt, 1e-9), 1), mode=tag,
@@ -476,6 +545,9 @@ def main(argv=None):
                     "--force-stall: no flight dump appeared within 30s")
             log.info("flight dump written", dumps=recorder.dumps)
         recorder.close()
+    if world is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return engine
 
 

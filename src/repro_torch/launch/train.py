@@ -39,7 +39,7 @@ start of the final phase), or the program fails.  ``--metrics-out m.json``
 writes the metrics snapshot (step-time and checkpoint-duration histograms,
 restart and failure counters); ``--flight-dir`` attaches a flight recorder
 with a train-step stall watchdog.  Gradient compression (``--compression``)
-comes with the distribution slice and is refused.
+comes with distributed training and is refused.
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def main(argv=None) -> dict:
     if args.compression is not None:
         ap.error(f"--compression {args.compression}: gradient compression "
                  "(optim/compression.py) is not ported yet; it comes with "
-                 "distribution (ROADMAP Queue 1 item 4)")
+                 "distributed training (ROADMAP Queue 1 item 4b)")
     if args.qat and not args.sparsify:
         ap.error("--qat rides the sparsify training path; add --sparsify")
     if args.reduced and args.full:

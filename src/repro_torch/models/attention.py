@@ -21,6 +21,15 @@ graph that replays the step needs.
 
 Window semantics: ``window`` <= 0 or None means unbounded (full causal); a
 positive window w lets position t attend to [t-w+1, t].
+
+Tensor parallelism (``repro_torch.sharding``): under a sharding context of tp
+ranks every rank projects its ``num_heads // tp`` query heads and its block
+of the KV heads (:func:`local_heads`), attends with them and feeds its chunk
+of the heads to the row-parallel ``wo``.  Where the KV heads do not split
+over tp, ``ShardingPlan(attn_kv_replicated=True)`` keeps wk / wv whole and
+each local query head reads its own KV head (:func:`_kv_for_queries`).  The
+JAX package's ``_constrain_heads`` layout hint is here a check of the local
+head count (``sharding.context.check_heads``).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from torch import nn
 
 from repro_torch.models.layers import (apply_linear, apply_rope, init_linear,
                                        rope_tables)
+from repro_torch.sharding.context import check_heads, get_context
 
 NEG_INF = -1e30
 
@@ -40,8 +50,30 @@ def _windowed(window) -> bool:
     return window is not None and window > 0
 
 
+def local_heads(num_heads: int, num_kv_heads: int):
+    """(query heads, KV heads) this rank computes with: all of them without
+    a sharding context, its blocks under tp."""
+    ctx = get_context()
+    if ctx is None or ctx.tp == 1:
+        return num_heads, num_kv_heads
+    return ctx.local_heads(), ctx.local_kv_heads()
+
+
+def _kv_for_queries(k):
+    """K (or V) (B, S, Hkv, Dh) lined up with this rank's query heads: as
+    it is, unless its heads are whole on every rank while the query heads
+    split (``attn_kv_replicated`` with KV heads that do not split over tp),
+    where each local query head takes the KV head its global index maps to
+    (B, S, Hq_local, Dh)."""
+    ctx = get_context()
+    if ctx is None or ctx.tp == 1 or ctx.shard_heads:
+        return k
+    return k.index_select(2, ctx.kv_head_index().to(k.device))
+
+
 def _gqa_scores(q, k):
     """q: (B, Tq, Hq, Dh), k: (B, S, Hkv, Dh) -> (B, Hq, Tq, S), float32."""
+    k = _kv_for_queries(k)
     b, tq, hq, dh = q.shape
     hkv = k.shape[2]
     group = hq // hkv
@@ -53,6 +85,7 @@ def _gqa_scores(q, k):
 
 def _gqa_out(p, v):
     """p: (B, Hq, Tq, S), v: (B, S, Hkv, Dh) -> (B, Tq, Hq, Dh), float32."""
+    v = _kv_for_queries(v)
     b, hq, tq, s = p.shape
     hkv = v.shape[2]
     group = hq // hkv
@@ -276,14 +309,21 @@ def init_attention(d: int, num_heads: int, num_kv_heads: int, head_dim: int,
 
 def _project_qkv(attn: Attention, x, kv_x, num_heads, num_kv_heads, head_dim,
                  policy):
+    """q (B, T, Hq, Dh), k and v (B, S, Hkv, Dh) at this rank's head counts
+    (:func:`local_heads`)."""
     b, t, _ = x.shape
     skv = kv_x.shape[1]
-    q = apply_linear(attn.wq, x, policy=policy)
-    k = apply_linear(attn.wk, kv_x, policy=policy)
-    v = apply_linear(attn.wv, kv_x, policy=policy)
-    return (q.reshape(b, t, num_heads, head_dim),
-            k.reshape(b, skv, num_kv_heads, head_dim),
-            v.reshape(b, skv, num_kv_heads, head_dim))
+    hq, hkv = local_heads(num_heads, num_kv_heads)
+    q = apply_linear(attn.wq, x, policy=policy).reshape(b, t, -1, head_dim)
+    k = apply_linear(attn.wk, kv_x, policy=policy).reshape(b, skv, -1,
+                                                           head_dim)
+    v = apply_linear(attn.wv, kv_x, policy=policy).reshape(b, skv, -1,
+                                                           head_dim)
+    ctx = get_context()
+    if k.shape[2] != hkv and ctx is not None:
+        # wk / wv whole on every rank whose heads do split: this rank's
+        k, v = ctx.local_block(k, 2), ctx.local_block(v, 2)
+    return (check_heads(q, hq), check_heads(k, hkv), check_heads(v, hkv))
 
 
 def apply_attention(attn: Attention, x, *, num_heads, num_kv_heads,
@@ -307,7 +347,7 @@ def apply_attention(attn: Attention, x, *, num_heads, num_kv_heads,
     out = flash_attention(q, k, v, causal=causal and not cross,
                           window=window, static_window=static_window,
                           q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(b, t, num_heads * head_dim)
+    out = out.reshape(b, t, -1)
     return apply_linear(attn.wo, out, policy=policy)
 
 
@@ -346,7 +386,7 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
     _write_kv(cache["k"], pos, k_new)
     _write_kv(cache["v"], pos, v_new)
     out = decode_attention(q, cache["k"], cache["v"], pos + 1, window=window)
-    out = out.reshape(b, 1, num_heads * head_dim)
+    out = out.reshape(b, 1, -1)
     out = apply_linear(attn.wo, out, policy=policy)
     return out, cache
 
@@ -379,7 +419,7 @@ def apply_attention_decode_paged(attn: Attention, x, arena_k, arena_v,
     k_c = gather_pages(arena_k, block_table)
     v_c = gather_pages(arena_v, block_table)
     out = decode_attention(q, k_c, v_c, pos + 1)
-    out = out.reshape(b, 1, num_heads * head_dim)
+    out = out.reshape(b, 1, -1)
     out = apply_linear(attn.wo, out, policy=policy)
     return out, (arena_k, arena_v)
 
@@ -419,7 +459,7 @@ def apply_attention_prefill_paged(attn: Attention, x, arena_k, arena_v,
     v_c = gather_pages(arena_v, row_table[None])
     out = flash_attention(q, k_c, v_c, causal=True, q_offset=pos0,
                           q_chunk=k_tok, kv_chunk=k_c.shape[1])
-    out = out.reshape(b, k_tok, num_heads * head_dim)
+    out = out.reshape(b, k_tok, -1)
     return apply_linear(attn.wo, out, policy=policy), (arena_k, arena_v)
 
 

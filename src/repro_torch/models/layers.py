@@ -21,6 +21,7 @@ from repro_torch.configs.base import choose_group
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core.sparse_linear import ExecPolicy
 from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.sharding.context import get_context
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -32,7 +33,9 @@ def dtype_of(name: str) -> torch.dtype:
 # Linear with optional DeMM sparsity
 # ---------------------------------------------------------------------------
 
-PRODUCTION_TP = 16  # group boundaries must align to tensor-parallel shards
+# group boundaries must align to tensor-parallel shards: a contraction dim
+# split over up to 16 ranks (``repro_torch.sharding``) keeps whole groups
+PRODUCTION_TP = 16
 
 
 def linear_sparsity(in_f: int, sparse: Optional[SparsityConfig],
@@ -183,12 +186,29 @@ class Embedding(nn.Module):
         self._casts = {}
 
     def forward(self, tokens):
+        if getattr(self, "tp_sharded", False):
+            return self._vocab_parallel(tokens)
         if torch.is_grad_enabled() and self.table.requires_grad:
             # under grad: the embedding op, whose backward sums the rows of
             # repeated tokens in a fixed order on the card (an indexed read's
             # backward accumulates with atomics, in no fixed order)
             return torch.nn.functional.embedding(tokens, self.table)
         return self.table[tokens]
+
+    def _vocab_parallel(self, tokens):
+        """The lookup of a table split over the tp ranks by vocabulary rows
+        (``ShardingPlan.shard_params``): each rank looks up the tokens its
+        block holds, zeros elsewhere, and the ranks' rows are summed
+        (adding zeros is exact)."""
+        ctx = get_context()
+        n = self.table.shape[0]
+        local = tokens - ctx.tp_rank * n
+        inside = (local >= 0) & (local < n)
+        rows = self.table[local.clamp(0, n - 1)]
+        rows = torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        return ctx.all_reduce(rows)
 
     def table_as(self, dtype: torch.dtype) -> torch.Tensor:
         """The table in ``dtype``, the same values ``table.to(dtype)``
@@ -220,8 +240,13 @@ def apply_embedding(emb: Embedding, tokens):
 def apply_unembedding(emb: Embedding, x, true_vocab: Optional[int] = None):
     """Logits = x @ tableᵀ (a plain dense product).  When the table is padded
     (padded_vocab > true_vocab), the padded columns are masked to a large
-    negative so greedy decode can never select them."""
+    negative so greedy decode can never select them.  A table split over
+    the tp ranks by vocabulary rows gives each rank its block of the logits,
+    gathered into the whole ``(.., V)`` on every rank (an ``all_reduce`` of
+    zero-filled buffers: exact, in float32)."""
     logits = x @ emb.table_as(x.dtype).T
+    if getattr(emb, "tp_sharded", False):
+        logits = get_context().gather(logits.to(torch.float32))
     if true_vocab is not None and true_vocab < logits.shape[-1]:
         logits[..., true_vocab:] = -1e30
     return logits

@@ -25,7 +25,8 @@ fixed order, and a captured step would not replay its eager run bit for
 bit).
 
 The expert-parallel path of the reference (``_apply_moe_ep``, under a
-sharding context) comes with distribution.
+sharding context) comes with distributed training; a sharding plan refuses
+MoE models by name (``serve.protocol.EngineBase._setup_plan``).
 """
 
 from __future__ import annotations

@@ -37,6 +37,12 @@ prefill into the paged arena and the training loss (``train_loss``, also
 the module's ``forward``, so that ``torch.func.functional_call`` runs it on
 substituted parameters) are ported.
 
+Distribution (``repro_torch.sharding``): under a sharding context of tp
+ranks every layer runs on this rank's heads and blocks of the projections
+(``full`` and ``paged`` caches, their head axis split);
+:meth:`DecoderLM.decode_step_pipelined` runs the layers as ``pp`` pipeline
+stages, each rank holding its ``L / pp`` layers and their caches.
+
 Training under grad rematerializes per block (``cfg.remat``, through
 :func:`remat_call`): ``full`` recomputes a block's forward in the backward
 pass, ``dots`` saves the matmul outputs without batch dims (``aten.mm`` /
@@ -294,6 +300,18 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     gold = torch.take_along_dim(logits, targets[..., None].to(torch.int64),
                                 dim=-1)[..., 0]
     return (lse - gold).mean()
+
+
+def _check_tp_cache_kind(kind: str):
+    """Under tensor parallelism only the ``full`` and ``paged`` caches are
+    served (the windowed rings are not split over ranks yet)."""
+    from repro_torch.sharding.context import get_context
+
+    ctx = get_context()
+    if ctx is not None and ctx.tp > 1 and kind not in ("full", "paged"):
+        raise NotImplementedError(
+            f"decode cache kind {kind!r} under tp={ctx.tp} is not ported: "
+            "tensor-parallel serving covers the full and paged caches")
 
 
 class LM(nn.Module):
@@ -557,6 +575,7 @@ class DecoderLM(LM):
         if kind not in ("full", "paged", "swa", "local_global"):
             raise NotImplementedError(
                 f"decode cache kind {kind!r} is not ported yet")
+        _check_tp_cache_kind(kind)
         # the rotary tables depend on the positions only: once per step
         rope = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)
@@ -579,6 +598,70 @@ class DecoderLM(LM):
         logits = apply_unembedding(self.unembed, x, cfg.vocab_size)
         step = caches["active"].to(pos.dtype) if kind == "paged" else 1
         return logits, {"caches": caches, "pos": pos + step}
+
+    def decode_step_pipelined(self, state, tokens, *, policy=None,
+                              pp: int = 2):
+        """Pipeline-parallel :meth:`decode_step` (full-attention caches).
+
+        The layers form ``pp`` contiguous stages, one per rank of the
+        sharding context's ``pipe`` dim; the decode batch is split into
+        ``pp`` slot microbatches streamed through the GPipe schedule
+        (:func:`repro_torch.sharding.pipeline.pipeline_apply_stateful`).
+        This rank holds its stage's ``L / pp`` layers and their caches
+        (``state["caches"]`` of ``L / pp`` layers) and writes only the slot
+        rows of its live microbatch, so the logits and caches are what the
+        sequential step gives.  Embedding, final norm and unembedding run
+        on every rank.  Requires ``num_layers % pp == 0`` and ``batch % pp
+        == 0``; without a ``pipe`` dim of ``pp`` ranks in the active context
+        it is :meth:`decode_step` (the same math, as the JAX package falls
+        back on one device)."""
+        from repro_torch.sharding.context import get_context
+        from repro_torch.sharding.pipeline import pipeline_apply_stateful
+
+        policy = resolve_policy(policy)
+        cfg = self.cfg
+        caches = state["caches"]
+        if caches["kind"] != "full":
+            raise NotImplementedError(
+                "decode_step_pipelined supports the dense full-attention "
+                "cache (windowed / paged layouts pipeline their stages with "
+                "other per-stage state)")
+        ctx = get_context()
+        if ctx is None or ctx.pp != pp:
+            return self.decode_step(state, tokens, policy=policy)
+        b, l = tokens.shape[0], cfg.num_layers
+        if l % pp or b % pp:
+            raise ValueError(
+                f"decode_step_pipelined: num_layers ({l}) and batch ({b}) "
+                f"must both divide pp ({pp})")
+        l_loc, mb = l // pp, b // pp
+        first = ctx.pp_rank * l_loc
+        if caches["k"].shape[0] != l_loc:
+            raise ValueError(
+                f"this stage's caches hold {caches['k'].shape[0]} layers, "
+                f"expected {l_loc} (place the state with the plan)")
+        dtype = dtype_of(cfg.compute_dtype)
+        pos = state["pos"]
+        x = apply_embedding(self.embed, tokens).to(dtype)
+
+        def stage_fn(x_mb, pos_mb, mb_idx):
+            rows = slice(mb_idx * mb, (mb_idx + 1) * mb)
+            rope = rope_tables(pos_mb[:, None], cfg.resolved_head_dim,
+                               cfg.rope_theta)
+            for li in range(l_loc):
+                # views of this microbatch's rows: written in place
+                cache = {"k": caches["k"][li, rows],
+                         "v": caches["v"][li, rows]}
+                x_mb, _ = self._decode_full_layer(
+                    self.layers[first + li], x_mb, cache, pos_mb,
+                    FULL_WINDOW, policy, rope)
+            return x_mb
+
+        y = pipeline_apply_stateful(stage_fn, x.reshape(pp, mb, *x.shape[1:]),
+                                    ctx, aux=pos.reshape(pp, mb))
+        x = apply_rmsnorm(self.final_norm, y.reshape(b, *y.shape[2:]))
+        logits = apply_unembedding(self.unembed, x, cfg.vocab_size)
+        return logits, {"caches": caches, "pos": pos + 1}
 
     def prefill_chunk(self, state, tokens, slot, n_valid, *, policy=None):
         """Ingest one K-token chunk of a single sequence into its pages.

@@ -58,8 +58,8 @@ class AdamWConfig:
         if self.compression is not None:
             raise NotImplementedError(
                 f"gradient compression {self.compression!r} is not ported: "
-                "optim/compression.py comes with distribution (ROADMAP "
-                "Queue 1 item 4)")
+                "optim/compression.py comes with distributed training "
+                "(ROADMAP Queue 1 item 4b)")
 
 
 def _f32(v) -> np.float32:

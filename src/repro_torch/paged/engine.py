@@ -49,8 +49,10 @@ decode step then resolves from measured entries and the prefill chunk's
 problems by heuristic, as in the reference.  With ``spec=`` the draft step
 and each verify width are graphs of their own (``serve_loop.SpecPrograms``),
 all reading the same control tensors; the plain decode step is captured only
-if a window clamps to a plain step near ``max_len``.  Sharding plans are not
-ported to this engine yet.
+if a window clamps to a plain step near ``max_len``.  A sharding plan of tp
+ranks places the model and splits the arena's head axis on each rank
+(``serve.protocol.EngineBase._setup_plan``); such an engine runs both
+programs eagerly.
 Layering: this module never imports ``repro_torch.models``; the model is
 handed in by the caller.
 """
@@ -113,6 +115,12 @@ class PagedServeEngine(SpecPrograms, EngineBase):
         self.cfg = cfg
         self.policy = resolve_policy(policy)
         self._spec = spec
+        # policy.plan: place the model on this rank before anything else
+        self._setup_plan(self.policy, spec)
+        if self.plan is not None and self.plan.pp > 1:
+            raise NotImplementedError(
+                "pp > 1 applies to the dense-cache engine (the pipelined "
+                "decode step over dense caches), not the paged arena")
         if spec is not None:
             # the tier-sort invariant before anything is tuned or captured
             from repro_torch.spec.tiers import tier_sort_tree
@@ -127,15 +135,17 @@ class PagedServeEngine(SpecPrograms, EngineBase):
             cfg.max_len, page_size=cfg.page_size, num_pages=cfg.num_pages,
             num_slots=cfg.num_slots)
         self.kv = PagedKVCache(self.layout, cfg.num_slots)
-        # the arena is float32 whatever the compute dtype
-        self.state = model.init_decode_state(
-            cfg.num_slots, cfg.max_len, dtype=torch.float32,
-            device=model.device, paged=self.layout)
+        # the arena is float32 whatever the compute dtype; this rank's
+        # block of its head axis under a plan
+        self.state = self._place_state(
+            model.device, batch=cfg.num_slots, max_len=cfg.max_len,
+            dtype=torch.float32, paged=self.layout)
         caches = self.state["caches"]
         self._tokens = torch.zeros((cfg.num_slots, 1), dtype=torch.int64,
                                    device=model.device)
         self._control = Staged(self.state["pos"], caches["block_table"],
                                caches["active"], self._tokens)
+        _eager = _eager or self.multi_rank
         self._use_graph = self.device.type == "cuda" and not _eager
         self._graph = None       # the decode step, captured at its first tick
         self._logits = None      # the graph's logits output (slots, V) f32
@@ -219,6 +229,9 @@ class PagedServeEngine(SpecPrograms, EngineBase):
             help="submit -> completion (quantile sketch)")
         self._m_pages_free.set(self.kv.pages_free)
         self._setup_recorder(recorder)
+        self._report_eager(m)
+        if self._shctx is not None:
+            self.step = self._wrap_step(self.step)
         if spec is not None:
             self._setup_spec(spec)
 

@@ -15,6 +15,11 @@ Each tick runs the decode step under ``torch.inference_mode()`` and
 synchronises with the device once, when it pulls the logits (and the slot
 positions) to the host; sampling happens there.
 
+A sharding plan (``ExecPolicy(plan=ShardingPlan(...))``, or ``make_engine(
+plan=...)``) places the model and the decode state on this rank
+(``protocol.EngineBase._setup_plan``); under ``pp`` the step is the model's
+``decode_step_pipelined``.  Such an engine steps eagerly.
+
 The compiled step.  The JAX package compiles the decode step into one
 program (``jax.jit``).  Its counterpart here is a CUDA graph: a CUDA engine
 captures ``model.decode_step`` once, at its first tick (under the first
@@ -416,6 +421,9 @@ class ServeEngine(SpecPrograms, EngineBase):
         self.cfg = cfg
         self.policy = resolve_policy(policy)
         self._spec = spec
+        # policy.plan: renumber and place the model on this rank before
+        # anything is tuned, allocated or captured
+        self._setup_plan(self.policy, spec)
         if spec is not None:
             # the tier-sort invariant (every group's pairs magnitude-
             # descending, in place) before anything is tuned or captured,
@@ -429,10 +437,11 @@ class ServeEngine(SpecPrograms, EngineBase):
             # step and the capture
             from repro_torch import tune
             tune.autotune_packed_tree(model, cfg.num_slots)
-        # the KV cache is float32 whatever the compute dtype
-        self.state = model.init_decode_state(
-            cfg.num_slots, cfg.max_len, dtype=torch.float32,
-            device=model.device)
+        # the KV cache is float32 whatever the compute dtype; this rank's
+        # block of it under a plan
+        self.state = self._place_state(
+            model.device, batch=cfg.num_slots, max_len=cfg.max_len,
+            dtype=torch.float32)
         # what a claimed slot is reset to: each state tensor's slot axis
         # (where a one-slot and a two-slot state's shapes differ, both made
         # on the meta device, without memory) and the one value the fresh
@@ -460,8 +469,16 @@ class ServeEngine(SpecPrograms, EngineBase):
                                      pin_memory=self.device.type == "cuda")
         self._next_tok = self._tok_host.numpy()
         self._tokens = self._tok_host.to(self.device)
-        self._use_graph = self.device.type == "cuda" and not _eager
+        self._use_graph = (self.device.type == "cuda" and not _eager
+                           and not self.multi_rank)
         self._graph = None       # captured at the first tick
+        if self.plan is not None and self.plan.pp > 1:
+            pp = self.plan.pp
+            self._step_fn = lambda state, tokens, policy: \
+                model.decode_step_pipelined(state, tokens, policy=policy,
+                                            pp=pp)
+        else:
+            self._step_fn = None     # the model's decode_step
         self._logits = None      # the graph's logits output (slots, V) f32
         self.captures = 0        # captures of the plain decode step
         self.queue: deque[Request] = deque()
@@ -511,6 +528,9 @@ class ServeEngine(SpecPrograms, EngineBase):
             "serve_e2e_seconds_sketch",
             help="submit -> completion (quantile sketch)")
         self._setup_recorder(recorder)
+        self._report_eager(m)
+        if self._shctx is not None:
+            self.step = self._wrap_step(self.step)
         if spec is not None:
             self._setup_spec(spec)
             self._pos_in = Staged(self.state["pos"])
@@ -651,9 +671,12 @@ class ServeEngine(SpecPrograms, EngineBase):
         every time (what a CUDA graph needs).  ``model`` / ``tokens``: the
         draft model and its token input (default: the full model and
         ``_tokens``)."""
-        logits, new = (model or self.model).decode_step(
-            self.state, self._tokens if tokens is None else tokens,
-            policy=self.policy)
+        tokens = self._tokens if tokens is None else tokens
+        if model is None and self._step_fn is not None:
+            logits, new = self._step_fn(self.state, tokens, self.policy)
+        else:
+            logits, new = (model or self.model).decode_step(
+                self.state, tokens, policy=self.policy)
         self.state["pos"].copy_(new["pos"])
         return logits[:, 0].to(torch.float32)
 

@@ -1,0 +1,404 @@
+"""ShardingPlan: one serializable object describing how a model is placed.
+
+A :class:`ShardingPlan` gathers the parallelism degrees (``tp`` / ``pp`` /
+``dp``), the KV-replication policy for archs whose KV head count does not
+divide tp, and per-node kind overrides (regex -> col / row / replicated).
+Plans are frozen and hashable (they ride on ``ExecPolicy``) and round-trip
+through JSON at the JAX package's version (they ride in the checkpoint
+manifest); the JSON's mesh dim names and renumber policy are the JAX
+package's defaults, written and accepted as constants.  ``dp`` is carried
+for the checkpoint manifest and the mesh; the engines take the plan's tp x
+pp slice (data parallelism in serving is ``serve.router.ReplicaRouter``).
+
+Placement is SPMD: one process per rank, each holding only its shard.
+:meth:`ShardingPlan.make_mesh` builds a ``torch.distributed`` DeviceMesh from
+the initialised default process group; :meth:`shard_params` renumbers the
+row-parallel packed weights and then keeps, on this rank, only its block of
+every tensor per :meth:`param_specs` — what ``device_put`` with a
+``NamedSharding`` leaves on one device in the JAX package — and marks each
+linear with its kind (``tp_kind``) and whether it holds a block
+(``tp_sharded``), which ``core.sparse_linear.apply`` reads.  Under ``pp``
+each rank keeps only its stage's layers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.sparsity import (
+    LAYOUT_BLOCK,
+    PackedWeight,
+    shard_packed_row_parallel,
+    shard_slice,
+)
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.partitioning import (
+    Spec,
+    _linear_kind_impl,
+    _param_specs_impl,
+    path_of,
+)
+
+# the mesh dim names and renumber policy of the JAX package's default plan:
+# the rule table and the context name these dims, and row-parallel packed
+# weights are always renumbered
+TP_AXIS, PP_AXIS, DP_AXIS = "model", "pipe", "data"
+RENUMBER = "renumber"
+
+_PLAN_VERSION = 1
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 when none is initialised)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+class DroppedLayer(nn.Module):
+    """What a pipeline rank keeps of a layer another stage owns: nothing."""
+
+
+def _set_module(root: nn.Module, name: str, new: nn.Module):
+    parent, _, leaf = name.rpartition(".")
+    setattr(root.get_submodule(parent) if parent else root, leaf, new)
+
+
+def _block(t: torch.Tensor, spec, rank: int, degree: int, axis: str):
+    """This rank's block of ``t`` along every dim ``spec`` splits over
+    ``axis`` (a copy, so that the whole tensor can be freed)."""
+    for d, ax in enumerate(spec):
+        if ax == axis:
+            n = t.shape[d] // degree
+            t = t.narrow(d, rank * n, n)
+    return t.clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    """How a model's params, decode state and collectives are laid out.
+
+    ``kind_overrides`` is a tuple of ``(path_regex, kind)`` pairs checked
+    before the rule table (first match wins); kinds are ``"col"`` /
+    ``"row"`` / ``"replicated"``.  Row-parallel packed weights are
+    renumbered when ``tp > 1`` (the per-shard active-group pass), so that
+    their contraction dim really splits.
+    """
+
+    tp: int = 1
+    pp: int = 1
+    dp: int = 1
+    attn_kv_replicated: bool = False
+    kind_overrides: Tuple[Tuple[str, str], ...] = ()
+
+    def __post_init__(self):
+        for name in ("tp", "pp", "dp"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        object.__setattr__(
+            self, "kind_overrides",
+            tuple((str(p), str(k)) for p, k in self.kind_overrides))
+        for _, k in self.kind_overrides:
+            if k not in ("col", "row", "replicated"):
+                raise ValueError(f"bad kind override {k!r}")
+
+    # -- geometry -----------------------------------------------------------
+
+    def device_degree(self) -> int:
+        return self.tp * self.pp * self.dp
+
+    def make_mesh(self):
+        """The ``(dp, pp, tp)`` DeviceMesh over the default process group's
+        first ranks, or None for a plan of degree 1.  Dims are named as in
+        the JAX package; ``model`` is always there, ``data`` and ``pipe``
+        only at a degree above 1.  A plan of more ranks than the world
+        (a world of one process included) raises: nothing runs a multi-rank
+        plan on fewer ranks."""
+        n = self.device_degree()
+        if n == 1:
+            return None
+        world = world_size()
+        if world < n:
+            raise ValueError(
+                f"plan needs {n} ranks (tp={self.tp} pp={self.pp} "
+                f"dp={self.dp}), only {world} in the process group; start "
+                f"one process per rank (torchrun --nproc-per-node {n})")
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+        shape, names = [], []
+        for degree, name in ((self.dp, DP_AXIS), (self.pp, PP_AXIS)):
+            if degree > 1:
+                shape.append(degree)
+                names.append(name)
+        shape.append(self.tp)
+        names.append(TP_AXIS)
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        if world == n:
+            return init_device_mesh(device_type, tuple(shape),
+                                    mesh_dim_names=tuple(names))
+        return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                          mesh_dim_names=tuple(names))
+
+    def context(self, mesh, *, num_kv_heads: int = 16,
+                num_heads: int = 0) -> shctx.ShardingContext:
+        """This rank's ShardingContext on ``mesh``, to install
+        (``shctx.use_mesh``) around every step."""
+        return shctx.make_context(mesh, num_kv_heads=num_kv_heads,
+                                  num_heads=num_heads,
+                                  kv_replicated=self.attn_kv_replicated)
+
+    # -- classification / specs --------------------------------------------
+
+    def linear_kind(self, path: str) -> str:
+        """col / row / replicated of a linear module path: the overrides
+        first, then the shared rule table."""
+        for pat, kind in self.kind_overrides:
+            if re.search(pat, path):
+                return kind
+        return _linear_kind_impl(
+            path, attn_kv_replicated=self.attn_kv_replicated)
+
+    def _axis_degree(self, name) -> int:
+        return {TP_AXIS: self.tp, PP_AXIS: self.pp,
+                DP_AXIS: self.dp}.get(name, 1)
+
+    def param_specs(self, model) -> dict:
+        """``{path: Spec}`` of every tensor of ``model`` under this plan
+        (``{module path: {tensor name: Spec}}`` for a PackedWeight).  Call
+        on the renumbered model (:meth:`renumber_params`).  Specs are
+        sanitised against the tensors' shapes: a dim the rule table would
+        split whose size does not divide the degree stays whole (a block
+        weight of one row block under tp 2, say)."""
+        specs = _param_specs_impl(
+            model, attn_kv_replicated=self.attn_kv_replicated,
+            kind_fn=self.linear_kind)
+        tensors = {path_of(n): t for n, t in list(model.named_parameters())
+                   + list(model.named_buffers())}
+
+        def sane(spec, shape):
+            parts = list(spec) + [None] * (len(shape) - len(spec))
+            return Spec(*(ax if ax is None
+                          or shape[i] % self._axis_degree(ax) == 0 else None
+                          for i, ax in enumerate(parts)))
+
+        return {p: ({c: sane(s, tensors[f"{p}/{c}"].shape)
+                     for c, s in spec.items()} if isinstance(spec, dict)
+                    else sane(spec, tensors[p].shape))
+                for p, spec in specs.items()}
+
+    # -- packed-weight renumbering -----------------------------------------
+
+    def renumber_params(self, model):
+        """Rewrite, in place, every row-parallel PackedWeight of ``model``
+        into the shard-stacked, locally renumbered form
+        (:func:`~repro_torch.core.sparsity.shard_packed_row_parallel`), so
+        that its contraction dim splits over the ``model`` dim.  Returns
+        ``model``.  No-op at ``tp == 1``.  Nodes the pass cannot shard stay
+        whole: group count not a multiple of ``tp``, already shard-stacked
+        nodes, int8 block nodes (as in the JAX package)."""
+        if self.tp == 1:
+            return model
+        for name, pw in list(model.named_modules()):
+            if (not isinstance(pw, PackedWeight) or pw.shard_axis is not None
+                    or self.linear_kind(path_of(name)) != "row"
+                    or pw.groups % self.tp
+                    or (pw.layout == LAYOUT_BLOCK and pw.qdtype is not None)):
+                continue
+            _set_module(model, name, shard_packed_row_parallel(
+                pw, self.tp, axis=TP_AXIS))
+        return model
+
+    def shard_params(self, model, mesh=None):
+        """Renumber ``model`` (:meth:`renumber_params`) and, on a mesh, keep
+        only this rank's block of every tensor (in place; returns
+        ``model``).  Without a mesh the renumbered model stays whole: its
+        shard-stacked weights then run the sequential sum over their slices
+        (``ops._demm_matmul_sharded``'s meshless path)."""
+        model = self.renumber_params(model)
+        if mesh is None:
+            return model
+        ctx = self.context(mesh)
+        if ctx.tp > 1:
+            self._keep_tp_blocks(model, ctx.tp_rank)
+        if ctx.pp > 1:
+            self._keep_stage(model, ctx.pp_rank)
+        return model
+
+    def _keep_tp_blocks(self, model, rank: int):
+        from repro_torch.core.sparse_linear import SparseLinear
+        from repro_torch.models.layers import Embedding
+
+        tp, axis = self.tp, TP_AXIS
+        specs = self.param_specs(model)
+        handled = set()
+        for name, mod in list(model.named_modules()):
+            p = path_of(name)
+            if isinstance(mod, PackedWeight):
+                new, sharded = self._local_packed(mod, specs[p], rank)
+                new.tp_kind, new.tp_sharded = self.linear_kind(p), sharded
+                _set_module(model, name, new)
+                handled.add(p)
+            elif isinstance(mod, SparseLinear):
+                spec = specs[f"{p}/w"]
+                mod.w = nn.Parameter(_block(mod.w.data, spec, rank, tp, axis),
+                                     requires_grad=False)
+                mod.tp_kind = self.linear_kind(p)
+                mod.tp_sharded = axis in spec
+                handled.add(f"{p}/w")
+            elif isinstance(mod, Embedding):
+                spec = specs[f"{p}/table"]
+                if axis in spec:
+                    mod.table = nn.Parameter(
+                        _block(mod.table.data, spec, rank, tp, axis),
+                        requires_grad=False)
+                    mod._casts.clear()
+                    mod.tp_sharded = True
+                handled.add(f"{p}/table")
+        left = [p for p, s in specs.items() if p not in handled
+                and not isinstance(s, dict) and axis in s]
+        if left:
+            raise NotImplementedError(
+                f"tensors {left[:4]} split over {axis!r} outside a linear or "
+                "an embedding (a family the port does not serve under tp)")
+
+    def _local_packed(self, pw: PackedWeight, specs: dict, rank: int):
+        """(this rank's PackedWeight, whether it holds a block) of ``pw``
+        under its ``specs``."""
+        tp, axis = self.tp, TP_AXIS
+        if pw.shard_axis is not None:            # renumbered: row-parallel
+            loc = shard_slice(pw, rank)
+            tensors = {n: getattr(loc, n).clone() for n in specs}
+            return loc.replace(**tensors, has_duplicates=pw.has_duplicates), \
+                True
+        dims = {s.index(axis) for s in specs.values() if axis in s}
+        if not dims:
+            return pw, False
+        tensors = {n: _block(getattr(pw, n), specs[n], rank, tp, axis)
+                   for n in specs}
+        o, k = pw.dense_shape
+        if specs["values"].index(axis) == 0:     # column-parallel rows
+            return pw.replace(**tensors, dense_shape=(o // tp, k),
+                              has_duplicates=pw.has_duplicates), True
+        # xwT split on its group axis (not renumbered): a shard-local slice
+        return pw.replace(**tensors, dense_shape=(o, k // tp), shards=tp,
+                          has_duplicates=pw.has_duplicates), True
+
+    def _keep_stage(self, model, rank: int):
+        """Keep stage ``rank``'s contiguous ``L / pp`` layers of ``model``
+        and drop the others (their tensors are freed)."""
+        layers = model.layers
+        n = len(layers)
+        if n % self.pp:
+            raise ValueError(f"{n} layers do not split into pp={self.pp} "
+                             "stages")
+        per = n // self.pp
+        for i in range(n):
+            if not rank * per <= i < (rank + 1) * per:
+                layers[i] = DroppedLayer()
+
+    # -- decode state -------------------------------------------------------
+
+    def decode_state_specs(self, state, *, num_kv_heads: int):
+        """Spec tree of a decode state: KV tensors (dense caches (L, B, S,
+        Hkv, Dh) and paged arenas (L, Np, P, Hkv, Dh), heads at axis 3)
+        split their head axis over ``model`` when the head count divides
+        tp; under ``pp`` a dense cache also splits its layer axis over
+        ``pipe`` (each stage holds its layers' caches); everything else
+        (positions, block tables) is whole."""
+        shard_heads = self.tp > 1 and num_kv_heads % self.tp == 0
+
+        def one(leaf, kv):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            parts = [None] * leaf.ndim
+            if kv and leaf.ndim == 5:
+                if shard_heads and leaf.shape[3] == num_kv_heads:
+                    parts[3] = TP_AXIS
+                if self.pp > 1:
+                    parts[0] = PP_AXIS
+            return Spec(*parts)
+
+        def walk(node, kv=False):
+            if isinstance(node, dict):
+                return {k: walk(v, kv or k in ("k", "v")) for k, v in
+                        node.items()}
+            return one(node, kv)
+
+        return walk(state)
+
+    def shard_decode_state(self, make, device, mesh, *, num_kv_heads: int):
+        """This rank's block of a fresh decode state per
+        :meth:`decode_state_specs`, allocated at its local shape: the whole
+        state is never built.  ``make(device=...)`` builds the whole fresh
+        state (``model.init_decode_state`` with its arguments bound); it
+        runs on the meta device for the shapes, dtypes and the non-tensor
+        leaves.  A fresh dense or paged state is all zeros, so every block
+        is allocated as zeros.  Without a mesh: ``make(device=device)``."""
+        if mesh is None:
+            return make(device=device)
+        whole = make(device="meta")
+        kind = whole["caches"]["kind"]
+        if kind not in ("full", "paged"):
+            raise NotImplementedError(
+                f"a {kind!r} decode state under a sharding plan: "
+                "distributed serving covers the full and paged caches")
+        ctx = self.context(mesh)
+        specs = self.decode_state_specs(whole, num_kv_heads=num_kv_heads)
+        degree = {TP_AXIS: ctx.tp, PP_AXIS: ctx.pp}
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k]) for k, v in node.items()}
+            if not isinstance(node, torch.Tensor):
+                return node
+            shape = [n // degree.get(ax, 1) for n, ax in zip(node.shape,
+                                                               spec)]
+            return torch.zeros(shape, dtype=node.dtype, device=device)
+
+        return walk(whole, specs)
+
+    # -- serialization ------------------------------------------------------
+
+    def to_json(self) -> dict:
+        """The JAX package's plan JSON (its mesh dim names and renumber
+        policy, as constants)."""
+        return {
+            "version": _PLAN_VERSION,
+            "tp": self.tp, "pp": self.pp, "dp": self.dp,
+            "tp_axis": TP_AXIS, "pp_axis": PP_AXIS, "dp_axis": DP_AXIS,
+            "attn_kv_replicated": self.attn_kv_replicated,
+            "renumber": RENUMBER,
+            "kind_overrides": [list(kv) for kv in self.kind_overrides],
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "ShardingPlan":
+        v = d.get("version", _PLAN_VERSION)
+        if v > _PLAN_VERSION:
+            raise ValueError(f"unknown ShardingPlan version {v}")
+        fixed = {"tp_axis": TP_AXIS, "pp_axis": PP_AXIS, "dp_axis": DP_AXIS,
+                 "renumber": RENUMBER}
+        other = {k: d[k] for k, want in fixed.items()
+                 if d.get(k, want) != want}
+        if other:
+            raise ValueError(f"plan JSON sets {other}; the port reads only "
+                             f"the JAX package's defaults {fixed}")
+        return cls(
+            tp=int(d.get("tp", 1)), pp=int(d.get("pp", 1)),
+            dp=int(d.get("dp", 1)),
+            attn_kv_replicated=bool(d.get("attn_kv_replicated", False)),
+            kind_overrides=tuple(
+                (p, k) for p, k in d.get("kind_overrides", [])),
+        )
+
+
+def single_device_plan() -> ShardingPlan:
+    """The trivial plan (tp = pp = dp = 1): ``make_mesh()`` is None and
+    every transform is the identity."""
+    return ShardingPlan()

@@ -21,7 +21,12 @@ in the manifest's ``nodes`` table, and restore patches them back over the
 template — so a packed tree round-trips with its full
 :class:`SparsityConfig` (k-reconfiguration included) and quantization tag
 even if the restoring process built its template with other static
-metadata.  The port has no sharding plan yet, so ``load_plan`` finds none.
+metadata.  A renumbered (shard-stacked) or shard-local node records its
+``shards`` and ``shard_axis`` too.  ``save(..., plan=)`` writes the
+:class:`~repro_torch.sharding.plan.ShardingPlan` a tree was produced under
+into the manifest (``sharding_plan``, the JAX package's JSON), and
+:func:`load_plan` reads it back, so a restore knows the geometry its packed
+weights were renumbered for.
 
 bfloat16 leaves (numpy has no such type) are stored as their int16 bit
 patterns with ``"dtype": "bfloat16"`` in the manifest.
@@ -108,6 +113,11 @@ def _node_entries(tree, prefix=""):
             entry["block_geom"] = list(tree.block_geom)
         if tree.qdtype is not None:
             entry["qdtype"] = tree.qdtype
+        if tree.shards > 1:
+            # renumbered shard-stacked / shard-local provenance
+            entry["shards"] = tree.shards
+            if tree.shard_axis is not None:
+                entry["shard_axis"] = tree.shard_axis
         out.append(entry)
     elif isinstance(tree, Static):
         out.append({"path": prefix, "kind": "static",
@@ -138,7 +148,9 @@ def _patch_nodes(tree, by_path, prefix=""):
                             active_groups=tree.active_groups,
                             block_geom=tuple(geom) if geom else None,
                             scales=tree.scales if qdtype else None,
-                            qdtype=qdtype)
+                            qdtype=qdtype,
+                            shard_axis=e.get("shard_axis"),
+                            shards=int(e.get("shards", 1)))
     if isinstance(tree, Static):
         e = by_path.get(prefix)
         if e is not None and e["kind"] == "static":
@@ -156,13 +168,15 @@ def _patch_nodes(tree, by_path, prefix=""):
     return tree
 
 
-def _write(host_leaves, nodes, directory: str, step: int) -> str:
+def _write(host_leaves, nodes, directory: str, step: int, plan=None) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "nodes": nodes}
+    if plan is not None:
+        manifest["sharding_plan"] = plan.to_json()
     for path, arr, dtype in host_leaves:
         if arr is None:
             manifest["leaves"].append({"path": path, "kind": "none"})
@@ -190,22 +204,39 @@ def _host_leaves(tree):
             yield (path, *_to_host(leaf))
 
 
-def save(tree, directory: str, step: int) -> str:
+def save(tree, directory: str, step: int, *, plan=None) -> str:
     """Synchronous atomic save, one leaf on the host at a time.  Returns the
-    committed directory."""
-    return _write(_host_leaves(tree), _node_entries(tree), directory, step)
+    committed directory.  ``plan`` (a ``ShardingPlan``) is written into the
+    manifest (:func:`load_plan`)."""
+    return _write(_host_leaves(tree), _node_entries(tree), directory, step,
+                  plan)
 
 
-def save_async(tree, directory: str, step: int) -> Future:
+def save_async(tree, directory: str, step: int, *, plan=None) -> Future:
     """Copy every leaf to the host now, write on a background thread."""
     return _EXEC.submit(_write, list(_host_leaves(tree)),
-                        _node_entries(tree), directory, step)
+                        _node_entries(tree), directory, step, plan)
 
 
 def load_plan(directory: str, step: Optional[int] = None):
-    """The sharding plan a checkpoint was saved with: always None (the port
-    writes none; distribution is not ported)."""
-    return None
+    """The :class:`~repro_torch.sharding.plan.ShardingPlan` a checkpoint was
+    saved with, or None (no plan recorded, or no checkpoint).  ``step``
+    defaults to the latest committed step."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            return None
+    final = os.path.join(directory, f"step_{step:08d}")
+    try:
+        with open(os.path.join(final, "manifest.json")) as f:
+            manifest = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    blob = manifest.get("sharding_plan")
+    if blob is None:
+        return None
+    from repro_torch.sharding.plan import ShardingPlan
+    return ShardingPlan.from_json(blob)
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -9,8 +9,8 @@ monitoring.
   ``threshold``× the fleet median are flagged for replacement / microbatch
   rebalancing (hook returns the suggested new grain distribution).
 
-``elastic_restore`` (a restore onto another mesh) needs the sharding plan
-and comes with the distribution slice.
+``elastic_restore`` (a restore onto another mesh) comes with distributed
+training.
 
 Observability (``repro_torch.obs``): the supervisor observes a step-time
 histogram, restart/failure counters, and checkpoint save/restore duration

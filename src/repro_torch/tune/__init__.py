@@ -150,7 +150,8 @@ def autotune_packed_tree(module, batch: int, dtype=None, *,
     import numpy as np
     import torch
 
-    from repro_torch.core.sparsity import LAYOUT_BLOCK, PackedWeight
+    from repro_torch.core.sparsity import (LAYOUT_BLOCK, PackedWeight,
+                                           shard_slice)
 
     if dtype is None:
         cfg = getattr(module, "cfg", None)
@@ -165,6 +166,10 @@ def autotune_packed_tree(module, batch: int, dtype=None, *,
 
     for pw in (mod for mod in module.modules()
                if isinstance(mod, PackedWeight)):
+        if pw.shard_axis is not None:
+            # a renumbered weight runs its slices: tune the shard-local
+            # problem (every slice shares its shapes and key)
+            pw = shard_slice(pw, 0)
         o, k = pw.dense_shape
         dev = pw.values.device
         if pw.layout == LAYOUT_BLOCK:
@@ -176,7 +181,7 @@ def autotune_packed_tree(module, batch: int, dtype=None, *,
             continue
         quant = pw.qdtype is not None
         p = Problem.for_xwT((batch, k), (o, k), pw.cfg, dtype, dev,
-                            quantized=quant,
+                            quantized=quant, shards=pw.shards,
                             duplicates=pw.has_duplicates)
         key = problem_key(p)
         if key in seen:
@@ -185,11 +190,12 @@ def autotune_packed_tree(module, batch: int, dtype=None, *,
             seen[key] = autotune_xwT_q8(
                 x_for(pw, k), pw.values, pw.indices, pw.scales, pw.cfg,
                 (o, k), duplicates=pw.has_duplicates, persist=persist,
-                **tune_kw)
+                shards=pw.shards, **tune_kw)
         else:
             seen[key] = autotune_xwT(
                 x_for(pw, k), pw.values, pw.indices, pw.cfg, (o, k),
-                duplicates=pw.has_duplicates, persist=persist, **tune_kw)
+                duplicates=pw.has_duplicates, persist=persist,
+                shards=pw.shards, **tune_kw)
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()

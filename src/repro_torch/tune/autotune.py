@@ -631,13 +631,14 @@ def autotune_xwT(x: torch.Tensor, values: torch.Tensor,
                  smem_budget: int = DEFAULT_SMEM_BUDGET, max_measure: int = 8,
                  warmup: int = 1, iters: int = 5,
                  cache: Optional[TuneCache] = None,
-                 persist: bool = True) -> TuneResult:
+                 persist: bool = True, shards: int = 1) -> TuneResult:
     """Tune ``y = x @ W_sparseᵀ`` for the concrete operands given, on their
     device.  ``duplicates`` (default: whether the operands hold any,
-    ``holds_duplicates``) is what every candidate launches with."""
+    ``holds_duplicates``) is what every candidate launches with; ``shards``
+    keys a shard-local problem."""
     dup = _dup(values, indices, duplicates)
     problem = Problem.for_xwT(x.shape, w_shape, cfg, x.dtype, x.device,
-                              duplicates=dup,
+                              duplicates=dup, shards=shards,
                               value_bytes=values.element_size())
     ring = operand_ring((values, indices))
 
@@ -659,12 +660,13 @@ def autotune_xwT_q8(x: torch.Tensor, values: torch.Tensor,
                     smem_budget: int = DEFAULT_SMEM_BUDGET,
                     max_measure: int = 8, warmup: int = 1, iters: int = 5,
                     cache: Optional[TuneCache] = None,
-                    persist: bool = True) -> TuneResult:
+                    persist: bool = True, shards: int = 1) -> TuneResult:
     """Tune ``y = x @ W_q8ᵀ`` (int8 values + scales (O,) or (O, G)); keyed
-    under the distinct ``xwT_q8`` op so float entries are never shadowed."""
+    under the distinct ``xwT_q8`` op so float entries are never shadowed;
+    ``shards`` keys a shard-local problem."""
     dup = _dup(values, indices, duplicates)
     problem = Problem.for_xwT(x.shape, w_shape, cfg, x.dtype, x.device,
-                              quantized=True, duplicates=dup,
+                              quantized=True, duplicates=dup, shards=shards,
                               group_scales=scales.ndim == 2)
     ring = operand_ring((values, indices, scales))
 

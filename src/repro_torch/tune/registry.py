@@ -93,8 +93,9 @@ class Problem:
     ``k``     — contraction dim (== groups * cfg.m).
     ``block_r``/``a_max`` — static block geometry of the two-level layout
                 (``xwT_block`` only; 0 otherwise).
-    ``shards`` — contraction-sharding degree of a per-shard problem (the
-                port has no sharding yet; kept for the key's sake).
+    ``shards`` — contraction-sharding degree of a per-shard problem (a
+                renumbered row-parallel slice, ``core.sparsity.shard_slice``:
+                its key ends in ``|s{shards}``).
     ``duplicates`` — the weight may hold two non-zero slots at one index, so
                 the kernels launch their summing instantiation (on the bulk
                 body also the widest x tile): part of what was measured, so

@@ -180,12 +180,13 @@ def test_pack_tree_layouts_and_the_ports_own_init():
     model = build_model(cfg, device="cpu", seed=1)
     with pytest.raises(ValueError, match="unknown layout"):
         pack_tree(model, layout="tiles")
-    # the block layout is ported (shard-stacked and draft-tier views are
-    # not: PackedWeight has no shard_axis / tier_ne)
+    # the block layout is ported; a packed node is whole (the shard-stacked
+    # form comes only from ShardingPlan.renumber_params)
     blocked = pack_tree(build_model(cfg, device="cpu", seed=1),
                         layout="block")
     assert blocked.layers[0].mlp.down.layout == "block"
-    assert not hasattr(blocked.layers[0].mlp.down, "shard_axis")
+    assert blocked.layers[0].mlp.down.shard_axis is None
+    assert blocked.layers[0].mlp.down.shards == 1
     # the port's own init: seeded, pre-pruned, packs losslessly
     again = build_model(cfg, device="cpu", seed=1)
     w0 = model.layers[0].mlp.down.w.data.clone()

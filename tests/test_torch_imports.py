@@ -38,7 +38,11 @@ for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm"
           "repro_torch.sparsetrain.recipes", "repro_torch.sparsetrain.ste",
           "repro_torch.sparsetrain.vjp", "repro_torch.train.checkpoint",
           "repro_torch.train.fault_tolerance",
-          "repro_torch.train.train_loop", "repro_torch.launch.train"):
+          "repro_torch.train.train_loop", "repro_torch.launch.train",
+          "repro_torch.sharding", "repro_torch.sharding.context",
+          "repro_torch.sharding.partitioning", "repro_torch.sharding.plan",
+          "repro_torch.sharding.pipeline", "repro_torch.sharding.world",
+          "repro_torch.serve.router"):
     assert n in names, n
 print("IMPORTED", len(names))
 """

@@ -118,10 +118,19 @@ def test_unported_engine_options_raise(setup):
     model = to_torch_model(params, tcfg)
     cfg = ServeConfig(num_slots=1, max_len=8)
     from repro_torch.paged import PagedServeConfig
+    # plan= and replicas= are ported (they were refused by name before): a
+    # plan that is not a ShardingPlan, or one of more ranks than this
+    # process's world, raises; replicas build a router
+    from repro_torch.serve import ReplicaRouter
+    from repro_torch.sharding.plan import ShardingPlan
     for config in (cfg, PagedServeConfig()):
-        for kw in ({"plan": object()}, {"replicas": 2}):
-            with pytest.raises(NotImplementedError):
-                make_engine(model, config, device="cpu", **kw)
+        with pytest.raises(TypeError):
+            make_engine(model, config, device="cpu", plan=object())
+        with pytest.raises(ValueError, match="ranks"):
+            make_engine(model, config, device="cpu",
+                        plan=ShardingPlan(tp=2))
+        assert isinstance(make_engine(model, config, device="cpu",
+                                      replicas=2), ReplicaRouter)
 
     # spec= is ported (it was refused by name before): both engines build
     # with it on a packed model and serve the stream of the plain engine
