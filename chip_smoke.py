@@ -124,8 +124,10 @@ unless all of them held:
               rtol 1e-3), and a 13-page arena preempts and keeps the tokens.
 9. tune     — the autotuner (``repro_torch.tune``) on the card, with a
               tuning cache in a temporary directory of this run's own.  In
-              each of the four modes, on phase 4/5's packed model (after
-              phase 8): ``autotune_packed_tree(model, 4)`` tunes 3 problems,
+              each of the four modes, on a packed model of phase 4's seed at
+              full width and 4 of its 32 layers (``TUNE_LAYERS``; the tuned
+              problems are phase 4's): ``autotune_packed_tree(model, 4)``
+              tunes 3 problems,
               each selecting ``cuda`` at no more than its default's time in
               the tuner's own table (device time on CUDA-graph replays of a
               ring of weight copies larger than L2), every candidate the
@@ -137,9 +139,10 @@ unless all of them held:
               3's tolerance of the plain version; then ``--backend auto`` on
               the dense engine (``run_serve``) and on the paged engine:
               every decode-width lookup a cache hit, the wrappers' counts
-              of phases 4/8 on the expected bodies, the dispatch counter on
-              the resolved backend ``cuda``, 224 launches a replay on the
-              device, and each captured program's logits bit-equal to its
+              of phases 4/8 at 4 layers on the expected bodies, the dispatch
+              counter on the resolved backend ``cuda``, 7 x 4 launches a
+              replay on the device, and each captured program's logits
+              bit-equal to its
               eager program's under ``auto``; then
               ``autotune_packed_tree(model, 32)`` tunes the gather bodies a
               prefill chunk runs (its selected settings held to the plain
@@ -177,17 +180,18 @@ unless all of them held:
               bound of the bytes the tier needs (``tier_8_16`` of each
               kernel in the ``kernels`` line).
 10. spec    — self-speculative decoding (``repro_torch.spec``) in the four
-              modes on full-width stablelm_3b at ``--sparsity 8:16``, draft
-              6:16, γ = 4, 4 slots.  At max_len 16 (the windows shrink near
+              modes on stablelm_3b at full width and 4 of its 32 layers
+              (``SPEC_LAYERS``) at ``--sparsity 8:16``, draft 6:16, γ = 4,
+              4 slots.  At max_len 16 (the windows shrink near
               it, so every width W runs), on the dense and the paged engine:
               token streams equal to the plain engine's, greedy and at
               temperature 0.8 / top-k 8; counted from reset, one capture of
               the draft step, one of the verify program per width W that
               ran, the plain step only if it ran (and, paged, the prefill
-              chunk once), the wrappers launching the mode's kernel 7 x 32 x
+              chunk once), the wrappers launching the mode's kernel 7 x 4 x
               2 per captured decode step on its serving body and nothing
-              else; the draft graph's nodes launch 7 x 32 kernels of that
-              body and a verify graph's of width W 7 x 32 x W (read from
+              else; the draft graph's nodes launch 7 x 4 kernels of that
+              body and a verify graph's of width W 7 x 4 x W (read from
               the graph itself, its DOT dump); the draft and verify graphs
               (and the dense full step's) give their eager programs' logits
               bit for bit over the first 2 windows (4 steps).  Then, timed,
@@ -345,11 +349,55 @@ unless all of them held:
               within 420 s (``launches_dist`` of each kernel in the
               ``kernels`` line).
 
+15. dist train — distributed training: one spawned world of 4 ``gloo``
+              ranks on the card, ``ShardingPlan(tp=2, dp=2)`` (rank 0 loads
+              the kernel library, the others wait for it); every leg is
+              first run on one rank in this process while the ranks start
+              up, its results go to a temporary directory, and the ranks
+              take the card once it is free.
+              15a: stablelm_3b at full width and 4 of its 32 layers, float32,
+              the reference's Markov tokens, global batch 4 x 128, 2
+              microbatches a dp rank, lr 1e-3: 3 masked steps
+              (``make_train_step(..., plan=)``: premasked blocks, Megatron's
+              collectives under autograd, the gradients' mean over dp, the
+              global norm over tp, AdamW on ZeRO-1 moment blocks, the
+              updated blocks gathered), then one step with
+              ``compression="int8"``: each rank's loss and grad_norm within
+              relative 1e-5 of one rank's at every step, its parameters
+              within 2 x lr x steps of one rank's, its moments exactly half
+              its tp block; step seconds, collectives a step and peak GB
+              per rank.  15b: the packed fine-tuning step (``mode=
+              "packed"``, xwT, K1 under autograd on each rank's column
+              blocks and renumbered row slices): the wrappers count K1's
+              launches in a rank's step gradients (equal to one rank's,
+              nothing else launched), and the gradients at the packed values
+              within relative L2 1e-5 of one rank's at the same slots.
+              15c: olmoe_1b_7b at full width and 2 of its 16 layers, 32
+              experts a rank (expert parallel), room for every token
+              (capacity factor E / k): one step's loss and grad_norm within
+              relative 1e-5 of one rank's over the same chunks of rows.
+              15d: ``pipeline_apply`` over the 4 ranks as stages (the
+              reference test's toy stages and sizes): outputs and the
+              gradients at each stage's weight and at x within 1e-5 of
+              autograd through the sequential composition.  15e:
+              ``compressed_psum_int8`` over the dp group on CUDA tensors
+              within 8 x scale of the exact sum.  15f: 15a's state after
+              its 3 steps saved from the world (rank 0 writes whole leaves,
+              each rank's blocks bit-equal to them), restored whole in this
+              process (every leaf; parameters within 2 x lr x steps of one
+              rank's) and under ``ShardingPlan(tp=2)`` on the first two
+              ranks (``elastic_restore``: params and moments bit-equal to
+              the saved leaves' blocks); 15b's shard stacks (the renumbered
+              row-parallel values) and moment blocks saved the same way and
+              restored under tp 2 at their slices' shapes, bit-equal.
+              ``launches_dist_train`` of each kernel in the ``kernels``
+              line.
+
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
 "tune": {...}, "spec": {...}, "windowed": {...}, "train": {...},
-"families": {...}, "distribution": {...}}``
+"families": {...}, "distribution": {...}, "distributed_training": {...}}``
 (per kernel: wrapper launches on the dense, the paged, the speculative, the
 training and the families' paths, error, times, bound, its gather body at
 Bx = 32; per
@@ -1980,10 +2028,15 @@ def paged_cli(cfg):
 
 # candidates measured per problem, and CUDA-graph replays per candidate
 TUNE_KW = dict(max_measure=5, warmup=1, iters=3)
+# phase 9 tunes the projections of full-width stablelm_3b and serves them
+# under ``auto`` on a model of phase 4's seed cut to this many of its 32
+# layers (the tuned problems are the same at any depth; the script's time
+# limit sets the depth)
+TUNE_LAYERS = 4
 TUNE_SWEEP_KW = dict(max_measure=16, warmup=1, iters=7)
 # a prefill chunk's logits under the tuned params against the default
-# params' (relative L2): bfloat16 through 32 layers, the projections' sums in
-# another order; a wrong kernel setting gives an error of order 1
+# params' (relative L2): bfloat16 through the layers, the projections' sums
+# in another order; a wrong kernel setting gives an error of order 1
 CHUNK_LOGITS_RTOL = 5e-2
 PRUNED = ("pruned_geometry", "pruned_smem", "pruned_rank")
 
@@ -2259,7 +2312,8 @@ def chunk_turns(model, cfg, expect, default):
 
 
 def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
-    """Phase 9 in one mode on phase 4/5's packed model: tune at decode
+    """Phase 9 in one mode on a packed model of phase 4's seed at full
+    width and ``TUNE_LAYERS`` layers (``cfg``): tune at decode
     width (3 problems), serve under ``auto`` on the dense and the paged
     engine, then tune at chunk width (the gather bodies) and time a chunk
     under the tuned and the default params, in turns."""
@@ -2336,6 +2390,9 @@ def tune_spmm(gen, kw):
 # ---------------------------------------------------------------------------
 
 SPEC_SPARSITY, SPEC_DRAFT, SPEC_GAMMA = "8:16", "6:16", 4
+# the full-width model of the checked and timed passes, cut to this many of
+# stablelm_3b's 32 layers (the script's time limit sets the depth)
+SPEC_LAYERS = 4
 # the checked passes: prompts of 3-7 tokens and max_len 16, so that the
 # windows shrink near max_len (widths below γ + 1 run too)
 SPEC_NEW, SPEC_MAX_LEN = 10, 16
@@ -4739,6 +4796,575 @@ def dist_phase(gen, single):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: distributed training, one world of four ranks (tp 2 x dp 2) on
+# the one card
+# ---------------------------------------------------------------------------
+
+# 15a / 15b: stablelm_3b at full width and this many of its 32 layers (four
+# ranks' training state at full depth does not fit one card), float32
+DT_LAYERS = 4
+# the global batch (rows x tokens), microbatches a dp rank, steps
+DT_BATCH, DT_SEQ, DT_MICRO, DT_STEPS = 4, 128, 2, 3
+DT_OPT = dict(lr=1e-3, total_steps=10, warmup_steps=1)
+# 15c: olmoe_1b_7b at full width and 2 of its 16 layers
+DT_MOE_LAYERS = 2
+# 15d: the reference test's toy stages (its sizes) over the four ranks
+DT_PIPE = dict(num_mb=4, mb=2, d=16)
+DT_RANKS = 4
+DT_TIMEOUT_S = 300
+# written into the phase's directory once the one-rank runs are done and
+# the card is free: the ranks start up meanwhile and wait for it
+DT_READY = "one_rank_done"
+# loss and grad_norm against one rank's (relative); the parameters within
+# 2 x lr x steps (AdamW's first steps are about lr x sign(g), and a gradient
+# near 0 may flip under another reduction order); the packed values'
+# gradients (relative L2); the pipeline (float32)
+DT_REL, DT_PACKED_REL, DT_PIPE_TOL = 1e-5, 1e-5, 1e-5
+
+
+def dt_cfgs():
+    """(15a/15b's stablelm_3b, 15c's olmoe_1b_7b with room for every
+    token), float32 compute."""
+    from repro_torch.configs.base import get_arch
+
+    lm = dataclasses.replace(get_arch("stablelm_3b"), num_layers=DT_LAYERS,
+                             compute_dtype="float32")
+    moe = get_arch("olmoe_1b_7b")
+    moe = dataclasses.replace(
+        moe, num_layers=DT_MOE_LAYERS, compute_dtype="float32",
+        moe=dataclasses.replace(moe.moe, capacity_factor=(
+            moe.moe.num_experts / moe.moe.experts_per_token)))
+    return lm, moe
+
+
+def dt_batch(cfg, step):
+    """The global batch of ``step``: the reference's Markov tokens
+    (``data.pipeline.global_batch``), the same on every rank."""
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=DT_SEQ,
+                                   global_batch=DT_BATCH), step)
+
+
+def dt_steps(model, cfg, *, plan=None, micro=DT_MICRO, first=0,
+             steps=DT_STEPS, compression=None, opt_state=None):
+    """``steps`` masked train steps from ``first``; returns (per step
+    [loss, grad_norm], seconds of each step, the params, the opt state, the
+    step)."""
+    import torch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step, train_params
+
+    opt_cfg = adamw.AdamWConfig(**DT_OPT, compression=compression)
+    step = make_train_step(model, opt_cfg, num_microbatches=micro, plan=plan,
+                           policy=ExecPolicy(mode="masked"))
+    params = train_params(model)
+    opt = (adamw.init(opt_cfg, params, layout=step.layout)
+           if opt_state is None else opt_state)
+    metrics, secs = [], []
+    for s in range(first, first + steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt, m = step(params, opt, dt_batch(cfg, s), s)
+        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        secs.append(time.time() - t0)
+    return metrics, secs, params, opt, step
+
+
+def dt_save(tensors: dict, d):
+    """Each tensor as ``<d>/<name>.npy`` on the host (the ranks map them)."""
+    import numpy as np
+    os.makedirs(d, exist_ok=True)
+    for n, t in tensors.items():
+        np.save(os.path.join(d, n + ".npy"), t.detach().cpu().numpy())
+
+
+def dt_block(d, name, lay):
+    """This rank's block under the TrainLayout ``lay`` of the one rank's
+    tensor ``name`` kept under ``d`` (memory-mapped).  A renumbered
+    row-parallel weight's shard stack holds the one rank's xwT (O, G, Ne)
+    groups in tp runs: the one rank's tensor is cut into that stack
+    first."""
+    import numpy as np
+    arr = np.load(os.path.join(d, name + ".npy"), mmap_mode="r")
+    if lay.split(name) and lay.placement[name][1]:
+        arr = np.stack(np.split(arr, lay.ctx.tp, axis=1))
+    return np.array(lay.block_of(name, arr))
+
+
+def dt_held_equal(ck, state, lay):
+    """Whether every leaf of ``state`` (``{"params": ...}`` and, if there,
+    ``"opt"``'s moments) is bit-equal to its block under the TrainLayout
+    ``lay`` of the whole leaf in the checkpoint at ``ck``."""
+    import numpy as np
+    import torch
+
+    saved = os.path.join(ck, f"step_{DT_STEPS:08d}")
+    trees = [("params", state["params"], False)]
+    if "opt" in state:
+        trees += [("opt__m", state["opt"].m, True),
+                  ("opt__v", state["opt"].v, True)]
+    equal = True
+    for kind, tree, moment in trees:
+        for n, t in tree.items():
+            arr = np.load(os.path.join(saved, f"{kind}__" + n.replace(
+                ".", "__") + ".npy"), mmap_mode="r")
+            want = np.array(lay.block_of(n, arr, moment))
+            equal &= tuple(t.shape) == want.shape and bool(torch.equal(
+                t, torch.from_numpy(want).to(t.device)))
+    return equal
+
+
+def dt_free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dt_single(tmp):
+    """The one-rank runs in this process, before the world starts (their
+    tensors go to ``tmp`` and the card is freed): 15a's steps and its int8
+    step, 15b's gradients at the packed values (K1 counted), 15c's step."""
+    import torch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step, train_params
+
+    lm, moe = dt_cfgs()
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(lm, device=DEVICE, seed=0)
+    m, secs, params, opt, _ = dt_steps(model, lm)
+    out["a"] = {"metrics": m, "step_s": secs,
+                "moment_bytes": sum(t.nbytes for t in opt.m.values()),
+                "param_bytes": sum(t.nbytes for t in params.values())}
+    dt_save(params, os.path.join(tmp, "one_a"))
+    m, _, params, opt, _ = dt_steps(model, lm, first=DT_STEPS, steps=1,
+                                    compression="int8", opt_state=opt)
+    out["a"]["int8_metrics"] = m
+    out["a"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dt_save(params, os.path.join(tmp, "one_int8"))
+    del model, params, opt
+    dt_free()
+    model = pack_tree(build_model(lm, device=DEVICE, seed=0), layout="xwT")
+    step = make_train_step(model, adamw.AdamWConfig(**DT_OPT),
+                           num_microbatches=DT_MICRO,
+                           policy=ExecPolicy(mode="packed", backend="cuda"))
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, _, grads = step.grads(train_params(model), dt_batch(lm, 0))
+    out["b"] = {"loss": float(loss), "launches": read_counts()}
+    dt_save({n: g for n, g in grads.items() if n.endswith(".values")},
+            os.path.join(tmp, "one_b"))
+    del model, grads
+    dt_free()
+    model = build_model(moe, device=DEVICE, seed=0)
+    # the world's chunks of rows: dp x microbatches of the global batch
+    m, secs, _, _, _ = dt_steps(model, moe, micro=2 * DT_MICRO, steps=1)
+    out["c"] = {"metrics": m, "step_s": secs}
+    del model
+    dt_free()
+    return out
+
+
+def dt_rank(rank, nprocs, init, tmp):
+    """One rank of phase 15's world on the card (``gloo``, every rank on
+    cuda:0; rank 0 loads the kernel library, the others wait for it)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.kernels._build import load_library_once
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.sharding.world import init_world
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import make_train_step, train_params
+
+    t_rank = time.time()
+    # four ranks share the host's cores: no rank takes them all
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // nprocs))
+    world = init_world("cuda", rank=rank, world_size=nprocs, init_method=init)
+    dev = world.device
+    load_library_once()
+    lm, moe = dt_cfgs()
+    plan = ShardingPlan(tp=2, dp=2)
+    # what a first step imports (non-reentrant checkpointing imports
+    # torch._dynamo, seconds of Python), then wait for the card
+    torch.utils.checkpoint.checkpoint(
+        torch.square, torch.ones(1, requires_grad=True),
+        use_reentrant=False).backward()
+    out = {"rank": world.rank, "backend": world.backend, "device": str(dev),
+           "init_s": time.time() - t_rank}
+    deadline = time.time() + DT_TIMEOUT_S
+    while not os.path.exists(os.path.join(tmp, DT_READY)):
+        if time.time() > deadline:
+            raise TimeoutError("15: the one-rank runs did not finish")
+        time.sleep(0.1)
+    t_rank = time.time()
+
+    def max_diff(params, d, lay):
+        worst = 0.0
+        for n, p in params.items():
+            want = torch.from_numpy(dt_block(d, n, lay))
+            worst = max(worst, float((p - want.to(dev)).abs().max()))
+        return worst
+
+    # 15a: three masked steps, ZeRO-1 moments
+    t_leg = time.time()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(lm, device=dev, seed=0)
+    m, secs, params, opt, step = dt_steps(model, lm, plan=plan)
+    lay, ctx = step.layout, step.context
+    a = {"metrics": m, "step_s": secs, "coords": [ctx.dp_rank, ctx.tp_rank],
+         "collectives_per_step": ctx.collectives / DT_STEPS,
+         "moment_bytes": sum(t.nbytes for t in opt.m.values()),
+         "tp_block_bytes": sum(t.nbytes for t in params.values()),
+         "max_param_diff": max_diff(params, os.path.join(tmp, "one_a"),
+                                    lay)}
+    # 15f: the state saved whole (rank 0 writes), each rank's blocks
+    # bit-equal to the saved leaves
+    t0 = time.time()
+    ck = os.path.join(tmp, "ckpt")
+    ckpt.save({"params": params, "opt": opt}, ck, DT_STEPS, plan=plan,
+              layout=lay)
+    f = {"save_s": time.time() - t0}
+    f["held_equal_saved"] = dt_held_equal(ck, {"params": params, "opt": opt},
+                                          lay)
+    # ... and the int8 step
+    m, _, params, opt, _ = dt_steps(model, lm, plan=plan, first=DT_STEPS,
+                                    steps=1, compression="int8",
+                                    opt_state=opt)
+    a["int8_metrics"] = m
+    a["int8_max_param_diff"] = max_diff(params, os.path.join(tmp, "one_int8"),
+                                        lay)
+    a["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    a["seconds"] = time.time() - t_leg - f["save_s"]
+    out["a"] = a
+    del model, params, opt, step
+    dt_free()
+
+    # 15f: restored under tp 2 on the first two ranks (a smaller mesh)
+    t0 = time.time()
+    small = ShardingPlan(tp=2)
+    mesh = small.make_mesh()
+    if mesh.get_coordinate() is not None:
+        from repro_torch.train.fault_tolerance import elastic_restore
+        m2 = build_model(lm, device=dev, seed=1)
+        lay2 = small.place_for_training(m2, mesh)
+        p2 = train_params(m2)
+        template = {"params": p2, "opt": adamw.init(
+            adamw.AdamWConfig(**DT_OPT), p2, layout=lay2)}
+        got = elastic_restore(template, ck, DT_STEPS, mesh,
+                              lay2.state_specs(template))
+        f["elastic_equal_saved"] = dt_held_equal(ck, got, lay2)
+        f["elastic_leaves"] = 3 * len(p2)
+        del m2, p2, template, got
+        dt_free()
+    f["restore_s"] = time.time() - t0
+    out["f"] = f
+    dist.barrier()
+
+    # 15b: the packed fine-tuning step's gradients, K1 on the rank's slices
+    t_leg = time.time()
+    pm = pack_tree(build_model(lm, device=dev, seed=0), layout="xwT")
+    pstep = make_train_step(pm, adamw.AdamWConfig(**DT_OPT),
+                            num_microbatches=DT_MICRO, plan=plan,
+                            policy=ExecPolicy(mode="packed", backend="cuda"))
+    torch.cuda.synchronize()
+    reset_counts()                   # just before the main path ...
+    loss, _, grads = pstep.grads(train_params(pm), dt_batch(lm, 0))
+    torch.cuda.synchronize()
+    b = {"loss": float(loss), "launches": read_counts()}   # ... after
+    worst = 0.0
+    for n, g in grads.items():
+        if not n.endswith(".values"):
+            continue
+        want = torch.from_numpy(dt_block(
+            os.path.join(tmp, "one_b"), n, pstep.layout)).to(dev)
+        worst = max(worst, float(torch.linalg.norm(g - want)
+                                 / torch.linalg.norm(want)))
+    b["max_rel_l2"] = worst
+    b["kinds"] = sorted({str(v) for v in pstep.layout.placement.values()})
+    # 15f: the shard stacks (renumbered row-parallel values) saved, their
+    # moments holding this rank's gradient blocks, and restored under tp 2
+    # on the first two ranks (tp 2's placement is the world's: the same
+    # tp blocks, moments whole over the one dp rank)
+    t0 = time.time()
+    play = pstep.layout
+    pparams = train_params(pm)
+    stacks = [n for n in pparams if play.split(n) and play.placement[n][1]]
+    zb = {n: play.zero_block(n, grads[n]).clone() for n in stacks}
+    pstate = {"params": {n: pparams[n] for n in stacks},
+              "opt": adamw.AdamWState(
+                  step=torch.zeros((), dtype=torch.int32, device=dev), m=zb,
+                  v={n: g.square() for n, g in zb.items()})}
+    pck = os.path.join(tmp, "ckpt_packed")
+    ckpt.save(pstate, pck, DT_STEPS, plan=plan, layout=play)
+    f = out["f"]
+    f["packed_stacks"] = len(stacks)
+    f["packed_held_equal_saved"] = dt_held_equal(pck, pstate, play)
+    if mesh.get_coordinate() is not None:
+        from repro_torch.sharding.plan import TrainLayout
+        from repro_torch.train.fault_tolerance import elastic_restore
+        lay2 = TrainLayout(small.context(mesh), pm)
+        template = {"params": {n: torch.empty_like(p) for n, p in
+                               pstate["params"].items()},
+                    "opt": adamw.init(adamw.AdamWConfig(**DT_OPT),
+                                      pstate["params"], layout=lay2)}
+        got = elastic_restore(template, pck, DT_STEPS, mesh,
+                              lay2.state_specs(template))
+        f["packed_elastic_equal_saved"] = dt_held_equal(pck, got, lay2) \
+            and all(torch.equal(got["params"][n], pparams[n])
+                    for n in stacks)
+        del got, template
+    f["packed_save_restore_s"] = time.time() - t0
+    del pstate, zb
+    b["seconds"] = time.time() - t_leg
+    out["b"] = b
+    del pm, pstep, grads
+    dt_free()
+
+    # 15c: MoE expert parallelism, 32 experts a rank
+    t_leg = time.time()
+    mm = build_model(moe, device=dev, seed=0)
+    m, secs, _, _, mstep = dt_steps(mm, moe, plan=plan, steps=1)
+    out["c"] = {"metrics": m, "step_s": secs,
+                "experts": int(mm.layers[0].moe.w_gate.shape[0]),
+                "collectives": mstep.context.collectives,
+                "seconds": time.time() - t_leg}
+    dp_group = mstep.context.dp_group
+    del mm, mstep
+    dt_free()
+
+    out["d"] = dt_pipeline(dev)
+    # 15e: the int8-compressed sum over the dp group, CUDA tensors
+    from repro_torch.optim.compression import compressed_psum_int8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    xs = torch.randn((2, 4096), generator=gen, device=dev)
+    coords = out["a"]["coords"]
+    got = compressed_psum_int8(xs[coords[0]], dp_group)
+    scale = float(xs.abs().max()) / 127
+    out["e"] = {"max_err": float((got - xs.sum(0)).abs().max()),
+                "bound": 8 * scale, "device": str(got.device)}
+    out["seconds"] = time.time() - t_rank
+    return out
+
+
+def dt_pipeline(dev):
+    """15d: ``pipeline_apply`` over the four ranks as stages, the reference
+    test's toy stages at its sizes; outputs and the gradients at this
+    stage's weight and at x against autograd through the sequential
+    composition on the card."""
+    import torch
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.sharding.plan import ShardingPlan
+
+    plan = ShardingPlan(pp=DT_RANKS)
+    ctx = plan.context(plan.make_mesh())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    d = DT_PIPE["d"]
+    ws = torch.randn((DT_RANKS, d, d), generator=gen, device=dev) * 0.3
+    x = torch.randn((DT_PIPE["num_mb"], DT_PIPE["mb"], d), generator=gen,
+                    device=dev)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+
+    def stage_fn(p, xm):
+        return torch.tanh(xm @ p["w"])
+
+    w = ws[ctx.pp_rank].clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    t0 = time.time()
+    y = pipeline_apply(stage_fn, {"w": w}, xg, ctx)
+    gw, gx = torch.autograd.grad((y * cot).sum(), [w, xg])
+    y = y.detach()
+    secs = time.time() - t0
+    seq = [ws[i].clone().requires_grad_(True) for i in range(DT_RANKS)]
+    xs = x.clone().requires_grad_(True)
+    ys = xs
+    for wi in seq:
+        ys = torch.tanh(ys @ wi)
+    want = torch.autograd.grad((ys * cot).sum(), seq + [xs])
+    ys = ys.detach()
+    return {"stage": ctx.pp_rank, "seconds": secs,
+            "y_err": float((y - ys).abs().max()),
+            "gw_err": float((gw - want[ctx.pp_rank]).abs().max()),
+            "gx_err": float((gx - want[-1]).abs().max())}
+
+
+def dt_gates(one, ranks, tmp):
+    """Phase 15's gates over the one rank's and the ranks' results; the
+    checkpoint restored whole in this process."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.specs import param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ckpt
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    bound = 2 * DT_OPT["lr"] * DT_STEPS
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("15: four ranks on one card must take gloo")
+    for r in ranks:
+        tag = f"15 rank {r['rank']}"
+        a, b, c = r["a"], r["b"], r["c"]
+        for what, got, want in (
+                ("15a", a["metrics"], one["a"]["metrics"]),
+                ("15a int8", a["int8_metrics"], one["a"]["int8_metrics"]),
+                ("15c", c["metrics"], one["c"]["metrics"])):
+            for g, w in zip(got, want):
+                if not (rel(g[0], w[0]) < DT_REL and rel(g[1], w[1]) < DT_REL):
+                    raise AssertionError(
+                        f"{tag} {what}: loss / grad_norm {g} against one "
+                        f"rank's {w} (relative {DT_REL})")
+        for key in ("max_param_diff", "int8_max_param_diff"):
+            lim = bound if key == "max_param_diff" else \
+                2 * DT_OPT["lr"] * (DT_STEPS + 1)
+            if not a[key] <= lim:
+                raise AssertionError(f"{tag} 15a: {key} {a[key]} > {lim}")
+        if 2 * a["moment_bytes"] != a["tp_block_bytes"]:
+            raise AssertionError(f"{tag} 15a: moments {a['moment_bytes']} "
+                                 f"B, not half the tp block's "
+                                 f"{a['tp_block_bytes']} B")
+        k1 = one["b"]["launches"]["demm_xwT"]
+        want = {n: 0 for n in KERNELS}
+        want["demm_xwT"] = k1
+        if b["launches"] != want or not k1:
+            raise AssertionError(f"{tag} 15b: launches {b['launches']}, "
+                                 f"expected {want} (the one rank's K1)")
+        if not (b["max_rel_l2"] < DT_PACKED_REL
+                and rel(b["loss"], one["b"]["loss"]) < DT_REL):
+            raise AssertionError(f"{tag} 15b: gradients at the values "
+                                 f"{b['max_rel_l2']} (relative L2), loss "
+                                 f"{b['loss']} vs {one['b']['loss']}")
+        if c["experts"] != 32:
+            raise AssertionError(f"{tag} 15c: {c['experts']} experts")
+        d = r["d"]
+        if not max(d["y_err"], d["gw_err"], d["gx_err"]) <= DT_PIPE_TOL:
+            raise AssertionError(f"{tag} 15d: {d}")
+        e = r["e"]
+        if not (e["max_err"] < e["bound"] and e["device"].startswith("cuda")):
+            raise AssertionError(f"{tag} 15e: {e}")
+        f = r["f"]
+        if not (f["held_equal_saved"] and f["packed_held_equal_saved"]
+                and f["packed_stacks"] == 2 * DT_LAYERS
+                and f.get("elastic_equal_saved", True) is True
+                and f.get("packed_elastic_equal_saved", True) is True):
+            raise AssertionError(f"{tag} 15f: {f}")
+    for key in ("elastic_equal_saved", "packed_elastic_equal_saved"):
+        if [r["rank"] for r in ranks if key in r["f"]] != [0, 1]:
+            raise AssertionError(f"15f: the tp 2 restore ({key}) ran on "
+                                 f"ranks {[r['rank'] for r in ranks]}")
+    if sorted(r["d"]["stage"] for r in ranks) != list(range(DT_RANKS)):
+        raise AssertionError("15d: stages")
+    # the checkpoint restored whole in one process, onto the host (a
+    # template of the one-rank tree's names): every leaf, and the
+    # parameters within the bound of the one rank's
+    lm, _ = dt_cfgs()
+    t0 = time.time()
+    names = list(param_shapes(lm))
+    template = {"params": dict.fromkeys(names), "opt": adamw.AdamWState(
+        step=None, m=dict.fromkeys(names), v=dict.fromkeys(names))}
+    got = ckpt.restore(template, os.path.join(tmp, "ckpt"), DT_STEPS)
+    worst = 0.0
+    for n, p in got["params"].items():
+        want = torch.from_numpy(np.load(os.path.join(tmp, "one_a",
+                                                     n + ".npy")))
+        worst = max(worst, float((p - want).abs().max()))
+    leaves = [got["params"], got["opt"].m, got["opt"].v]
+    if not worst <= bound or not all(
+            list(d) == names and all(t is not None for t in d.values())
+            for d in leaves):
+        raise AssertionError(f"15f: the whole restore's parameters differ "
+                             f"from the one rank's by {worst}, or it lacks "
+                             "leaves")
+    return {"leaves": sum(map(len, leaves)),
+            "max_param_diff_vs_one_rank": worst,
+            "seconds": time.time() - t0}
+
+
+def dist_train_phase():
+    """Phase 15: the one-rank runs, then the world of four ranks, then the
+    gates.  Returns the ``distributed_training`` report."""
+    import tempfile
+
+    from repro_torch.sharding.world import spawn_world
+
+    import threading
+
+    t_all = time.time()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_train_")
+    one, one_s, errors = {}, [], []
+
+    def single():
+        # the one-rank runs, while the ranks start up; the card is free
+        # for them once this is done
+        t0 = time.time()
+        try:
+            one.update(dt_single(tmp))
+        except BaseException as e:      # raised in the phase's thread
+            errors.append(e)
+        finally:
+            one_s.append(time.time() - t0)
+            open(os.path.join(tmp, DT_READY), "w").close()
+
+    try:
+        t0 = time.time()
+        thread = threading.Thread(target=single)
+        thread.start()
+        try:
+            ranks = spawn_world(dt_rank, DT_RANKS, (tmp,),
+                                timeout_s=DT_TIMEOUT_S)
+        finally:
+            thread.join()
+            if errors:
+                raise errors[0]
+        world_s = time.time() - t0
+        restore = dt_gates(one, ranks, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"one_rank": one, "ranks": ranks, "whole_restore": restore,
+            "single_seconds": one_s[0], "world_seconds": world_s,
+            "seconds": time.time() - t_all}
+
+
+def log_dist_train(r, smi):
+    one = r["one_rank"]
+    log(f"[15 dist train] one rank ({r['single_seconds']:.1f} s): "
+        f"{json.dumps(one)}")
+    for e in r["ranks"]:
+        log(f"[15 dist train] rank {e['rank']} ({e['backend']}, "
+            f"{e['device']}): {json.dumps(e)}")
+    log(f"[15f dist train] whole restore in one process: "
+        f"{json.dumps(r['whole_restore'])}")
+    log("[15a dist train] rank | loss per step | grad_norm per step | step "
+        "s (gloo, host-staged) | collectives a step | moments MB / tp block "
+        "MB | peak GB")
+    for e in r["ranks"]:
+        a = e["a"]
+        log(f"[15a dist train] {e['rank']} | "
+            + ", ".join(f"{m[0]:.6f}" for m in a["metrics"]) + " | "
+            + ", ".join(f"{m[1]:.6f}" for m in a["metrics"]) + " | "
+            + ", ".join(f"{s:.2f}" for s in a["step_s"])
+            + f" | {a['collectives_per_step']:.0f} | "
+            f"{a['moment_bytes'] / 1e6:.1f} / {a['tp_block_bytes'] / 1e6:.1f}"
+            f" | {a['peak_gb']:.2f}")
+    log(f"[15 dist train] one rank: losses "
+        + ", ".join(f"{m[0]:.6f}" for m in one["a"]["metrics"])
+        + f"; step s " + ", ".join(f"{s:.2f}" for s in one["a"]["step_s"])
+        + f"; peak {one['a']['peak_gb']:.2f} GB; world "
+        f"{r['world_seconds']:.1f} s, phase {r['seconds']:.1f} s; {smi}")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -5383,6 +6009,7 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import get_arch
     from repro_torch.device import nvidia_smi_line
     from repro_torch.kernels import _build
+    from repro_torch.launch.pack_tree import pack_tree
     from repro_torch.models.families import build_model
 
     # 1. device
@@ -5437,6 +6064,8 @@ def main(argv=None) -> int:
         t0 = time.time()
         torch.cuda.reset_peak_memory_stats()
         model = build_model(cfg, device=DEVICE, seed=0)
+        cfg9 = dataclasses.replace(cfg, num_layers=TUNE_LAYERS)
+        model9 = build_model(cfg9, device=DEVICE, seed=0)
         torch.cuda.synchronize()
         log(f"[4 serve] built {cfg.name} ({cfg.num_layers} layers, d_model "
             f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}) in "
@@ -5463,7 +6092,9 @@ def main(argv=None) -> int:
             log(f"[8 paged] {mode} ({time.time() - t0:.1f} s): "
                 f"{json.dumps(paged[mode])}")
             t0 = time.time()
-            tuned[mode] = tune_full_width(model, cfg, mode, kernel,
+            # phase 9's model, packed (then quantized) in place as phase 4's
+            pack_tree(model9, layout=layout, quantize=quantize)
+            tuned[mode] = tune_full_width(model9, cfg9, mode, kernel,
                                           layout=layout, quantize=quantize,
                                           kw=tune_kw)
             t_tune += time.time() - t0
@@ -5473,7 +6104,7 @@ def main(argv=None) -> int:
                 for eager in (False, True, True, False):
                     profiles.append(profile_ticks(model, cfg, mode,
                                                   eager=eager))
-        del model
+        del model, model9
         torch.cuda.empty_cache()
     spmm = spmm_path(gen)
     log(f"[5c spmm] ops.demm_spmm, backend cuda: {json.dumps(spmm)}")
@@ -5537,12 +6168,11 @@ def main(argv=None) -> int:
             f"{r['page_gather']['ms_per_tick']:.3f}")
     # 10. self-speculative decoding: full width at 8:16, draft 6:16, the
     # four modes on both engines; 10g at 2 layers float32; 10c the CLI
-    from repro_torch.launch.pack_tree import pack_tree
     spec = {}
     t10 = time.time()
     for layout in ("xwT", "block"):
         t0 = time.time()
-        cfg10, model = spec_model(cfg, layout)
+        cfg10, model = spec_model(cfg, layout, num_layers=SPEC_LAYERS)
         log(f"[10 spec] built and packed {cfg10.name} at {SPEC_SPARSITY} "
             f"--layout {layout} ({time.time() - t0:.1f} s; "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak)")
@@ -5635,6 +6265,10 @@ def main(argv=None) -> int:
         "tp2 --layout xwT": serve["demm_xwT"]["outputs"],
         "tp2 --layout block": serve["demm_block_spmm"]["outputs"]})
     log_dist(dist, smi)
+
+    # 15. distributed training: one world of four ranks, tp 2 x dp 2
+    dist_train = dist_train_phase()
+    log_dist_train(dist_train, smi)
 
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
@@ -5819,6 +6453,11 @@ def main(argv=None) -> int:
                 "launches"]
         entry["tp2_local"] = [e for e in dist["matmul"]["tp2_local"]
                               if e["kernel"] == name]
+        # phase 15b: each rank's launches in the packed step's gradients
+        # (forwards and remat's recomputes under autograd)
+        entry["launches_dist_train"] = {
+            f"rank{r['rank']}": r["b"]["launches"][name]
+            for r in dist_train["ranks"]}
     # K5's tiled body does the dense count of operations: its floor, worked
     # from the shapes (not a measurement, so not in the kernels line)
     floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
@@ -5837,7 +6476,8 @@ def main(argv=None) -> int:
                     "paged_gates": paged_gate, "paged_cli": cli,
                     "tune": tuned, "spec": spec, "windowed": windowed,
                     "train": train, "families": families,
-                    "distribution": dist}))
+                    "distribution": dist,
+                    "distributed_training": dist_train}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

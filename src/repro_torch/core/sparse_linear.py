@@ -186,7 +186,7 @@ def _apply_local(node, x, policy: ExecPolicy, reduce=None):
     else:
         y = apply_masked(node, x, policy.resolve_cfg(cfg))
     if reduce is not None:
-        y = reduce.all_reduce(y.to(torch.float32)).to(x.dtype)
+        y = reduce.reduce_tp(y.to(torch.float32)).to(x.dtype)
     return y
 
 
@@ -196,7 +196,10 @@ def _apply_placed(node, x, policy: ExecPolicy, kind: str):
     computes all of them and keeps its block); ``row``: x this rank's chunk
     of the contraction dim and the partial products summed over the tp
     group (a node left whole gathers x first and needs no sum);
-    ``replicated``: x whole, the output whole."""
+    ``replicated``: x whole, the output whole.  Under grad the collectives
+    are the context's differentiable ones: a column-parallel input's
+    gradient is summed over tp, a row-parallel sum passes its gradient
+    through, a gathered x keeps this rank's block of its gradient."""
     ctx = get_context()
     if ctx is None or ctx.tp == 1:
         raise RuntimeError(
@@ -206,9 +209,11 @@ def _apply_placed(node, x, policy: ExecPolicy, kind: str):
     if kind == "row":
         if sharded:
             return _apply_local(node, x, policy, reduce=ctx)
-        return _apply_local(node, ctx.gather(x), policy)
+        return _apply_local(node, ctx.gather_tp(x), policy)
+    if kind == "col" and sharded:
+        return _apply_local(node, ctx.copy_tp(x), policy)
     y = _apply_local(node, x, policy)
-    return ctx.local_block(y) if kind == "col" and not sharded else y
+    return ctx.local_block(y) if kind == "col" else y
 
 
 def apply_dense(node: SparseLinear, x: torch.Tensor) -> torch.Tensor:
@@ -243,7 +248,7 @@ def _apply_packed(pw: PackedWeight, x: torch.Tensor,
     xs = x.reshape(-1, x.shape[-1]).contiguous()
     y = ops.demm_matmul_packed(xs, pw, backend=policy.backend)
     if reduce is not None:      # the kernels' float32 partial products
-        y = reduce.all_reduce(y)
+        y = reduce.reduce_tp(y)
     return y.reshape(*x.shape[:-1], pw.out_features).to(x.dtype)
 
 

@@ -38,8 +38,9 @@ The loss must fall (against step 0, or under ``--sparsify`` against the
 start of the final phase), or the program fails.  ``--metrics-out m.json``
 writes the metrics snapshot (step-time and checkpoint-duration histograms,
 restart and failure counters); ``--flight-dir`` attaches a flight recorder
-with a train-step stall watchdog.  Gradient compression (``--compression``)
-comes with distributed training and is refused.
+with a train-step stall watchdog.  ``--compression topk|int8`` compresses
+the gradients before AdamW's norm (``optim/compression.py``), as the
+reference's launcher does (one rank).
 """
 
 from __future__ import annotations
@@ -111,8 +112,10 @@ def main(argv=None) -> dict:
                          "present) or cpu")
     ap.add_argument("--ckpt-dir", default="results/train_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--compression", default=None,
-                    help="gradient compression: not ported (refused)")
+    ap.add_argument("--compression", choices=("topk", "int8"),
+                    default=None,
+                    help="gradient compression before the norm: top-k with "
+                         "error feedback or an int8 round trip")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--sparsify", default=None, metavar="SCHEDULE",
                     help="gradual N:M sparsification: a target pattern "
@@ -140,10 +143,6 @@ def main(argv=None) -> dict:
                     help="--flight-dir: declare a stall when step silence "
                          "exceeds this multiple of the EWMA step interval")
     args = ap.parse_args(argv)
-    if args.compression is not None:
-        ap.error(f"--compression {args.compression}: gradient compression "
-                 "(optim/compression.py) is not ported yet; it comes with "
-                 "distributed training (ROADMAP Queue 1 item 4b)")
     if args.qat and not args.sparsify:
         ap.error("--qat rides the sparsify training path; add --sparsify")
     if args.reduced and args.full:
@@ -180,7 +179,8 @@ def main(argv=None) -> dict:
              reduced=reduced, device=str(device))
 
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
-                                warmup_steps=max(args.steps // 20, 5))
+                                warmup_steps=max(args.steps // 20, 5),
+                                compression=args.compression)
     opt_state = adamw.init(opt_cfg, params)
 
     trainer = None

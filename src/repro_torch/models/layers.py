@@ -204,11 +204,18 @@ class Embedding(nn.Module):
         n = self.table.shape[0]
         local = tokens - ctx.tp_rank * n
         inside = (local >= 0) & (local < n)
-        rows = self.table[local.clamp(0, n - 1)]
+        local = local.clamp(0, n - 1)
+        if torch.is_grad_enabled() and self.table.requires_grad:
+            # the embedding op's backward (rows summed in a fixed order);
+            # a token outside this rank's rows reads row 0 or n - 1, and its
+            # zeroed gradient adds exactly 0 there
+            rows = torch.nn.functional.embedding(local, self.table)
+        else:
+            rows = self.table[local]
         rows = torch.where(inside[..., None], rows,
                            torch.zeros((), dtype=rows.dtype,
                                        device=rows.device))
-        return ctx.all_reduce(rows)
+        return ctx.reduce_tp(rows)
 
     def table_as(self, dtype: torch.dtype) -> torch.Tensor:
         """The table in ``dtype``, the same values ``table.to(dtype)``
@@ -243,10 +250,15 @@ def apply_unembedding(emb: Embedding, x, true_vocab: Optional[int] = None):
     negative so greedy decode can never select them.  A table split over
     the tp ranks by vocabulary rows gives each rank its block of the logits,
     gathered into the whole ``(.., V)`` on every rank (an ``all_reduce`` of
-    zero-filled buffers: exact, in float32)."""
-    logits = x @ emb.table_as(x.dtype).T
+    zero-filled buffers: exact, in float32).  Under grad the gather's
+    backward keeps this rank's block of the logits' gradient, and x's
+    gradient is summed over the ranks' blocks."""
     if getattr(emb, "tp_sharded", False):
-        logits = get_context().gather(logits.to(torch.float32))
+        ctx = get_context()
+        logits = ctx.copy_tp(x) @ emb.table_as(x.dtype).T
+        logits = ctx.gather_tp(logits.to(torch.float32))
+    else:
+        logits = x @ emb.table_as(x.dtype).T
     if true_vocab is not None and true_vocab < logits.shape[-1]:
         logits[..., true_vocab:] = -1e30
     return logits

@@ -24,9 +24,15 @@ float32 order, and one without atomics (a CUDA ``index_add_`` adds in no
 fixed order, and a captured step would not replay its eager run bit for
 bit).
 
-The expert-parallel path of the reference (``_apply_moe_ep``, under a
-sharding context) comes with distributed training; a sharding plan refuses
-MoE models by name (``serve.protocol.EngineBase._setup_plan``).
+Expert parallelism (:func:`_apply_moe_ep`, which :func:`apply_moe` takes
+under a sharding context whose tp degree divides the expert count, as the
+reference's): each tp rank holds E / tp experts (``ShardingPlan`` places
+them), routing is local to the rank's dp shard of the batch, every rank
+builds the same (E, C, D) buffer, runs its experts on their rows, and the
+ranks' outputs are gathered (exact) before the same combine.  Under grad
+the gather's backward keeps the rank's experts' block and the dispatched
+tokens' gradient is summed over tp (the router's, computed whole on every
+rank, is not).  The aux loss is averaged over dp.
 """
 
 from __future__ import annotations
@@ -77,11 +83,47 @@ def capacity_of(cfg: MoEConfig, n_tok: int) -> int:
                / cfg.num_experts) or 1
 
 
+def apply_moe(moe: MoE, x, cfg: MoEConfig, *,
+              capacity: Optional[int] = None):
+    """x (B, T, D) -> (y (B, T, D), aux loss 0-d float32).  Under a sharding
+    context whose tp degree divides the expert count, the expert-parallel
+    path (:func:`_apply_moe_ep`); else the local one."""
+    from repro_torch.sharding.context import get_context
+
+    ctx = get_context()
+    if ctx is not None and cfg.num_experts % ctx.tp == 0:
+        return _apply_moe_ep(moe, x, cfg, ctx, capacity=capacity)
+    return _apply_moe_local(moe, x, cfg, capacity=capacity)
+
+
+def _apply_moe_ep(moe: MoE, x, cfg: MoEConfig, ctx, *,
+                  capacity: Optional[int] = None):
+    """The expert-parallel path on this rank: ``x`` is its dp shard's rows
+    (B_local, T, D), ``moe`` holds its E / tp experts (all E at tp 1).
+    Capacity defaults to ``max(1, int(capacity_factor * n_local * k /
+    E))`` of the local tokens, as the reference's; the aux loss is the
+    mean over dp of the shards'."""
+    e, tp = cfg.num_experts, ctx.tp
+    if tp > 1 and moe.w_gate.shape[0] * tp != e:
+        raise ValueError(
+            f"expert parallelism over tp={tp} needs this rank's {e // tp} "
+            f"experts, the module holds {moe.w_gate.shape[0]} (place it "
+            "with ShardingPlan.place_for_training)")
+    if capacity is None:
+        n_local = x.shape[0] * x.shape[1]
+        capacity = max(1, int(cfg.capacity_factor * n_local
+                              * cfg.experts_per_token / e))
+    return _apply_moe_local(moe, x, cfg, capacity=capacity, ctx=ctx)
+
+
 def _apply_moe_local(moe: MoE, x, cfg: MoEConfig, *,
-                     capacity: Optional[int] = None):
+                     capacity: Optional[int] = None, ctx=None):
     """x (B, T, D) -> (y (B, T, D), aux loss 0-d float32): the reference's
-    local path (``apply_moe`` without a sharding context; the port has none
-    yet).  ``capacity`` overrides :func:`capacity_of`'s rows per expert."""
+    local path (``apply_moe`` without a sharding context): routing, the
+    sort-based dispatch, the experts and the combine.  ``capacity``
+    overrides :func:`capacity_of`'s rows per expert.  With ``ctx`` (from
+    :func:`_apply_moe_ep`): this rank's experts' rows of the buffer, their
+    outputs gathered over tp, the aux loss averaged over dp."""
     b, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     n_tok = b * t
@@ -98,6 +140,8 @@ def _apply_moe_local(moe: MoE, x, cfg: MoEConfig, *,
     me = probs.mean(0)                                        # (E,)
     ce = (top_e[:, :1] == experts).to(torch.float32).mean(0)  # (E,)
     aux = cfg.router_aux_coef * e * torch.sum(me * ce)
+    if ctx is not None:
+        aux = ctx.dp_mean(aux)
 
     # ---- sort-based dispatch ----
     if capacity is None:
@@ -113,15 +157,23 @@ def _apply_moe_local(moe: MoE, x, cfg: MoEConfig, *,
     keep = pos < capacity
     slot = torch.where(keep, se * capacity + pos, e * capacity)
 
+    # the experts' input: under expert parallelism a rank's experts see
+    # only their rows, so its gradient is summed over tp
+    xe = xf if ctx is None else ctx.copy_tp(xf)
     buf = torch.zeros((e * capacity + 1, d), dtype=dt, device=dev)
-    buf[slot] = xf[stok]                          # overflow -> the last row
+    buf[slot] = xe[stok]                          # overflow -> the last row
     buf = buf[:-1].reshape(e, capacity, d)
+    if ctx is not None and ctx.tp > 1:            # this rank's experts
+        e_loc = e // ctx.tp
+        buf = buf[ctx.tp_rank * e_loc:(ctx.tp_rank + 1) * e_loc]
 
     # ---- expert FFN (batched over the experts) ----
     g = torch.bmm(buf, moe.w_gate.to(dt))
     u = torch.bmm(buf, moe.w_up.to(dt))
     h = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
     out = torch.bmm(h, moe.w_down.to(dt))                     # (E, C, D)
+    if ctx is not None:
+        out = ctx.gather_tp(out, 0)
 
     # ---- return gather + weighted combine, in (token, choice) order ----
     out_flat = out.reshape(e * capacity, d)

@@ -203,7 +203,7 @@ def block_ffn(blk: TBlock, x, cfg: ArchConfig, policy):
     0.0 for an MLP (no kernel is spent on a zero)."""
     h = apply_rmsnorm(blk.ln2, x)
     if hasattr(blk, "moe"):
-        return moe_mod._apply_moe_local(blk.moe, h, cfg.moe)
+        return moe_mod.apply_moe(blk.moe, h, cfg.moe)
     return apply_mlp(blk.mlp, h, policy=policy), 0.0
 
 

@@ -18,8 +18,18 @@ temporaries of one chunk alive at a time.  ``inplace=True`` writes the new
 parameters and moments into the given tensors (the training step does, so
 that a full-width model's state is not held twice).
 
-Gradient compression (``compression="topk" | "int8"``) belongs to the
-distribution slice and is refused here.
+Gradient compression (``compression="topk" | "int8"``,
+``optim/compression.py``) is applied to the gradients before the norm, as
+the reference's update applies it; ``topk`` keeps its error-feedback
+residuals in the state (``compression``, float32, at each parameter's
+placement).
+
+Under a sharding plan (``layout``, a ``sharding.plan.TrainLayout``) the
+tensors are this rank's tp blocks: the norm is the whole model's (the
+squares of split tensors summed over tp), compression sees whole tensors,
+the moments are this dp rank's ZeRO-1 blocks (:func:`init` allocates only
+those), the update computes on the matching blocks of the parameters and
+gradients, and the updated blocks are gathered over dp.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ class AdamWState(NamedTuple):
     step: torch.Tensor           # 0-d int32
     m: dict
     v: dict
+    compression: Optional[dict] = None   # topk's error-feedback residuals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,14 +63,14 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10000
     min_lr_ratio: float = 0.1
-    compression: Optional[str] = None     # None only (see the docstring)
+    # gradient compression (see optim/compression.py)
+    compression: Optional[str] = None     # None | "topk" | "int8"
+    topk_fraction: float = 0.05
 
     def __post_init__(self):
-        if self.compression is not None:
-            raise NotImplementedError(
-                f"gradient compression {self.compression!r} is not ported: "
-                "optim/compression.py comes with distributed training "
-                "(ROADMAP Queue 1 item 4b)")
+        if self.compression not in (None, "topk", "int8"):
+            raise ValueError(f"unknown gradient compression "
+                             f"{self.compression!r}; expected topk or int8")
 
 
 def _f32(v) -> np.float32:
@@ -84,18 +95,29 @@ def _is_float(t) -> bool:
     return isinstance(t, torch.Tensor) and t.is_floating_point()
 
 
-def init(cfg: AdamWConfig, params: dict) -> AdamWState:
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+def init(cfg: AdamWConfig, params: dict, *, layout=None) -> AdamWState:
+    """Zero moments, float32 (under ``layout`` this dp rank's ZeRO-1 blocks
+    of them), and with ``topk`` compression zero residuals at each
+    parameter's placement."""
+    def zeros(block):
+        return {n: torch.zeros((layout.zero_block(n, p) if block and layout
+                                else p).shape, dtype=torch.float32,
+                               device=p.device)
                 for n, p in params.items() if _is_float(p)}
 
     dev = next(iter(params.values())).device if params else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      m=zeros(), v=zeros())
+                      m=zeros(True), v=zeros(True),
+                      compression=(zeros(False) if cfg.compression == "topk"
+                                   else None))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def global_norm(tree: dict, *, layout=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (under ``layout`` the whole model's: ``TrainLayout.global_norm``)."""
+    if layout is not None:
+        return layout.global_norm({n: g for n, g in tree.items()
+                                   if _is_float(g)})
     sq = [g.to(torch.float32).square().sum() for g in tree.values()
           if _is_float(g)]
     return torch.sqrt(torch.stack(sq).sum())
@@ -117,13 +139,32 @@ def _chunks(names, params):
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
-           *, inplace: bool = False):
+           *, inplace: bool = False, layout=None):
     """Returns ``(new_params, new_state, metrics)``; metrics ``grad_norm``
-    (before clipping) and ``lr``, 0-d float32 tensors."""
+    (before clipping) and ``lr``, 0-d float32 tensors.  ``layout`` (a
+    ``TrainLayout``): the tensors are this rank's blocks and ``grads``
+    already the mean over dp (see the module docstring)."""
+    from repro_torch.optim import compression as comp_mod
+
     step = int(state.step) + 1
     names = [n for n, p in params.items()
              if _is_float(p) and grads.get(n) is not None]
-    gnorm = global_norm({n: grads[n] for n in names})
+    grads = {n: grads[n] for n in names}
+    comp_state = state.compression
+    if cfg.compression == "topk":
+        grads, comp_state = comp_mod.topk_with_error_feedback(
+            grads, comp_state, cfg.topk_fraction, layout=layout)
+    elif cfg.compression == "int8":
+        grads = comp_mod.int8_roundtrip(grads, layout=layout)
+    gnorm = global_norm(grads, layout=layout)
+    write_p = inplace
+    if layout is not None:             # update the blocks of whole_params
+        whole_params = params if inplace else {n: p.clone()
+                                               for n, p in params.items()}
+        write_p = True
+        params = {n: layout.zero_block(n, p)
+                  for n, p in whole_params.items()}
+        grads = {n: layout.zero_block(n, g) for n, g in grads.items()}
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -161,13 +202,17 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
         del p32
         torch._foreach_mul_(delta, float(lr))
         delta = [d.to(t.dtype) for d, t in zip(delta, p)]
-        if inplace:
+        if write_p:
             torch._foreach_sub_(p, delta)
         else:
             p = torch._foreach_sub(p, delta)
         for n, pi, mi, vi in zip(run, p, m, v):
             new_p[n], new_m[n], new_v[n] = pi, mi, vi
+    if layout is not None:                 # the blocks were updated in place
+        layout.gather_updated_(whole_params)
+        new_p = whole_params
     step_t = torch.full((), step, dtype=torch.int32, device=state.step.device)
-    return new_p, AdamWState(step=step_t, m=new_m, v=new_v), {
+    return new_p, AdamWState(step=step_t, m=new_m, v=new_v,
+                             compression=comp_state), {
         "grad_norm": gnorm,
         "lr": torch.tensor(lr, dtype=torch.float32)}

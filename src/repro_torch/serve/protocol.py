@@ -152,9 +152,11 @@ class EngineBase:
         if type(self.model).__name__ != "DecoderLM" or cfg.moe is not None \
                 or cfg.frontend is not None:
             what = (f"{cfg.name} ({cfg.family}): distributed serving covers "
-                    "the dense DecoderLM; MoE expert parallelism, Mamba2's "
-                    "and xLSTM's split state and the frontends are not "
-                    "ported")
+                    "the dense DecoderLM; serving MoE under a plan (expert "
+                    "parallelism trains, models.moe._apply_moe_ep), "
+                    "Mamba2's and xLSTM's split state and the frontends "
+                    "under a plan are not ported yet (ROADMAP Queue 1 item "
+                    "4c)")
         elif cfg.attention != "full":
             what = (f"{cfg.name}'s {cfg.attention!r} attention under a "
                     "sharding plan: distributed serving covers full "

@@ -18,7 +18,23 @@ Collectives use only ``all_reduce`` (and, in the pipeline, ``send`` /
 ``recv`` of host tensors): a ``gloo`` group takes CUDA tensors in
 ``all_reduce`` and ``broadcast`` only.  A gather is therefore an
 ``all_reduce`` of zero-filled buffers, each rank writing its own block:
-adding zeros is exact.
+adding zeros is exact.  A ``reduce_scatter`` (ZeRO-1's gradient reduction)
+is an ``all_reduce`` and then this rank's slice.
+
+Training differentiates through the tensor-parallel collectives, Megatron's
+pair of conjugate operators: every tp rank computes the same loss, and a
+replicated activation's gradient is the whole, equal on every rank.
+
+* :meth:`ShardingContext.reduce_tp` (a row-parallel product's partial sums;
+  the vocab-parallel lookup): forward the sum over tp, backward the
+  gradient passed through;
+* :meth:`ShardingContext.copy_tp` (the input of a column-parallel product):
+  forward the identity, backward the sum over tp of the ranks' partial
+  gradients;
+* :meth:`ShardingContext.gather_tp` (the vocab-parallel logits, the
+  experts' outputs): forward the exact gather, backward this rank's block.
+
+With no gradient recorded they are the serving path's in-place collectives.
 """
 
 from __future__ import annotations
@@ -28,6 +44,62 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+def _records_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _ReduceTP(torch.autograd.Function):
+    """Sum over tp; the backward passes the gradient through."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return ctx.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _CopyTP(torch.autograd.Function):
+    """The identity; the backward sums the gradient over tp."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.shctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.shctx.all_reduce(g.clone()), None
+
+
+class _GatherTP(torch.autograd.Function):
+    """The exact gather over tp along ``dim``; the backward keeps this
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dim):
+        fctx.shctx, fctx.dim = ctx, dim
+        return ctx.gather(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.shctx.local_block(g, fctx.dim).contiguous(), None, None
+
+
+class _MeanDP(torch.autograd.Function):
+    """The mean over dp; the backward passes the gradient through (the
+    step's mean of the ranks' gradients divides it)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return ctx.dp_mean_(x.clone())
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
 
 
 @dataclasses.dataclass
@@ -48,6 +120,10 @@ class ShardingContext:
     num_heads: int = 0
     num_kv_heads: int = 0
     kv_replicated: bool = False    # wk / wv whole on every rank
+    dp: int = 1
+    dp_rank: int = 0
+    dp_group: object = None
+    collectives: int = 0           # collectives issued through this context
 
     @property
     def transport_on_host(self) -> bool:
@@ -87,17 +163,23 @@ class ShardingContext:
         first = self.tp_rank * hq
         return torch.arange(first, first + hq) // group
 
-    def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
-        """Sum ``y`` over the tp group, in place; returns it.  A 16-bit
-        tensor is summed in float32 (``gloo`` sums float32; the values
-        round once, on the way back)."""
+    def _all_reduce(self, y: torch.Tensor, group, op=None) -> torch.Tensor:
+        """``op`` (a sum by default) of ``y`` over ``group``, in place;
+        returns it.  A 16-bit tensor is reduced in float32 (``gloo`` sums
+        float32; the values round once, on the way back)."""
         import torch.distributed as dist
+        op = dist.ReduceOp.SUM if op is None else op
+        self.collectives += 1
         if y.dtype in (torch.bfloat16, torch.float16):
             wide = y.to(torch.float32)
-            dist.all_reduce(wide, group=self.tp_group)
+            dist.all_reduce(wide, op=op, group=group)
             return y.copy_(wide)
-        dist.all_reduce(y, group=self.tp_group)
+        dist.all_reduce(y, op=op, group=group)
         return y
+
+    def all_reduce(self, y: torch.Tensor, op=None) -> torch.Tensor:
+        """Sum (or ``op``) ``y`` over the tp group, in place; returns it."""
+        return self._all_reduce(y, self.tp_group, op)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Concatenate every tp rank's ``x`` along ``dim`` in rank order
@@ -109,6 +191,56 @@ class ShardingContext:
         full = torch.zeros(shape, dtype=x.dtype, device=x.device)
         full.narrow(dim, self.tp_rank * n, n).copy_(x)
         return self.all_reduce(full)
+
+    def reduce_tp(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of ``y`` over tp: in place when no gradient is recorded,
+        else a new tensor whose backward passes the gradient through."""
+        if self.tp == 1:
+            return y
+        if _records_grad(y):
+            return _ReduceTP.apply(y, self)
+        return self.all_reduce(y)
+
+    def copy_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whose gradient is summed over tp (the input of a
+        column-parallel product under grad)."""
+        if self.tp == 1 or not _records_grad(x):
+            return x
+        return _CopyTP.apply(x, self)
+
+    def gather_tp(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:meth:`gather`, whose backward keeps this rank's block of the
+        gradient."""
+        if self.tp == 1:
+            return x
+        if _records_grad(x):
+            return _GatherTP.apply(x, self, dim % x.ndim)
+        return self.gather(x, dim)
+
+    def dp_mean_(self, y: torch.Tensor) -> torch.Tensor:
+        """The mean of ``y`` over the dp group, in place; returns it."""
+        if self.dp > 1:
+            self._all_reduce(y, self.dp_group).div_(self.dp)
+        return y
+
+    def dp_mean(self, y: torch.Tensor) -> torch.Tensor:
+        """The mean of ``y`` over dp as a new tensor; under grad its
+        backward passes the gradient through (the MoE aux loss)."""
+        if self.dp == 1:
+            return y
+        if _records_grad(y):
+            return _MeanDP.apply(y, self)
+        return self.dp_mean_(y.clone())
+
+    def dp_gather_(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every dp rank's block of ``t`` along ``dim`` into ``t`` (this
+        rank's block written, the others' summed in from zero-filled
+        buffers: exact), in place; returns it."""
+        n = t.shape[dim] // self.dp
+        full = torch.zeros_like(t)
+        full.narrow(dim, self.dp_rank * n, n).copy_(
+            t.narrow(dim, self.dp_rank * n, n))
+        return t.copy_(self._all_reduce(full, self.dp_group))
 
     def local_block(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """This rank's block of a whole ``y`` along ``dim``."""
@@ -142,8 +274,11 @@ def use_mesh(ctx: ShardingContext):
 def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
                  kv_replicated: bool = False) -> ShardingContext:
     """This rank's :class:`ShardingContext` on ``mesh`` (a DeviceMesh whose
-    dims are named ``model`` and optionally ``pipe``)."""
+    dims are named ``model`` and optionally ``pipe`` and ``data``)."""
     names = mesh.mesh_dim_names
+    if "pod" in names:
+        raise NotImplementedError(
+            "a 'pod' mesh dim: the port's contexts take dp over 'data' only")
 
     def dim(name):
         if name not in names:
@@ -153,6 +288,7 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
 
     tp, tp_rank, tp_group = dim("model")
     pp, pp_rank, pp_group = dim("pipe")
+    dp, dp_rank, dp_group = dim("data")
     pp_ranks = ()
     if pp > 1:
         import torch.distributed as dist
@@ -163,7 +299,8 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
         pp=pp, pp_rank=pp_rank, pp_group=pp_group, pp_ranks=pp_ranks,
         shard_heads=num_kv_heads % tp == 0,
         num_heads=num_heads or num_kv_heads, num_kv_heads=num_kv_heads,
-        kv_replicated=kv_replicated)
+        kv_replicated=kv_replicated,
+        dp=dp, dp_rank=dp_rank, dp_group=dp_group if dp > 1 else None)
 
 
 def check_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

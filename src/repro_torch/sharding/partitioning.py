@@ -31,7 +31,45 @@ class Spec(tuple):
         return super().__new__(cls, parts)
 
     def __repr__(self):
-        return "Spec(" + ", ".join(map(repr, self)) + ")"
+        return f"{type(self).__name__}(" + ", ".join(map(repr, self)) + ")"
+
+
+class StackSpec(Spec):
+    """The spec of a shard stack (a renumbered row-parallel packed
+    tensor): dim 0 is the stack, one slice per index of its mesh dim, and a
+    rank holds its slice without the stack dim (where the JAX package's
+    device holds the slice under a stack dim of 1)."""
+
+
+def spec_block(whole, spec, coord: dict, degree: dict, path: str = ""):
+    """The block of ``whole`` (a tensor or a numpy array) that the mesh
+    coordinate ``coord`` ({mesh dim name: index}) holds under ``spec`` on a
+    mesh of ``degree`` ({mesh dim name: size}), as a view; ``whole`` itself
+    for a None spec.  ``path`` names the leaf in errors."""
+    if spec is None:
+        return whole
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        if isinstance(ax, tuple):           # a dim over several mesh dims
+            if len(ax) != 1:
+                raise NotImplementedError(f"{path}: dim {d} over mesh dims "
+                                          f"{ax}")
+            ax = ax[0]
+        if whole.shape[d] % degree[ax]:
+            raise ValueError(f"{path}: dim {d} of {whole.shape[d]} does not "
+                             f"split over {ax}={degree[ax]}")
+        n = whole.shape[d] // degree[ax]
+        index = [slice(None)] * whole.ndim
+        index[d] = slice(coord[ax] * n, (coord[ax] + 1) * n)
+        whole = whole[tuple(index)]
+    if isinstance(spec, StackSpec):
+        if whole.shape[0] != 1:
+            raise ValueError(f"{path}: a shard stack of "
+                             f"{whole.shape[0] * degree[spec[0]]} slices over "
+                             f"{spec[0]}={degree[spec[0]]}")
+        whole = whole[0]
+    return whole
 
 
 # (regex on path, spec builder(ndim) -> Spec, or "col" / "row")
@@ -216,3 +254,60 @@ def _param_specs_impl(model, *, attn_kv_replicated: bool = False,
             base = spec_for_path(p, base_nd)
         out[p] = Spec(*([None] * (nd - base_nd) + list(base)))
     return out
+
+
+def opt_state_specs(pspecs: dict, param_shapes: dict = None,
+                    data_degree: int = 16) -> dict:
+    """ZeRO-1: the optimizer moments' specs, each parameter's spec with the
+    largest still-whole dim whose size the data degree divides split over
+    ``data`` (the gradients are reduced onto that block and the updated
+    blocks gathered back).  ``pspecs`` is ``{path: Spec}`` (a PackedWeight's
+    ``{path: {tensor name: Spec}}`` too) and ``param_shapes`` the same keys'
+    shapes (tensors or tuples); without shapes, the first whole dim is
+    taken unchecked (the JAX package's fallback).  A parameter with no such
+    dim keeps its spec (its moments stay whole over ``data``)."""
+
+    def one(spec, shape=None):
+        parts = list(spec)
+        candidates = [i for i, s in enumerate(parts) if s is None]
+        if shape is not None:
+            dims = tuple(getattr(shape, "shape", shape))
+            candidates = [i for i in candidates
+                          if i < len(dims) and dims[i] % data_degree == 0]
+            # the largest divisible dim (best balance); ties to the first
+            candidates.sort(key=lambda i: -dims[i])
+        if candidates:
+            parts[candidates[0]] = "data"
+            return Spec(*parts)
+        return spec
+
+    out = {}
+    for path, spec in pspecs.items():
+        shape = None if param_shapes is None else param_shapes[path]
+        if isinstance(spec, dict):
+            out[path] = {n: one(s, None if shape is None else shape[n])
+                         for n, s in spec.items()}
+        else:
+            out[path] = one(spec, shape)
+    return out
+
+
+def batch_axes(mesh) -> tuple:
+    """The data-parallel dims present in ``mesh`` (a DeviceMesh, or
+    anything with ``mesh_dim_names``): ``pod`` and ``data``."""
+    names = mesh.mesh_dim_names or ()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_spec(mesh, ndim: int, *, seq_axis=None,
+               seq_shard: bool = False) -> Spec:
+    """A batch tensor's spec: the leading dim over the data-parallel dims
+    (a tuple of names, as the JAX package writes it); with ``seq_shard``
+    the sequence dim ``seq_axis`` over ``data`` instead (long-context
+    decode) and the batch dim over ``pod`` only."""
+    names = mesh.mesh_dim_names or ()
+    parts = [batch_axes(mesh)] + [None] * (ndim - 1)
+    if seq_shard and seq_axis is not None:
+        parts[0] = "pod" if "pod" in names else None
+        parts[seq_axis] = "data"
+    return Spec(*parts)

@@ -30,6 +30,14 @@ weights were renumbered for.
 
 bfloat16 leaves (numpy has no such type) are stored as their int16 bit
 patterns with ``"dtype": "bfloat16"`` in the manifest.
+
+From a world of ranks (``save(..., layout=)``, a training step's
+``sharding.plan.TrainLayout``) every rank sends its blocks (tp blocks,
+ZeRO-1 moment blocks) to rank 0's host, which writes whole leaves, so the
+manifest is a one-process tree's and a one-process :func:`restore` reads
+it; the other ranks wait until it is committed.  :func:`restore` with
+``keep`` reads whole leaves and keeps a block of each
+(``fault_tolerance.elastic_restore``: another plan's blocks).
 """
 
 from __future__ import annotations
@@ -50,18 +58,19 @@ from repro_torch.core.treeutil import (Static, sequence_keys, key_path_str,
 _EXEC = ThreadPoolExecutor(max_workers=2)
 
 
-def _to_host(leaf):
-    """(numpy array, manifest dtype) of a leaf: a copy, whatever the leaf's
-    device, so that later in-place updates do not reach it."""
+def _to_host(leaf, copy: bool = True):
+    """(numpy array, manifest dtype) of a leaf.  ``copy``: a copy, whatever
+    the leaf's device, so that later in-place updates do not reach it (a
+    write that does not wait for them, :func:`save_async`, needs one)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         dtype = "bfloat16" if t.dtype == torch.bfloat16 else None
         if dtype:
             t = t.view(torch.int16)
         # a CUDA tensor's .cpu() is a copy already; a CPU tensor's is itself
-        arr = t.cpu().numpy() if t.is_cuda else t.numpy().copy()
+        arr = t.cpu().numpy() if t.is_cuda or not copy else t.numpy().copy()
         return arr, dtype or str(arr.dtype)
-    arr = np.array(leaf)
+    arr = np.array(leaf) if copy else np.asarray(leaf)
     return arr, str(arr.dtype)
 
 
@@ -194,27 +203,43 @@ def _write(host_leaves, nodes, directory: str, step: int, plan=None) -> str:
     return final
 
 
-def _host_leaves(tree):
-    """(path, host array, dtype) of every leaf, one at a time."""
+def _host_leaves(tree, copy: bool = False):
+    """(path, host array, dtype) of every leaf, one at a time (``copy``:
+    see :func:`_to_host`)."""
     for path, leaf in leaves_with_path(tree):
         path = key_path_str(path)
         if leaf is None:
             yield path, None, None
         else:
-            yield (path, *_to_host(leaf))
+            yield (path, *_to_host(leaf, copy))
 
 
-def save(tree, directory: str, step: int, *, plan=None) -> str:
+def save(tree, directory: str, step: int, *, plan=None,
+         layout=None) -> str:
     """Synchronous atomic save, one leaf on the host at a time.  Returns the
     committed directory.  ``plan`` (a ``ShardingPlan``) is written into the
-    manifest (:func:`load_plan`)."""
-    return _write(_host_leaves(tree), _node_entries(tree), directory, step,
-                  plan)
+    manifest (:func:`load_plan`).  ``layout`` (a ``TrainLayout``; call on
+    every rank): ``tree`` is a training state ``{"params", "opt", ...}``
+    of this rank's blocks, saved whole by rank 0 (see the module
+    docstring)."""
+    if layout is None:
+        return _write(_host_leaves(tree), _node_entries(tree), directory,
+                      step, plan)
+    import torch.distributed as dist
+
+    whole = layout.whole_tree(tree, dst=0)     # None on the other ranks
+    final = os.path.join(directory, f"step_{step:08d}")
+    if dist.get_rank() == 0:
+        final = _write(_host_leaves(whole), _node_entries(whole), directory,
+                       step, plan)
+    del whole
+    dist.barrier()
+    return final
 
 
 def save_async(tree, directory: str, step: int, *, plan=None) -> Future:
     """Copy every leaf to the host now, write on a background thread."""
-    return _EXEC.submit(_write, list(_host_leaves(tree)),
+    return _EXEC.submit(_write, list(_host_leaves(tree, copy=True)),
                         _node_entries(tree), directory, step, plan)
 
 
@@ -247,24 +272,35 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(template, directory: str, step: int):
+def restore(template, directory: str, step: int, *, keep=None):
     """Restore into ``template``'s structure.  Each leaf loads onto the
     device of the template's leaf (the CPU for a numpy or None template
     leaf); the manifest's shapes are authoritative.  Typed nodes
     (PackedWeight attributes, Static values) are patched from the manifest.
-    A template leaf the checkpoint lacks raises ``KeyError``."""
+    A template leaf the checkpoint lacks raises ``KeyError`` (a None one
+    restores as None).  ``keep(path, whole) -> block``, given the leaf's
+    path string and the whole leaf as a memory-mapped numpy array, picks
+    what of each leaf is read and kept."""
     final = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
 
     def load(path, leaf):
-        entry = by_path[key_path_str(path)]
+        key = key_path_str(path)
+        if leaf is None and key not in by_path:
+            return None
+        entry = by_path[key]
         if entry["kind"] == "none":
             return None
-        data = np.load(os.path.join(final, entry["file"]))
+        path_ = os.path.join(final, entry["file"])
+        if keep is None:
+            arr = np.load(path_)
+        else:
+            # a copy of the block: only its pages are read
+            arr = np.array(keep(key, np.load(path_, mmap_mode="r")))
         dev = leaf.device if isinstance(leaf, torch.Tensor) else None
-        return _from_host(data, entry["dtype"], dev)
+        return _from_host(arr, entry["dtype"], dev)
 
     restored = map_leaves(load, template)
     nodes = {e["path"]: e for e in manifest.get("nodes", [])}

@@ -9,8 +9,9 @@ monitoring.
   ``threshold``× the fleet median are flagged for replacement / microbatch
   rebalancing (hook returns the suggested new grain distribution).
 
-``elastic_restore`` (a restore onto another mesh) comes with distributed
-training.
+* ``elastic_restore`` — restore a checkpoint onto another mesh: every rank
+  reads the whole leaves and keeps its block of each under the new mesh's
+  specs.
 
 Observability (``repro_torch.obs``): the supervisor observes a step-time
 histogram, restart/failure counters, and checkpoint save/restore duration
@@ -257,3 +258,52 @@ class StragglerMonitor:
             self.metrics.trace.event("stragglers_flagged", hosts=flagged,
                                      median_seconds=med)
         return StragglerReport(flagged, med, suggestion)
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-meshing
+# ---------------------------------------------------------------------------
+
+def _spec_leaves(tree, path=()):
+    """``{path string: Spec or None}`` of a spec tree (its leaves are
+    ``Spec``s, which are tuples, or None)."""
+    from repro_torch.core.treeutil import key_path_str, sequence_keys
+    from repro_torch.sharding.partitioning import Spec
+
+    if tree is None or isinstance(tree, Spec):
+        return {key_path_str(path): tree}
+    out = {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    else:
+        items = zip(sequence_keys(tree), tree)
+    for k, v in items:
+        out.update(_spec_leaves(v, path + (k,)))
+    return out
+
+
+def elastic_restore(template, directory: str, step: int, new_mesh,
+                    spec_tree):
+    """Restore a checkpoint onto a different mesh: this rank keeps, of every
+    leaf, its block under the leaf's spec on ``new_mesh`` (a DeviceMesh this
+    rank is in) — what ``device_put`` with the JAX package's
+    ``NamedSharding`` leaves on one device.  ``spec_tree`` mirrors
+    ``template`` with a ``Spec`` (or None: whole) per leaf; a spec's dim
+    names are ``new_mesh``'s dim names, and a ``StackSpec`` leaf comes back
+    as the rank's slice of the shard stack, without the stack dim.  The
+    checkpoint holds whole leaves (``checkpoint.save``, from one process or
+    from a world)."""
+    from repro_torch.sharding.partitioning import spec_block
+
+    names = new_mesh.mesh_dim_names
+    at = new_mesh.get_coordinate()
+    if at is None:
+        raise ValueError("this rank is not in the new mesh")
+    coord = dict(zip(names, at))
+    degree = {n: new_mesh.size(i) for i, n in enumerate(names)}
+    specs = _spec_leaves(spec_tree)
+
+    def keep(path, whole):
+        return spec_block(whole, specs.get(path), coord, degree, path)
+
+    return ckpt.restore(template, directory, step, keep=keep)

@@ -22,6 +22,21 @@ On a CUDA tensor a packed forward launches its kernel (K1-K4) and its
 backward is tensor ops beside it (``kernels/ops.py``,
 ``sparsetrain/vjp.py``); the masked dense step launches no DeMM kernel, as
 in the reference.
+
+Under a sharding plan (``plan=ShardingPlan(tp=..., dp=...)``) the step is
+SPMD over ``torch.distributed``, one process per rank:
+``ShardingPlan.place_for_training`` keeps this rank's tp blocks of the
+model (its ``train_params`` are those blocks) and gives the step's
+:class:`~repro_torch.sharding.plan.TrainLayout`.  Each dp rank takes its
+rows of the global batch (every rank is handed the same one) and splits
+them into the microbatches; the loss runs under the plan's sharding
+context (Megatron's collectives under autograd, the experts
+expert-parallel); the gradients are averaged over dp (replicated tensors'
+gradients are whole on every tp rank and are not summed over tp); AdamW
+updates this rank's ZeRO-1 blocks (``adamw.init(..., layout=
+step.layout)`` allocates them) and gathers the updated blocks; the loss
+and metrics are the global batch's.  The reference's ``jax.jit`` with
+shardings reaches the same math through GSPMD from one process.
 """
 
 from __future__ import annotations
@@ -85,7 +100,7 @@ def _device_batch(batch: dict, device) -> dict:
 def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
                     num_microbatches: int = 1, policy=None, mode=None,
                     backend=None, premask: bool = True, fake_quant=None,
-                    qat_granularity: str = "per_row"):
+                    qat_granularity: str = "per_row", plan=None):
     """Build ``train_step(params, opt_state, batch, step, masks=None) ->
     (params, opt_state, metrics)``.
 
@@ -98,8 +113,18 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
     (``sparsetrain.qat``), at ``qat_granularity``.  ``params`` and the
     optimizer state are updated in place.  Metrics are 0-d tensors: loss,
     xent, aux, grad_norm, lr.
+
+    ``plan`` (a ``ShardingPlan`` of tp x dp ranks) places ``model`` for
+    training on this rank and makes the step distributed (see the module
+    docstring); the step carries ``layout`` (its ``TrainLayout``, None
+    without a plan), ``context`` (the sharding context) and ``grads(params,
+    batch, masks=None) -> (loss, metrics, grads)``, the step's gradients
+    (averaged over dp) without the update.
     """
+    import contextlib
+
     from repro_torch.core.sparse_linear import resolve_policy, sparse_weights
+    from repro_torch.sharding import context as shctx
     from repro_torch.sparsetrain.qat import validate_qat
 
     validate_qat(fake_quant, qat_granularity)
@@ -108,11 +133,20 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
     use_premask = premask and mode == "masked"
     # with premasking the model runs in dense mode on the masked tensors
     inner_policy = policy.replace(mode="dense") if use_premask else policy
+    layout = ctx = None
+    if plan is not None and plan.device_degree() > 1:
+        if fake_quant is not None and plan.tp > 1:
+            raise NotImplementedError(
+                "fake quantization under tp > 1: a row-parallel weight's "
+                "per-row int8 scale spans the ranks")
+        layout = plan.place_for_training(model, plan_mesh(plan, model))
+        ctx = layout.ctx
     sparsity = sparse_weights(model)
     device = model.device
 
     def loss_and_grads(leaves, mb):
-        with torch.enable_grad():
+        with torch.enable_grad(), (shctx.use_mesh(ctx) if ctx is not None
+                                   else contextlib.nullcontext()):
             loss, metrics = torch.func.functional_call(
                 model, leaves, (mb,), {"policy": inner_policy})
             names = list(leaves)
@@ -121,9 +155,12 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
 
-    def train_step(params, opt_state, batch, step, masks=None):
-        del step  # the schedule reads opt_state.step
+    def step_grads(params, batch, masks=None):
+        """(loss, metrics, grads) of the step at ``params`` on ``batch``:
+        the gradients averaged over the microbatches (and over dp)."""
         batch = _device_batch(batch, device)
+        if layout is not None:
+            batch = layout.local_rows(batch)
         with torch.no_grad():
             if masks is not None:
                 if not use_premask:
@@ -170,11 +207,32 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
             metrics = {k: torch.stack([m[k] for m in metricses]).mean()
                        for k in metricses[0]}
         del leaves
+        if layout is not None:       # the global batch's
+            layout.mean_grads_(grads)
+            loss = ctx.dp_mean_(loss.clone())
+            metrics = {k: ctx.dp_mean_(v.clone()) for k, v in metrics.items()}
+        return loss, metrics, grads
+
+    def train_step(params, opt_state, batch, step, masks=None):
+        del step  # the schedule reads opt_state.step
+        loss, metrics, grads = step_grads(params, batch, masks)
         new_params, new_opt, opt_metrics = adamw.update(
-            opt_cfg, grads, opt_state, params, inplace=True)
+            opt_cfg, grads, opt_state, params, inplace=True, layout=layout)
         return new_params, new_opt, dict(metrics, loss=loss, **opt_metrics)
 
+    train_step.layout, train_step.context = layout, ctx
+    train_step.grads = step_grads
     return train_step
+
+
+def plan_mesh(plan, model):
+    """The DeviceMesh a model is trained on under ``plan``: made once per
+    model (``ShardingPlan.make_mesh``) and kept on it, so that another step
+    of the same model and plan reuses its process groups."""
+    mesh = getattr(model, "train_mesh", None)
+    if mesh is None or getattr(model, "placed_plan", None) != plan:
+        mesh = model.train_mesh = plan.make_mesh()
+    return mesh
 
 
 def make_eval_step(model, *, policy=None, mode=None, backend=None):

@@ -206,3 +206,345 @@ def build_once_leg(rank, workdir):
         _build.load_library = real
     dist.barrier()
     return len(made)
+
+
+# ---------------------------------------------------------------------------
+# distributed training: one four-rank world, tp 2 x dp 2
+# ---------------------------------------------------------------------------
+
+STEP_KW = dict(lr=1e-3, total_steps=10, warmup_steps=1)
+TRAIN_BATCH = (8, 16)            # the reference's test: global batch 8 x 16
+TRAIN_STEPS = 3
+# the names of the compression leg's gradients: one split over tp (rows),
+# one whole on every rank
+COMP_NAMES = ("layers.0.mlp.gate.w", "layers.0.ln1.scale")
+# the reference's MoE test: 8 experts top-2, d_ff 32, d 64, x (4, 8, 64)
+MOE_EP = dict(num_experts=8, experts_per_token=2, d_ff_expert=32)
+MOE_D, MOE_X, MOE_CAPACITY = 64, (4, 8, 64), 64
+# the reference's pipeline test at 4 stages: 4 microbatches of 2 x 16
+PIPE = dict(num_mb=4, mb=2, d=16)
+
+
+def train_batches(vocab, n=TRAIN_STEPS, shape=TRAIN_BATCH):
+    """The steps' global batches, made with numpy from the step's index."""
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(i)
+        out.append({"tokens": rng.integers(0, vocab, shape, dtype=np.int32),
+                    "targets": rng.integers(0, vocab, shape,
+                                            dtype=np.int32)})
+    return out
+
+
+def run_steps(model, vocab, *, plan=None, microbatches=2, compression=None,
+              first=0, steps=TRAIN_STEPS, opt_state=None, mode="masked"):
+    """``steps`` masked train steps of ``model`` (batches ``first`` on) under
+    ``plan`` (None: one rank).  Returns (per-step [loss, grad_norm, aux],
+    params, opt state, the step)."""
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step, train_params
+
+    opt_cfg = adamw.AdamWConfig(**STEP_KW, compression=compression)
+    step = make_train_step(model, opt_cfg, num_microbatches=microbatches,
+                           plan=plan, policy=ExecPolicy(mode=mode))
+    params = train_params(model)
+    fresh = adamw.init(opt_cfg, params, layout=step.layout)
+    opt = fresh if opt_state is None else opt_state._replace(
+        compression=fresh.compression)
+    metrics = []
+    for i, b in enumerate(train_batches(vocab, first + steps)[first:]):
+        params, opt, m = step(params, opt, b, first + i)
+        metrics.append([float(m["loss"]), float(m["grad_norm"]),
+                        float(m["aux"])])
+    return metrics, params, opt, step
+
+
+def _np(d):
+    """Copies as numpy (a CPU tensor's ``numpy()`` shares its storage,
+    which later steps update in place)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in d.items()}
+
+
+def train_legs(rank, nprocs, init, args):
+    """Every leg of the distributed-training tests on this rank (see
+    ``test_torch_dist_train.py``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.models.families import build_model
+    from repro_torch.optim import compression as comp
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.sharding.world import init_world
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.set_num_threads(1)
+    world = init_world("cpu", rank=rank, world_size=nprocs, init_method=init)
+    cfg = torch_cfg()
+    plan = ShardingPlan(tp=2, dp=2)
+    out = {"rank": world.rank}
+
+    # the masked step, then one int8 and one topk step, the state saved
+    model = from_jax_params(args["tree"], cfg, device="cpu")
+    before = sum(t.nbytes for t in model.parameters())
+    metrics, params, opt, step = run_steps(model, cfg.vocab_size, plan=plan)
+    lay, ctx = step.layout, step.context
+    out["coords"] = (ctx.dp_rank, ctx.tp_rank)
+    out["metrics"] = metrics
+    out["tp_block_bytes"] = sum(t.nbytes for t in params.values())
+    out["model_bytes"] = before
+    out["moment_bytes"] = sum(t.nbytes for t in opt.m.values())
+    out["zero_dims"] = dict(lay.zero_dim)
+    out["split"] = {n: lay.split(n) for n in params}
+    out["collectives_per_step"] = ctx.collectives / TRAIN_STEPS
+    state = {"params": params, "opt": opt}
+    ckpt.save(state, args["ckpt_dir"], TRAIN_STEPS, plan=plan, layout=lay)
+    whole = lay.whole_tree(state)            # on rank 0
+    if world.rank == 0:
+        out["whole_params"] = _np(whole["params"])
+        out["whole_m"] = _np(whole["opt"].m)
+    for scheme, first in (("int8", TRAIN_STEPS), ("topk", TRAIN_STEPS + 1)):
+        m, params, opt, _ = run_steps(model, cfg.vocab_size, plan=plan,
+                                      compression=scheme, first=first,
+                                      steps=1, opt_state=opt)
+        out[f"{scheme}_metrics"] = m
+        whole = lay.whole_tree({"params": params})["params"]
+        if world.rank == 0:
+            out[f"{scheme}_params"] = _np(whole)
+
+    # compression of a whole and of a tp-split tensor, bit for bit
+    grads = {}
+    for n in COMP_NAMES:
+        g = torch.tensor(args["comp"][n])
+        if lay.split(n):
+            d = lay.placement[n][0]
+            k = g.shape[d] // 2
+            g = g.narrow(d, ctx.tp_rank * k, k)
+        grads[n] = g.clone()
+    sent, resid = comp.topk_with_error_feedback(grads, None, 0.05,
+                                                layout=lay)
+    rt = comp.int8_roundtrip(grads, layout=lay)
+    out["comp"] = {"topk": _np({n: lay.whole(n, t) for n, t in sent.items()}),
+                   "resid": _np({n: lay.whole(n, t)
+                                 for n, t in resid.items()}),
+                   "int8": _np({n: lay.whole(n, t) for n, t in rt.items()})}
+
+    # the state restored under tp 2 on the first two ranks (a smaller mesh)
+    small = ShardingPlan(tp=2)
+    mesh = small.make_mesh()
+    if mesh.get_coordinate() is not None:
+        from repro_torch.optim import adamw
+        from repro_torch.train.fault_tolerance import elastic_restore
+        from repro_torch.train.train_loop import train_params
+
+        m2 = from_jax_params(args["tree"], cfg, device="cpu")
+        lay2 = small.place_for_training(m2, mesh)
+        p2 = train_params(m2)
+        template = {"params": p2, "opt": adamw.init(
+            adamw.AdamWConfig(**STEP_KW), p2, layout=lay2)}
+        got = elastic_restore(template, args["ckpt_dir"], TRAIN_STEPS, mesh,
+                              lay2.state_specs(template))
+        out["restored"] = {"params": _np(got["params"]),
+                           "m": _np(got["opt"].m),
+                           "split": {n: lay2.placement.get(n)
+                                     for n in p2}}
+    dist.barrier()
+
+    # the packed fine-tuning step's gradients at the packed values
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_loop import make_train_step, train_params
+
+    pm = pack_tree(from_jax_params(args["tree"], cfg, device="cpu"))
+    pstep = make_train_step(pm, adamw.AdamWConfig(**STEP_KW),
+                            num_microbatches=2, plan=plan,
+                            policy=_packed_policy())
+    loss, _, g = pstep.grads(train_params(pm), train_batches(
+        cfg.vocab_size, 1)[0])
+    out["packed"] = {"loss": float(loss), "grads": _np(
+        {n: t for n, t in g.items() if n.endswith("values")}),
+        "placement": {n: pstep.layout.placement.get(n) for n in g}}
+
+    # one packed step, its state saved and restored under tp 2 on the
+    # first two ranks: the shard stacks come back at their slices' shapes
+    play = pstep.layout
+    pparams = train_params(pm)
+    popt = adamw.init(adamw.AdamWConfig(**STEP_KW), pparams, layout=play)
+    pparams, popt, _ = pstep(pparams, popt, train_batches(
+        cfg.vocab_size, 1)[0], 0)
+    pck = args["ckpt_dir"] + "_packed"
+    ckpt.save({"params": pparams, "opt": popt}, pck, 1, plan=plan,
+              layout=play)
+    out["packed_state"] = {
+        "params": _np(pparams), "m": _np(popt.m),
+        "zero_dims": dict(play.zero_dim),
+        "stacks": [n for n in pparams
+                   if play.split(n) and play.placement[n][1]]}
+    if mesh.get_coordinate() is not None:
+        from repro_torch.train.fault_tolerance import elastic_restore
+
+        pm2 = pack_tree(from_jax_params(args["tree"], cfg, device="cpu"))
+        lay2 = small.place_for_training(pm2, mesh)
+        p2 = train_params(pm2)
+        template = {"params": p2, "opt": adamw.init(
+            adamw.AdamWConfig(**STEP_KW), p2, layout=lay2)}
+        got = elastic_restore(template, pck, 1, mesh,
+                              lay2.state_specs(template))
+        out["packed_restored"] = {
+            "params": _np(got["params"]), "m": _np(got["opt"].m),
+            "v": _np(got["opt"].v),
+            "template": {n: tuple(t.shape) for n, t in p2.items()}}
+    dist.barrier()
+
+    # a MoE model's step, expert parallel (its experts split over tp)
+    mcfg = torch_cfg_of("olmoe_1b_7b")
+    moe_model = build_model(mcfg, device="cpu", seed=0)
+    m, _, _, mstep = run_steps(moe_model, mcfg.vocab_size, plan=plan)
+    out["moe_metrics"] = m
+    out["moe_experts"] = tuple(moe_model.layers[0].moe.w_gate.shape)
+    out["moe_leg"] = moe_ep_leg(mstep.context, args["moe"])
+
+    out["pipeline"] = pipeline_leg(args["pipe"])
+    x = torch.tensor(args["psum_x"][world.rank])
+    out["psum"] = comp.compressed_psum_int8(x).numpy()
+    out["meshes"] = mesh_leg()
+    out["whole_groups"] = whole_groups_leg()
+    return out
+
+
+def _packed_policy():
+    from repro_torch.core.sparse_linear import ExecPolicy
+    return ExecPolicy(mode="packed")
+
+
+def torch_cfg_of(arch):
+    from repro_torch.configs.base import get_arch
+    return dataclasses.replace(get_arch(arch).reduced(),
+                               compute_dtype="float32")
+
+
+def moe_module(tree):
+    """The port's MoE module of the reference's ``init_moe`` tree."""
+    import torch
+
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.models.moe import MoE
+
+    return MoE(SparseLinear(torch.tensor(tree["router"]["w"])),
+               *(torch.tensor(tree[k]) for k in ("w_gate", "w_up",
+                                                  "w_down")))
+
+
+def moe_grads(moe, x, cfg, *, capacity, cot, ctx=None):
+    """(y, gradients of sum(y * cot) at the router, the experts and x)
+    through ``apply_moe``: the expert-parallel path under ``ctx``, else the
+    local one."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding.context import use_mesh
+
+    named = {"router.w": moe.router.w, "w_gate": moe.w_gate,
+             "w_up": moe.w_up, "w_down": moe.w_down}
+    for t in named.values():
+        t.requires_grad_(True)
+    x = x.clone().requires_grad_(True)
+    with (use_mesh(ctx) if ctx is not None else contextlib.nullcontext()):
+        y, _ = moe_mod.apply_moe(moe, x, cfg, capacity=capacity)
+    got = torch.autograd.grad((y * cot).sum(), [*named.values(), x])
+    return y.detach(), dict(zip([*named, "x"], got))
+
+
+def moe_ep_leg(ctx, args):
+    """The reference's MoE test on this rank: its experts' block of the
+    reference's weights, its dp shard's rows of x, through the
+    expert-parallel path; the parameters' gradients summed over dp (the
+    loss is the sum over every token)."""
+    import torch
+
+    from repro_torch.configs.base import MoEConfig
+
+    cfg = MoEConfig(**MOE_EP)
+    moe = moe_module(args["tree"])
+    e_loc = cfg.num_experts // ctx.tp
+    with torch.no_grad():
+        for k in ("w_gate", "w_up", "w_down"):
+            w = getattr(moe, k)
+            setattr(moe, k, torch.nn.Parameter(
+                w[ctx.tp_rank * e_loc:(ctx.tp_rank + 1) * e_loc].clone(),
+                requires_grad=False))
+    rows = slice(ctx.dp_rank * 2, ctx.dp_rank * 2 + 2)
+    x = torch.tensor(args["x"])[rows]
+    cot = torch.tensor(args["cot"])[rows]
+    y, g = moe_grads(moe, x, cfg, capacity=MOE_CAPACITY, cot=cot, ctx=ctx)
+    for n in ("router.w", "w_gate", "w_up", "w_down"):
+        ctx.dp_mean_(g[n]).mul_(ctx.dp)
+    return {"rows": (rows.start, rows.stop), "experts": (
+        ctx.tp_rank * e_loc, (ctx.tp_rank + 1) * e_loc), "y": y.numpy(),
+        **{k: v.numpy() for k, v in g.items()}}
+
+
+def pipeline_leg(args):
+    """``pipeline_apply`` over the four ranks as four stages (a ``pipe``
+    dim of 4): the outputs on this rank, and the gradients of sum(y * cot)
+    at this stage's weight and at x."""
+    import torch
+
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.sharding.plan import ShardingPlan
+
+    plan = ShardingPlan(pp=4)
+    ctx = plan.context(plan.make_mesh())
+    w = torch.tensor(args["w"][ctx.pp_rank]).requires_grad_(True)
+    x = torch.tensor(args["x"]).requires_grad_(True)
+
+    def stage_fn(p, xm):
+        return torch.tanh(xm @ p["w"])
+
+    y = pipeline_apply(stage_fn, {"w": w}, x, ctx)
+    gw, gx = torch.autograd.grad((y * torch.tensor(args["cot"])).sum(),
+                                 [w, x])
+    return {"stage": ctx.pp_rank, "y": y.detach().numpy(),
+            "gw": gw.numpy(), "gx": gx.numpy()}
+
+
+def mesh_leg():
+    """``launch.mesh`` in a world of four ranks: the 2 x 2 test mesh, and
+    the production mesh refused (it needs 256)."""
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    out = {"names": mesh.mesh_dim_names, "shape": tuple(mesh.mesh.shape),
+           "coord": tuple(mesh.get_coordinate())}
+    try:
+        make_production_mesh()
+        out["production"] = None
+    except ValueError as e:
+        out["production"] = str(e)
+    return out
+
+
+def whole_groups_leg():
+    """A row-parallel masked linear whose block would not hold whole
+    groups (K = 64 over tp 2 at M = 64): placing it raises, by name."""
+    import torch
+    from torch import nn
+
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.sharding.plan import ShardingPlan
+
+    plan = ShardingPlan(tp=2, dp=2)
+    holder = nn.Module()
+    holder.mlp = nn.Module()
+    holder.mlp.down = SparseLinear(torch.ones(8, 64), SparsityConfig(8, 64))
+    try:
+        plan.shard_params(holder, plan.make_mesh())
+        return None
+    except ValueError as e:
+        return str(e)

@@ -204,8 +204,9 @@ def test_adamw_schedule_matches():
                             min_lr_ratio=0.1)
     assert float(adamw.schedule(cfg, 5)) == pytest.approx(0.5)
     assert float(adamw.schedule(cfg, 100)) == pytest.approx(0.1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        adamw.AdamWConfig(compression="topk")
+    with pytest.raises(ValueError, match="unknown gradient compression"):
+        adamw.AdamWConfig(compression="fp8")
+    assert adamw.AdamWConfig(compression="topk").topk_fraction == 0.05
 
 
 @pytest.mark.parametrize("clip", [1.0, None, 1e3])
