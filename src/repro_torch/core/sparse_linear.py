@@ -190,16 +190,30 @@ def _apply_local(node, x, policy: ExecPolicy, reduce=None):
     return y
 
 
+# what ``ShardingPlan.shard_params`` sets on a placed linear (a view of a
+# node that shares its tensors, a draft tier's, carries them too)
+PLACEMENT_ATTRS = ("tp_kind", "tp_sharded", "tp_gather")
+
+
+def _in_features(node) -> int:
+    return node.in_features if isinstance(node, PackedWeight) \
+        else node.w.shape[1]
+
+
 def _apply_placed(node, x, policy: ExecPolicy, kind: str):
     """Megatron-style application of a placed linear on this rank.  ``col``:
     x whole, the output this rank's block of rows (a node left whole
-    computes all of them and keeps its block); ``row``: x this rank's chunk
-    of the contraction dim and the partial products summed over the tp
-    group (a node left whole gathers x first and needs no sum);
-    ``replicated``: x whole, the output whole.  Under grad the collectives
-    are the context's differentiable ones: a column-parallel input's
-    gradient is summed over tp, a row-parallel sum passes its gradient
-    through, a gathered x keeps this rank's block of its gradient."""
+    computes all of them and keeps its block); with ``tp_gather`` (a
+    projection whose consumer runs whole on every rank: the mixers' and
+    frontends' inputs, q / k / v whose heads do not split over tp) the
+    whole output, gathered from the blocks.  ``row``: x this rank's chunk
+    of the contraction dim (a whole x is cut to it) and the partial
+    products summed over the tp group (a node left whole gathers a chunk
+    and needs no sum).  ``replicated``: x whole, the output whole.  Under
+    grad the collectives are the context's differentiable ones: a
+    column-parallel input's gradient is summed over tp, a row-parallel sum
+    passes its gradient through, a gathered x keeps this rank's block of
+    its gradient."""
     ctx = get_context()
     if ctx is None or ctx.tp == 1:
         raise RuntimeError(
@@ -207,13 +221,18 @@ def _apply_placed(node, x, policy: ExecPolicy, kind: str):
             "sharding context (the engines install it around every step)")
     sharded = node.tp_sharded
     if kind == "row":
+        fits = x.shape[-1] == _in_features(node)
         if sharded:
-            return _apply_local(node, x, policy, reduce=ctx)
-        return _apply_local(node, ctx.gather_tp(x), policy)
+            return _apply_local(node, x if fits else ctx.local_block(x),
+                                policy, reduce=ctx)
+        return _apply_local(node, x if fits else ctx.gather_tp(x), policy)
     if kind == "col" and sharded:
-        return _apply_local(node, ctx.copy_tp(x), policy)
+        y = _apply_local(node, ctx.copy_tp(x), policy)
+        return ctx.gather_tp(y) if node.tp_gather else y
     y = _apply_local(node, x, policy)
-    return ctx.local_block(y) if kind == "col" else y
+    if kind == "col" and not node.tp_gather:
+        return ctx.local_block(y)
+    return y
 
 
 def apply_dense(node: SparseLinear, x: torch.Tensor) -> torch.Tensor:

@@ -50,14 +50,21 @@ trained; every leaf's shape is checked against the model first.  Each rank
 restores the whole checkpoint and then keeps its shard under the plan the
 flags give.
 
-Distribution (``repro_torch.sharding``): ``--tp N`` splits the model over N
-ranks (Megatron-style: column-parallel q/k/v and gate/up, row-parallel wo
-and down with their packed weights renumbered per shard, vocab-parallel
-embedding and logits, the KV heads split), ``--pp N`` runs the layers as N
-pipeline stages (the dense engine only), one process per rank:
+Distribution (``repro_torch.sharding``): ``--tp N`` splits any ``--arch``
+over N ranks (Megatron-style: column-parallel q/k/v and gate/up, row-parallel
+wo and down with their packed weights renumbered per shard, vocab-parallel
+embedding and logits, the KV heads split where they divide N and gathered
+where they do not; the experts split over the ranks; the Mamba2 and xLSTM
+mixers and the frontends run whole on every rank on their column-parallel
+projections' gathered outputs, row-parallel out), with ``--paged`` and
+``--spec-draft`` too; ``--pp N`` runs the layers of a full-attention decoder
+as N pipeline stages (the dense engine only, without ``--spec-draft``), one
+process per rank:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --tp 2 \
-        --arch stablelm_3b --full --packed
+        --arch zamba2_7b --full --packed
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --tp 2 \
+        --arch stablelm_3b --full --packed --sparsity 8:16 --spec-draft 6:16
 
 Every rank serves the same requests and samples the same tokens; rank 0
 prints the summary.  The process group's backend is ``nccl`` when every rank

@@ -25,11 +25,15 @@ positive window w lets position t attend to [t-w+1, t].
 Tensor parallelism (``repro_torch.sharding``): under a sharding context of tp
 ranks every rank projects its ``num_heads // tp`` query heads and its block
 of the KV heads (:func:`local_heads`), attends with them and feeds its chunk
-of the heads to the row-parallel ``wo``.  Where the KV heads do not split
-over tp, ``ShardingPlan(attn_kv_replicated=True)`` keeps wk / wv whole and
-each local query head reads its own KV head (:func:`_kv_for_queries`).  The
-JAX package's ``_constrain_heads`` layout hint is here a check of the local
-head count (``sharding.context.check_heads``).
+of the heads to the row-parallel ``wo``.  Where the heads do not split, the
+JAX package's ``_constrain_heads`` fallback: KV heads that do not divide tp
+are whole on every rank (wk / wv column-parallel and their outputs gathered,
+or with ``ShardingPlan(attn_kv_replicated=True)`` whole weights), and each
+local query head reads its own KV head (:func:`_kv_for_queries`); query heads
+that do not divide tp either gather q too, attention runs whole on every
+rank and each rank feeds its chunk of the output's columns to ``wo``.  The
+placement gathers (``tp_gather`` on the projections); the layout hint is
+here a check of the local head count (``sharding.context.check_heads``).
 """
 
 from __future__ import annotations
@@ -62,13 +66,13 @@ def local_heads(num_heads: int, num_kv_heads: int):
 def _kv_for_queries(k):
     """K (or V) (B, S, Hkv, Dh) lined up with this rank's query heads: as
     it is, unless its heads are whole on every rank while the query heads
-    split (``attn_kv_replicated`` with KV heads that do not split over tp),
-    where each local query head takes the KV head its global index maps to
-    (B, S, Hq_local, Dh)."""
+    split (KV heads that do not split over tp), where each local query head
+    takes the KV head its global index maps to (B, S, Hq_local, Dh)."""
     ctx = get_context()
-    if ctx is None or ctx.tp == 1 or ctx.shard_heads:
+    index = None if ctx is None or ctx.tp == 1 else ctx.kv_head_index()
+    if index is None:
         return k
-    return k.index_select(2, ctx.kv_head_index().to(k.device))
+    return k.index_select(2, index.to(k.device))
 
 
 def _gqa_scores(q, k):

@@ -29,10 +29,17 @@ from repro_torch.models.layers import (apply_embedding, apply_linear,
                                        apply_rmsnorm, apply_unembedding,
                                        dtype_of, init_embedding, init_linear,
                                        init_rmsnorm, rope_tables)
-from repro_torch.models.transformer import (FULL_WINDOW, LM, TBlock,
-                                            apply_tblock_seq, block_ffn,
-                                            init_tblock, remat_call,
-                                            softmax_xent)
+from repro_torch.models.transformer import (FULL_WINDOW, LM, RING_EMPTY,
+                                            TBlock, apply_tblock_seq,
+                                            block_ffn, init_tblock,
+                                            remat_call, softmax_xent)
+
+# the one value every element of a fresh decode state's leaf holds, by the
+# leaf's key in the state trees of every family here (any other leaf: 0):
+# a ring slot's position (``transformer.init_ring_cache``) and the mLSTM /
+# sLSTM stabilisers (``ssm.init_mlstm_state``, ``init_slstm_state``).  A
+# state builder whose leaf starts elsewhere adds it here
+STATE_FILL = {"slot_pos": RING_EMPTY, "m": ssm_mod.NEG_BIG}
 
 
 def _generator(device, generator, seed):

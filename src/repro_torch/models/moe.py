@@ -26,8 +26,10 @@ bit).
 
 Expert parallelism (:func:`_apply_moe_ep`, which :func:`apply_moe` takes
 under a sharding context whose tp degree divides the expert count, as the
-reference's): each tp rank holds E / tp experts (``ShardingPlan`` places
-them), routing is local to the rank's dp shard of the batch, every rank
+reference's, in serving and in training): each tp rank holds E / tp experts
+(``ShardingPlan`` places them), routing is local to the rank's dp shard of
+the batch (a serving engine has no dp group: every rank routes all of a
+tick's tokens, at one rank's capacity), every rank
 builds the same (E, C, D) buffer, runs its experts on their rows, and the
 ranks' outputs are gathered (exact) before the same combine.  Under grad
 the gather's backward keeps the rank's experts' block and the dispatched
@@ -108,7 +110,8 @@ def _apply_moe_ep(moe: MoE, x, cfg: MoEConfig, ctx, *,
         raise ValueError(
             f"expert parallelism over tp={tp} needs this rank's {e // tp} "
             f"experts, the module holds {moe.w_gate.shape[0]} (place it "
-            "with ShardingPlan.place_for_training)")
+            "with ShardingPlan.shard_params, as the engines do, or "
+            "place_for_training)")
     if capacity is None:
         n_local = x.shape[0] * x.shape[1]
         capacity = max(1, int(cfg.capacity_factor * n_local

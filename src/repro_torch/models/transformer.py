@@ -39,7 +39,7 @@ substituted parameters) are ported.
 
 Distribution (``repro_torch.sharding``): under a sharding context of tp
 ranks every layer runs on this rank's heads and blocks of the projections
-(``full`` and ``paged`` caches, their head axis split);
+(every cache kind, its head axis split where the KV heads divide tp);
 :meth:`DecoderLM.decode_step_pipelined` runs the layers as ``pp`` pipeline
 stages, each rank holding its ``L / pp`` layers and their caches.
 
@@ -87,15 +87,18 @@ FULL_WINDOW = -1
 # Ring-buffer (windowed) KV cache
 # ---------------------------------------------------------------------------
 
+RING_EMPTY = -1     # the position an empty ring slot holds
+
+
 def init_ring_cache(batch: int, window: int, hkv: int, dh: int, *, device,
                     dtype=torch.bfloat16, lead=()):
     """A ring of ``window`` slots per sequence, (*lead, B, W, Hkv, Dh), and
-    the absolute position each slot holds, (*lead, B, W) int32, -1 when
-    empty."""
+    the absolute position each slot holds, (*lead, B, W) int32,
+    :data:`RING_EMPTY` when empty."""
     shape = (*lead, batch, window, hkv, dh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((*lead, batch, window), -1,
+            "slot_pos": torch.full((*lead, batch, window), RING_EMPTY,
                                    dtype=torch.int32, device=device)}
 
 
@@ -134,7 +137,7 @@ def ring_decode_attention(attn_block, x, cache, pos, *, cfg: ArchConfig,
     p = torch.exp(logits - m)
     out = attn._gqa_out(p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30),
                         v_c)
-    out = out.reshape(b, 1, hq * dh).to(x.dtype)
+    out = out.reshape(b, 1, -1).to(x.dtype)
     return apply_linear(attn_block.wo, out, policy=policy), cache
 
 
@@ -300,18 +303,6 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     gold = torch.take_along_dim(logits, targets[..., None].to(torch.int64),
                                 dim=-1)[..., 0]
     return (lse - gold).mean()
-
-
-def _check_tp_cache_kind(kind: str):
-    """Under tensor parallelism only the ``full`` and ``paged`` caches are
-    served (the windowed rings are not split over ranks yet)."""
-    from repro_torch.sharding.context import get_context
-
-    ctx = get_context()
-    if ctx is not None and ctx.tp > 1 and kind not in ("full", "paged"):
-        raise NotImplementedError(
-            f"decode cache kind {kind!r} under tp={ctx.tp} is not ported: "
-            "tensor-parallel serving covers the full and paged caches")
 
 
 class LM(nn.Module):
@@ -575,7 +566,6 @@ class DecoderLM(LM):
         if kind not in ("full", "paged", "swa", "local_global"):
             raise NotImplementedError(
                 f"decode cache kind {kind!r} is not ported yet")
-        _check_tp_cache_kind(kind)
         # the rotary tables depend on the positions only: once per step
         rope = rope_tables(pos[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)

@@ -115,16 +115,17 @@ class PagedServeEngine(SpecPrograms, EngineBase):
         self.cfg = cfg
         self.policy = resolve_policy(policy)
         self._spec = spec
+        if spec is not None:
+            # the tier-sort invariant before the plan places anything and
+            # before anything is tuned or captured
+            from repro_torch.spec.tiers import tier_sort_tree
+            tier_sort_tree(model)
         # policy.plan: place the model on this rank before anything else
         self._setup_plan(self.policy, spec)
         if self.plan is not None and self.plan.pp > 1:
             raise NotImplementedError(
                 "pp > 1 applies to the dense-cache engine (the pipelined "
                 "decode step over dense caches), not the paged arena")
-        if spec is not None:
-            # the tier-sort invariant before anything is tuned or captured
-            from repro_torch.spec.tiers import tier_sort_tree
-            tier_sort_tree(model)
         if autotune and self.policy.mode == "packed":
             # at the decode batch, before the arena and any capture; the
             # prefill chunk's problems then resolve by heuristic, as in the

@@ -139,8 +139,10 @@ class EngineBase:
         this stage's layers).  Identity for a plan-less policy or a plan of
         degree 1.  ``dp`` is not realised here: data parallelism is
         replica-level (``serve.router.ReplicaRouter``), so an engine takes
-        the plan's tp x pp slice.  What the slice does not serve raises
-        ``NotImplementedError`` by name."""
+        the plan's tp x pp slice.  What the JAX package refuses raises
+        ``NotImplementedError`` by name: tp together with pp, speculation
+        under pp, and pp for any model but the decoder LM with full
+        attention (``decode_step_pipelined``)."""
         import dataclasses
 
         plan = getattr(policy, "plan", None)
@@ -149,23 +151,20 @@ class EngineBase:
             return
         cfg = self.model.cfg
         what = None
-        if type(self.model).__name__ != "DecoderLM" or cfg.moe is not None \
-                or cfg.frontend is not None:
-            what = (f"{cfg.name} ({cfg.family}): distributed serving covers "
-                    "the dense DecoderLM; serving MoE under a plan (expert "
-                    "parallelism trains, models.moe._apply_moe_ep), "
-                    "Mamba2's and xLSTM's split state and the frontends "
-                    "under a plan are not ported yet (ROADMAP Queue 1 item "
-                    "4c)")
-        elif cfg.attention != "full":
-            what = (f"{cfg.name}'s {cfg.attention!r} attention under a "
-                    "sharding plan: distributed serving covers full "
-                    "attention (dense and paged caches)")
-        elif plan.tp > 1 and plan.pp > 1:
-            what = ("combined tp > 1 and pp > 1 (the JAX package refuses it "
+        if plan.tp > 1 and plan.pp > 1:
+            what = ("combined tp>1 + pp>1 serving would nest the packed TP "
+                    "island inside the pipeline (the JAX package refuses it "
                     "too); pick one")
-        elif spec is not None:
-            what = "speculative decoding under a sharding plan"
+        elif plan.pp > 1 and spec is not None:
+            what = ("speculative decoding with pp>1 would need a pipelined "
+                    "multistep verify program; serve spec on tp/dp plans")
+        elif plan.pp > 1 and (type(self.model).__name__ != "DecoderLM"
+                              or cfg.attention != "full"):
+            what = (f"{cfg.name} under pp={plan.pp}: decode_step_pipelined "
+                    "supports the dense full-attention cache of the decoder "
+                    "LM (windowed layouts pipeline their stages with other "
+                    "per-stage state; other families have no pipelined "
+                    "step)")
         if what is not None:
             raise NotImplementedError(what)
         engine_plan = (plan if plan.dp == 1
@@ -175,8 +174,7 @@ class EngineBase:
         self._shctx = engine_plan.context(self.mesh, num_kv_heads=nkv,
                                           num_heads=nh)
         # the head counts are checked before anything is split
-        self._shctx.local_heads()
-        self._shctx.local_kv_heads()
+        self._shctx.check_head_counts()
         # the model is placed once: replicas of one rank share it
         placed = getattr(self.model, "placed_by", None)
         if placed is None:
@@ -188,9 +186,9 @@ class EngineBase:
 
     def _place_state(self, device, **kw):
         """A fresh decode state (``self.model.init_decode_state(**kw)`` on
-        ``device``); under a plan only this rank's block of it (KV head axis
-        over tp when it divides, the layer axis over pp), allocated at its
-        local shape."""
+        ``device``); under a plan only this rank's block of it (every KV
+        tensor's head axis over tp when it divides, a dense cache's layer
+        axis over pp), allocated at its local shape."""
         make = functools.partial(self.model.init_decode_state, **kw)
         if self.mesh is None:
             return make(device=device)

@@ -421,15 +421,17 @@ class ServeEngine(SpecPrograms, EngineBase):
         self.cfg = cfg
         self.policy = resolve_policy(policy)
         self._spec = spec
+        if spec is not None:
+            # the tier-sort invariant (every group's pairs magnitude-
+            # descending, in place) before the plan places anything and
+            # before anything is tuned or captured, so that the draft's
+            # prefix is exact magnitude pruning (placement and renumbering
+            # keep each group's slot order)
+            from repro_torch.spec.tiers import tier_sort_tree
+            tier_sort_tree(model)
         # policy.plan: renumber and place the model on this rank before
         # anything is tuned, allocated or captured
         self._setup_plan(self.policy, spec)
-        if spec is not None:
-            # the tier-sort invariant (every group's pairs magnitude-
-            # descending, in place) before anything is tuned or captured,
-            # so that the draft's prefix is exact magnitude pruning
-            from repro_torch.spec.tiers import tier_sort_tree
-            tier_sort_tree(model)
         if autotune and self.policy.mode == "packed":
             # measure every packed weight at the decode batch before the
             # cache is allocated and anything is captured, so that

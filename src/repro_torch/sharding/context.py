@@ -119,7 +119,6 @@ class ShardingContext:
     shard_heads: bool = True       # num_kv_heads % tp == 0
     num_heads: int = 0
     num_kv_heads: int = 0
-    kv_replicated: bool = False    # wk / wv whole on every rank
     dp: int = 1
     dp_rank: int = 0
     dp_group: object = None
@@ -132,32 +131,37 @@ class ShardingContext:
         import torch.distributed as dist
         return dist.get_backend(self.pp_group) == "gloo"
 
+    @property
+    def q_heads_split(self) -> bool:
+        """Whether the query heads split over tp (else attention runs
+        whole on every rank: the JAX package's ``_constrain_heads`` case
+        3)."""
+        return self.num_heads % self.tp == 0
+
     def local_heads(self) -> int:
-        """This rank's query heads."""
-        if self.num_heads % self.tp:
-            raise NotImplementedError(
-                f"{self.num_heads} query heads do not split over tp="
-                f"{self.tp}; the head-dim fallback of the JAX package is not "
-                "ported")
-        return self.num_heads // self.tp
+        """This rank's query heads: its block when they split over tp, all
+        of them when they do not (q, k and v gathered)."""
+        return self.num_heads // self.tp if self.q_heads_split \
+            else self.num_heads
 
     def local_kv_heads(self) -> int:
-        """This rank's KV heads: its block when the KV heads split over tp,
-        all of them when wk / wv are replicated and they do not."""
-        if self.shard_heads:
-            return self.num_kv_heads // self.tp
-        if self.kv_replicated:
-            return self.num_kv_heads
-        raise NotImplementedError(
-            f"{self.num_kv_heads} KV heads do not split over tp={self.tp}: "
-            "serve this arch under ShardingPlan(attn_kv_replicated=True) "
-            "(the JAX package's head-dim fallback is not ported)")
+        """This rank's KV heads: its block when they split over tp, all of
+        them when they do not (k and v gathered, or wk / wv replicated)."""
+        return self.num_kv_heads // self.tp if self.shard_heads \
+            else self.num_kv_heads
+
+    def check_head_counts(self):
+        """The head counts checked before anything is split: the query
+        heads must form whole groups of the KV heads."""
+        if self.num_kv_heads < 1 or self.num_heads % self.num_kv_heads:
+            raise ValueError(f"{self.num_heads} query heads do not form "
+                             f"groups of {self.num_kv_heads} KV heads")
 
     def kv_head_index(self) -> Optional[torch.Tensor]:
-        """For replicated K/V whose heads do not split over tp: the KV head
-        each local query head reads (None when the local K/V already line up
-        with the local query heads)."""
-        if self.shard_heads:
+        """For whole K/V (KV heads that do not split over tp) beside split
+        query heads: the KV head each local query head reads (None when the
+        local K/V already line up with the local query heads)."""
+        if self.shard_heads or not self.q_heads_split:
             return None
         hq, group = self.local_heads(), self.num_heads // self.num_kv_heads
         first = self.tp_rank * hq
@@ -271,8 +275,8 @@ def use_mesh(ctx: ShardingContext):
         _CTX = prev
 
 
-def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
-                 kv_replicated: bool = False) -> ShardingContext:
+def make_context(mesh, *, num_kv_heads: int = 16,
+                 num_heads: int = 0) -> ShardingContext:
     """This rank's :class:`ShardingContext` on ``mesh`` (a DeviceMesh whose
     dims are named ``model`` and optionally ``pipe`` and ``data``)."""
     names = mesh.mesh_dim_names
@@ -299,7 +303,6 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
         pp=pp, pp_rank=pp_rank, pp_group=pp_group, pp_ranks=pp_ranks,
         shard_heads=num_kv_heads % tp == 0,
         num_heads=num_heads or num_kv_heads, num_kv_heads=num_kv_heads,
-        kv_replicated=kv_replicated,
         dp=dp, dp_rank=dp_rank, dp_group=dp_group if dp > 1 else None)
 
 

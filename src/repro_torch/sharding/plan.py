@@ -63,6 +63,11 @@ RENUMBER = "renumber"
 
 _PLAN_VERSION = 1
 
+# the keys under which a decode state holds KV tensors (..., Hkv, Dh)
+_KV_KEYS = ("k", "v", "global_k", "global_v")
+# column-parallel projections whose output a rank uses whole (module paths)
+_GATHERED = r"(mamba/in_proj|blk/(up|wq|wk|wv|w_in)|patch_proj|frame_proj)$"
+
 
 def world_size() -> int:
     """Ranks in the default process group (1 when none is initialised)."""
@@ -161,8 +166,7 @@ class ShardingPlan:
         """This rank's ShardingContext on ``mesh``, to install
         (``shctx.use_mesh``) around every step."""
         return shctx.make_context(mesh, num_kv_heads=num_kv_heads,
-                                  num_heads=num_heads,
-                                  kv_replicated=self.attn_kv_replicated)
+                                  num_heads=num_heads)
 
     # -- classification / specs --------------------------------------------
 
@@ -286,12 +290,28 @@ class ShardingPlan:
                 "partial on every rank")
         return TrainLayout(ctx, model)
 
+    def _gathers(self, path: str, cfg) -> bool:
+        """Whether the column-parallel linear at ``path`` gives its whole
+        output on every rank (``tp_gather``): the mixers' and frontends'
+        projections (Mamba2's ``in_proj`` concatenates z, x, B, C and dt,
+        mLSTM's ``up`` x and z; the scans run whole on every rank), and the
+        JAX package's ``_constrain_heads`` fallback: q, k or v whose heads
+        do not split over tp."""
+        if re.search(_GATHERED, path):
+            return True
+        if cfg is None or not re.search(r"(attn|xattn)/w[qkv]$", path):
+            return False
+        heads = cfg.num_heads if path.endswith("wq") else cfg.num_kv_heads
+        return heads % self.tp != 0
+
     def _keep_tp_blocks(self, model, rank: int):
         from repro_torch.core.sparse_linear import SparseLinear
         from repro_torch.models.layers import Embedding
         from repro_torch.models.moe import MoE
+        from repro_torch.models.ssm import Mamba2
 
         tp, axis = self.tp, TP_AXIS
+        cfg = getattr(model, "cfg", None)
         specs = self.param_specs(model)
         handled = set()
         # where each tensor of the placed model is split: dotted name ->
@@ -310,6 +330,7 @@ class ShardingPlan:
             if isinstance(mod, PackedWeight):
                 new, sharded = self._local_packed(mod, specs[p], rank)
                 new.tp_kind, new.tp_sharded = self.linear_kind(p), sharded
+                new.tp_gather = self._gathers(p, cfg)
                 _set_module(model, name, new)
                 for c, spec in specs[p].items():
                     if mod.shard_axis is not None:
@@ -321,6 +342,7 @@ class ShardingPlan:
                 spec = specs[f"{p}/w"]
                 mod.tp_kind = self.linear_kind(p)
                 mod.tp_sharded = axis in spec
+                mod.tp_gather = self._gathers(p, cfg)
                 if mod.tp_sharded:
                     self._check_whole_groups(mod, spec, name)
                     keep(mod, "w", spec, dotted + "w")
@@ -342,13 +364,20 @@ class ShardingPlan:
                         keep(mod, attr, spec, dotted + attr)
                         mod.tp_sharded = True
                     handled.add(f"{p}/{attr}")
+            elif isinstance(mod, Mamba2):
+                # the scan runs whole on every rank (in_proj's output
+                # gathered): its per-channel and per-head tensors stay
+                # whole where the rule table would split them
+                handled.update(f"{p}/{n}" for n in ("conv_w", "A_log", "D",
+                                                    "dt_bias"))
         model.tp_placement = placement
         left = [p for p, s in specs.items() if p not in handled
                 and not isinstance(s, dict) and axis in s]
         if left:
-            raise NotImplementedError(
-                f"tensors {left[:4]} split over {axis!r} outside a linear or "
-                "an embedding (a family the port does not serve under tp)")
+            raise ValueError(
+                f"tensors {left[:4]} split over {axis!r} outside a linear, an "
+                "embedding, the experts or a Mamba2 mixer: the placement "
+                "keeps no block of them")
 
     def _check_whole_groups(self, lin, spec, name: str):
         """A row-split masked weight's block must hold whole N:M groups
@@ -402,28 +431,31 @@ class ShardingPlan:
     # -- decode state -------------------------------------------------------
 
     def decode_state_specs(self, state, *, num_kv_heads: int):
-        """Spec tree of a decode state: KV tensors (dense caches (L, B, S,
-        Hkv, Dh) and paged arenas (L, Np, P, Hkv, Dh), heads at axis 3)
-        split their head axis over ``model`` when the head count divides
-        tp; under ``pp`` a dense cache also splits its layer axis over
-        ``pipe`` (each stage holds its layers' caches); everything else
-        (positions, block tables) is whole."""
+        """Spec tree of a decode state: every KV tensor (under a ``k``,
+        ``v``, ``global_k`` or ``global_v`` key: dense caches (L, B, S, Hkv,
+        Dh), paged arenas (L, Np, P, Hkv, Dh), ring buffers, the hybrid's
+        shared-block caches, each (..., Hkv, Dh)) splits its head axis over
+        ``model`` when the head count divides tp, as the JAX package splits
+        axis 3 of its 5-D ones; under ``pp`` a dense cache also splits its
+        layer axis over ``pipe`` (each stage holds its layers' caches).
+        Everything else (positions, ring slot positions, block tables, the
+        recurrent states, the encoder's output) is whole."""
         shard_heads = self.tp > 1 and num_kv_heads % self.tp == 0
 
         def one(leaf, kv):
             if not isinstance(leaf, torch.Tensor):
                 return leaf
             parts = [None] * leaf.ndim
-            if kv and leaf.ndim == 5:
-                if shard_heads and leaf.shape[3] == num_kv_heads:
-                    parts[3] = TP_AXIS
-                if self.pp > 1:
+            if kv and leaf.ndim >= 4:
+                if shard_heads and leaf.shape[-2] == num_kv_heads:
+                    parts[-2] = TP_AXIS
+                if self.pp > 1 and leaf.ndim == 5:
                     parts[0] = PP_AXIS
             return Spec(*parts)
 
         def walk(node, kv=False):
             if isinstance(node, dict):
-                return {k: walk(v, kv or k in ("k", "v")) for k, v in
+                return {k: walk(v, kv or k in _KV_KEYS) for k, v in
                         node.items()}
             return one(node, kv)
 
@@ -435,28 +467,28 @@ class ShardingPlan:
         state is never built.  ``make(device=...)`` builds the whole fresh
         state (``model.init_decode_state`` with its arguments bound); it
         runs on the meta device for the shapes, dtypes and the non-tensor
-        leaves.  A fresh dense or paged state is all zeros, so every block
-        is allocated as zeros.  Without a mesh: ``make(device=device)``."""
+        leaves.  Every element of a fresh leaf holds one value, which its
+        block is filled with: the models say which
+        (``models.families.STATE_FILL``: a ring's empty slots, the xLSTM
+        stabilisers; else 0).  Without a mesh: ``make(device=device)``."""
+        from repro_torch.models.families import STATE_FILL
+
         if mesh is None:
             return make(device=device)
         whole = make(device="meta")
-        kind = whole["caches"]["kind"]
-        if kind not in ("full", "paged"):
-            raise NotImplementedError(
-                f"a {kind!r} decode state under a sharding plan: "
-                "distributed serving covers the full and paged caches")
         ctx = self.context(mesh)
         specs = self.decode_state_specs(whole, num_kv_heads=num_kv_heads)
         degree = {TP_AXIS: ctx.tp, PP_AXIS: ctx.pp}
 
-        def walk(node, spec):
+        def walk(node, spec, name=None):
             if isinstance(node, dict):
-                return {k: walk(v, spec[k]) for k, v in node.items()}
+                return {k: walk(v, spec[k], k) for k, v in node.items()}
             if not isinstance(node, torch.Tensor):
                 return node
             shape = [n // degree.get(ax, 1) for n, ax in zip(node.shape,
                                                                spec)]
-            return torch.zeros(shape, dtype=node.dtype, device=device)
+            return torch.full(shape, STATE_FILL.get(name, 0),
+                              dtype=node.dtype, device=device)
 
         return walk(whole, specs)
 

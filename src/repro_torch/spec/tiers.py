@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.sparse_linear import PLACEMENT_ATTRS
 from repro_torch.core.sparsity import PackedWeight, tier_order
 
 
@@ -103,7 +104,13 @@ def derive_draft_tier(model: nn.Module, draft: str):
         if isinstance(mod, PackedWeight):
             if mod.cfg.m == m and mod.cfg.n_effective > n:
                 counts["narrowed"] += 1
-                return mod.replace(tier_ne=n)
+                view = mod.replace(tier_ne=n)
+                # a node placed by a sharding plan: the view of its slice
+                # runs as it does
+                for attr in PLACEMENT_ATTRS:
+                    if hasattr(mod, attr):
+                        setattr(view, attr, getattr(mod, attr))
+                return view
             counts["full"] += 1
             return mod
         counts["other"] += (len(list(mod.parameters(recurse=False)))

@@ -13,8 +13,8 @@ RUN = dict(requests=3, slots=4, max_new=6, max_len=32, seed=0)
 PP_RUN = dict(RUN, requests=4)
 PAGED_RUN = dict(requests=4, slots=4, max_new=8, max_len=64, seed=0,
                  paged=True, page_size=8, max_pages=8, scheduler="priority")
-# a port-only leg: one KV head (it does not split over 2 ranks), wk / wv
-# replicated
+# a port-only leg: one KV head (it does not split over 2 ranks), k / v
+# gathered or wk / wv replicated
 KV1 = dict(num_kv_heads=1)
 
 
@@ -92,20 +92,19 @@ def serve_legs(rank, nprocs, init, tree):
         c["value"] for c in eng.metrics.snapshot(meta=False)["counters"]
         if c["name"] == "serve_preempt_total")
     out["paged_tp2_arena"] = tuple(eng.state["caches"]["k"].shape)
-    # one KV head: refused without attn_kv_replicated, served with it; the
-    # port's own seeded init on both ranks, held to its tp=1 stream
+    # one KV head: served with k / v gathered (the head fallback) and with
+    # wk / wv replicated; the port's own seeded init on both ranks, held to
+    # its tp=1 stream
     kv1 = torch_cfg(**KV1)
     base = run_serve(build_model(kv1, device="cpu", seed=1), kv1.vocab_size,
                      backend="reference", device="cpu", packed=True,
                      metrics=obs.MetricsRegistry(), **RUN)
     out["kv1_tp1"] = streams(base)
-    try:
-        run_serve(build_model(kv1, device="cpu", seed=1), kv1.vocab_size,
-                  backend="reference", device="cpu", packed=True, plan=tp2,
-                  metrics=obs.MetricsRegistry(), **RUN)
-        out["kv1_refused"] = None
-    except NotImplementedError as e:
-        out["kv1_refused"] = str(e)
+    eng = run_serve(build_model(kv1, device="cpu", seed=1), kv1.vocab_size,
+                    backend="reference", device="cpu", packed=True, plan=tp2,
+                    metrics=obs.MetricsRegistry(), **RUN)
+    out["kv1_fallback"] = streams(eng)
+    out["kv1_fallback_cache"] = tuple(eng.state["caches"]["k"].shape)
     eng = run_serve(build_model(kv1, device="cpu", seed=1), kv1.vocab_size,
                     backend="reference", device="cpu", packed=True,
                     plan=ShardingPlan(tp=2, attn_kv_replicated=True),
@@ -548,3 +547,151 @@ def whole_groups_leg():
         return None
     except ValueError as e:
         return str(e)
+
+
+# ---------------------------------------------------------------------------
+# every family served under tp 2: one two-rank world
+# ---------------------------------------------------------------------------
+
+FAMILY_RUN = dict(requests=3, slots=2, max_new=5, max_len=24, seed=3)
+FAMILY_PAGED_RUN = dict(FAMILY_RUN, requests=4, max_len=48, paged=True,
+                        page_size=8, prefill_chunk=16)
+# leg -> (arch, config overrides, run_serve keywords); every leg float32,
+# backend reference, packed.  ``no_drop``: the experts get room for every
+# token (capacity factor E / k).  gemma3 past its 8-slot rings (positions
+# up to 15 in a 24-long run); its one KV head and the kv1 leg's are case 2
+# of the head fallback, heads3 (3 query heads, 1 KV head) case 3.  The spec
+# legs pack at 8:16 (4:8 at d_model 128) and draft at 3:8.
+FAMILY_LEGS = {
+    "moe": ("olmoe_1b_7b", {"no_drop": True}, {}),
+    "hybrid": ("zamba2_7b", {}, dict(layout="block")),
+    "xlstm": ("xlstm_125m", {}, dict(quantize="int8")),
+    "vision": ("internvl2_1b", {}, {}),
+    "encdec": ("seamless_m4t_medium", {}, {}),
+    "encdec_paged": ("seamless_m4t_medium", {}, FAMILY_PAGED_RUN),
+    "local_global": ("gemma3_1b", {"local_window": 8}, dict(layout="block")),
+    "swa": ("h2o_danube_1_8b", {"window": 8}, {}),
+    "kv1": ("stablelm_3b", {"num_kv_heads": 1}, dict(quantize="int8")),
+    "heads3": ("stablelm_3b", {"num_heads": 3, "num_kv_heads": 1}, {}),
+    "spec": ("stablelm_3b", {"sparsity": (8, 16, 1)}, {}),
+    "spec_paged": ("stablelm_3b", {"sparsity": (8, 16, 1)},
+                   FAMILY_PAGED_RUN),
+}
+SPEC_DRAFT = dict(spec_draft="3:8", spec_gamma=3)
+# the legs whose model prefills a batch with a frontend's inputs under the
+# engine's context (the vision stub's patch_proj, the encoder's frame_proj)
+PREFILL_LEGS = ("vision", "encdec")
+
+
+def family_leg_cfg(leg, cfg):
+    """``cfg`` (either package's reduced ``arch`` config) with the leg's
+    overrides, in float32 compute."""
+    _, over, _ = FAMILY_LEGS[leg]
+    over = dict(over, compute_dtype="float32")
+    if over.pop("no_drop", False):
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts
+            / cfg.moe.experts_per_token)
+    if "sparsity" in over:
+        over["sparsity"] = type(cfg.sparsity)(*over["sparsity"])
+    return dataclasses.replace(cfg, **over)
+
+
+def family_run(leg):
+    """The leg's ``run_serve`` keywords (packed, without the spec draft)."""
+    return {**FAMILY_RUN, "packed": True, **FAMILY_LEGS[leg][2]}
+
+
+def family_legs(rank, nprocs, init, trees, batches):
+    """Every leg of ``test_torch_dist_serve_families.py`` on this rank:
+    the JAX package's weights of each leg (``trees``) served under
+    ``ShardingPlan(tp=2)``; the token streams, the bytes this rank holds
+    against the whole model's, and per leg what it exercises."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import from_jax_params
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.sharding.world import init_world
+
+    torch.set_num_threads(1)
+    init_world("cpu", rank=rank, world_size=nprocs, init_method=init)
+    tp2 = ShardingPlan(tp=2)
+    out = {"rank": rank}
+    for leg, tree in trees.items():
+        arch = FAMILY_LEGS[leg][0]
+        cfg = family_leg_cfg(leg, get_arch(arch).reduced())
+        spec = SPEC_DRAFT if leg.startswith("spec") else {}
+        runs = [("plain", {})] + ([("spec", spec)] if spec else [])
+        run = family_run(leg)
+        # what one rank holds of the packed model
+        whole = model_bytes(pack_tree(
+            from_jax_params(tree, cfg, device="cpu"),
+            layout=run.get("layout", "xwT"), quantize=run.get("quantize")))
+        for tag, extra in runs:
+            model = from_jax_params(tree, cfg, device="cpu")
+            eng = run_serve(model, cfg.vocab_size, backend="reference",
+                            device="cpu", plan=tp2,
+                            metrics=obs.MetricsRegistry(), **run, **extra)
+            key = leg if tag == "plain" else f"{leg}_spec"
+            out[key] = streams(eng)
+            out[f"{key}_bytes"] = (model_bytes(eng.model), whole)
+        if spec:
+            out[f"{leg}_draft"] = draft_views(eng)
+        if leg in batches:
+            batch = {k: torch.from_numpy(v).long() if v.dtype.kind == "i"
+                     else torch.from_numpy(v)
+                     for k, v in batches[leg].items()}
+            with use_mesh(eng._shctx), torch.inference_mode():
+                logits, _ = eng.model.prefill(batch, policy=ExecPolicy(
+                    mode="packed", backend="reference"))
+            out[f"{leg}_prefill"] = logits.numpy()
+        out[f"{leg}_state"] = state_held(eng.state)
+        out[f"{leg}_gathered"] = sorted(
+            n for n, m in eng.model.named_modules()
+            if getattr(m, "tp_gather", False))
+    return out
+
+
+def model_bytes(model) -> int:
+    """Bytes of every tensor ``model`` holds (parameters and buffers,
+    packed nodes included)."""
+    return sum(t.nbytes for t in list(model.parameters())
+               + list(model.buffers()))
+
+
+def state_held(state, prefix=""):
+    """{path: shape} of every tensor of a decode state."""
+    import torch
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(state_held(v, f"{prefix}{k}/"))
+        elif isinstance(v, torch.Tensor):
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+def draft_views(engine):
+    """What a speculative engine's draft model reads: for every narrowed
+    packed node, whether its values and indices are the placed full
+    node's tensors (the rank's slice, read in place) and the bytes of that
+    slice; and the narrowed nodes that carry their placement."""
+    full = dict(engine.model.named_modules())
+    shared, placed, nbytes, narrowed = 0, 0, 0, 0
+    for name, d in engine.draft_model.named_modules():
+        if getattr(d, "tier_ne", None) is None:
+            continue
+        f = full[name]
+        narrowed += 1
+        shared += d.values is f.values and d.indices is f.indices
+        placed += (getattr(d, "tp_kind", None) == f.tp_kind
+                   and d.tp_sharded == f.tp_sharded)
+        nbytes += f.values.nbytes + f.indices.nbytes
+    return {"narrowed": narrowed, "shared": shared, "placed": placed,
+            "slice_bytes": nbytes}

@@ -8,7 +8,8 @@ key of a shard-local problem, the engine factory and the replica router.
 Multi-rank: one spawned two-rank ``gloo`` world on the CPU
 (``repro_torch.sharding.world.spawn_world``; the ranks import no jax, see
 ``_torch_dist_worker.py``) serves TP=2 in both layouts, TP=2 with wk / wv
-replicated, PP=2 and the paged engine at TP=2 under preemption; the parent
+replicated, PP=2 and the paged engine at TP=2 under preemption (every
+family under TP=2: ``test_torch_dist_serve_families.py``); the parent
 holds every rank's tokens to the JAX package's single-device tokens from
 the same weights, and the port's own tp=1 tokens.
 """
@@ -392,17 +393,23 @@ def test_shard_decode_state_allocates_the_local_block(packed_pair):
 
 
 def test_context_head_counts():
+    """The head fallback's local counts.  Case 2, KV heads that do not
+    split while the query heads do: this rank's query heads, all KV heads,
+    each query head reading its own; case 3, query heads that do not split
+    either: all heads on every rank."""
     from repro_torch.sharding.context import ShardingContext
     ctx = ShardingContext(tp=2, tp_rank=1, num_heads=6, num_kv_heads=3,
                           shard_heads=False)
-    with pytest.raises(NotImplementedError, match="attn_kv_replicated"):
-        ctx.local_kv_heads()
-    ctx.kv_replicated = True
+    ctx.check_head_counts()
     assert ctx.local_heads() == 3 and ctx.local_kv_heads() == 3
     # global query heads 3, 4, 5 read KV heads 1, 2, 2
     assert ctx.kv_head_index().tolist() == [1, 2, 2]
-    with pytest.raises(NotImplementedError, match="head-dim"):
-        ShardingContext(tp=4, num_heads=6, num_kv_heads=6).local_heads()
+    case3 = ShardingContext(tp=4, num_heads=6, num_kv_heads=6,
+                            shard_heads=False)
+    assert case3.local_heads() == 6 and case3.local_kv_heads() == 6
+    assert case3.kv_head_index() is None
+    with pytest.raises(ValueError, match="groups"):
+        ShardingContext(tp=2, num_heads=3, num_kv_heads=2).check_head_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -584,10 +591,14 @@ def test_multi_rank_ranks_agree_and_hold_their_shards(world, packed_pair):
 
 
 def test_multi_rank_kv_heads_that_do_not_split(world):
+    """One KV head over tp 2: served without ``attn_kv_replicated`` (k / v
+    gathered, the cache whole on every rank) and with it, the tp = 1
+    tokens either way."""
     _, _, ranks = world
     for r in ranks:
-        assert r["kv1_refused"] and "attn_kv_replicated" in r["kv1_refused"]
-        assert r["kv1_tp2"] == r["kv1_tp1"] and len(r["kv1_tp1"]) == 3
+        assert r["kv1_fallback"] == r["kv1_tp1"] and len(r["kv1_tp1"]) == 3
+        assert r["kv1_fallback_cache"][3] == 1
+        assert r["kv1_tp2"] == r["kv1_tp1"]
 
 
 def test_multi_rank_sharded_matmul_under_the_group(world):
