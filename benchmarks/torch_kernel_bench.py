@@ -1,5 +1,17 @@
-"""Kernel autotune benchmark of the PyTorch/CUDA port (the counterpart of
-``kernel_bench.py --autotune``).
+"""Kernel benchmarks of the PyTorch/CUDA port (the counterpart of
+``kernel_bench.py``).
+
+Two modes:
+
+* **structural + measured** (``run()``: ``python
+  benchmarks/torch_kernel_bench.py [--device cpu]``; ``python -m
+  benchmarks.torch_run`` prints its rows too): for ``kernel_bench.py``'s ``CASES`` the dense (bf16)
+  and packed weight bytes in the port's storage (bf16 values, int32
+  indices); on the card each case's K1 (``demm_xwT``) device time against
+  one bf16 ``torch.matmul`` on the dense weight and against the byte bound
+  at 3.35 TB/s, and K1 against its plain version at 512x1024, 8:128 (the
+  round trip).  ``--device cpu`` gives the byte rows only.
+* **autotune** (``--autotune``; ``run_autotune()``):
 
     PYTHONPATH=src python benchmarks/torch_kernel_bench.py --autotune \\
         [--quick | --sweep] [--device cuda|cpu] [--out PATH]
@@ -62,6 +74,101 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 DEFAULT_OUT = "BENCH_kernels_h100.json"
+
+# Published peak memory rate of one H100 SXM (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _cases():
+    """``kernel_bench.py``'s CASES: (name, out, in, batch_tokens, pattern)."""
+    from repro_torch.core.sparsity import SparsityConfig
+
+    return [
+        ("mlp_gate_decode", 6912, 2560, 8, SparsityConfig(8, 128)),
+        ("mlp_down_decode", 2560, 6912, 8, SparsityConfig(8, 128)),
+        ("attn_qkv_decode", 4096, 4096, 8, SparsityConfig(8, 128)),
+        ("mlp_gate_prefill", 6912, 2560, 2048, SparsityConfig(8, 128)),
+        ("finegrained_1:4", 4096, 4096, 8, SparsityConfig(1, 4)),
+    ]
+
+
+def _random_packed(rng, o, k, sp, device):
+    """A random weight pruned to N:M: its packed values (bf16) and indices
+    (int32), and the dense bf16 weight they unpack to."""
+    from repro_torch.core.sparsity import pack, prune, unpack
+
+    dense = prune(torch.from_numpy(rng.standard_normal(
+        (o, k), dtype=np.float32)).to(device), sp)
+    p = pack(dense, sp)
+    vals = p.values.to(torch.bfloat16).contiguous()
+    return vals, p.indices, unpack(vals, p.indices, sp, (o, k))
+
+
+def run(verbose: bool = True, device: str = "cuda"):
+    """``(name, value, derived)`` rows: per case the dense/packed weight
+    byte ratio; on the card also K1's device time (us) against one bf16
+    ``torch.matmul`` on the dense weight and the byte bound, and the round
+    trip of K1 against its plain version."""
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.device import nvidia_smi_line, require_device
+    from repro_torch.kernels.demm_xwT import demm_xwT, demm_xwT_plain
+    from repro_torch.tune.autotune import measure, operand_ring
+
+    dev = require_device(device)
+    on_card = dev.type == "cuda"
+    card = nvidia_smi_line() if on_card else None
+    rows = []
+    rng = np.random.default_rng(0)
+    for name, o, k, bt, sp in _cases():
+        g = k // sp.m
+        dense_w_bytes = o * k * 2                            # bf16
+        packed_bytes = o * g * sp.n_effective * (2 + 4)      # bf16 + int32
+        rows.append((f"kernel_{name}_bytes_dense_over_packed",
+                     dense_w_bytes / packed_bytes,
+                     f"w_bytes {dense_w_bytes} -> {packed_bytes}"))
+        if verbose:
+            print(f"{name:22s} weights {dense_w_bytes / 1e6:7.2f}MB -> "
+                  f"{packed_bytes / 1e6:6.2f}MB packed (bf16 values, int32 "
+                  f"indices)", flush=True)
+        if not on_card:
+            continue
+        vals, idx, w = _random_packed(rng, o, k, sp, dev)
+        x = torch.from_numpy(rng.standard_normal((bt, k))).to(
+            dev, torch.bfloat16)
+        us = measure([lambda v=v, i=i: demm_xwT(x, v, i, sp,
+                                                duplicates=False)
+                      for v, i in operand_ring((vals, idx))]) * 1e6
+        dense_us = measure([lambda wt=wt: torch.matmul(x, wt.T)
+                            for (wt,) in operand_ring((w,))]) * 1e6
+        nbytes = packed_bytes + x.nbytes + bt * o * 4        # y float32
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        label = f"{card}; dense {dense_us:.2f}us; bound {bound_us:.2f}us"
+        rows.append((f"kernel_{name}_h100_us", us, label))
+        rows.append((f"kernel_{name}_h100_dense_over_packed", dense_us / us,
+                     label))
+        if verbose:
+            print(f"{name:22s} K1 {us:9.2f}us | bf16 matmul {dense_us:9.2f}"
+                  f"us | bound {bound_us:8.2f}us | {card}", flush=True)
+        del vals, idx, w, x
+    if on_card:
+        # the round trip: K1 against its plain version on the same operands
+        sp = SparsityConfig(8, 128)
+        vals, idx, _ = _random_packed(rng, 512, 1024, sp, dev)
+        x = torch.from_numpy(rng.standard_normal((128, 1024)).astype(
+            np.float32)).to(dev)
+        t0 = time.perf_counter()
+        got = demm_xwT(x, vals, idx, sp, duplicates=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = demm_xwT_plain(x, vals, idx, sp)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        rows.append(("kernel_cuda_roundtrip", dt * 1e6,
+                     f"allclose=True; {card}"))
+        if verbose:
+            print(f"K1 vs its plain version (512x1024 @ 8:128, x float32): "
+                  f"{dt * 1e3:.1f}ms first call, allclose [ok]; {card}")
+    return rows
+
 
 # the architectures whose projection shapes the bench measures: its own
 # list, so that porting another config does not change its cases (the
@@ -319,7 +426,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--autotune", action="store_true",
                     help="measure tuned vs default vs dense over the port's "
-                         "projection shapes and write the BENCH file")
+                         "projection shapes and write the BENCH file "
+                         "(without it: the rows of run())")
     ap.add_argument("--quick", action="store_true",
                     help="one projection shape, fewer candidates")
     ap.add_argument("--sweep", action="store_true",
@@ -340,9 +448,6 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=None,
                     help="timed CUDA-graph replays per candidate")
     args = ap.parse_args(argv)
-    if not args.autotune:
-        ap.error("only --autotune is ported (kernel_bench.py's structural "
-                 "mode models a TPU)")
     if args.quick and args.sweep:
         ap.error("--quick and --sweep do not go together")
     out = args.out
@@ -352,6 +457,9 @@ def main(argv=None) -> int:
                else "BENCH_kernels_h100_sweep.json" if args.sweep
                else DEFAULT_OUT)
     try:
+        if not args.autotune:       # the structural + measured rows
+            run(device=args.device)
+            return 0
         run_autotune(quick=args.quick, out_path=out, device=args.device,
                      iters=args.iters, cache_path=args.cache,
                      sweep=args.sweep)

@@ -422,12 +422,39 @@ unless all of them held:
               dense slice (``launches_dist_families`` and ``tp2_families``
               of each kernel in the ``kernels`` line).
 
+17. paper    — the paper's workloads: every sparse im2col GEMM of ResNet50
+              and ConvNeXt-T (``core.perfmodel``'s inventories) on the masks
+              the figure scripts draw (Fig. 6's 95 % unstructured on
+              ResNet50, seed 0; Fig. 8's 1:8, 1:4, 1:2 on both, seed 1; the
+              DeMM cycles of each layer equal ``run_network``'s), values
+              standard normal rounded to bf16, K padded with zeros to a
+              multiple of 128, packed at 8k:128 (Fig. 6: the least k whose
+              8k holds the densest group; Fig. 8: k = 2, 4, 8), B (K_pad, P)
+              bf16.  17a: K5 through ``ops.demm_spmm(..., backend="cuda")``
+              on all 125 problems (exactly 125 launches, no other kernel;
+              the body each takes recorded) against the engine model
+              ``core.demm.demm_spmm_k_passes`` on the card in float32,
+              atol grown as the square root of the products summed.  17b:
+              per network and pattern, K5's ms (graph replays of a ring
+              larger than L2, 3 passes), the bound of the unpadded GEMM,
+              one bf16 ``torch.matmul`` of the unpadded dense A, and, in
+              the 17b lines only, the perf model's DeMM cycles at 500 MHz
+              (the paper's modelled 512-MAC engine, not a measurement, so
+              kept out of the JSON line).  17c: an
+              ``activation_calibration``-quantized
+              stablelm_3b gate projection through K3 at Bx = 4, the slices
+              of ``pack_block_stacked`` of a two-layer weight through K2,
+              and ``apply_packed`` with a re-tagged ``cfg`` through K1,
+              counted and each against its plain version
+              (``launches_paper`` of K5 and ``launches_leftovers`` of K1-K3
+              in the ``kernels`` line).
+
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
 "tune": {...}, "spec": {...}, "windowed": {...}, "train": {...},
 "families": {...}, "distribution": {...}, "distributed_training": {...},
-"distribution_families": {...}}``
+"distribution_families": {...}, "paper": {...}}``
 (per kernel: wrapper launches on the dense, the paged, the speculative, the
 training and the families' paths, error, times, bound, its gather body at
 Bx = 32; per
@@ -5900,6 +5927,357 @@ def log_dist_families(r, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the paper's workloads — the CNN GEMMs of Fig. 6 / Fig. 8 through
+# K5 against the engine model, their time on the card, and the packed-API
+# leftovers on the card
+# ---------------------------------------------------------------------------
+
+# (label, network, seed, mask of a GemmShape, k of the DeMM(8,128,.,k)
+# packing: None = the least k whose 8k holds the layer's densest group) —
+# the masks ``core.perfmodel.run_network`` draws for the figures
+PAPER_PATTERNS = [
+    ("fig6 95% unstructured", "resnet50", 0, ("unstructured", 0.95), None),
+    ("fig8 1:8", "resnet50", 1, ("nm", 1, 8), 2),
+    ("fig8 1:8", "convnext", 1, ("nm", 1, 8), 2),
+    ("fig8 1:4", "resnet50", 1, ("nm", 1, 4), 4),
+    ("fig8 1:4", "convnext", 1, ("nm", 1, 4), 4),
+    ("fig8 1:2", "resnet50", 1, ("nm", 1, 2), 8),
+    ("fig8 1:2", "convnext", 1, ("nm", 1, 2), 8),
+]
+PAPER_N, PAPER_M = 8, 128          # the paper's DeMM(8, 128, 64, 8)
+
+
+def paper_mask_fn(mask):
+    """The figure scripts' ``mask_fn(rng, gemm)`` of a PAPER_PATTERNS
+    mask."""
+    from repro_torch.core import perfmodel as pm
+
+    if mask[0] == "unstructured":
+        return lambda rng, s: pm.unstructured_mask(rng, s.r, s.k, mask[1])
+    return lambda rng, s: pm.nm_mask(rng, s.r, s.k, mask[1], mask[2])
+
+
+def paper_masks(gemms, mask, seed):
+    """{layer: (R, K) bool} drawn as ``run_network`` draws them (one rng of
+    ``seed``, the sparse layers in order; dense layers draw nothing)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fn = paper_mask_fn(mask)
+    return {s.name: fn(rng, s) for s in gemms if s.sparse}
+
+
+def paper_problems(gen):
+    """Every sparse GEMM of both networks at each pattern: A (R, K) on its
+    mask with standard normal values rounded to bf16, K padded with zero
+    columns to a multiple of 128 and packed at 8k:128; B (K_pad, P) bf16
+    with zero rows past K.  Also each pattern's DeMM cycles per layer
+    (x count) from the perf model, checked against ``run_network``'s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core.sparsity import SparsityConfig, pack
+
+    nets = {"resnet50": pm.resnet50_gemms(),
+            "convnext": pm.convnext_t_gemms()}
+    engine = pm.DeMMEngine(PAPER_N, PAPER_M, 64, 8)
+    problems = []
+    for label, net, seed, mask, k_fixed in PAPER_PATTERNS:
+        gemms = nets[net]
+        masks = paper_masks(gemms, mask, seed)
+        # the figure's own draw: equal cycles say these are its masks
+        want = pm.run_network([engine], gemms, paper_mask_fn(mask),
+                              seed=seed)[engine.name]
+        for s in gemms:
+            if not s.sparse:
+                continue
+            m = masks[s.name]
+            cycles = engine.gemm_cycles(s, m) * s.count
+            if cycles != want[s.name]:
+                raise AssertionError(f"17 {label} {net} {s.name}: cycles "
+                                     f"{cycles} != run_network's "
+                                     f"{want[s.name]}")
+            k_pad = -(-s.k // PAPER_M) * PAPER_M
+            dense_z = int(np.pad(m, ((0, 0), (0, k_pad - s.k))).reshape(
+                s.r, -1, PAPER_M).sum(-1).max())
+            k = k_fixed or max(1, -(-dense_z // PAPER_N))
+            if PAPER_N * k < dense_z:
+                raise AssertionError(f"17 {label} {s.name}: a group of "
+                                     f"{dense_z} non-zeros > 8 x {k}")
+            cfg = SparsityConfig(PAPER_N, PAPER_M, k)
+            mk = torch.zeros((s.r, k_pad), dtype=torch.bool,
+                             device=gen.device)
+            mk[:, :s.k] = torch.from_numpy(m).to(gen.device)
+            a = torch.randn((s.r, k_pad), generator=gen, device=gen.device)
+            a = torch.where(mk, a, 0.0).to(torch.bfloat16).to(torch.float32)
+            p = pack(a, cfg)
+            b = torch.zeros((k_pad, s.p), dtype=torch.bfloat16,
+                            device=gen.device)
+            b[:s.k] = torch.randn((s.k, s.p), generator=gen,
+                                  device=gen.device).to(torch.bfloat16)
+            problems.append({
+                "label": label, "net": net, "layer": s.name, "count": s.count,
+                "R": s.r, "K": s.k, "K_pad": k_pad, "P": s.p, "k": k,
+                "cfg": cfg, "nnz": int(m.sum()), "densest_group": dense_z,
+                "a": a, "packed": p, "vals": p.values.to(torch.bfloat16),
+                "b": b, "cycles": cycles})
+    return problems
+
+
+def paper_engine_vs_k5(problems):
+    """17a: K5 through ``ops.demm_spmm(..., backend="cuda")`` on every
+    problem (the launch count must equal the problems, no other kernel)
+    against the engine model ``core.demm.demm_spmm_k_passes`` on the card,
+    on the float32 of the same bf16 values and B; float32 tolerance, its
+    atol grown as the square root of the products summed past
+    ``F32_TERMS``.  Each problem's body is recorded."""
+    import torch
+    from repro_torch.core.demm import demm_spmm_k_passes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.demm_spmm import spmm_body
+
+    for pr in problems:
+        pr["body"] = spmm_body(pr["vals"], pr["packed"].indices, pr["b"],
+                               PAPER_M)
+    torch.cuda.synchronize()
+    reset_counts()                       # just before the path ...
+    outs = [ops.demm_spmm(pr["vals"], pr["packed"].indices, pr["b"],
+                          pr["cfg"], (pr["R"], pr["K_pad"]), backend="cuda",
+                          duplicates=False) for pr in problems]
+    torch.cuda.synchronize()
+    counts = read_counts()               # ... and just after
+    want = {name: 0 for name in KERNELS}
+    want["demm_spmm"] = len(problems)
+    if counts != want:
+        raise AssertionError(f"17a launch counts {counts}, expected {want}")
+    worst, worst_rel = 0.0, 0.0
+    for out, pr in zip(outs, problems):
+        engine = demm_spmm_k_passes(pr["packed"], pr["b"].to(torch.float32),
+                                    pr["k"])
+        terms = (pr["K_pad"] // PAPER_M) * PAPER_N * pr["k"]
+        tol = dict(TOL["float32"])
+        if terms > F32_TERMS:
+            tol["atol"] *= (terms / F32_TERMS) ** 0.5
+        what = f"17a {pr['label']} {pr['net']} {pr['layer']}"
+        if out.shape != (pr["R"], pr["P"]) or not torch.isfinite(out).all():
+            raise AssertionError(f"{what}: bad output {tuple(out.shape)}")
+        torch.testing.assert_close(out, engine, **tol,
+                                   msg=lambda m: f"{what}: {m}")
+        err = float((out - engine).abs().max())
+        pr["max_abs_err"] = err
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / max(float(engine.abs().max()),
+                                             1e-30))
+    bodies = {}
+    for pr in problems:
+        key = f"{pr['label']} {pr['net']}"
+        bodies.setdefault(key, {}).setdefault(pr["body"], 0)
+        bodies[key][pr["body"]] += 1
+    return {"problems": len(problems), "launches": counts["demm_spmm"],
+            "max_abs_err": worst, "max_rel_err": worst_rel,
+            "bodies": bodies}
+
+
+def paper_times(problems):
+    """17b: per network and pattern, the layers' K5 device ms (graph
+    replays of a ring of operand copies larger than L2, as phase 7 times)
+    weighted by each layer's count and summed, the bound of the unpadded
+    GEMM (bf16 values + int32 indices of its ceil(K / 128) groups, bf16 B
+    of (K, P), float32 C, each once at 3.35 TB/s, or the non-zeros'
+    2 x nnz x P operations at the bf16 peak, whichever is larger) and one
+    bf16 ``torch.matmul`` of the unpadded dense A (R, K) by B (K, P)
+    (timed once per layer shape: its time does not depend on the pattern).
+    Also, apart from the rows (they go into the kernels line), the perf
+    model's DeMM ms at 500 MHz per row — the paper's modelled 512-MAC
+    engine, not a measurement, so only logged."""
+    import torch
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.kernels.demm_spmm import demm_spmm
+
+    library = {}
+    rows = {}
+    cycles = {}
+    for pr in problems:
+        vals, idx, b, cfg = pr["vals"], pr["packed"].indices, pr["b"], pr["cfg"]
+        c_bytes = pr["R"] * pr["P"] * 4
+        r = ring((vals, idx, b), vals.nbytes + idx.nbytes + b.nbytes
+                 + c_bytes)
+        ms = time_ring([lambda v=v, i=i, bb=bb: demm_spmm(
+            v, i, bb, cfg, duplicates=False) for v, i, bb in r],
+            passes=3)[0]
+        del r
+        key = (pr["net"], pr["layer"])
+        b_bytes = pr["K"] * pr["P"] * b.element_size()
+        if key not in library:
+            a = pr["a"][:, :pr["K"]].to(torch.bfloat16).contiguous()
+            bk = b[:pr["K"]].contiguous()
+            r = ring((a, bk), a.nbytes + b_bytes + c_bytes // 2)
+            library[key] = time_ring([lambda aa=aa, bb=bb: torch.matmul(
+                aa, bb) for aa, bb in r], passes=3)[0]
+            del r, a, bk
+        nbytes = vals.nbytes + idx.nbytes + b_bytes + c_bytes
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * 2 * pr["nnz"] * pr["P"] / PEAK_OPS_PER_S["bfloat16"]
+        pr.update(ms=ms, bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations",
+                  library_ms=library[key])
+        row = rows.setdefault((pr["label"], pr["net"]), {
+            "pattern": pr["label"], "network": pr["net"], "layers": 0,
+            "launches_weighted": 0, "ms": 0.0, "bound_ms": 0.0,
+            "library_ms": 0.0, "tiled_share_of_ms": 0.0, "k": set()})
+        row["layers"] += 1
+        row["launches_weighted"] += pr["count"]
+        for key2 in ("ms", "bound_ms", "library_ms"):
+            row[key2] += pr["count"] * pr[key2]
+        if pr["body"] == "tiled":
+            row["tiled_share_of_ms"] += pr["count"] * ms
+        cycles[pr["label"], pr["net"]] = (
+            cycles.get((pr["label"], pr["net"]), 0) + pr["cycles"])
+        row["k"].add(pr["k"])
+        torch.cuda.empty_cache()
+    out = []
+    for row in rows.values():
+        row["tiled_share_of_ms"] /= row["ms"]
+        row["k"] = sorted(row["k"])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out.append(row)
+    modelled = {key: 1e3 * c / pm.CLOCK_HZ for key, c in cycles.items()}
+    return out, modelled
+
+
+def paper_leftovers(gen):
+    """17c: the packed-API leftovers on the card, counted from just before
+    to just after: an ``activation_calibration``-quantized stablelm_3b gate
+    projection (6912 x 2560, 5:80) through K3 at Bx = 4; the two slices of
+    ``pack_block_stacked`` of a two-layer 2560 x 2560 weight through K2;
+    ``apply_packed`` of a 2560 x 2560 8:128 weight re-tagged as two passes
+    of 4:128 through K1 — each against its plain version (bf16 tolerance).
+    The re-tagging keeps the stored layout (``_reconfigure`` allows only
+    an unchanged n_effective), so K1 runs the stored pattern."""
+    import torch
+    from repro_torch.core.sparse_linear import apply_packed
+    from repro_torch.core.sparsity import (PackedWeight, SparsityConfig,
+                                           pack_block_stacked, prune)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.demm_block_spmm import demm_block_spmm_plain
+    from repro_torch.kernels.demm_q8 import demm_xwT_q8_plain
+    from repro_torch.kernels.demm_xwT import demm_xwT_plain
+    from repro_torch.quant import (activation_calibration, amax_scales,
+                                   quantize_packed)
+
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # K3: the gate projection calibrated on 16 activation rows
+    cfg = SparsityConfig(5, 80)
+    pw = PackedWeight.from_dense(randn(6912, 2560), cfg)
+    x_cal = randn(16, 2560) * torch.exp(randn(2560))
+    obs = activation_calibration(x_cal)
+    qw = quantize_packed(pw, observer=obs)
+    clipped = float((qw.scales < amax_scales(pw) * (1 - 1e-6)).float()
+                    .mean())
+    x4 = randn(4, 2560).to(torch.bfloat16)
+    # pack_block_stacked: two layers, one shared a_max
+    wst = prune(randn(2, 2560, 2560).reshape(-1, 2560), cfg).reshape(
+        2, 2560, 2560)
+    slices = pack_block_stacked(wst, cfg)
+    # apply_packed re-tagged: 8:128 stored, served as 2 x 4:128
+    cfg8 = SparsityConfig(8, 128)
+    pk = PackedWeight.from_dense(randn(2560, 2560), cfg8)
+    torch.cuda.synchronize()
+    reset_counts()                       # just before the path ...
+    y_q = ops.demm_matmul_packed(x4, qw, backend="cuda")
+    y_s = [ops.demm_matmul_packed(x4, s, backend="cuda") for s in slices]
+    y_a = apply_packed(pk, x4, cfg=SparsityConfig(4, 128, 2),
+                       backend="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()               # ... and just after
+    want = {name: 0 for name in KERNELS}
+    want.update({"demm_xwT_q8": 1, "demm_block_spmm": 2, "demm_xwT": 1})
+    if counts != want:
+        raise AssertionError(f"17c launch counts {counts}, expected {want}")
+    errs = {}
+
+    def check(name, got, ref):
+        torch.testing.assert_close(got.to(torch.float32), ref,
+                                   **TOL["bfloat16"],
+                                   msg=lambda m: f"17c {name}: {m}")
+        errs[name] = max(errs.get(name, 0.0),
+                         float((got.to(torch.float32) - ref).abs().max()))
+
+    check("activation_calibration K3", y_q,
+          demm_xwT_q8_plain(x4, qw.values, qw.indices, qw.scales, cfg))
+    for s, y in zip(slices, y_s):
+        check("pack_block_stacked K2", y, demm_block_spmm_plain(
+            s.active_groups, s.values, s.indices, x4.T, cfg,
+            r=s.out_features).T)
+    check("apply_packed K1", y_a,
+          demm_xwT_plain(x4, pk.values, pk.indices, cfg8))
+    if len({tuple(s.block_geom) for s in slices}) != 1:
+        raise AssertionError("17c pack_block_stacked: slices' geometries "
+                             "differ")
+    return {"launches": {k: v for k, v in counts.items() if v},
+            "max_abs_err": errs,
+            "calibrated_rows_clipped_below_amax": clipped,
+            "stacked_block_geom": list(slices[0].block_geom)}
+
+
+def paper_phase(gen):
+    """Phase 17."""
+    t0 = time.time()
+    problems = paper_problems(gen)
+    t_build = time.time() - t0
+    t1 = time.time()
+    engine = paper_engine_vs_k5(problems)
+    t_a = time.time() - t1
+    t1 = time.time()
+    times, modelled = paper_times(problems)
+    t_b = time.time() - t1
+    t1 = time.time()
+    left = paper_leftovers(gen)
+    t_c = time.time() - t1
+    per_problem = [{k: pr[k] for k in (
+        "label", "net", "layer", "count", "R", "K", "K_pad", "P", "k",
+        "nnz", "densest_group", "body", "max_abs_err", "ms", "bound_ms",
+        "bound_by", "library_ms")} for pr in problems]
+    del problems
+    import torch
+    torch.cuda.empty_cache()
+    return {"engine_vs_k5": engine, "times": times, "leftovers": left,
+            "problems": per_problem,
+            "seconds": {"build": t_build, "a": t_a, "b": t_b, "c": t_c,
+                        "phase": time.time() - t0}}, modelled
+
+
+def log_paper(r, modelled, smi):
+    """Phase 17's report lines; ``modelled`` (the perf model's DeMM ms by
+    pattern and network) goes into the 17b lines only."""
+    e = r["engine_vs_k5"]
+    log(f"[17a paper] K5 (ops.demm_spmm, backend cuda) against the engine "
+        f"model demm_spmm_k_passes on {e['problems']} GEMMs: launches "
+        f"{e['launches']}, max abs err {e['max_abs_err']:.3g} (rel "
+        f"{e['max_rel_err']:.3g}); bodies {json.dumps(e['bodies'])}")
+    log("[17b paper] pattern | network | layers (weighted launches) | k | "
+        "K5 ms | bound ms (share) | bf16 matmul ms | tiled body's share of "
+        "K5 ms | modelled DeMM(8,128,64,8) ms at 500 MHz (the paper's "
+        "512-MAC engine, not a measurement)")
+    for row in r["times"]:
+        log(f"[17b paper] {row['pattern']} | {row['network']} | "
+            f"{row['layers']} ({row['launches_weighted']}) | {row['k']} | "
+            f"{row['ms']:.4f} | {row['bound_ms']:.4f} "
+            f"({100 * row['bound_share']:.1f} %) | {row['library_ms']:.4f} "
+            f"| {100 * row['tiled_share_of_ms']:.1f} % | "
+            f"{modelled[(row['pattern'], row['network'])]:.4f}")
+    log(f"[17c paper] leftovers on the card: {json.dumps(r['leftovers'])}")
+    s = r["seconds"]
+    log(f"[17 paper] build {s['build']:.1f} s, 17a {s['a']:.1f} s, 17b "
+        f"{s['b']:.1f} s, 17c {s['c']:.1f} s, phase {s['phase']:.1f} s; "
+        f"{smi}")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 
@@ -6810,6 +7188,12 @@ def main(argv=None) -> int:
     dist_families = dist_families_phase(gen)
     log_dist_families(dist_families, smi)
 
+    # 17. the paper's workloads: ResNet50 / ConvNeXt-T im2col GEMMs at the
+    # Fig. 6 / Fig. 8 patterns through K5 against the engine model (17a),
+    # timed (17b); the packed-API leftovers on the card (17c)
+    paper, modelled = paper_phase(gen)
+    log_paper(paper, modelled, smi)
+
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
             "| launches/tick | tokens/s")
@@ -7006,6 +7390,23 @@ def main(argv=None) -> int:
             if r[leg[0]]["launches"][name]}
         entry["tp2_families"] = [e for e in dist_families["tp2_local"]
                                  if e["kernel"] == name]
+        # phase 17: K5 on the paper's CNN GEMMs (17a's counted launches and
+        # 17b's rows by network and pattern); K1-K3 on the leftovers (17c)
+        entry["launches_leftovers"] = paper["leftovers"]["launches"].get(
+            name, 0)
+        if name == "demm_spmm":
+            entry["launches_paper"] = paper["engine_vs_k5"]["launches"]
+            entry["paper"] = {
+                "work": "every sparse im2col GEMM of ResNet50 (Fig. 6: 95 % "
+                        "unstructured, and Fig. 8) and ConvNeXt-T (Fig. 8: "
+                        "1:8, 1:4, 1:2), A packed at 8k:128 with K padded "
+                        "to 128, B (K_pad, P) bfloat16; per network and "
+                        "pattern, each layer weighted by its count; "
+                        "bound_ms and library_ms of the unpadded GEMM",
+                "max_abs_err_vs_engine": paper["engine_vs_k5"][
+                    "max_abs_err"],
+                "bodies": paper["engine_vs_k5"]["bodies"],
+                "rows": paper["times"]}
     # K5's tiled body does the dense count of operations: its floor, worked
     # from the shapes (not a measurement, so not in the kernels line)
     floor = {label: 1e3 * 2 * o * k * 256 / PEAK_OPS_PER_S["bfloat16"]
@@ -7026,7 +7427,8 @@ def main(argv=None) -> int:
                     "train": train, "families": families,
                     "distribution": dist,
                     "distributed_training": dist_train,
-                    "distribution_families": dist_families}))
+                    "distribution_families": dist_families,
+                    "paper": paper}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -271,6 +271,21 @@ def _apply_packed(pw: PackedWeight, x: torch.Tensor,
     return y.reshape(*x.shape[:-1], pw.out_features).to(x.dtype)
 
 
+def apply_packed(pw: PackedWeight, x: torch.Tensor,
+                 cfg: Optional[SparsityConfig] = None,
+                 backend: str = "reference") -> torch.Tensor:
+    """Packed application of a :class:`PackedWeight`, re-tagged with
+    ``cfg`` first when one is given (an ``n_effective``-preserving
+    reconfiguration, :func:`_reconfigure`).  New code should call
+    :func:`apply` with ``ExecPolicy(backend=...)``."""
+    if not isinstance(pw, PackedWeight):
+        raise TypeError(f"apply_packed expects a PackedWeight, got "
+                        f"{type(pw)}")
+    if cfg is not None:
+        pw = _reconfigure(pw, cfg)
+    return _apply_packed(pw, x, ExecPolicy(mode="packed", backend=backend))
+
+
 # ---------------------------------------------------------------------------
 # Packing
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ packed  indices  : (R, G, N) int32   local column index within the group,
                                      value 0 (contributing nothing).
 
 Ported: the row-packed ``xwT`` layout, the two-level ``block`` layout
-(:func:`pack_block`), the int8-quantized form of both, draft-tier views
+(:func:`pack_block`; :func:`pack_block_stacked` packs a stack of weights
+per slice with one shared ``a_max``), the int8-quantized form of both, draft-tier views
 (``PackedWeight.tier_ne``, :func:`tier_sort_packed`, :func:`narrow_tier`)
 and contraction-dim sharding (:func:`shard_packed_row_parallel`,
 :func:`unshard_packed`, :func:`shard_slice`: the per-shard active-group
@@ -196,6 +197,10 @@ def unpack(values: torch.Tensor, indices: torch.Tensor, cfg: SparsityConfig,
     dense = torch.zeros((r, g, cfg.m), dtype=values.dtype, device=values.device)
     dense.scatter_add_(-1, indices.to(torch.int64), values)
     return dense.reshape(r, kdim)
+
+
+def unpack_packed(p: PackedSparse) -> torch.Tensor:
+    return unpack(p.values, p.indices, p.cfg, p.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -588,6 +593,35 @@ def pack_block(a: torch.Tensor, cfg: SparsityConfig, *,
                         cfg=cfg, dense_shape=(r, kdim), layout=LAYOUT_BLOCK,
                         active_groups=ag.contiguous(),
                         block_geom=(block_r, a_max))
+
+
+def pack_block_stacked(w: torch.Tensor, cfg: SparsityConfig, *,
+                       block_r: Optional[int] = None,
+                       a_max: Optional[int] = None):
+    """:func:`pack_block` for layer-stacked weights ``(*lead, O, K)``.
+
+    The port's modules hold one 2-D weight per layer, so where the JAX
+    package returns one node with stacked children this returns the list of
+    per-slice block ``PackedWeight`` nodes, in the row-major order of the lead
+    axes (``w.reshape(-1, O, K)[i]``).  All slices share one ``a_max`` (the
+    most active groups of any row block of the stack, unless given), so
+    each equals the JAX package's stacked children sliced.  Always a list:
+    a 2-D ``w`` gives a list of one."""
+    o, kdim = int(w.shape[-2]), int(w.shape[-1])
+    _check_dims((o, kdim), cfg.m)
+    if block_r is None:
+        block_r = _choose_block_r(o)
+    if o % block_r:
+        raise ValueError(f"rows {o} not divisible by block_r={block_r}")
+    wf = w.reshape(-1, o, kdim)
+    needed = max(_needed_a_max(_group_activity(s, block_r, cfg.m))
+                 for s in wf)
+    if a_max is None:
+        a_max = needed
+    elif needed > int(a_max):
+        raise ValueError(f"a_max={a_max} < {needed} active groups in the "
+                         "densest row block of the stack")
+    return [pack_block(s, cfg, block_r=block_r, a_max=a_max) for s in wf]
 
 
 def unpack_block(active_groups: torch.Tensor, values: torch.Tensor,

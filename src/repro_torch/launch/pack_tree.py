@@ -21,8 +21,7 @@ from typing import Optional
 from torch import nn
 
 from repro_torch.core import sparse_linear as sl
-from repro_torch.core.sparsity import (LAYOUT_BLOCK, LAYOUT_XWT, LAYOUTS,
-                                       PackedWeight)
+from repro_torch.core.sparsity import LAYOUT_XWT, LAYOUTS, PackedWeight
 
 
 def pack_tree(module: nn.Module, layout: str = LAYOUT_XWT, *,
@@ -42,11 +41,10 @@ def pack_tree(module: nn.Module, layout: str = LAYOUT_XWT, *,
         raise ValueError(f"unknown layout {layout!r}; expected {LAYOUTS}")
 
     def q(pw: PackedWeight) -> PackedWeight:
-        if quantize is None or pw.qdtype is not None:
+        if quantize is None:
             return pw
-        from repro_torch.quant import quantize_packed
-        gran = "per_row" if pw.layout == LAYOUT_BLOCK else granularity
-        return quantize_packed(pw, quantize, granularity=gran)
+        from repro_torch.quant import quantize_tree
+        return quantize_tree(pw, quantize, granularity=granularity)
 
     def convert(node: nn.Module) -> nn.Module:
         if isinstance(node, PackedWeight):

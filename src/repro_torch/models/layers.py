@@ -20,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import choose_group
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core.sparse_linear import ExecPolicy
-from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.core.sparsity import PackedWeight, SparsityConfig
 from repro_torch.sharding.context import get_context
 
 
@@ -82,6 +82,17 @@ def apply_linear(node, x, policy: Optional[ExecPolicy] = None):
     """Apply a linear node (dense, masked-sparse, or PackedWeight) under an
     :class:`ExecPolicy` (the default policy when none is given)."""
     return sl.apply(node, x, policy)
+
+
+def pack_linear(node):
+    """Convert a (sparse) trained linear to the packed DeMM serving form; a
+    packed or dense node is returned as it is."""
+    if isinstance(node, PackedWeight):
+        return node
+    cfg = sl.node_sparsity(node)
+    if cfg is None:
+        return node
+    return sl.pack_params(node, cfg)
 
 
 # ---------------------------------------------------------------------------

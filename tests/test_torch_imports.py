@@ -43,7 +43,8 @@ for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm"
           "repro_torch.sharding.partitioning", "repro_torch.sharding.plan",
           "repro_torch.sharding.pipeline", "repro_torch.sharding.world",
           "repro_torch.serve.router", "repro_torch.optim.compression",
-          "repro_torch.launch.mesh", "repro_torch.launch.specs"):
+          "repro_torch.launch.mesh", "repro_torch.launch.specs",
+          "repro_torch.core.demm", "repro_torch.core.perfmodel"):
     assert n in names, n
 print("IMPORTED", len(names))
 """
@@ -77,7 +78,8 @@ def test_chip_smoke_imports_only_the_port():
      ["--autotune", "--quick", "--device", "cpu"]),
     ("benchmarks/torch_serve_bench.py",
      ["--device", "cpu", "--requests", "3", "--max-new", "2",
-      "--max-prompt", "8", "--packed"])])
+      "--max-prompt", "8", "--packed"]),
+    ("benchmarks/torch_train_bench.py", ["--quick", "--device", "cpu"])])
 def test_bench_scripts_run_without_jax_or_the_jax_package(script, args,
                                                           tmp_path):
     """Each script, run on the CPU in a process of its own, loads neither
