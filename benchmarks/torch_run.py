@@ -7,7 +7,9 @@ Prints ``name,value,derived`` CSV rows:
   * kernel_*   — packed vs dense weight bytes; on the card K1's device time
                  against one bf16 ``torch.matmul`` and the byte bound
                  (``torch_kernel_bench.run``)
-  * roofline_* — not ported yet: the ``roofline_skipped`` row stands in
+  * roofline_* — per-(arch x shape) roofline fractions of the port's
+                 dry-run census (``torch_roofline``; reads
+                 results/torch_dryrun.jsonl, skipped if absent)
 
 The figures are the paper's modelled 512-MAC engines at 500 MHz
 (``repro_torch.core.perfmodel``), equal to the JAX package's.  The kernel
@@ -33,11 +35,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def main(argv=None) -> int:
     from benchmarks import (torch_fig6_resnet50, torch_fig8_finegrained,
-                            torch_kernel_bench)
+                            torch_kernel_bench, torch_roofline)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--roofline", default=torch_roofline.RESULTS,
+                    metavar="JSONL",
+                    help="the dry-run census's records (default "
+                         f"{torch_roofline.RESULTS})")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; refused without a CUDA device) or "
                          "cpu (the figure and byte rows only)")
@@ -68,8 +74,14 @@ def main(argv=None) -> int:
     for name, val, derived in kb:
         print(f"{name},{val:.2f},{derived}")
 
-    print("== Roofline (from dry-run) ==")
-    print("roofline_skipped,0,run results/run_dryrun.sh first")
+    print("== Roofline (from the dry-run census) ==")
+    rl = torch_roofline.run(verbose=False, path=args.roofline)
+    rows += rl
+    for name, val, derived in rl:
+        print(f"{name},{val:.2f},{derived}")
+    if not rl:
+        print("roofline_skipped,0,run python -m repro_torch.launch.dryrun "
+              "--all --out results/torch_dryrun.jsonl first")
 
     if args.autotune:
         print("== Autotune (repro_torch.tune over the port's shapes) ==")

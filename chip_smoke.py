@@ -448,13 +448,26 @@ unless all of them held:
               counted and each against its plain version
               (``launches_paper`` of K5 and ``launches_leftovers`` of K1-K3
               in the ``kernels`` line).
+18. census   — the dry-run census (``repro_torch.launch.dryrun``) against
+              the card.  18a, run right after phase 4's xwT serve on its
+              engine: the census of one packed decode step of the same
+              cell on the meta device (stablelm_3b at full width, 4 slots,
+              max_len 64, the engine's float32 cache and int64 tokens)
+              must count exactly the engine's argument bytes (model,
+              decode state, tokens) and exactly the K1 launches that one
+              eager step on the engine counts (7 x 32); its peak live
+              bytes against the ``max_memory_allocated`` rise over that
+              step, and its ``memory_s`` against a captured step's device
+              time, are printed (no gate).  18b: the census row of
+              ``stablelm_3b decode_32k --packed`` on ``pod16x16``, on the
+              meta device.
 
 The last three lines are: the card as ``nvidia-smi`` names it, one JSON object
 ``{"kernels": [...], "serve": [...], "agree": {...}, "graph": {...},
 "flight": {...}, "paged": [...], "paged_gates": {...}, "paged_cli": {...},
 "tune": {...}, "spec": {...}, "windowed": {...}, "train": {...},
 "families": {...}, "distribution": {...}, "distributed_training": {...},
-"distribution_families": {...}, "paper": {...}}``
+"distribution_families": {...}, "paper": {...}, "census": {...}}``
 (per kernel: wrapper launches on the dense, the paged, the speculative, the
 training and the families' paths, error, times, bound, its gather body at
 Bx = 32; per
@@ -1230,12 +1243,13 @@ def profiled_replays(engine, cfg, expect, ticks=3, want=None):
     return per[(expect, SERVING_BODY[expect])]
 
 
-def serve_full_width(model, cfg, *, layout, quantize, expect):
+def serve_full_width(model, cfg, *, layout, quantize, expect, keep=None):
     """Drive run_serve once; check the outputs, that the wrappers launched
     the expected kernel 7 x layers times in each of the warm-up step(s) and
     the capture of the decode step (K1, K2, K3 on their serving bodies) and
     nothing else, and that each replay of the captured step ran it on the
-    device 7 x layers times on its serving body (a profiled window)."""
+    device 7 x layers times on its serving body (a profiled window).
+    ``keep`` (a list): the engine is appended to it (phase 18a)."""
     import torch
     from repro_torch import obs
     from repro_torch.launch.serve import run_serve
@@ -1283,6 +1297,8 @@ def serve_full_width(model, cfg, *, layout, quantize, expect):
     }
     entry["device_launches_per_replay"] = profiled_replays(engine, cfg,
                                                            expect)
+    if keep is not None:
+        keep.append(engine)
     return entry
 
 
@@ -4870,8 +4886,9 @@ def dist_phase(gen, single):
 # ---------------------------------------------------------------------------
 
 # 15a / 15b: stablelm_3b at full width and this many of its 32 layers (four
-# ranks' training state at full depth does not fit one card), float32
-DT_LAYERS = 4
+# ranks' training state at full depth does not fit one card; 2 since phase
+# 18 came, for the script's time limit), float32
+DT_LAYERS = 2
 # the global batch (rows x tokens), microbatches a dp rank, steps
 DT_BATCH, DT_SEQ, DT_MICRO, DT_STEPS = 4, 128, 2, 3
 DT_OPT = dict(lr=1e-3, total_steps=10, warmup_steps=1)
@@ -6281,6 +6298,106 @@ def log_paper(r, modelled, smi):
 # phase 7: times
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry-run census against the card
+# ---------------------------------------------------------------------------
+
+def census_vs_engine(engine, cfg):
+    """18a: the census of one packed decode step of phase 4's cell on the
+    meta device against ``engine`` (phase 4's xwT engine, drained): its
+    argument bytes and packed-matmul count must equal the engine's tensors'
+    bytes and one eager step's K1 launches exactly; its peak live bytes and
+    ``memory_s`` are set against the ``max_memory_allocated`` rise of that
+    step and a captured step's device time."""
+    import torch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch import census, dryrun
+    from repro_torch.launch.pack_tree import pack_tree_shapes
+    from repro_torch.launch.specs import meta_model
+
+    t0 = time.time()
+    slots, max_len = engine.cfg.num_slots, engine.cfg.max_len
+    model = pack_tree_shapes(meta_model(cfg))
+    state = model.init_decode_state(slots, max_len, dtype=torch.float32,
+                                    device="meta")
+    tokens = torch.empty(tuple(engine._tokens.shape),
+                         dtype=engine._tokens.dtype, device="meta")
+    policy = ExecPolicy(mode="packed")
+
+    def step(state, tokens):
+        with torch.no_grad():
+            return model.decode_step(state, tokens, policy=policy)
+
+    _, a, census_s = census.run(step, state, tokens,
+                                arguments=(model, state, tokens))
+    engine_bytes = census.tree_bytes((engine.model, engine.state,
+                                      engine._tokens))
+    if a.argument_bytes != engine_bytes:
+        raise AssertionError(f"census argument bytes {a.argument_bytes} != "
+                             f"the engine's {engine_bytes}")
+    # one eager step on the engine's tensors: K1's launches and the rise
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        engine.model.decode_step(engine.state, engine._tokens,
+                                 policy=engine.policy)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    launches = read_counts()
+    want = {"demm_xwT": a.packed_launches.get("xwT", 0)}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want or want["demm_xwT"] != 7 * cfg.num_layers:
+        raise AssertionError(f"census packed matmuls {a.packed_launches} "
+                             f"!= one eager step's launches {got}")
+    step_ms = graph_device_ms(engine._graph)
+    memory_ms = 1e3 * a.bytes_accessed / dryrun.HBM_BW
+    return {"census_s": census_s, "argument_bytes": a.argument_bytes,
+            "engine_bytes": engine_bytes,
+            "packed_matmuls": a.packed_launches["xwT"],
+            "k1_launches_eager_step": got["demm_xwT"],
+            "census_temp_bytes": a.peak_live_bytes,
+            "census_peak_bytes": a.peak_bytes,
+            "eager_step_allocated_rise": rise,
+            "temp_over_rise": a.peak_live_bytes / rise if rise else None,
+            "census_bytes_accessed": a.bytes_accessed,
+            "census_memory_ms": memory_ms,
+            "graph_step_device_ms": step_ms,
+            "memory_ms_over_step_ms": memory_ms / step_ms,
+            "seconds": time.time() - t0}
+
+
+def census_row():
+    """18b: the census record of ``stablelm_3b decode_32k --packed`` on
+    ``pod16x16`` (meta device, host only)."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.time()
+    rec = dryrun.lower_cell("stablelm_3b", "decode_32k", packed=True)
+    if rec["cost_analysis"]["packed_launches"] != {"xwT": 224} or \
+            not rec["memory_analysis"]["peak_bytes"] < dryrun.HBM_BYTES:
+        raise AssertionError(f"census row: {json.dumps(rec)}")
+    return rec, time.time() - t0
+
+
+def log_census(a, row, row_s, smi):
+    """Phase 18's report lines."""
+    log(f"[18a census] phase 4's cell (stablelm_3b, 32 layers, packed xwT, "
+        f"4 slots, max_len 64) on the meta device: argument bytes "
+        f"{a['argument_bytes']} = the engine's {a['engine_bytes']}; packed "
+        f"matmuls {a['packed_matmuls']} = one eager step's K1 launches "
+        f"{a['k1_launches_eager_step']}; census temp bytes "
+        f"{a['census_temp_bytes']} / the eager step's max_memory_allocated "
+        f"rise {a['eager_step_allocated_rise']} = {a['temp_over_rise']:.3f}"
+        f"; census memory_s {a['census_memory_ms']:.4f} ms / a captured "
+        f"step's device time {a['graph_step_device_ms']:.4f} ms = "
+        f"{a['memory_ms_over_step_ms']:.3f}; census {a['census_s']:.2f} s, "
+        f"18a {a['seconds']:.1f} s; {smi}")
+    log(f"[18b census] stablelm_3b decode_32k --packed pod16x16 "
+        f"({row_s:.1f} s): {json.dumps(row)}; {smi}")
+
+
 def time_ring(calls, passes=7):
     """Device time and host-issued time of one call, in ms.
 
@@ -6992,11 +7109,16 @@ def main(argv=None) -> int:
                                            if quantize else "")
             t0 = time.time()
             # the model is packed (then quantized) in place
+            kept = []
             serve[kernel] = serve_full_width(
-                model, cfg, layout=layout, quantize=quantize, expect=kernel)
+                model, cfg, layout=layout, quantize=quantize, expect=kernel,
+                keep=kept if kernel == "demm_xwT" else None)
             phase = "[5 serve q8]" if quantize else "[4 serve]"
             log(f"{phase} packed {mode}, backend cuda ({time.time() - t0:.1f}"
                 f" s with packing): {json.dumps(serve[kernel])}")
+            if kept:
+                # 18a. the census against phase 4's engine
+                census18 = census_vs_engine(kept.pop(), cfg)
 
             graph[mode] = graph_vs_eager(model, cfg, mode)[0]
             log(f"[{phase[1]}g graph] {json.dumps(graph[mode])}")
@@ -7193,6 +7315,11 @@ def main(argv=None) -> int:
     # timed (17b); the packed-API leftovers on the card (17c)
     paper, modelled = paper_phase(gen)
     log_paper(paper, modelled, smi)
+
+    # 18. the dry-run census: 18a ran beside phase 4; 18b's row
+    row, row_s = census_row()
+    census18["row_seconds"] = row_s
+    log_census(census18, row, row_s, smi)
 
     if profiles:
         log("[profile] mode | step | tick ms (host) | device ms/tick | busy "
@@ -7428,7 +7555,8 @@ def main(argv=None) -> int:
                     "distribution": dist,
                     "distributed_training": dist_train,
                     "distribution_families": dist_families,
-                    "paper": paper}))
+                    "paper": paper,
+                    "census": {"vs_engine": census18, "row": row}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

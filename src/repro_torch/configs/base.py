@@ -3,7 +3,8 @@
 Every architecture is a frozen ``ArchConfig``.  Reduced configs for CPU tests
 are derived with ``reduced()``.  The field set matches the JAX package's
 ``configs/base.py`` so a config reads the same on both sides; every one of
-the ten architectures resolves.
+the ten architectures resolves.  A cell's shape is a :class:`ShapeConfig`
+(:data:`SHAPES`, :func:`applicable_shapes`).
 """
 
 from __future__ import annotations
@@ -153,6 +154,24 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell's shape: sequence length, global batch and the step it
+    runs (``train`` | ``prefill`` | ``decode``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "seamless_m4t_medium",
     "gemma3_1b",
@@ -173,6 +192,15 @@ def get_arch(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.CONFIG
+
+
+def applicable_shapes(cfg: ArchConfig) -> list:
+    """The shapes a config runs: ``long_500k`` only where a sub-quadratic
+    path exists (``cfg.subquadratic``)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        shapes.append("long_500k")
+    return shapes
 
 
 def choose_group(k_local: int, target_density: float = 1.0 / 16.0,

@@ -85,6 +85,20 @@ def _count_dispatch(op: str, backend: str):
     c.inc()
 
 
+# An observer of packed matmuls, or None: the dry-run census
+# (``launch.census.Census``) sets it while it counts, and is handed each
+# dispatch as ``observer(op, x, pw, run)`` — the registry op, the operands
+# and the call that runs it — so that it counts one op per packed matmul and
+# none of the ops its plain version runs.
+MATMUL_OBSERVER = None
+
+
+def packed_op(pw: PackedWeight) -> str:
+    """The registry op a PackedWeight dispatches to."""
+    op = "xwT_block" if pw.layout == LAYOUT_BLOCK else "xwT"
+    return op + "_q8" if pw.qdtype is not None else op
+
+
 def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
                        backend: str = "reference") -> torch.Tensor:
     """y = x @ W^T for a first-class :class:`PackedWeight`.
@@ -112,6 +126,16 @@ def demm_matmul_packed(x: torch.Tensor, pw: PackedWeight,
         return demm_matmul_packed(x, narrow_tier(pw), backend)
     if pw.shard_axis is not None:
         return _demm_matmul_sharded(x, pw, backend)
+    if MATMUL_OBSERVER is not None:
+        return MATMUL_OBSERVER(packed_op(pw), x, pw,
+                               lambda: _dispatch_packed(x, pw, backend))
+    return _dispatch_packed(x, pw, backend)
+
+
+def _dispatch_packed(x: torch.Tensor, pw: PackedWeight,
+                     backend: str) -> torch.Tensor:
+    """:func:`demm_matmul_packed` of an unstacked, whole-tier weight: the
+    layout and qdtype pick the op."""
     if pw.layout == LAYOUT_BLOCK:
         if pw.values.ndim != 4:
             raise ValueError(
@@ -183,7 +207,7 @@ def demm_matmul_block(x: torch.Tensor, pw: PackedWeight,
         choice = tune.resolve_xwT_block(x.shape, pw, x.dtype,
                                         device=x.device)
         backend, params = choice.backend, choice.params
-    op = "xwT_block_q8" if pw.qdtype is not None else "xwT_block"
+    op = packed_op(pw)
     variant = tune.get_variant(op, backend)
     _count_dispatch(op, backend)
     args = (x, pw.values, pw.indices, pw.active_groups)

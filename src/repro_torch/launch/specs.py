@@ -2,10 +2,10 @@
 
 The JAX package's ``jax.ShapeDtypeStruct`` / ``jax.eval_shape`` stand-ins
 become meta-device tensors here: shapes and dtypes, no storage, nothing
-computed.  The shape of a cell is a :class:`BatchShape` (the two fields of
-the JAX package's ``ShapeConfig`` these need; ``ShapeConfig`` itself, with
-its applicability rules, is not ported) or anything with ``global_batch``
-and ``seq_len``.
+computed.  The shape of a cell is a ``configs.base.ShapeConfig`` (the
+JAX package's, with its ``SHAPES`` and ``applicable_shapes``), a
+:class:`BatchShape` (the two fields these functions read) or anything with
+``global_batch`` and ``seq_len``.
 """
 
 from __future__ import annotations

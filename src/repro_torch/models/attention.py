@@ -34,6 +34,15 @@ that do not divide tp either gather q too, attention runs whole on every
 rank and each rank feeds its chunk of the output's columns to ``wo``.  The
 placement gathers (``tp_gather`` on the projections); the layout hint is
 here a check of the local head count (``sharding.context.check_heads``).
+
+Long-context decode (a context with ``seq_shard_cache``): each dense KV
+cache is split by position over ``data``, and one decode step writes the
+new token on the rank that holds its position, takes each rank's partial
+softmax (:func:`decode_attention_partial`) and combines them with three
+all-reduces over ``data`` (:func:`combine_partials`): the flash-decode
+combine that GSPMD derives from the JAX package's single stable-softmax
+reduction over S.  Ring buffers stay whole (their length does not grow
+with the sequence).
 """
 
 from __future__ import annotations
@@ -118,6 +127,52 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=-1):
     p = torch.exp(logits - m)
     out = _gqa_out(p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30), v_cache)
     return out.to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, cache_len, *, window=-1,
+                             positions=None, first: int = 0):
+    """One block's partial softmax of one-token attention: the flash-decode
+    split of :func:`decode_attention` over a cache whose positions are
+    spread over ranks (long-context decode, ``seq_shard_cache``).
+
+    The block's S slots hold absolute positions ``positions`` (B, S) — a
+    ring's ``slot_pos``, -1 when empty — or, by default, ``first`` ..
+    ``first + S - 1`` (a rank's block of a dense cache).  The masks are
+    :func:`decode_attention`'s on those positions.  Returns, float32, the
+    block's max logit ``m`` (B, Hq, 1, 1), its sum ``l`` of e^(logit - m)
+    (B, Hq, 1, 1) and its unnormalised output ``o`` = the sum of e^(logit -
+    m) v (B, 1, Hq, Dh); :func:`combine_partials` merges the blocks."""
+    s, dh = k_cache.shape[1], k_cache.shape[-1]
+    logits = _gqa_scores(q, k_cache) * dh ** -0.5     # (B, Hq, 1, S)
+    if positions is None:
+        positions = torch.arange(first, first + s, device=q.device)[None, :]
+    valid = (positions >= 0) & (positions < cache_len[:, None])
+    if _windowed(window):
+        valid = valid & (positions > cache_len[:, None] - 1 - window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), NEG_INF, dtype=logits.dtype,
+                                    device=logits.device))
+    m = logits.max(dim=-1, keepdim=True).values
+    p = torch.exp(logits - m)
+    return m, p.sum(dim=-1, keepdim=True), _gqa_out(p, v_cache)
+
+
+def combine_partials(m, l, o, reduce):
+    """Merge the blocks' partial softmaxes (:func:`decode_attention_partial`)
+    into the attention output (B, 1, Hq, Dh), float32: ``reduce(t, op)``
+    reduces ``t`` over the blocks in place — ``op`` ``ReduceOp.MAX``, or
+    None for a sum (``ShardingContext.dp_reduce_``: three all-reduces over
+    ``data``, the combine GSPMD derives from the JAX package's single
+    reduction).  M = max m; L = sum of l e^(m - M); O = sum of o e^(m - M);
+    the output is O / L.  A block with no valid position (m = NEG_INF)
+    weighs e^(NEG_INF - M) = 0."""
+    import torch.distributed as dist
+
+    big = reduce(m.clone(), dist.ReduceOp.MAX)
+    w = torch.exp(m - big)
+    l_all = reduce(l * w, None)
+    o_all = reduce(o * w.transpose(-3, -2), None)
+    return o_all / l_all.transpose(-3, -2).clamp_min(1e-30)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
@@ -377,6 +432,10 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
                            policy=None, rope=None):
     """One-token decode.  cache: {"k": (B,S,Hkv,Dh), "v": ...}, updated in
     place; pos: (B,) index at which to write the new KV (== current length).
+    Under a context with ``seq_shard_cache`` and dp > 1 the cache is this
+    rank's block of positions (block ``dp_rank`` of dp equal blocks): only
+    the rank that holds ``pos`` writes, and the ranks' partial softmaxes
+    are combined over ``data`` (:func:`combine_partials`).
     ``rope`` takes the ``rope_tables`` of ``pos[:, None]`` when the caller has
     them already (they are the same for every layer of a step).
     Returns (out (B,1,D), cache)."""
@@ -387,9 +446,25 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
         rope = rope_tables(pos[:, None], head_dim, rope_theta)
     q = apply_rope(q, pos[:, None], rope_theta, rope)
     k_new = apply_rope(k_new, pos[:, None], rope_theta, rope)
-    _write_kv(cache["k"], pos, k_new)
-    _write_kv(cache["v"], pos, v_new)
-    out = decode_attention(q, cache["k"], cache["v"], pos + 1, window=window)
+    ctx = get_context()
+    if ctx is not None and ctx.seq_shard_cache and ctx.dp > 1:
+        # this rank's block of positions [r S, (r + 1) S) of the cache: the
+        # owner writes the new token, every rank its partial softmax
+        s = cache["k"].shape[1]
+        first = ctx.dp_rank * s
+        local = pos - first
+        local = torch.where(local >= 0, local, s)    # not this rank's: past
+        _write_kv(cache["k"], local, k_new)
+        _write_kv(cache["v"], local, v_new)
+        m, l, o = decode_attention_partial(q, cache["k"], cache["v"],
+                                           pos + 1, window=window,
+                                           first=first)
+        out = combine_partials(m, l, o, ctx.dp_reduce_).to(q.dtype)
+    else:
+        _write_kv(cache["k"], pos, k_new)
+        _write_kv(cache["v"], pos, v_new)
+        out = decode_attention(q, cache["k"], cache["v"], pos + 1,
+                               window=window)
     out = out.reshape(b, 1, -1)
     out = apply_linear(attn.wo, out, policy=policy)
     return out, cache

@@ -35,12 +35,26 @@ replicated activation's gradient is the whole, equal on every rank.
   experts' outputs): forward the exact gather, backward this rank's block.
 
 With no gradient recorded they are the serving path's in-place collectives.
+
+A context made on a :class:`CensusMesh` (the dry-run census,
+``launch.census``) is one rank's view of a mesh that no process group backs:
+:meth:`ShardingContext._all_reduce`, the one place every collective goes
+through, records each collective on the mesh (its kind, payload bytes,
+calling function and the model function that led to it) and returns the
+tensor unchanged.  Nothing else learns of the census.
+
+Long-context decode (``seq_shard_cache``, the JAX package's flag): the dense
+KV caches are split by position over ``data`` and attention combines the
+ranks' partial softmaxes (``models.attention.combine_partials``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
+import os
+import sys
 from typing import Optional
 
 import torch
@@ -102,6 +116,59 @@ class _MeanDP(torch.autograd.Function):
         return g, None
 
 
+class CensusMesh:
+    """A mesh of ``shape`` and dim ``names`` (``(16, 16)`` ``("data",
+    "model")``, or ``(2, 16, 16)`` with ``pod``) seen from the rank at
+    coordinate 0 of every dim, with no process group behind it: the
+    ``DeviceMesh`` methods the port calls (``mesh_dim_names``, ``size``,
+    ``get_local_rank``, ``get_group``, ``get_coordinate``).  A context
+    made on it records its collectives in :attr:`records` (``(kind,
+    payload bytes, calling function, model function)``) instead of running
+    them."""
+
+    def __init__(self, shape, names):
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {tuple(shape)} and dim names "
+                             f"{tuple(names)} differ in length")
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(names)
+        self.records = []
+
+    def size(self, dim: Optional[int] = None) -> int:
+        return math.prod(self.shape) if dim is None else self.shape[dim]
+
+    def get_local_rank(self, name=None) -> int:
+        return 0
+
+    def get_group(self, name=None):
+        return None
+
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
+    def record(self, kind: str, nbytes: int, name: str, site: str):
+        self.records.append((kind, int(nbytes), name, site))
+
+
+# the context's collective primitives: a recorded collective is named after
+# the nearest caller outside them, and placed at the nearest function of
+# the models that led to it, past the shared linear (the caller's name where
+# none did)
+_PRIMITIVES = frozenset(("_all_reduce", "all_reduce", "gather", "dp_reduce_"))
+_MODELS = os.path.join("repro_torch", "models", "")
+
+
+def _caller_names():
+    f = sys._getframe(2)
+    while f is not None and f.f_code.co_name in _PRIMITIVES:
+        f = f.f_back
+    name = f.f_code.co_qualname if f is not None else "?"
+    while f is not None and (_MODELS not in f.f_code.co_filename
+                             or f.f_code.co_name == "apply_linear"):
+        f = f.f_back
+    return name, (f.f_code.co_qualname if f is not None else name)
+
+
 @dataclasses.dataclass
 class ShardingContext:
     """One rank's view of a mesh.  ``tp`` / ``pp`` are the degrees of the
@@ -122,7 +189,9 @@ class ShardingContext:
     dp: int = 1
     dp_rank: int = 0
     dp_group: object = None
+    seq_shard_cache: bool = False  # dense KV caches split by position over dp
     collectives: int = 0           # collectives issued through this context
+    collective_bytes: int = 0      # their payload (float32 for 16-bit data)
 
     @property
     def transport_on_host(self) -> bool:
@@ -173,7 +242,13 @@ class ShardingContext:
         float32; the values round once, on the way back)."""
         import torch.distributed as dist
         op = dist.ReduceOp.SUM if op is None else op
+        wide_bytes = y.numel() * 4 \
+            if y.dtype in (torch.bfloat16, torch.float16) else y.nbytes
         self.collectives += 1
+        self.collective_bytes += wide_bytes
+        if isinstance(self.mesh, CensusMesh):
+            self.mesh.record("all-reduce", wide_bytes, *_caller_names())
+            return y
         if y.dtype in (torch.bfloat16, torch.float16):
             wide = y.to(torch.float32)
             dist.all_reduce(wide, op=op, group=group)
@@ -195,6 +270,10 @@ class ShardingContext:
         full = torch.zeros(shape, dtype=x.dtype, device=x.device)
         full.narrow(dim, self.tp_rank * n, n).copy_(x)
         return self.all_reduce(full)
+
+    def dp_reduce_(self, y: torch.Tensor, op=None) -> torch.Tensor:
+        """Sum (or ``op``) ``y`` over the dp group, in place; returns it."""
+        return self._all_reduce(y, self.dp_group, op)
 
     def reduce_tp(self, y: torch.Tensor) -> torch.Tensor:
         """The sum of ``y`` over tp: in place when no gradient is recorded,
@@ -275,10 +354,12 @@ def use_mesh(ctx: ShardingContext):
         _CTX = prev
 
 
-def make_context(mesh, *, num_kv_heads: int = 16,
-                 num_heads: int = 0) -> ShardingContext:
-    """This rank's :class:`ShardingContext` on ``mesh`` (a DeviceMesh whose
-    dims are named ``model`` and optionally ``pipe`` and ``data``)."""
+def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
+                 seq_shard_cache: bool = False) -> ShardingContext:
+    """This rank's :class:`ShardingContext` on ``mesh`` (a DeviceMesh, or a
+    :class:`CensusMesh`, whose dims are named ``model`` and optionally
+    ``pipe`` and ``data``).  ``seq_shard_cache``: long-context decode, the
+    dense KV caches split by position over ``data``."""
     names = mesh.mesh_dim_names
     if "pod" in names:
         raise NotImplementedError(
@@ -303,7 +384,8 @@ def make_context(mesh, *, num_kv_heads: int = 16,
         pp=pp, pp_rank=pp_rank, pp_group=pp_group, pp_ranks=pp_ranks,
         shard_heads=num_kv_heads % tp == 0,
         num_heads=num_heads or num_kv_heads, num_kv_heads=num_kv_heads,
-        dp=dp, dp_rank=dp_rank, dp_group=dp_group if dp > 1 else None)
+        dp=dp, dp_rank=dp_rank, dp_group=dp_group if dp > 1 else None,
+        seq_shard_cache=seq_shard_cache)
 
 
 def check_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -311,3 +311,24 @@ def batch_spec(mesh, ndim: int, *, seq_axis=None,
         parts[0] = "pod" if "pod" in names else None
         parts[seq_axis] = "data"
     return Spec(*parts)
+
+
+def cache_spec(mesh, ndim: int, *, batch_axis: int = 1, head_axis: int = 3,
+               seq_axis: int = 2, shard_heads: bool,
+               seq_shard: bool = False) -> Spec:
+    """A KV cache's spec ((L, B, S, H, Dh) by default): the batch dim over
+    the data-parallel dims, the heads over ``model`` when the arch's KV
+    heads divide tp (``shard_heads``); with ``seq_shard`` (long-context
+    decode) the sequence dim over ``data`` instead and the batch dim over
+    ``pod`` only, where the mesh has one."""
+    names = mesh.mesh_dim_names or ()
+    parts = [None] * ndim
+    if seq_shard:
+        parts[seq_axis] = "data"
+        if "pod" in names:
+            parts[batch_axis] = "pod"
+    else:
+        parts[batch_axis] = batch_axes(mesh)
+    if shard_heads:
+        parts[head_axis] = "model"
+    return Spec(*parts)

@@ -411,6 +411,8 @@ def train_legs(rank, nprocs, init, args):
     out["psum"] = comp.compressed_psum_int8(x).numpy()
     out["meshes"] = mesh_leg()
     out["whole_groups"] = whole_groups_leg()
+    out["seq_shard"] = seq_shard_leg(args["tree"])
+    out["census"] = census_collectives_leg(args["tree"])
     return out
 
 
@@ -695,3 +697,123 @@ def draft_views(engine):
         nbytes += f.values.nbytes + f.indices.nbytes
     return {"narrowed": narrowed, "shared": shared, "placed": placed,
             "slice_bytes": nbytes}
+
+
+# the sequence-sharded decode leg: batch 1, a cache of SEQ_LEN positions
+# split over data = 2, SEQ_STEPS greedy steps from token 1 (positions on
+# both ranks' blocks)
+SEQ_LEN, SEQ_STEPS = 16, 12
+
+
+def _greedy(model, state, steps, ctx=None):
+    """``steps`` greedy dense decode steps of batch 1 from token 1 under
+    ``ctx`` (None: one rank): (tokens, logits of every step)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.sharding.context import use_mesh
+
+    tok = torch.ones((1, 1), dtype=torch.int64)
+    tokens, logits = [], []
+    with torch.no_grad(), (use_mesh(ctx) if ctx is not None
+                           else contextlib.nullcontext()):
+        for _ in range(steps):
+            lg, state = model.decode_step(state, tok,
+                                          policy=ExecPolicy(mode="dense"))
+            logits.append(lg[0, 0].clone())
+            tok = lg[:, -1:].argmax(-1)
+            tokens.append(int(tok))
+    return tokens, torch.stack(logits)
+
+
+def seq_shard_leg(tree):
+    """Reduced stablelm_3b decodes batch 1 with its cache split by
+    position over data = 2 (and its heads over model = 2): tokens and
+    logits against one rank's whole-cache decode, and the positions this
+    rank's cache block holds."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.context import make_context
+    from repro_torch.sharding.plan import ShardingPlan
+
+    cfg = torch_cfg()
+    whole = from_jax_params(tree, cfg, device="cpu")
+    want_tokens, want_logits = _greedy(
+        whole, whole.init_decode_state(1, SEQ_LEN, dtype=torch.float32),
+        SEQ_STEPS)
+    plan = ShardingPlan(tp=2, dp=2)
+    mesh = plan.make_mesh()
+    model = from_jax_params(tree, cfg, device="cpu")
+    ShardingPlan(tp=2).shard_params(model, mesh)
+    ctx = make_context(mesh, num_kv_heads=cfg.num_kv_heads,
+                       num_heads=cfg.num_heads, seq_shard_cache=True)
+    shape = ShapeConfig("long", SEQ_LEN, 1, "decode")
+    specs, _ = dryrun.local_state_specs(model, shape, mesh, plan,
+                                        seq_shard=True)
+    state = dryrun.local_blocks(
+        specs, model.init_decode_state(1, SEQ_LEN, dtype=torch.float32),
+        mesh)
+    tokens, logits = _greedy(model, state, SEQ_STEPS, ctx)
+    written = (state["caches"]["k"][0, 0].abs().sum((-1, -2)) > 0)
+    return {"tokens": tokens, "want_tokens": want_tokens,
+            "logits_gap": float((logits - want_logits).abs().max()),
+            "k_block": tuple(state["caches"]["k"].shape),
+            "written": [ctx.dp_rank * SEQ_LEN // 2 + i
+                        for i in written.nonzero()[:, 0].tolist()],
+            "collectives": ctx.collectives}
+
+
+def census_collectives_leg(tree):
+    """One dense decode step of reduced stablelm_3b under ShardingPlan(tp=2)
+    on the first two ranks: what the real context counted (collectives,
+    payload bytes) and what the census recorded for the same step on a
+    census mesh of the same shape (None off the mesh)."""
+    import torch
+
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch import census
+    from repro_torch.launch.specs import meta_model
+    from repro_torch.sharding.context import (CensusMesh, make_context,
+                                              use_mesh)
+    from repro_torch.sharding.plan import ShardingPlan
+
+    cfg = torch_cfg()
+    plan = ShardingPlan(tp=2)
+    mesh = plan.make_mesh()
+    if mesh.get_coordinate() is None:
+        return None
+    policy = ExecPolicy(mode="dense")
+    kw = dict(num_kv_heads=cfg.num_kv_heads, num_heads=cfg.num_heads)
+
+    def one_step(model, mesh, device):
+        plan.shard_params(model, mesh)
+        ctx = make_context(mesh, **kw)
+        state = plan.shard_decode_state(
+            lambda device: model.init_decode_state(3, 8, device=device),
+            device, mesh, num_kv_heads=cfg.num_kv_heads)
+        tokens = torch.ones((3, 1), dtype=torch.int64, device=device)
+
+        def step(state, tokens):
+            with torch.no_grad(), use_mesh(ctx):
+                return model.decode_step(state, tokens, policy=policy)
+
+        return ctx, step, state, tokens
+
+    ctx, step, state, tokens = one_step(
+        from_jax_params(tree, cfg, device="cpu"), mesh, "cpu")
+    step(state, tokens)
+    cmesh = CensusMesh((2,), ("model",))
+    cctx, cstep, cstate, ctokens = one_step(meta_model(cfg), cmesh, "meta")
+    _, a, _ = census.run(cstep, cstate, ctokens, mesh=cmesh)
+    return {"real": (ctx.collectives, ctx.collective_bytes),
+            "census_context": (cctx.collectives, cctx.collective_bytes),
+            "census": (a.collectives["all-reduce"]["count"],
+                       sum(rec[1] for rec in cmesh.records)),
+            "census_ring_bytes": a.collectives["all-reduce"]["bytes"],
+            "names": sorted({rec[2] for rec in cmesh.records})}

@@ -18,8 +18,11 @@ on two ranks; the packed fine-tuning step's gradients, and its state
 saved and restored under tp 2 (shard stacks at their slices' shapes); a
 MoE model's step and the reference's MoE test through the expert-parallel
 path; ``pipeline_apply`` over four stages; ``compressed_psum_int8``; the
-meshes of ``launch/mesh.py``; and a row block that does not hold whole
-groups.
+meshes of ``launch/mesh.py``; a row block that does not hold whole
+groups; batch 1 decoded with its KV cache split by position over data = 2
+(``seq_shard_cache``) against one rank's whole-cache decode; and the
+dry-run census's collectives of a decode step under tp 2 against what the
+real context counted.
 
 Tolerances, float32 throughout: against the JAX package the reference's
 own (loss 1e-3, parameters rtol / atol 5e-3; the MoE test rtol / atol
@@ -612,3 +615,34 @@ def test_meshes_and_refusals(world):
             "whole groups" in r["whole_groups"]
     with pytest.raises(ValueError, match="4 ranks"):
         make_test_mesh()
+
+
+def test_seq_sharded_decode_matches_one_rank(world):
+    """Batch 1 decoded with the cache split by position over data = 2 (and
+    the heads over model = 2): float32 tokens equal one rank's whole-cache
+    decode, logits within 1e-5; each dp rank's block holds its half of the
+    positions, written only there."""
+    for r in world["ranks"]:
+        leg = r["seq_shard"]
+        assert leg["tokens"] == leg["want_tokens"]
+        assert leg["logits_gap"] <= 1e-5
+        assert leg["k_block"][2] == w.SEQ_LEN // 2
+        dp_rank = r["coords"][0]
+        half = w.SEQ_LEN // 2
+        want = [p for p in range(w.SEQ_STEPS)
+                if dp_rank * half <= p < (dp_rank + 1) * half]
+        assert leg["written"] == want
+
+
+def test_census_collectives_equal_the_real_context(world):
+    """One dense decode step under ShardingPlan(tp=2): the census's recorded
+    collectives equal, in count and payload bytes, what the real context
+    counted for the same step."""
+    legs = [r["census"] for r in world["ranks"] if r["census"] is not None]
+    assert len(legs) == 2
+    for leg in legs:
+        assert leg["real"][0] > 0
+        assert leg["census"] == leg["real"] == leg["census_context"]
+        assert leg["census_ring_bytes"] == 2 * leg["real"][1]
+        assert leg["names"] == ["ShardingContext.gather_tp",
+                                "ShardingContext.reduce_tp"]

@@ -44,7 +44,8 @@ for n in ("repro_torch.kernels.demm_block_spmm", "repro_torch.kernels.demm_spmm"
           "repro_torch.sharding.pipeline", "repro_torch.sharding.world",
           "repro_torch.serve.router", "repro_torch.optim.compression",
           "repro_torch.launch.mesh", "repro_torch.launch.specs",
-          "repro_torch.core.demm", "repro_torch.core.perfmodel"):
+          "repro_torch.core.demm", "repro_torch.core.perfmodel",
+          "repro_torch.launch.census", "repro_torch.launch.dryrun"):
     assert n in names, n
 print("IMPORTED", len(names))
 """
