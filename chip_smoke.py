@@ -294,9 +294,10 @@ unless all of them held:
               (relative L2) in bfloat16 (rounding grows with depth; the CPU
               tests hold the port's gap to the reference's own), allclose
               at rtol 1e-3 in float32.  13e:
-              ``launch.train.main`` per family (xlstm, internvl2, seamless
-              at full width, 6 steps; olmoe, zamba2, llama4 reduced, 12
-              steps): the loss falls, the experts' aux loss > 0; then
+              ``launch.train.main`` per family (xlstm at full width, 6
+              steps; olmoe, zamba2, llama4, internvl2, seamless reduced, 12
+              steps; 15g trains internvl2 and seamless at full width): the
+              loss falls, the experts' aux loss > 0; then
               ``launch.serve --ckpt-dir --packed`` of the xlstm checkpoint.
    7f       — K1-K4 at zamba2's in_proj (14,576 x 3,584, 7:112) and
               out_proj (3,584 x 7,168) and xlstm's 6:96 projection (1,536 x
@@ -391,6 +392,20 @@ unless all of them held:
               the saved leaves' blocks); 15b's shard stacks (the renumbered
               row-parallel values) and moment blocks saved the same way and
               restored under tp 2 at their slices' shapes, bit-equal.
+              15g: two masked steps each of zamba2 (6 layers: its Mamba2
+              mixers split by heads, their row maps), xlstm (one period:
+              mLSTM split by heads, ``w_if`` / ``conv_w`` summed over tp),
+              internvl2 and seamless (their frontends gathered), and
+              stablelm_3b with one KV head (gathered), with wk / wv
+              replicated and with int8 fake quantization (the row max over
+              tp), each loss and grad_norm within relative 1e-5 of one
+              rank's; of every leaf of the first block and the frontend,
+              the rank's block of the AdamW moment m norm-wise within 2e-4
+              of one rank's and of the update within 1e-2.  15h: 15a's
+              model on a pod 2 x data 1 x model 2 mesh (dp over pod x
+              data): one step within 1e-5 of one rank's first, one packed
+              decode tick of each dp rank's slots equal to one rank's
+              (tokens, logits relative L2 1e-5).
               ``launches_dist_train`` of each kernel in the ``kernels``
               line.
 
@@ -406,7 +421,10 @@ unless all of them held:
               its streams and logits equal the other rank's; float32 legs'
               tokens equal one rank's, bfloat16 legs' logits within
               ``DIST_LOGITS_GAP`` of one rank's up to the first differing
-              token; K1-K4 counted from the engine's build to its drain
+              token; zamba2's and xlstm's mixers split by heads (nothing
+              gathered but mLSTM's xm and sLSTM's input, row-mapped
+              projections, at most 0.55 of one rank's decode state); K1-K4
+              counted from the engine's build to its drain
               (the dense legs: the rank's own decode step's launches by
               body x ticks; nothing else launched); the packed bytes it
               holds under the whole model's; a spec leg's draft nodes views
@@ -416,7 +434,9 @@ unless all of them held:
               as ranks 0 and 1 place it) against its plain version at Bx =
               4, bfloat16 and float32; the spec model tier-sorted, placed
               and its 6:16 draft derived, both tiers at Bx 4, 8, 20 (the
-              verify window) and 32 (the paged prefill chunk); and each
+              verify window) and 32 (the paged prefill chunk); zamba2 in
+              the block layout too (``in_proj`` re-blocked by heads); and
+              each
               leg's largest column block and row slice
               timed against its byte bound and a bf16 matmul of its local
               dense slice (``launches_dist_families`` and ``tp2_families``
@@ -2961,9 +2981,9 @@ PREFILL_TOKENS = 600
 # at 600 rows against the serving bodies at 1 row, the chunked online
 # softmax against one softmax over the ring or cache) through the layers; a
 # wrong mask or ring slot gives a gap of order 1.  It gates gemma3 at
-# WINDOWED_LAYERS (14 of 26): 1.47e-2 to 1.55e-2 over the four modes
-# (1.66e-2 to 1.80e-2 at 26 layers), the same in every run on the H100;
-# the bound is 1.29x the largest
+# WINDOWED_LAYERS: 1.4687e-2 to 1.5509e-2 over the four modes at 14 of 26
+# layers (1.66e-2 to 1.80e-2 at 26), the same in every run on the H100;
+# the bound is 1.29x the largest at 14 (the gap grows with depth)
 PREFILL_GAP_BF16 = 2e-2
 
 
@@ -3974,11 +3994,11 @@ FAMILY_PREFILL_SEEDS = (5, 6, 7)
 # float32 leg holds the invariant at rtol 1e-3; a wrong state or mask gives
 # a gap of order 1
 FAMILY_PREFILL_GAP_BF16 = 4.1e-2
-# 13e: launch.train per family: full width where AdamW's 16 bytes a
-# parameter fit with room (xlstm 125 M, internvl2 0.6 B, seamless 1.0 B),
-# the reduced config for the three of 6.8-100 B parameters (more steps:
-# the reduced experts' loss falls in about 10 steps, as on the CPU)
-FAMILY_TRAIN_FULL = ("xlstm_125m", "internvl2_1b", "seamless_m4t_medium")
+# 13e: launch.train per family: full width for xlstm (125 M parameters),
+# the reduced config for the others (more steps: the reduced experts' loss
+# falls in about 10 steps, as on the CPU); internvl2 and seamless train at
+# full width, cut in depth, in 15g instead, for the script's time limit
+FAMILY_TRAIN_FULL = ("xlstm_125m",)
 FAMILY_TRAIN_ARGS = {
     "full": ["--steps", "6", "--batch", "8", "--seq", "128", "--lr", "2e-3",
              "--log-every", "1"],
@@ -4215,10 +4235,9 @@ def family_prefill():
 
 def family_train(tmp):
     """13e: ``launch.train.main`` for each family (full width, 6 steps of
-    8 x 128 tokens at lr 2e-3: xlstm, internvl2, seamless; reduced, 12 steps
-    of 8 x 64:
-    olmoe, zamba2, llama4): the loss finite and falling (the launcher's own
-    check), the
+    8 x 128 tokens at lr 2e-3: xlstm; reduced, 12 steps of 8 x 64: olmoe,
+    zamba2, llama4, internvl2, seamless): the loss finite and falling (the
+    launcher's own check), the
     experts' aux loss > 0; then ``launch.serve --ckpt-dir --packed`` of
     the full-width xlstm checkpoint (backend cuda)."""
     import math
@@ -4906,6 +4925,35 @@ DT_READY = "one_rank_done"
 # near 0 may flip under another reduction order); the packed values'
 # gradients (relative L2); the pipeline (float32)
 DT_REL, DT_PACKED_REL, DT_PIPE_TOL = 1e-5, 1e-5, 1e-5
+# 15g: every family, the head fallbacks and int8 fake quantization under tp
+# 2 x dp 2, DT_FAMILY_STEPS masked steps each (the first at the warmup's lr
+# of 0) at full width and cut depth (label -> arch,
+# config overrides, plan keywords, step keywords): zamba2 6 of its 81
+# layers (one period of 6 Mamba2 layers, split by heads, and the shared
+# block), xlstm 4 of 12 (one period: 3 mLSTM split by heads, 1 sLSTM
+# whole), internvl2 2 of 24 (its patch projection gathered), seamless 2 of
+# 12 decoder layers and 1 of 12 encoder layers, stablelm_3b at DT_LAYERS
+# with one KV head (k / v gathered, read in part), with wk / wv replicated,
+# and with ``fake_quant="int8"`` (a row-parallel weight's per-row scale the
+# max over the whole row)
+DT_FAMILY_LEGS = {
+    "zamba2_7b": ("zamba2_7b", {"num_layers": 6}, {}, {}),
+    "xlstm_125m": ("xlstm_125m", {"num_layers": 4}, {}, {}),
+    "internvl2_1b": ("internvl2_1b", {"num_layers": 2}, {}, {}),
+    "seamless_m4t_medium": ("seamless_m4t_medium",
+                            {"num_layers": 2, "encoder_layers": 1}, {}, {}),
+    "kv1": ("stablelm_3b", {"num_layers": DT_LAYERS, "num_kv_heads": 1},
+            {}, {}),
+    "kv_replicated": ("stablelm_3b", {"num_layers": DT_LAYERS},
+                      {"attn_kv_replicated": True}, {}),
+    "fake_quant": ("stablelm_3b", {"num_layers": DT_LAYERS}, {},
+                   {"fake_quant": "int8"}),
+}
+# 15h: a pod 2 x data 1 x model 2 mesh (dp over pod x data): 15a's model,
+# one step, and one packed decode tick of DT_POD_ROWS slots (each dp rank
+# its rows) against the same tick of one rank
+DT_POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+DT_POD_ROWS, DT_POD_LEN = 4, 16
 
 
 def dt_cfgs():
@@ -4925,14 +4973,64 @@ def dt_cfgs():
 
 def dt_batch(cfg, step):
     """The global batch of ``step``: the reference's Markov tokens
-    (``data.pipeline.global_batch``), the same on every rank."""
+    (``data.pipeline.global_batch``), the same on every rank, and the stub
+    frontends' inputs (``launch.train.add_frontend_inputs``, numpy seeded by
+    the step)."""
+    import numpy as np
     from repro_torch.data.pipeline import DataConfig, global_batch
-    return global_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=DT_SEQ,
-                                   global_batch=DT_BATCH), step)
+    from repro_torch.launch.train import add_frontend_inputs
+    batch = global_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=DT_SEQ, global_batch=DT_BATCH),
+                         step)
+    return add_frontend_inputs(cfg, batch, np.random.default_rng(step))
+
+
+DT_FAMILY_STEPS = 2
+# 15g holds, of every leaf of a leg's first block and of its frontend's
+# projection (DT_CHECKED), the rank's block of the AdamW first moment m (the
+# steps' clipped gradients) norm-wise within DT_MOMENT_REL of the one
+# rank's, and of the update the steps made within DT_UPDATE_REL.  The
+# moments round in another order on the card (a rank's GEMMs have half the
+# rows and heads): 3.0e-6 to 6.7e-5 over the seven legs' blocks on an H100
+# 80GB HBM3 at 700 W, a ZeRO-1 block of a small vector (A_log, a norm's
+# scale) among the largest; 1e-5 on the CPU.  The update divides a
+# gradient's rounding by AdamW's eps where the gradient is near 0 (4.0e-4
+# at most there).  A wrong sign, a missed sum or no update is off by 0.1 to
+# 1 or more.
+DT_CHECKED = (r"^(layers|periods|enc_layers|dec_layers)\.0\."
+              r"|^(patch|frame)_proj\.w$")
+DT_MOMENT_REL, DT_UPDATE_REL = 2e-4, 1e-2
+
+
+def dt_norm_rel(got, want) -> float:
+    """||got - want|| / ||want|| of a tensor on the card and a numpy array
+    (float64, on the card; 0 where both are 0)."""
+    import numpy as np
+    import torch
+    want = torch.from_numpy(np.ascontiguousarray(want)).to(got.device,
+                                                          torch.float64)
+    num = float((got.to(torch.float64) - want).norm())
+    return 0.0 if num == 0 else num / max(float(want.norm()), 1e-30)
+
+
+def dt_checked(params: dict) -> dict:
+    """15g's checked leaves of ``params``, as copies (DT_CHECKED)."""
+    import re
+    return {n: t.detach().clone() for n, t in params.items()
+            if re.search(DT_CHECKED, n)}
+
+
+def dt_family_cfg(label):
+    """15g's config of the leg ``label``, float32 compute."""
+    from repro_torch.configs.base import get_arch
+    arch, over, _, _ = DT_FAMILY_LEGS[label]
+    return dataclasses.replace(get_arch(arch), compute_dtype="float32",
+                               **over)
 
 
 def dt_steps(model, cfg, *, plan=None, micro=DT_MICRO, first=0,
-             steps=DT_STEPS, compression=None, opt_state=None):
+             steps=DT_STEPS, compression=None, opt_state=None,
+             fake_quant=None):
     """``steps`` masked train steps from ``first``; returns (per step
     [loss, grad_norm], seconds of each step, the params, the opt state, the
     step)."""
@@ -4943,7 +5041,8 @@ def dt_steps(model, cfg, *, plan=None, micro=DT_MICRO, first=0,
 
     opt_cfg = adamw.AdamWConfig(**DT_OPT, compression=compression)
     step = make_train_step(model, opt_cfg, num_microbatches=micro, plan=plan,
-                           policy=ExecPolicy(mode="masked"))
+                           policy=ExecPolicy(mode="masked"),
+                           fake_quant=fake_quant)
     params = train_params(model)
     opt = (adamw.init(opt_cfg, params, layout=step.layout)
            if opt_state is None else opt_state)
@@ -5051,6 +5150,141 @@ def dt_single(tmp):
     m, secs, _, _, _ = dt_steps(model, moe, micro=2 * DT_MICRO, steps=1)
     out["c"] = {"metrics": m, "step_s": secs}
     del model
+    dt_free()
+    out["g"] = {}
+    for label, (_, _, _, step_kw) in DT_FAMILY_LEGS.items():
+        cfg = dt_family_cfg(label)
+        model = build_model(cfg, device=DEVICE, seed=0)
+        start = dt_checked(train_params(model))
+        m, secs, params, opt, _ = dt_steps(model, cfg, steps=DT_FAMILY_STEPS,
+                                           **step_kw)
+        dt_save({n: opt.m[n] for n in start},
+                os.path.join(tmp, f"one_g_m_{label}"))
+        dt_save({n: params[n] - t for n, t in start.items()},
+                os.path.join(tmp, f"one_g_u_{label}"))
+        out["g"][label] = {"metrics": m, "step_s": secs}
+        del model, params, opt, start
+        dt_free()
+    # 15h's tick on one rank: its logits kept for the ranks
+    import numpy as np
+    model = pack_tree(build_model(lm, device=DEVICE, seed=0), layout="xwT")
+    with torch.no_grad():
+        logits, _ = model.decode_step(
+            model.init_decode_state(DT_POD_ROWS, DT_POD_LEN,
+                                    dtype=torch.float32, device=DEVICE),
+            dt_pod_tokens(), policy=ExecPolicy(mode="packed",
+                                                backend="cuda"))
+    np.save(os.path.join(tmp, "pod_tick.npy"), logits.cpu().numpy())
+    del model
+    dt_free()
+    return out
+
+
+def dt_pod_tokens():
+    """15h's tokens: one a slot."""
+    import torch
+    return torch.arange(1, DT_POD_ROWS + 1, device=DEVICE).reshape(
+        DT_POD_ROWS, 1)
+
+
+def dt_families(dev, tmp):
+    """15g on this rank: each leg's masked steps under ``ShardingPlan(tp=2,
+    dp=2, **plan keywords)``; the checked leaves' moments and updates
+    against the one rank's (its blocks of them, under ``tmp``); what the
+    rank holds, the row maps and the tensors summed over tp."""
+    import numpy as np
+    from repro_torch.core.sparse_linear import gathers_output
+    from repro_torch.models.families import build_model
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.train.train_loop import train_params
+
+    out = {}
+    for label, (_, _, plan_kw, step_kw) in DT_FAMILY_LEGS.items():
+        t_leg = time.time()
+        cfg = dt_family_cfg(label)
+        model = build_model(cfg, device=dev, seed=0)
+        plan = ShardingPlan(tp=2, dp=2, **plan_kw)
+        model.train_mesh = plan.make_mesh()
+        lay = plan.place_for_training(model, model.train_mesh)
+        start = dt_checked(train_params(model))
+        m, secs, params, opt, step = dt_steps(
+            model, cfg, plan=plan, steps=DT_FAMILY_STEPS, **step_kw)
+        m_rel, u_rel = {}, {}
+        for n, t in start.items():
+            one_m = np.load(os.path.join(tmp, f"one_g_m_{label}", n + ".npy"),
+                            mmap_mode="r")
+            one_u = np.load(os.path.join(tmp, f"one_g_u_{label}", n + ".npy"),
+                            mmap_mode="r")
+            m_rel[n] = dt_norm_rel(opt.m[n], lay.block_of(n, one_m,
+                                                          moment=True))
+            u_rel[n] = dt_norm_rel(params[n] - t, lay.block_of(n, one_u))
+        out[label] = {
+            "metrics": m, "step_s": secs, "layers": cfg.num_layers,
+            "checked": len(start),
+            "m_rel": max(m_rel.items(), key=lambda kv: kv[1]),
+            "update_rel": max(u_rel.items(), key=lambda kv: kv[1]),
+            "row_maps": len(lay.rows), "partial": len(lay.partial),
+            "gathered": sorted({n.rsplit(".", 1)[-1] for n, mod in
+                                model.named_modules()
+                                if gathers_output(mod)}),
+            "tp_block_bytes": sum(t.nbytes for t in params.values()),
+            "collectives": step.context.collectives,
+            "seconds": time.time() - t_leg}
+        del model, params, opt, step, lay, start
+        dt_free()
+    return out
+
+
+def dt_pod(dev, tmp):
+    """15h on this rank: 15a's model on the pod mesh, one masked step (dp
+    over pod x data), and one packed decode tick of this dp rank's slots
+    against the one rank's tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.models.families import build_model
+    from repro_torch.sharding.context import make_context, use_mesh
+    from repro_torch.sharding.plan import ShardingPlan
+
+    t_leg = time.time()
+    lm, _ = dt_cfgs()
+    mesh = make_test_mesh(*DT_POD_MESH)
+    plan = ShardingPlan(tp=2, dp=2)
+    model = build_model(lm, device=dev, seed=0)
+    plan.place_for_training(model, mesh)
+    model.train_mesh = mesh
+    m, secs, _, _, step = dt_steps(model, lm, plan=plan, steps=1)
+    ctx = step.context
+    out = {"metrics": m, "step_s": secs, "dp": [ctx.dp, ctx.dp_rank],
+           "tp_rank": ctx.tp_rank}
+    del model, step
+    dt_free()
+    served = pack_tree(build_model(lm, device=dev, seed=0), layout="xwT")
+    ShardingPlan(tp=2).shard_params(served, mesh)
+    sctx = make_context(mesh, num_kv_heads=lm.num_kv_heads,
+                        num_heads=lm.num_heads)
+    per = DT_POD_ROWS // sctx.dp
+    rows = slice(sctx.dp_rank * per, (sctx.dp_rank + 1) * per)
+    state = ShardingPlan(tp=2).shard_decode_state(
+        lambda device: served.init_decode_state(
+            per, DT_POD_LEN, dtype=torch.float32, device=device),
+        dev, mesh, num_kv_heads=lm.num_kv_heads, cfg=lm)
+    with torch.no_grad(), use_mesh(sctx):
+        got, _ = served.decode_step(state, dt_pod_tokens().to(dev)[rows],
+                                    policy=ExecPolicy(mode="packed",
+                                                      backend="cuda"))
+    want = torch.from_numpy(np.load(os.path.join(tmp, "pod_tick.npy"))
+                            [rows]).to(dev)
+    out.update(rows=[rows.start, rows.stop],
+               tick_rel_l2=float(torch.linalg.norm(got - want)
+                                 / torch.linalg.norm(want)),
+               tokens=got.argmax(-1).flatten().tolist(),
+               want_tokens=want.argmax(-1).flatten().tolist(),
+               kv_heads=int(state["caches"]["k"].shape[-2]),
+               seconds=time.time() - t_leg)
+    del served, state
     dt_free()
     return out
 
@@ -5238,6 +5472,8 @@ def dt_rank(rank, nprocs, init, tmp):
     scale = float(xs.abs().max()) / 127
     out["e"] = {"max_err": float((got - xs.sum(0)).abs().max()),
                 "bound": 8 * scale, "device": str(got.device)}
+    out["g"] = dt_families(dev, tmp)
+    out["h"] = dt_pod(dev, tmp)
     out["seconds"] = time.time() - t_rank
     return out
 
@@ -5345,6 +5581,47 @@ def dt_gates(one, ranks, tmp):
                 and f.get("elastic_equal_saved", True) is True
                 and f.get("packed_elastic_equal_saved", True) is True):
             raise AssertionError(f"{tag} 15f: {f}")
+    for r in ranks:
+        tag = f"15 rank {r['rank']}"
+        for label, g in r["g"].items():
+            for got, want in zip(g["metrics"], one["g"][label]["metrics"]):
+                if not (rel(got[0], want[0]) < DT_REL
+                        and rel(got[1], want[1]) < DT_REL):
+                    raise AssertionError(
+                        f"{tag} 15g {label}: loss / grad_norm {got} against "
+                        f"one rank's {want} (relative {DT_REL})")
+            if not (len(g["metrics"]) == DT_FAMILY_STEPS and g["checked"]
+                    and g["m_rel"][1] <= DT_MOMENT_REL
+                    and g["update_rel"][1] <= DT_UPDATE_REL):
+                raise AssertionError(
+                    f"{tag} 15g {label}: {g['checked']} checked leaves, the "
+                    f"worst moment {g['m_rel']} (norm-wise, {DT_MOMENT_REL}) "
+                    f"and update {g['update_rel']} ({DT_UPDATE_REL}) "
+                    "against one rank's")
+        # the mixers split by heads: row maps, and xlstm's w_if / conv_w
+        # summed over tp
+        if not (r["g"]["zamba2_7b"]["row_maps"]
+                and r["g"]["xlstm_125m"]["row_maps"]
+                and r["g"]["xlstm_125m"]["partial"]):
+            raise AssertionError(f"{tag} 15g: the mixers are not split by "
+                                 f"heads ({r['g']})")
+        if r["g"]["zamba2_7b"]["gathered"] or \
+                r["g"]["xlstm_125m"]["gathered"] != ["up", "w_in"]:
+            raise AssertionError(f"{tag} 15g: gathered projections "
+                                 f"{r['g']['zamba2_7b']['gathered']}, "
+                                 f"{r['g']['xlstm_125m']['gathered']}")
+        h = r["h"]
+        first = one["a"]["metrics"][0]
+        if not (h["dp"] == [2, r["rank"] // 2]
+                and h["tp_rank"] == r["rank"] % 2
+                and rel(h["metrics"][0][0], first[0]) < DT_REL
+                and rel(h["metrics"][0][1], first[1]) < DT_REL):
+            raise AssertionError(f"{tag} 15h: pod step {h['metrics']} dp "
+                                 f"{h['dp']}, one rank's {first}")
+        if not (h["tokens"] == h["want_tokens"]
+                and h["tick_rel_l2"] < DT_REL
+                and 2 * h["kv_heads"] == dt_cfgs()[0].num_kv_heads):
+            raise AssertionError(f"{tag} 15h: pod tick {h}")
     for key in ("elastic_equal_saved", "packed_elastic_equal_saved"):
         if [r["rank"] for r in ranks if key in r["f"]] != [0, 1]:
             raise AssertionError(f"15f: the tp 2 restore ({key}) ran on "
@@ -5443,6 +5720,30 @@ def log_dist_train(r, smi):
             + f" | {a['collectives_per_step']:.0f} | "
             f"{a['moment_bytes'] / 1e6:.1f} / {a['tp_block_bytes'] / 1e6:.1f}"
             f" | {a['peak_gb']:.2f}")
+    log("[15g dist train] leg | layers | loss rank 0 / one rank | "
+        "grad_norm rank 0 / one rank | step s rank 0 / one rank | row maps |"
+        " summed over tp | gathered | tp block MB | collectives | leg s | "
+        "checked leaves | worst m / update against one rank (norm-wise)")
+    for label, g in r["ranks"][0]["g"].items():
+        o = one["g"][label]
+        log(f"[15g dist train] {label} | {g['layers']} | "
+            f"{g['metrics'][0][0]:.6f} / {o['metrics'][0][0]:.6f} | "
+            f"{g['metrics'][0][1]:.6f} / {o['metrics'][0][1]:.6f} | "
+            f"{g['step_s'][0]:.2f} / {o['step_s'][0]:.2f} | "
+            f"{g['row_maps']} | {g['partial']} | {','.join(g['gathered'])} "
+            f"| {g['tp_block_bytes'] / 1e6:.1f} | {g['collectives']} | "
+            f"{g['seconds']:.1f} | {g['checked']} | {g['m_rel'][1]:.3e} "
+            f"({g['m_rel'][0]}) / {g['update_rel'][1]:.3e} "
+            f"({g['update_rel'][0]})")
+    for e in r["ranks"]:
+        h = e["h"]
+        log(f"[15h dist train] rank {e['rank']} pod x data dp {h['dp']}: "
+            f"loss {h['metrics'][0][0]:.6f} grad_norm "
+            f"{h['metrics'][0][1]:.6f} (one rank "
+            f"{one['a']['metrics'][0][0]:.6f}, "
+            f"{one['a']['metrics'][0][1]:.6f}); tick rows {h['rows']} "
+            f"tokens {h['tokens']} (one rank {h['want_tokens']}), logits "
+            f"relative L2 {h['tick_rel_l2']:.2e}; {h['seconds']:.1f} s")
     log(f"[15 dist train] one rank: losses "
         + ", ".join(f"{m[0]:.6f}" for m in one["a"]["metrics"])
         + f"; step s " + ", ".join(f"{s:.2f}" for s in one["a"]["step_s"])
@@ -5497,6 +5798,16 @@ DF_PREFILL_CHUNK = 32
 DF_SPEC_ROWS = (DF_SLOTS, 8, DF_SLOTS * (SPEC_GAMMA + 1), DF_PREFILL_CHUNK)
 DF_LONG_PROMPT, DF_LONG_MAX_LEN = 520, 544
 DF_TIMEOUT_S = 600
+# the legs whose mixers split by heads, what each rank still gathers, and
+# the most of one rank's decode state a rank may hold (half the heads'
+# recurrent state and half the KV heads, Mamba2's B / C conv channels
+# whole: 0.50 and 0.51 of one rank's, computed from the shapes)
+DF_SPLIT_MIXERS = {"zamba2_7b": [], "xlstm_125m": ["up", "w_in"]}
+DF_SPLIT_STATE = 0.55
+# 16a also places zamba2 in the block layout: its in_proj rows re-blocked
+# by heads (``core.sparsity.select_rows``) on K2
+DF_SHAPE_LEGS = [("zamba2_7b block", "zamba2_7b",
+                  {"compute_dtype": "float32"}, "block", None, "dense")]
 # the ranks start serving once the one-rank runs are done (a file in the
 # phase's directory): they share the card
 DF_READY = "one_rank_done"
@@ -5627,6 +5938,7 @@ def df_rank(rank, nprocs, init, tmp):
     the one-rank runs, then serves every leg under ``ShardingPlan(tp=2)``."""
     import torch
 
+    from repro_torch.core.sparse_linear import gathers_output
     from repro_torch.kernels._build import load_library_once
     from repro_torch.sharding.plan import ShardingPlan
     from repro_torch.sharding.world import init_world
@@ -5645,6 +5957,14 @@ def df_rank(rank, nprocs, init, tmp):
                                  "eagerly")
         e["labels"] = eng._trace_labels()
         e["collectives_per_tick"] = eng._shctx.collectives / e["ticks"]
+        e["collective_bytes_per_tick"] = \
+            eng._shctx.collective_bytes / e["ticks"]
+        e["gathered"] = sorted({n.rsplit(".", 1)[-1] for n, m in
+                                eng.model.named_modules()
+                                if gathers_output(m)})
+        e["row_maps"] = sum(m.tp_rows is not None and not m.tp_rows.is_block
+                            for m in eng.model.modules()
+                            if hasattr(m, "tp_rows"))
         if leg[5].startswith("spec"):
             e["draft"] = df_draft_views(eng)
         out[leg[0]] = e
@@ -5694,7 +6014,7 @@ def df_shapes(gen):
     depth = {"zamba2_7b": {"num_layers": 6}, "xlstm_125m": {"num_layers": 4},
              "seamless_m4t_medium": {"num_layers": 1, "encoder_layers": 1}}
     checks, timed, seen = [], [], set()
-    for label, arch, over, layout, quantize, kind in DF_LEGS:
+    for label, arch, over, layout, quantize, kind in DF_LEGS + DF_SHAPE_LEGS:
         if kind == "spec_paged":
             continue                     # the spec leg's model
         spec = kind == "spec"
@@ -5833,6 +6153,15 @@ def df_gates(one, ranks):
                 raise AssertionError(
                     f"16 {label} rank {r['rank']}: holds {e['packed_bytes']}"
                     f" of {e['whole_packed_bytes']} packed bytes")
+            if label in DF_SPLIT_MIXERS and not (
+                    e["gathered"] == DF_SPLIT_MIXERS[label]
+                    and e["row_maps"] > 0 and e["state_bytes"]
+                    <= DF_SPLIT_STATE * want["state_bytes"]):
+                raise AssertionError(
+                    f"16 {label} rank {r['rank']}: the mixers not split by "
+                    f"heads: gathered {e['gathered']}, {e['row_maps']} row "
+                    f"maps, state {e['state_bytes']} B of one rank's "
+                    f"{want['state_bytes']} B")
             d = e.get("draft")
             if d is not None and not (
                     d["narrowed"] > 0
@@ -5904,7 +6233,8 @@ def log_dist_families(r, smi):
     log(f"[16b dist families] bf16 legs, rank 0 against one rank (logits "
         f"gap bound {DIST_LOGITS_GAP}): {json.dumps(r['agreement'])}")
     log("[16b dist families] leg | layers | dtype | ticks | eager tick ms "
-        "rank 0 / one rank | collectives a tick | packed MB rank / whole | "
+        "rank 0 / one rank | collectives a tick (KB) | packed MB rank / "
+        "whole | "
         "state MB rank / one rank | launches a rank | bodies a step | leg s "
         "rank 0 / one rank")
     for leg in DF_LEGS:
@@ -5913,12 +6243,21 @@ def log_dist_families(r, smi):
         n = {k: v for k, v in e["launches"].items() if v}
         log(f"[16b dist families] {label} | {e['layers']} | {e['dtype']} | "
             f"{e['ticks']} | {e['tick_ms']:.2f} / {one['tick_ms']:.2f} | "
-            f"{e['collectives_per_tick']:.1f} | "
+            f"{e['collectives_per_tick']:.1f} "
+            f"({e['collective_bytes_per_tick'] / 1e3:.1f}) | "
             f"{e['packed_bytes'] / 1e6:.1f} / "
             f"{e['whole_packed_bytes'] / 1e6:.1f} | "
             f"{e['state_bytes'] / 1e6:.1f} / {one['state_bytes'] / 1e6:.1f} "
             f"| {json.dumps(n)} | {json.dumps(e['step_bodies'])} | "
             f"{e['seconds']:.1f} / {one['seconds']:.1f}")
+    for label in DF_SPLIT_MIXERS:
+        e = r["ranks"][0][label]
+        log(f"[16b dist families] {label} split by heads: gathered "
+            f"{e['gathered']}, {e['row_maps']} row-mapped projections, "
+            f"state {e['state_bytes'] / 1e6:.2f} MB a rank against one "
+            f"rank's {r['one_rank'][label]['state_bytes'] / 1e6:.2f} MB, "
+            f"{e['collective_bytes_per_tick'] / 1e3:.1f} KB of collectives "
+            f"a tick")
     errs = {}
     for c in r["shape_checks"]:
         e = errs.setdefault(f"{c['kernel']} {c['tier']} tier Bx "

@@ -192,7 +192,8 @@ def _apply_local(node, x, policy: ExecPolicy, reduce=None):
 
 # what ``ShardingPlan.shard_params`` sets on a placed linear (a view of a
 # node that shares its tensors, a draft tier's, carries them too)
-PLACEMENT_ATTRS = ("tp_kind", "tp_sharded", "tp_gather")
+PLACEMENT_ATTRS = ("tp_kind", "tp_sharded", "tp_rows", "tp_partial",
+                   "tp_local_in")
 
 
 def _in_features(node) -> int:
@@ -200,39 +201,56 @@ def _in_features(node) -> int:
         else node.w.shape[1]
 
 
+def gathers_output(node) -> bool:
+    """Whether a placed linear's output comes out gathered whole over tp, in
+    part or all (a ``gather`` segment of its ``tp_rows``)."""
+    from repro_torch.sharding.partitioning import GATHER
+    rows = getattr(node, "tp_rows", None)
+    return rows is not None and any(k == GATHER for _, k in rows)
+
+
 def _apply_placed(node, x, policy: ExecPolicy, kind: str):
     """Megatron-style application of a placed linear on this rank.  ``col``:
-    x whole, the output this rank's block of rows (a node left whole
-    computes all of them and keeps its block); with ``tp_gather`` (a
-    projection whose consumer runs whole on every rank: the mixers' and
-    frontends' inputs, q / k / v whose heads do not split over tp) the
-    whole output, gathered from the blocks.  ``row``: x this rank's chunk
-    of the contraction dim (a whole x is cut to it) and the partial
+    x whole, the output this rank's block of rows, or its rows of a
+    ``tp_rows`` map (``partitioning.RowMap``: its ``gather`` pieces come
+    out whole, so a projection whose consumer runs whole on every rank,
+    the frontends' inputs or q / k / v whose heads do not split over tp,
+    is one ``gather`` segment); a node left whole computes all of them and
+    keeps its block.  ``row``: x this rank's
+    chunk of the contraction dim (a whole x is cut to it) and the partial
     products summed over the tp group (a node left whole gathers a chunk
-    and needs no sum).  ``replicated``: x whole, the output whole.  Under
-    grad the collectives are the context's differentiable ones: a
-    column-parallel input's gradient is summed over tp, a row-parallel sum
-    passes its gradient through, a gathered x keeps this rank's block of
-    its gradient."""
+    and needs no sum).  ``replicated``: x whole, the output whole.
+
+    Under grad the collectives are the context's differentiable ones.  A
+    column-parallel input's gradient is summed over tp, and so is that of
+    a whole node whose output the rank reads only in part
+    (``tp_partial``), unless the input is the rank's own partial part of a
+    mixer split by heads (``tp_local_in``: the mixer's gather sums it).  A
+    row-parallel sum passes its gradient through; a whole x cut to its
+    chunk gathers its gradient; a gathered output keeps this rank's block
+    of its gradient, summed over tp first when it is ``tp_partial``."""
     ctx = get_context()
     if ctx is None or ctx.tp == 1:
         raise RuntimeError(
             f"a linear placed as {kind!r} by a sharding plan ran outside its "
             "sharding context (the engines install it around every step)")
     sharded = node.tp_sharded
+    partial = getattr(node, "tp_partial", False)
+    local_in = getattr(node, "tp_local_in", False)
     if kind == "row":
         fits = x.shape[-1] == _in_features(node)
         if sharded:
-            return _apply_local(node, x if fits else ctx.local_block(x),
+            return _apply_local(node, x if fits else ctx.scatter_tp(x),
                                 policy, reduce=ctx)
         return _apply_local(node, x if fits else ctx.gather_tp(x), policy)
     if kind == "col" and sharded:
-        y = _apply_local(node, ctx.copy_tp(x), policy)
-        return ctx.gather_tp(y) if node.tp_gather else y
+        y = _apply_local(node, x if local_in else ctx.copy_tp(x), policy)
+        rows = getattr(node, "tp_rows", None)
+        return y if rows is None else ctx.gather_rows(y, rows, partial)
+    if partial and not local_in:
+        x = ctx.copy_tp(x)
     y = _apply_local(node, x, policy)
-    if kind == "col" and not node.tp_gather:
-        return ctx.local_block(y)
-    return y
+    return ctx.local_block(y) if kind == "col" else y
 
 
 def apply_dense(node: SparseLinear, x: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ renumbering of row-parallel weights that ``repro_torch.sharding`` places).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -821,6 +822,57 @@ def shard_slice(pw: PackedWeight, s: int) -> PackedWeight:
         active_groups=take(pw.active_groups), block_geom=pw.block_geom,
         scales=take(pw.scales), qdtype=pw.qdtype,
         has_duplicates=pw.has_duplicates, shards=pw.shards)
+
+
+def select_rows(pw: PackedWeight, pieces,
+                block_r: Optional[int] = None) -> PackedWeight:
+    """The output rows ``pieces`` (``[(start, length), ...]`` of the whole
+    rows, in the order the result holds them) of a packed weight, from its
+    own tensors.  ``xwT``: its rows of every tensor (exact).  ``block``: a
+    row block may straddle two pieces, so the node is first re-blocked at
+    ``block_r`` rows a block (a divisor of the node's own and of every
+    piece's start and length) — each new block lies inside one old block
+    and keeps that block's address stream and slot order,
+    ``active_groups`` repeated — and then the pieces' blocks are taken;
+    ``a_max`` and every row's products are unchanged."""
+    o, k = pw.dense_shape
+    if pw.shard_axis is not None:
+        raise ValueError("select_rows takes a whole (not shard-stacked) node")
+    rows = sum(n for _, n in pieces)
+    dev = pw.values.device
+    if pw.layout != LAYOUT_BLOCK:
+        idx = torch.cat([torch.arange(s, s + n, device=dev)
+                         for s, n in pieces])
+
+        def take(x):
+            return None if x is None else x.index_select(0, idx)
+
+        return pw.replace(values=take(pw.values), indices=take(pw.indices),
+                          scales=take(pw.scales), dense_shape=(rows, k),
+                          has_duplicates=pw.has_duplicates)
+    br, a_max = pw.block_geom
+    nb = block_r
+    if nb is None or math.gcd(br, *(v for p in pieces for v in p)) % nb:
+        raise ValueError(f"re-blocking at {nb} rows a block: it must divide "
+                         f"the node's {br} and every piece of {pieces}")
+    f = br // nb
+    sub = torch.cat([torch.arange(s // nb, (s + n) // nb, device=dev)
+                     for s, n in pieces])
+
+    def reblock(x):                 # (RB, A, br, ...) -> (RB * f, A, nb, ...)
+        if x is None:
+            return None
+        rb, a = x.shape[:2]
+        x = x.reshape(rb, a, f, nb, *x.shape[3:]).transpose(1, 2)
+        return x.reshape(rb * f, a, nb, *x.shape[4:]).index_select(0, sub)
+
+    return pw.replace(
+        values=reblock(pw.values), indices=reblock(pw.indices),
+        scales=reblock(pw.scales),
+        active_groups=pw.active_groups.repeat_interleave(f, dim=0)
+        .index_select(0, sub),
+        dense_shape=(rows, k), block_geom=(nb, a_max),
+        has_duplicates=pw.has_duplicates)
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,9 @@ Each cell prints one JSON record with the JAX package's keys
 rank), ``cost_analysis`` (FLOPs and bytes per rank), ``collectives`` (bytes
 per rank by kind), ``roofline`` (the three terms in seconds against the
 roofs of one H100, :data:`ROOF`), ``model_flops`` and
-``useful_flops_ratio``.  A cell the port refuses (``NotImplementedError``:
-a ``pod`` dim, a family the train step does not place under tp) is a
-record ``{"arch", "shape", "mesh", "error"}``, as the JAX package records
-a failed cell; the CLI exits 0 all the same.
+``useful_flops_ratio``.  A cell the port refuses (``NotImplementedError``)
+is a record ``{"arch", "shape", "mesh", "error"}``, as the JAX package
+records a failed cell; the CLI exits 0 all the same.
 """
 
 from __future__ import annotations
@@ -140,19 +139,25 @@ def decode_state_specs(model, shape, mesh, *, seq_shard: bool):
 def local_state_specs(model, shape, mesh, plan, *, seq_shard: bool):
     """(spec tree, the whole state on the meta device) of the decode state
     as the port places it on a rank: the data-parallel parts of
-    :func:`decode_state_specs` (the batch, or with ``seq_shard`` the
-    sequence, over ``data``) and the ``model`` parts of
-    ``plan.decode_state_specs`` (KV heads where they divide tp; recurrent
-    states and ring positions whole)."""
+    :func:`decode_state_specs` (the batch over ``pod`` x ``data``, or with
+    ``seq_shard`` the sequence over ``data``) and the ``model`` parts of
+    ``plan.decode_state_specs`` (KV heads where they divide tp, the
+    recurrent states of the mixers split by heads; ring positions whole)."""
     from repro_torch.sharding.partitioning import Spec
 
     specs, base = decode_state_specs(model, shape, mesh, seq_shard=seq_shard)
-    heads = plan.decode_state_specs(base, num_kv_heads=model.cfg.num_kv_heads)
+    heads = plan.decode_state_specs(base, model.cfg,
+                                    num_kv_heads=model.cfg.num_kv_heads)
+    pod = "pod" in mesh.mesh_dim_names
 
     def one(ref, port, leaf):
         if not isinstance(leaf, torch.Tensor):
             return Spec()
-        parts = [p if p not in (None, "model") else None for p in ref]
+        # the positions of a sequence-sharded cache split over data alone
+        # (``partitioning.cache_spec``; the reference's probe takes pod too)
+        parts = [("data" if seq_shard and pod and p == ("pod", "data")
+                  else p) if p not in (None, "model") else None
+                 for p in ref]
         for i, p in enumerate(port):
             if p is not None:
                 parts[i] = p
@@ -167,8 +172,13 @@ def _degree(mesh) -> dict:
 
 def local_shape(shape, spec, degree: dict):
     """A tensor's block shape under ``spec`` on a mesh of ``degree``."""
+    from repro_torch.sharding.partitioning import RowMap
+
     out = []
     for n, ax in zip(shape, list(spec) + [None] * len(shape)):
+        if isinstance(ax, RowMap):
+            out.append(ax.local_size(degree["model"]))
+            continue
         for a in (ax if isinstance(ax, tuple) else (ax,)):
             if a is not None:
                 if n % degree[a]:

@@ -32,8 +32,9 @@ or with ``ShardingPlan(attn_kv_replicated=True)`` whole weights), and each
 local query head reads its own KV head (:func:`_kv_for_queries`); query heads
 that do not divide tp either gather q too, attention runs whole on every
 rank and each rank feeds its chunk of the output's columns to ``wo``.  The
-placement gathers (``tp_gather`` on the projections); the layout hint is
-here a check of the local head count (``sharding.context.check_heads``).
+placement gathers (one ``gather`` segment of a projection's ``tp_rows``);
+the layout hint is here a check of the local head count
+(``sharding.context.check_heads``).
 
 Long-context decode (a context with ``seq_shard_cache``): each dense KV
 cache is split by position over ``data``, and one decode step writes the
@@ -161,7 +162,7 @@ def combine_partials(m, l, o, reduce):
     """Merge the blocks' partial softmaxes (:func:`decode_attention_partial`)
     into the attention output (B, 1, Hq, Dh), float32: ``reduce(t, op)``
     reduces ``t`` over the blocks in place — ``op`` ``ReduceOp.MAX``, or
-    None for a sum (``ShardingContext.dp_reduce_``: three all-reduces over
+    None for a sum (``ShardingContext.data_reduce_``: three all-reduces over
     ``data``, the combine GSPMD derives from the JAX package's single
     reduction).  M = max m; L = sum of l e^(m - M); O = sum of o e^(m - M);
     the output is O / L.  A block with no valid position (m = NEG_INF)
@@ -432,10 +433,11 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
                            policy=None, rope=None):
     """One-token decode.  cache: {"k": (B,S,Hkv,Dh), "v": ...}, updated in
     place; pos: (B,) index at which to write the new KV (== current length).
-    Under a context with ``seq_shard_cache`` and dp > 1 the cache is this
-    rank's block of positions (block ``dp_rank`` of dp equal blocks): only
-    the rank that holds ``pos`` writes, and the ranks' partial softmaxes
-    are combined over ``data`` (:func:`combine_partials`).
+    Under a context with ``seq_shard_cache`` and a ``data`` dim the cache
+    is this rank's block of positions (block ``data_rank`` of ``data``
+    equal blocks; a ``pod`` dim splits the batch instead): only the rank
+    that holds ``pos`` writes, and the ranks' partial softmaxes are
+    combined over ``data`` (:func:`combine_partials`).
     ``rope`` takes the ``rope_tables`` of ``pos[:, None]`` when the caller has
     them already (they are the same for every layer of a step).
     Returns (out (B,1,D), cache)."""
@@ -447,11 +449,11 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
     q = apply_rope(q, pos[:, None], rope_theta, rope)
     k_new = apply_rope(k_new, pos[:, None], rope_theta, rope)
     ctx = get_context()
-    if ctx is not None and ctx.seq_shard_cache and ctx.dp > 1:
+    if ctx is not None and ctx.seq_shard_cache and ctx.data > 1:
         # this rank's block of positions [r S, (r + 1) S) of the cache: the
         # owner writes the new token, every rank its partial softmax
         s = cache["k"].shape[1]
-        first = ctx.dp_rank * s
+        first = ctx.data_rank * s
         local = pos - first
         local = torch.where(local >= 0, local, s)    # not this rank's: past
         _write_kv(cache["k"], local, k_new)
@@ -459,7 +461,7 @@ def apply_attention_decode(attn: Attention, x, cache, pos, *, num_heads,
         m, l, o = decode_attention_partial(q, cache["k"], cache["v"],
                                            pos + 1, window=window,
                                            first=first)
-        out = combine_partials(m, l, o, ctx.dp_reduce_).to(q.dtype)
+        out = combine_partials(m, l, o, ctx.data_reduce_).to(q.dtype)
     else:
         _write_kv(cache["k"], pos, k_new)
         _write_kv(cache["v"], pos, v_new)

@@ -100,6 +100,11 @@ def pack_linear(node):
 # ---------------------------------------------------------------------------
 
 class RMSNorm(nn.Module):
+    """RMS norm over the last dim.  A norm whose scale a sharding plan split
+    over tp (``tp_sharded``: the gated norm of a mixer split by heads)
+    normalises this rank's channels by the whole dim's mean square: the
+    ranks' sums of squares summed over tp (one float32 all-reduce)."""
+
     def __init__(self, scale: torch.Tensor):
         super().__init__()
         self.scale = nn.Parameter(scale, requires_grad=False)
@@ -107,7 +112,12 @@ class RMSNorm(nn.Module):
     def forward(self, x, eps: float = 1e-6):
         dt = x.dtype
         x = x.to(torch.float32)
-        var = x.square().mean(dim=-1, keepdim=True)
+        if getattr(self, "tp_sharded", False):
+            ctx = get_context()
+            var = ctx.sum_tp(x.square().sum(dim=-1, keepdim=True)) \
+                / (x.shape[-1] * ctx.tp)
+        else:
+            var = x.square().mean(dim=-1, keepdim=True)
         x = x * torch.rsqrt(var + eps)
         return (x * self.scale.to(torch.float32)).to(dt)
 

@@ -19,6 +19,15 @@ float32 (:func:`_ein` casts the operands of a product to their promoted
 type, which ``torch.einsum`` does not do itself), and results are cast back
 where the reference casts them.  Every projection goes through
 ``apply_linear`` (dense, masked or packed: K1-K4 on the card).
+
+Under a sharding plan that splits a mixer by heads
+(``sharding.plan.ShardingPlan``) a rank holds its heads' rows of the
+projections, its heads' per-head tensors and its heads' block of every
+state, and the mixer computes on them: the local sizes come from the
+module's own tensors (Mamba2's heads from ``A_log``, mLSTM's from ``z``
+against ``xm``), the gated norm sums its squares over tp
+(``layers.RMSNorm``), and the row-parallel ``out_proj`` / ``down`` sum the
+heads' outputs.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ from torch import nn
 
 from repro_torch.models.layers import (apply_linear, apply_rmsnorm,
                                        init_linear, init_rmsnorm)
+from repro_torch.sharding.context import get_context
 
 F32 = torch.float32
+MLSTM_PF = 2        # mLSTM's up-projection factor: inner width MLSTM_PF x D
 NEG_BIG = -1e30     # the stabilisers' initial value (one fill value a leaf)
 
 
@@ -123,6 +134,13 @@ def init_mamba2(d: int, *, expand=2, state=64, head_dim=64, conv=4,
         init_linear(di, d, sparse=sparse, name="out_proj", **kw))
 
 
+def _mamba2_heads(p: Mamba2, head_dim: int):
+    """(heads, inner width) this rank computes: all of them, or its block
+    under a plan that splits the mixer by heads."""
+    heads = p.A_log.shape[0]
+    return heads, heads * head_dim
+
+
 def _mamba2_split(p: Mamba2, u, *, di, state, policy):
     zxbcdt = apply_linear(p.in_proj, u, policy=policy)
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * state,
@@ -143,10 +161,11 @@ def apply_mamba2_seq(p: Mamba2, u, *, expand=2, state=64, head_dim=64,
     Within a chunk the recurrence is a decay-masked product
     ``(C Bᵀ ⊙ L)`` with ``L[t, s] = exp(cum[t] - cum[s])`` for s <= t;
     across chunks the state (B, H, P, N) is carried.  T is padded to whole
-    chunks of ``chunk`` (zeros: a padded step adds nothing)."""
-    b, t, d = u.shape
-    di = expand * d
-    heads = di // head_dim
+    chunks of ``chunk`` (zeros: a padded step adds nothing).  ``expand``
+    is the config's; the sizes come from ``p`` (:func:`_mamba2_heads`)."""
+    del expand
+    b, t, _ = u.shape
+    heads, di = _mamba2_heads(p, head_dim)
     z, xbc, dt = _mamba2_split(p, u, di=di, state=state, policy=policy)
     xbc = _causal_conv(xbc, p.conv_w)
     x, bmat, cmat = torch.split(xbc, [di, state, state], dim=-1)
@@ -164,7 +183,7 @@ def apply_mamba2_seq(p: Mamba2, u, *, expand=2, state=64, head_dim=64,
     xp, bp, cp, dtp, lap = (chunks(v) for v in (x, bmat, cmat, dt, log_a))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=u.device))
-    zero = torch.zeros((), dtype=F32, device=u.device)
+    neg_inf = torch.full((), float("-inf"), dtype=F32, device=u.device)
     h = torch.zeros((b, heads, head_dim, state), dtype=F32, device=u.device)
     ys = []
     for c in range(nc):
@@ -174,7 +193,11 @@ def apply_mamba2_seq(p: Mamba2, u, *, expand=2, state=64, head_dim=64,
         cum = torch.cumsum(lac, dim=1)                    # (B, c, H)
         total = cum[:, -1]                                # (B, H)
         ldiff = cum[:, :, None, :] - cum[:, None, :, :]   # (B, c, c, H)
-        decay = torch.where(tri[None, :, :, None], torch.exp(ldiff), zero)
+        # masked before the exp: above the diagonal ldiff grows with the
+        # chunk and its exp overflows, and a where() after the exp would
+        # give that inf a zero gradient, 0 x inf = nan (the reference's
+        # order; the forward is the same either way)
+        decay = torch.exp(torch.where(tri[None, :, :, None], ldiff, neg_inf))
         scores = _ein("btn,bsn->bts", cc, bc)[..., None] * decay
         y_intra = _ein("btsh,bsh,bshp->bthp", scores, dtc, xc32)
         y_state = _ein("btn,bhpn,bth->bthp", cc, h, torch.exp(cum))
@@ -205,9 +228,9 @@ def apply_mamba2_step(p: Mamba2, u, st, *, expand=2, state=64, head_dim=64,
                       policy=None):
     """One token.  u (B, 1, D); ``st`` {"h", "conv"} is written in place.
     Returns (out (B, 1, D), st)."""
-    b, _, d = u.shape
-    di = expand * d
-    heads = di // head_dim
+    del expand
+    b = u.shape[0]
+    heads, di = _mamba2_heads(p, head_dim)
     z, xbc, dt = _mamba2_split(p, u, di=di, state=state, policy=policy)
     hist = _cat(st["conv"], xbc)                          # (B, K, C)
     conv_out = _conv_step(hist, p.conv_w, u.dtype)
@@ -239,7 +262,7 @@ class MLSTM(nn.Module):
         self.down = down
 
 
-def init_mlstm(d: int, *, heads=4, pf=2, conv=4, sparse=None,
+def init_mlstm(d: int, *, heads=4, pf=MLSTM_PF, conv=4, sparse=None,
                generator: torch.Generator, device,
                dtype=torch.float32) -> MLSTM:
     di = pf * d
@@ -255,7 +278,25 @@ def init_mlstm(d: int, *, heads=4, pf=2, conv=4, sparse=None,
         init_linear(di, d, sparse=sparse, name="down", **kw))
 
 
-def _mlstm_qkvif(p: MLSTM, xm, *, heads, policy):
+def _mlstm_up(p: MLSTM, x, *, heads, policy):
+    """(xm whole, z, the heads this rank computes): ``up``'s output is
+    ``[xm, z]``, ``xm`` over every channel (gathered whole under a plan that
+    splits the mixer by heads) and ``z`` the rank's heads' channels."""
+    up = apply_linear(p.up, x, policy=policy)
+    di = p.conv_w.shape[1]
+    xm, z = up[..., :di], up[..., di:]
+    return xm, z, heads * z.shape[-1] // di
+
+
+def _own_heads(t, heads: int, local: int):
+    """The rank's block of the last (heads) axis of ``t`` when it computes
+    ``local`` of ``heads`` heads."""
+    return t if local == heads else get_context().local_block(t, -1)
+
+
+def _mlstm_qkvif(p: MLSTM, xm, *, heads, local, policy):
+    """q, k, v (B, T, local, dh) and the gates' pre-activations (B, T,
+    local) of the ``local`` heads this rank computes."""
     b, t, di = xm.shape
     dh = di // heads
     conv_x = _causal_conv(xm, p.conv_w)
@@ -263,24 +304,26 @@ def _mlstm_qkvif(p: MLSTM, xm, *, heads, policy):
     k = apply_linear(p.wk, conv_x, policy=policy)
     v = apply_linear(p.wv, xm, policy=policy)
     gif = apply_linear(p.w_if, xm, policy=policy)
-    i_pre, f_pre = torch.chunk(gif.to(F32), 2, dim=-1)   # (B, T, H)
-    q = q.reshape(b, t, heads, dh)
-    k = k.reshape(b, t, heads, dh) * dh ** -0.5
-    v = v.reshape(b, t, heads, dh)
+    i_pre, f_pre = (_own_heads(g, heads, local)
+                    for g in torch.chunk(gif.to(F32), 2, dim=-1))
+    q = q.reshape(b, t, local, dh)
+    k = k.reshape(b, t, local, dh) * dh ** -0.5
+    v = v.reshape(b, t, local, dh)
     return q, k, v, i_pre, _log_sigmoid(f_pre)
 
 
-def apply_mlstm_seq(p: MLSTM, x, *, heads=4, pf=2, chunk=128, policy=None):
+def apply_mlstm_seq(p: MLSTM, x, *, heads=4, pf=MLSTM_PF, chunk=128,
+                    policy=None):
     """Whole-sequence mLSTM, the stabilised chunked parallel form: within a
     chunk a decay-masked product with a running max stabiliser, across
     chunks the (C, n, m) matrix-memory carry."""
     del pf
     b, t, d = x.shape
-    up = apply_linear(p.up, x, policy=policy)
-    xm, z = torch.chunk(up, 2, dim=-1)
-    di = xm.shape[-1]
-    dh = di // heads
-    q, k, v, i_pre, log_f = _mlstm_qkvif(p, xm, heads=heads, policy=policy)
+    xm, z, local = _mlstm_up(p, x, heads=heads, policy=policy)
+    dh = xm.shape[-1] // heads
+    q, k, v, i_pre, log_f = _mlstm_qkvif(p, xm, heads=heads, local=local,
+                                         policy=policy)
+    heads = local                    # the heads this rank computes
     c = min(chunk, t)
     nc = -(-t // c)
     pad = nc * c - t
@@ -332,13 +375,13 @@ def apply_mlstm_seq(p: MLSTM, x, *, heads=4, pf=2, chunk=128, policy=None):
                                                     kc)
         m_p = m_new
     y = torch.stack(ys, dim=1).reshape(b, nc * c, heads, dh)[:, :t]
-    y = y.reshape(b, t, di).to(x.dtype)
+    y = y.reshape(b, t, heads * dh).to(x.dtype)
     y = apply_rmsnorm(p.norm, y) * _silu32(z, x.dtype)
     return apply_linear(p.down, y, policy=policy)
 
 
-def init_mlstm_state(batch, d, *, heads=4, pf=2, conv=4, dtype=torch.float32,
-                     device=None, lead=()):
+def init_mlstm_state(batch, d, *, heads=4, pf=MLSTM_PF, conv=4,
+                     dtype=torch.float32, device=None, lead=()):
     """{"C" (*lead, B, H, dh, dh), "n" (.., H, dh), "m" (.., H) at -1e30,
     float32; "conv" (*lead, B, K - 1, di) ``dtype``}."""
     di = pf * d
@@ -353,25 +396,24 @@ def init_mlstm_state(batch, d, *, heads=4, pf=2, conv=4, dtype=torch.float32,
     }
 
 
-def apply_mlstm_step(p: MLSTM, x, st, *, heads=4, pf=2, policy=None):
+def apply_mlstm_step(p: MLSTM, x, st, *, heads=4, pf=MLSTM_PF, policy=None):
     """One token; ``st`` {"C", "n", "m", "conv"} is written in place."""
     del pf
-    b, _, d = x.shape
-    up = apply_linear(p.up, x, policy=policy)
-    xm, z = torch.chunk(up, 2, dim=-1)
-    di = xm.shape[-1]
-    dh = di // heads
+    b = x.shape[0]
+    xm, z, local = _mlstm_up(p, x, heads=heads, policy=policy)
+    dh = xm.shape[-1] // heads
     hist = _cat(st["conv"], xm)
     conv_x = _conv_step(hist, p.conv_w, x.dtype)
     q = apply_linear(p.wq, conv_x, policy=policy)
     k = apply_linear(p.wk, conv_x, policy=policy)
     v = apply_linear(p.wv, xm, policy=policy)
     gif = apply_linear(p.w_if, xm, policy=policy)
-    i_pre, f_pre = torch.chunk(gif[:, 0].to(F32), 2, dim=-1)
+    i_pre, f_pre = (_own_heads(g, heads, local)
+                    for g in torch.chunk(gif[:, 0].to(F32), 2, dim=-1))
     log_f = _log_sigmoid(f_pre)                           # (B, H)
-    q = q.reshape(b, heads, dh).to(F32)
-    k = k.reshape(b, heads, dh).to(F32) * dh ** -0.5
-    v = v.reshape(b, heads, dh).to(F32)
+    q = q.reshape(b, local, dh).to(F32)
+    k = k.reshape(b, local, dh).to(F32) * dh ** -0.5
+    v = v.reshape(b, local, dh).to(F32)
     m_new = torch.maximum(log_f + st["m"], i_pre)
     f_eff = torch.exp(log_f + st["m"] - m_new)
     i_eff = torch.exp(i_pre - m_new)
@@ -381,7 +423,7 @@ def apply_mlstm_step(p: MLSTM, x, st, *, heads=4, pf=2, policy=None):
     num = torch.einsum("bhk,bhkv->bhv", q, C)
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(b, 1, di).to(x.dtype)
+    y = (num / den[..., None]).reshape(b, 1, local * dh).to(x.dtype)
     y = apply_rmsnorm(p.norm, y) * _silu32(z, x.dtype)
     out = apply_linear(p.down, y, policy=policy)
     st["C"].copy_(C)

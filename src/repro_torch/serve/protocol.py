@@ -187,14 +187,15 @@ class EngineBase:
     def _place_state(self, device, **kw):
         """A fresh decode state (``self.model.init_decode_state(**kw)`` on
         ``device``); under a plan only this rank's block of it (every KV
-        tensor's head axis over tp when it divides, a dense cache's layer
-        axis over pp), allocated at its local shape."""
+        tensor's head axis over tp when it divides, the recurrent states of
+        a mixer split by heads, a dense cache's layer axis over pp),
+        allocated at its local shape."""
         make = functools.partial(self.model.init_decode_state, **kw)
         if self.mesh is None:
             return make(device=device)
         nkv, _ = self._head_counts()
-        return self.plan.shard_decode_state(make, device, self.mesh,
-                                            num_kv_heads=nkv)
+        return self.plan.shard_decode_state(
+            make, device, self.mesh, self.model.cfg, num_kv_heads=nkv)
 
     def _wrap_step(self, fn):
         """``fn`` run under this rank's sharding context (every collective

@@ -89,18 +89,52 @@ class _CopyTP(torch.autograd.Function):
         return fctx.shctx.all_reduce(g.clone()), None
 
 
-class _GatherTP(torch.autograd.Function):
-    """The exact gather over tp along ``dim``; the backward keeps this
-    rank's block of the gradient."""
+class _SumTP(torch.autograd.Function):
+    """Sum over tp; the backward sums the gradient over tp too (a sum read
+    by each rank's own part of the math, whose gradients differ)."""
 
     @staticmethod
-    def forward(fctx, x, ctx, dim):
-        fctx.shctx, fctx.dim = ctx, dim
+    def forward(fctx, x, ctx):
+        fctx.shctx = ctx
+        return ctx.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.shctx.all_reduce(g.clone()), None
+
+
+class _GatherTP(torch.autograd.Function):
+    """The exact gather over tp along ``dim``; the backward keeps this
+    rank's block of the gradient, summed over tp first when the gathered
+    tensor is read only in part on each rank (``partial``: then each
+    rank's gradient of it is partial)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dim, partial):
+        fctx.shctx, fctx.dim, fctx.partial = ctx, dim, partial
         return ctx.gather(x, dim)
 
     @staticmethod
     def backward(fctx, g):
-        return fctx.shctx.local_block(g, fctx.dim).contiguous(), None, None
+        if fctx.partial:
+            g = fctx.shctx.all_reduce(g.clone())
+        return fctx.shctx.local_block(g, fctx.dim).contiguous(), None, None, \
+            None
+
+
+class _ScatterTP(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every rank holds whole;
+    the backward gathers the ranks' gradients (Megatron's scatter: a whole
+    x cut to a row-parallel product's chunk)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dim):
+        fctx.shctx, fctx.dim = ctx, dim
+        return ctx.local_block(x, dim).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.shctx.gather(g.contiguous(), fctx.dim), None, None
 
 
 class _MeanDP(torch.autograd.Function):
@@ -154,7 +188,8 @@ class CensusMesh:
 # the nearest caller outside them, and placed at the nearest function of
 # the models that led to it, past the shared linear (the caller's name where
 # none did)
-_PRIMITIVES = frozenset(("_all_reduce", "all_reduce", "gather", "dp_reduce_"))
+_PRIMITIVES = frozenset(("_all_reduce", "all_reduce", "gather",
+                         "data_reduce_"))
 _MODELS = os.path.join("repro_torch", "models", "")
 
 
@@ -186,10 +221,14 @@ class ShardingContext:
     shard_heads: bool = True       # num_kv_heads % tp == 0
     num_heads: int = 0
     num_kv_heads: int = 0
-    dp: int = 1
-    dp_rank: int = 0
+    dp: int = 1                    # pod x data
+    dp_rank: int = 0               # row-major over (pod, data)
     dp_group: object = None
-    seq_shard_cache: bool = False  # dense KV caches split by position over dp
+    data: int = 1                  # the ``data`` dim alone (no ``pod``)
+    data_rank: int = 0
+    data_group: object = None
+    seq_shard_cache: bool = False  # dense KV caches split by position over
+                                   # ``data``
     collectives: int = 0           # collectives issued through this context
     collective_bytes: int = 0      # their payload (float32 for 16-bit data)
 
@@ -271,9 +310,10 @@ class ShardingContext:
         full.narrow(dim, self.tp_rank * n, n).copy_(x)
         return self.all_reduce(full)
 
-    def dp_reduce_(self, y: torch.Tensor, op=None) -> torch.Tensor:
-        """Sum (or ``op``) ``y`` over the dp group, in place; returns it."""
-        return self._all_reduce(y, self.dp_group, op)
+    def data_reduce_(self, y: torch.Tensor, op=None) -> torch.Tensor:
+        """Sum (or ``op``) ``y`` over the ``data`` dim alone (the positions
+        of a sequence-sharded cache), in place; returns it."""
+        return self._all_reduce(y, self.data_group, op)
 
     def reduce_tp(self, y: torch.Tensor) -> torch.Tensor:
         """The sum of ``y`` over tp: in place when no gradient is recorded,
@@ -291,14 +331,52 @@ class ShardingContext:
             return x
         return _CopyTP.apply(x, self)
 
-    def gather_tp(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    def gather_tp(self, x: torch.Tensor, dim: int = -1,
+                  partial: bool = False) -> torch.Tensor:
         """:meth:`gather`, whose backward keeps this rank's block of the
-        gradient."""
+        gradient (with ``partial``, of the gradient summed over tp: the
+        gathered tensor is read only in part on each rank)."""
         if self.tp == 1:
             return x
         if _records_grad(x):
-            return _GatherTP.apply(x, self, dim % x.ndim)
+            return _GatherTP.apply(x, self, dim % x.ndim, partial)
         return self.gather(x, dim)
+
+    def sum_tp(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of ``y`` over tp, as a new tensor; under grad its
+        backward sums the gradient over tp (each rank reads the sum with
+        its own part of the math: the gated norm of a mixer split by
+        heads)."""
+        if self.tp == 1:
+            return y
+        if _records_grad(y):
+            return _SumTP.apply(y, self)
+        return self.all_reduce(y.clone())
+
+    def scatter_tp(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of a whole ``x`` along ``dim``; under grad its
+        backward gathers the gradient (``x`` whole on every rank, its
+        gradient whole too)."""
+        if self.tp == 1:
+            return x
+        if _records_grad(x):
+            return _ScatterTP.apply(x, self, dim % x.ndim)
+        return self.local_block(x, dim)
+
+    def gather_rows(self, y: torch.Tensor, rows,
+                    partial: bool = False) -> torch.Tensor:
+        """The output of a column-parallel product whose rows follow a
+        ``partitioning.RowMap``: its ``gather`` pieces gathered whole (the
+        backward as :meth:`gather_tp`'s), the other pieces as they are."""
+        from repro_torch.sharding.partitioning import GATHER
+        pieces = rows.pieces(self.tp_rank, self.tp)
+        if len(pieces) == 1:
+            return self.gather_tp(y, -1, partial) if pieces[0][2] == GATHER \
+                else y
+        parts = torch.split(y, [n for _, n, _ in pieces], dim=-1)
+        return torch.cat([self.gather_tp(p, -1, partial) if k == GATHER
+                          else p for p, (_, _, k) in zip(parts, pieces)],
+                         dim=-1)
 
     def dp_mean_(self, y: torch.Tensor) -> torch.Tensor:
         """The mean of ``y`` over the dp group, in place; returns it."""
@@ -358,12 +436,12 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
                  seq_shard_cache: bool = False) -> ShardingContext:
     """This rank's :class:`ShardingContext` on ``mesh`` (a DeviceMesh, or a
     :class:`CensusMesh`, whose dims are named ``model`` and optionally
-    ``pipe`` and ``data``).  ``seq_shard_cache``: long-context decode, the
-    dense KV caches split by position over ``data``."""
+    ``pipe``, ``data`` and ``pod``).  Data parallelism runs over ``pod`` x
+    ``data`` (the JAX package's batch axes): dp is their product, this
+    rank's dp index row-major over them, one flattened group.
+    ``seq_shard_cache``: long-context decode, the dense KV caches split by
+    position over ``data``."""
     names = mesh.mesh_dim_names
-    if "pod" in names:
-        raise NotImplementedError(
-            "a 'pod' mesh dim: the port's contexts take dp over 'data' only")
 
     def dim(name):
         if name not in names:
@@ -373,7 +451,13 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
 
     tp, tp_rank, tp_group = dim("model")
     pp, pp_rank, pp_group = dim("pipe")
-    dp, dp_rank, dp_group = dim("data")
+    data, data_rank, data_group = dim("data")
+    pod, pod_rank, _ = dim("pod")
+    dp, dp_rank, dp_group = pod * data, pod_rank * data + data_rank, \
+        data_group
+    if pod > 1:
+        dp_group = _flat_group(mesh, [n for n in ("pod", "data")
+                                      if n in names])
     pp_ranks = ()
     if pp > 1:
         import torch.distributed as dist
@@ -385,7 +469,19 @@ def make_context(mesh, *, num_kv_heads: int = 16, num_heads: int = 0,
         shard_heads=num_kv_heads % tp == 0,
         num_heads=num_heads or num_kv_heads, num_kv_heads=num_kv_heads,
         dp=dp, dp_rank=dp_rank, dp_group=dp_group if dp > 1 else None,
+        data=data, data_rank=data_rank,
+        data_group=data_group if data > 1 else None,
         seq_shard_cache=seq_shard_cache)
+
+
+def _flat_group(mesh, dims):
+    """One process group over the mesh dims ``dims`` (this rank's slice of
+    the mesh along them; None on a census mesh)."""
+    if isinstance(mesh, CensusMesh):
+        return None
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    return mesh[tuple(dims)]._flatten().get_group()
 
 
 def check_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

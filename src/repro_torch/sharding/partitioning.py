@@ -30,6 +30,9 @@ class Spec(tuple):
     def __new__(cls, *parts):
         return super().__new__(cls, parts)
 
+    def __getnewargs__(self):          # pickled as its parts
+        return tuple(self)
+
     def __repr__(self):
         return f"{type(self).__name__}(" + ", ".join(map(repr, self)) + ")"
 
@@ -41,28 +44,200 @@ class StackSpec(Spec):
     device holds the slice under a stack dim of 1)."""
 
 
+# the kinds of a RowMap segment
+SPLIT, GATHER, WHOLE = "split", "gather", "whole"
+
+
+class RowMap(tuple):
+    """A dim placed over ``model`` whose rank-local part is not one block:
+    the whole dim as a run of segments ``(length, kind)``, kind ``split``
+    (the rank holds its block of the segment), ``gather`` (it holds its
+    block, and a product's output rows there are gathered whole) or
+    ``whole`` (every rank holds all of it).  The rank's local dim is its
+    pieces in segment order.  Mamba2's ``in_proj`` rows are ``z, x`` split,
+    ``B, C`` whole, ``dt`` split; mLSTM's ``up`` rows ``xm`` gathered, ``z``
+    split.  A ``RowMap`` stands in a :class:`Spec` where a split dim names
+    ``model``."""
+
+    def __new__(cls, *segments):
+        segs = tuple((int(n), str(k)) for n, k in segments)
+        for _, k in segs:
+            if k not in (SPLIT, GATHER, WHOLE):
+                raise ValueError(f"unknown RowMap segment kind {k!r}")
+        return super().__new__(cls, segs)
+
+    def __getnewargs__(self):          # pickled as its segments
+        return tuple(self)
+
+    def __repr__(self):
+        return "RowMap(" + ", ".join(f"({n}, {k!r})" for n, k in self) + ")"
+
+    @property
+    def size(self) -> int:
+        return sum(n for n, _ in self)
+
+    @property
+    def is_block(self) -> bool:
+        """Whether the rank's part is one block of the dim (one segment,
+        not ``whole``): the dim is placed as a plain split over
+        ``model``."""
+        return len(self) == 1 and self[0][1] != WHOLE
+
+    def pieces(self, rank: int, tp: int):
+        """``(whole start, length, kind)`` of each piece rank ``rank``
+        holds, in local order."""
+        out, off = [], 0
+        for n, k in self:
+            if k == WHOLE:
+                out.append((off, n, k))
+            else:
+                if n % tp:
+                    raise ValueError(f"a segment of {n} does not split over "
+                                     f"tp={tp}")
+                out.append((off + rank * (n // tp), n // tp, k))
+            off += n
+        return out
+
+    def local_size(self, tp: int) -> int:
+        return sum(n for _, n, _ in self.pieces(0, tp))
+
+    def index(self, rank: int, tp: int, device=None):
+        """The whole dim's positions rank ``rank`` holds, in local order."""
+        import torch
+        return torch.cat([torch.arange(s, s + n, device=device)
+                          for s, n, _ in self.pieces(rank, tp)])
+
+    def local_whole(self, tp: int):
+        """``(local start, length)`` of the ``whole`` pieces: the positions
+        every rank holds alike."""
+        out, off = [], 0
+        for _, n, k in self.pieces(0, tp):
+            if k == WHOLE:
+                out.append((off, n))
+            off += n
+        return out
+
+
+class BlockRowMap(RowMap):
+    """A :class:`RowMap` over the rows of a ``block``-layout packed tensor
+    (``values`` (RB, A, block_r, Ne), ``scales`` (RB, A, block_r)) whose
+    rank-local part was re-blocked at ``nb`` rows a block
+    (``core.sparsity.select_rows``): the whole tensor read as (RB x block_r
+    / nb, A, nb, ...) blocks (:meth:`reblocked`), its segments count those
+    blocks, and it stands at dim 0 of a :class:`Spec` for dims 0 and 2
+    together."""
+
+    def __new__(cls, segments, block_r: int, nb: int):
+        self = super().__new__(cls, *segments)
+        self.block_r, self.nb = int(block_r), int(nb)
+        return self
+
+    def __getnewargs__(self):
+        return tuple(self), self.block_r, self.nb
+
+    def __repr__(self):
+        return (f"BlockRowMap({tuple(self)}, block_r={self.block_r}, "
+                f"nb={self.nb})")
+
+    def reblocked(self, x):
+        """(RB, A, block_r, ...) -> (RB x f, A, nb, ...), f = block_r / nb:
+        each new block inside one old block (a copy; a tensor or a numpy
+        array)."""
+        f = self.block_r // self.nb
+        rb, a = x.shape[:2]
+        rest = tuple(x.shape[3:])
+        return x.reshape(rb, a, f, self.nb, *rest).swapaxes(1, 2).reshape(
+            rb * f, a, self.nb, *rest)
+
+    def unreblocked(self, x):
+        """The inverse of :meth:`reblocked`."""
+        f = self.block_r // self.nb
+        rbf, a = x.shape[:2]
+        rest = tuple(x.shape[3:])
+        return x.reshape(rbf // f, f, a, self.nb, *rest).swapaxes(1, 2) \
+            .reshape(rbf // f, a, self.block_r, *rest)
+
+    def whole_shape(self, shape) -> list:
+        """The whole tensor's shape of its re-blocked ``shape``."""
+        f = self.block_r // self.nb
+        return [shape[0] // f, shape[1], self.block_r, *shape[3:]]
+
+
+def _dim_index(ax, n: int, coord: dict, degree: dict, path: str, d: int):
+    """The positions of a dim of ``n`` that ``coord`` holds under the spec
+    part ``ax``: a slice, or an index array (a :class:`RowMap`)."""
+    if isinstance(ax, RowMap):
+        if ax.size != n:
+            raise ValueError(f"{path}: dim {d} of {n} is not the RowMap's "
+                             f"{ax.size}")
+        return ax.index(coord["model"], degree["model"]).numpy()
+    if isinstance(ax, tuple):           # a dim over several mesh dims
+        if len(ax) != 1:
+            raise NotImplementedError(f"{path}: dim {d} over mesh dims {ax}")
+        ax = ax[0]
+    if n % degree[ax]:
+        raise ValueError(f"{path}: dim {d} of {n} does not split over "
+                         f"{ax}={degree[ax]}")
+    k = n // degree[ax]
+    return slice(coord[ax] * k, (coord[ax] + 1) * k)
+
+
+def spec_put(whole, spec, coord: dict, degree: dict, block, path: str = ""):
+    """Write ``block`` into the block of ``whole`` that :func:`spec_block`
+    reads (in place, ``whole`` a tensor or a numpy array)."""
+    if spec and isinstance(spec[0], BlockRowMap):
+        ax = spec[0]
+        view = ax.reblocked(whole)
+        spec_put(view, Spec(RowMap(*ax), *spec[1:]), coord, degree, block,
+                 path)
+        whole[...] = ax.unreblocked(view)
+        return whole
+    if isinstance(spec, StackSpec):
+        block = block[None]
+    index = [slice(None)] * whole.ndim
+    arrays = []
+    for d, ax in enumerate(spec or ()):
+        if ax is not None:
+            index[d] = _dim_index(ax, whole.shape[d], coord, degree, path, d)
+            if not isinstance(index[d], slice):
+                arrays.append(d)
+    if len(arrays) > 1:
+        raise NotImplementedError(f"{path}: RowMaps on dims {arrays}")
+    if arrays:                  # an index array: the dim moves to the front
+        d = arrays[0]
+        view = whole[tuple(index[:d] + [slice(None)] + index[d + 1:])]
+        import torch
+        if isinstance(whole, torch.Tensor):
+            view.index_copy_(d, torch.as_tensor(index[d]), block)
+        else:
+            view[(slice(None),) * d + (index[d],)] = block
+        return whole
+    whole[tuple(index)] = block
+    return whole
+
+
 def spec_block(whole, spec, coord: dict, degree: dict, path: str = ""):
     """The block of ``whole`` (a tensor or a numpy array) that the mesh
     coordinate ``coord`` ({mesh dim name: index}) holds under ``spec`` on a
-    mesh of ``degree`` ({mesh dim name: size}), as a view; ``whole`` itself
-    for a None spec.  ``path`` names the leaf in errors."""
+    mesh of ``degree`` ({mesh dim name: size}), as a view (a copy along a
+    :class:`RowMap` dim); ``whole`` itself for a None spec.  ``path`` names
+    the leaf in errors."""
     if spec is None:
         return whole
+    if spec and isinstance(spec[0], BlockRowMap):
+        whole = spec[0].reblocked(whole)
     for d, ax in enumerate(spec):
         if ax is None:
             continue
-        if isinstance(ax, tuple):           # a dim over several mesh dims
-            if len(ax) != 1:
-                raise NotImplementedError(f"{path}: dim {d} over mesh dims "
-                                          f"{ax}")
-            ax = ax[0]
-        if whole.shape[d] % degree[ax]:
-            raise ValueError(f"{path}: dim {d} of {whole.shape[d]} does not "
-                             f"split over {ax}={degree[ax]}")
-        n = whole.shape[d] // degree[ax]
-        index = [slice(None)] * whole.ndim
-        index[d] = slice(coord[ax] * n, (coord[ax] + 1) * n)
-        whole = whole[tuple(index)]
+        idx = _dim_index(ax, whole.shape[d], coord, degree, path, d)
+        if isinstance(idx, slice):
+            whole = whole[(slice(None),) * d + (idx,)]
+        elif hasattr(whole, "index_select"):
+            import torch
+            whole = whole.index_select(d, torch.as_tensor(
+                idx, device=whole.device))
+        else:
+            whole = whole.take(idx, axis=d)
     if isinstance(spec, StackSpec):
         if whole.shape[0] != 1:
             raise ValueError(f"{path}: a shard stack of "

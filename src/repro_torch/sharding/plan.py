@@ -33,6 +33,7 @@ for ``reduce_scatter``, which ``gloo`` lacks).
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Tuple
 
@@ -42,17 +43,24 @@ from torch import nn
 from repro_torch.core.sparsity import (
     LAYOUT_BLOCK,
     PackedWeight,
+    select_rows,
     shard_packed_row_parallel,
     shard_slice,
 )
 from repro_torch.sharding import context as shctx
 from repro_torch.sharding.partitioning import (
+    GATHER,
+    SPLIT,
+    WHOLE,
+    BlockRowMap,
+    RowMap,
     Spec,
     StackSpec,
     _linear_kind_impl,
     _param_specs_impl,
     path_of,
     spec_block,
+    spec_put,
 )
 
 # the mesh dim names and renumber policy of the JAX package's default plan:
@@ -65,8 +73,9 @@ _PLAN_VERSION = 1
 
 # the keys under which a decode state holds KV tensors (..., Hkv, Dh)
 _KV_KEYS = ("k", "v", "global_k", "global_v")
-# column-parallel projections whose output a rank uses whole (module paths)
-_GATHERED = r"(mamba/in_proj|blk/(up|wq|wk|wv|w_in)|patch_proj|frame_proj)$"
+# column-parallel projections whose output a rank uses whole (module paths):
+# the frontends' (the mixers' inputs are decided per mixer, by its heads)
+_GATHERED = r"(patch_proj|frame_proj)$"
 
 
 def world_size() -> int:
@@ -88,12 +97,65 @@ def _set_module(root: nn.Module, name: str, new: nn.Module):
 
 def _block(t: torch.Tensor, spec, rank: int, degree: int, axis: str):
     """This rank's block of ``t`` along every dim ``spec`` splits over
-    ``axis`` (a copy, so that the whole tensor can be freed)."""
-    for d, ax in enumerate(spec):
-        if ax == axis:
-            n = t.shape[d] // degree
-            t = t.narrow(d, rank * n, n)
-    return t.clone()
+    ``axis`` (a ``RowMap`` dim: its rows of the map), as a copy, so that the
+    whole tensor can be freed."""
+    return spec_block(t, spec, {axis: rank}, {axis: degree}).clone()
+
+
+def _spec_dim(spec):
+    """The dim ``spec`` places over ``model`` (a name or a RowMap), or
+    None."""
+    return next((d for d, ax in enumerate(spec)
+                 if ax == TP_AXIS or isinstance(ax, RowMap)), None)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixerSplit:
+    """A model's recurrent mixers split by heads over tp (:func:`mixer_split`):
+    ``kind`` ``mamba2`` or ``mlstm``, the heads, the inner width ``di`` and
+    Mamba2's B / C width ``state``."""
+
+    kind: str
+    heads: int
+    di: int
+    state: int = 0
+
+    def mamba2_rows(self):
+        """(``in_proj``'s rows, ``conv_w``'s channels): ``[z, x, B, C,
+        dt]`` with z, x and dt the rank's heads' and B, C whole; the conv
+        over ``[x, B, C]``."""
+        di, bc = self.di, 2 * self.state
+        return (RowMap((di, SPLIT), (di, SPLIT), (bc, WHOLE),
+                       (self.heads, SPLIT)),
+                RowMap((di, SPLIT), (bc, WHOLE)))
+
+
+def mixer_split(cfg, tp: int):
+    """How ``cfg``'s recurrent mixers run under ``tp``: split by heads (a
+    :class:`MixerSplit`) where their heads divide tp, else None (whole on
+    every rank, their projections gathered; sLSTM always).  The one source
+    of the placement of the mixers' tensors and of their decode states."""
+    from repro_torch.models.ssm import MLSTM_PF
+
+    s = cfg.ssm
+    if tp == 1 or s is None:
+        return None
+    if cfg.family == "hybrid":
+        di = s.expand * cfg.d_model
+        split = MixerSplit("mamba2", di // s.head_dim, di, s.state_dim)
+    elif cfg.family == "ssm":
+        split = MixerSplit("mlstm", cfg.num_heads, MLSTM_PF * cfg.d_model)
+    else:
+        return None
+    return split if split.heads % tp == 0 else None
+
+
+def _out_rows(node) -> int:
+    """The size of dim 0 of a linear's weight as the rule table splits it:
+    a packed node's values (a ``block`` node's row blocks), else its
+    output features."""
+    return node.values.shape[0] if isinstance(node, PackedWeight) \
+        else node.w.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,30 +310,21 @@ class ShardingPlan:
     def place_for_training(self, model, mesh) -> "TrainLayout":
         """Place ``model`` for a training step under this plan (in place:
         this rank's tp blocks, every one a training tensor) and return its
-        :class:`TrainLayout` on ``mesh``.  A model placed before under the
-        same plan is not placed again.  What the step cannot differentiate
-        under tp raises ``NotImplementedError`` by name: a family other
-        than the decoder LM or a frontend, wk / wv replicated, a
-        column-parallel linear left whole (its gradient would be partial on
-        every rank); and a pipeline dim (the step is data x model, as the
-        JAX package's)."""
+        :class:`TrainLayout` on ``mesh`` (a ``pod`` dim joins ``data`` in
+        dp).  A model placed before under the same plan is not placed again.
+        Every family trains under tp, with the mixers split by heads where
+        they divide, the head fallback, wk / wv replicated and column
+        blocks left whole (their gradients summed over tp where each rank
+        reads them in part); a packed ``block`` node whose rows were
+        re-blocked by heads trains by its re-blocked rows (a
+        ``partitioning.BlockRowMap``).  Refused by name: a pipeline dim
+        (the step is data x model, as the JAX package's)."""
         if self.pp > 1:
             raise NotImplementedError(
                 "a train step under pp > 1: the step runs data x model, as "
                 "the JAX package's (sharding.pipeline.pipeline_apply is the "
                 "differentiable schedule)")
         cfg = getattr(model, "cfg", None)
-        if self.tp > 1 and (type(model).__name__ != "DecoderLM"
-                            or cfg.frontend is not None):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) under tp={self.tp}: distributed "
-                "training covers the decoder LM (dense and MoE); Mamba2's "
-                "and xLSTM's split state and the frontends are not ported")
-        if self.tp > 1 and (self.attn_kv_replicated
-                            or cfg.num_kv_heads % self.tp):
-            raise NotImplementedError(
-                f"{cfg.num_kv_heads} KV heads over tp={self.tp} with wk / "
-                "wv replicated: a training step needs the KV heads split")
         if mesh is None or mesh.get_coordinate() is None:
             raise ValueError("place_for_training needs a mesh this rank is "
                              "in (ShardingPlan.make_mesh)")
@@ -280,72 +333,169 @@ class ShardingPlan:
         if getattr(model, "placed_plan", None) != self:
             self.shard_params(model, mesh)
             model.placed_plan = self
-        whole = [n for n, m in model.named_modules()
-                 if getattr(m, "tp_kind", None) == "col"
-                 and not m.tp_sharded]
-        if whole:
-            raise NotImplementedError(
-                f"column-parallel {whole[:4]} left whole (its output rows "
-                f"do not split over tp={self.tp}): its gradient would be "
-                "partial on every rank")
         return TrainLayout(ctx, model)
 
-    def _gathers(self, path: str, cfg) -> bool:
-        """Whether the column-parallel linear at ``path`` gives its whole
-        output on every rank (``tp_gather``): the mixers' and frontends'
-        projections (Mamba2's ``in_proj`` concatenates z, x, B, C and dt,
-        mLSTM's ``up`` x and z; the scans run whole on every rank), and the
-        JAX package's ``_constrain_heads`` fallback: q, k or v whose heads
-        do not split over tp."""
-        if re.search(_GATHERED, path):
-            return True
-        if cfg is None or not re.search(r"(attn|xattn)/w[qkv]$", path):
-            return False
-        heads = cfg.num_heads if path.endswith("wq") else cfg.num_kv_heads
-        return heads % self.tp != 0
+    def _gathered(self, path: str, node) -> dict:
+        """The role of a projection whose consumer runs whole on every rank
+        (the frontends' inputs, q / k / v whose heads do not split, the
+        projections of a mixer that runs whole): a column-parallel one's
+        output rows gathered whole (one ``gather`` segment), or, where its
+        rows do not split over tp, computed whole on every rank."""
+        if self.linear_kind(path) != "col":
+            return {}
+        if _out_rows(node) % self.tp:
+            return dict(tp_kind="replicated")
+        o = node.out_features if isinstance(node, PackedWeight) \
+            else node.w.shape[0]
+        return dict(tp_rows=RowMap((o, GATHER)))
+
+    def _roles(self, model, cfg):
+        """How each placed linear of ``model`` runs under tp, decided per
+        mixer and per attention: ``{linear path: {attr: value}}`` of the
+        placement attributes (``tp_rows``, ``tp_partial``, ``tp_local_in``,
+        see ``core.sparse_linear._apply_placed``; ``tp_kind`` where it
+        differs from the rule table's), and ``{tensor path: Spec}`` of the
+        mixers' own tensors split by heads.
+
+        Where :func:`mixer_split` splits a Mamba2 mixer, ``in_proj`` keeps
+        the rank's rows of z, x and dt and all of B and C
+        (:meth:`MixerSplit.mamba2_rows`), ``conv_w`` its x channels and B /
+        C's, ``A_log`` / ``D`` / ``dt_bias`` and the gated norm's scale the
+        rank's heads'.  Where it splits an mLSTM: ``up``'s ``xm`` rows
+        gathered (every head reads every channel) and ``z`` the rank's,
+        ``wq`` / ``wk`` / ``wv`` the rank's heads' rows on the rank's own
+        input (``tp_local_in``), ``w_if`` whole (the rank takes its heads'
+        gates), the norm's scale split.  Otherwise a mixer runs whole on
+        every rank (its projections gathered, :meth:`_gathered`), as do
+        sLSTM and the frontends' inputs.  q / k / v whose heads do not split
+        are gathered (the JAX package's ``_constrain_heads``); k / v read
+        by split query heads are read in part (``tp_partial``)."""
+        from repro_torch.models.ssm import MLSTM, SLSTM, Mamba2
+
+        tp = self.tp
+        roles, specs = {}, {}
+        for name, mod in model.named_modules():
+            p = path_of(name)
+            if re.search(_GATHERED, p):
+                roles[p] = self._gathered(p, mod)
+            elif isinstance(mod, Mamba2):
+                split = mixer_split(cfg, tp)
+                if split is None:
+                    roles[f"{p}/in_proj"] = self._gathered(f"{p}/in_proj",
+                                                           mod.in_proj)
+                    continue
+                rows, chans = split.mamba2_rows()
+                roles[f"{p}/in_proj"] = dict(tp_rows=rows)
+                specs[f"{p}/conv_w"] = Spec(None, chans)
+                for t in ("A_log", "D", "dt_bias", "norm/scale"):
+                    specs[f"{p}/{t}"] = Spec(TP_AXIS)
+            elif isinstance(mod, MLSTM):
+                split = mixer_split(cfg, tp)
+                if split is None:
+                    for lin in ("up", "wq", "wk", "wv"):
+                        roles[f"{p}/{lin}"] = self._gathered(
+                            f"{p}/{lin}", getattr(mod, lin))
+                    continue
+                roles[f"{p}/up"] = dict(
+                    tp_partial=True,
+                    tp_rows=RowMap((split.di, GATHER), (split.di, SPLIT)))
+                for lin in ("wq", "wk", "wv"):
+                    roles[f"{p}/{lin}"] = dict(tp_local_in=True)
+                roles[f"{p}/w_if"] = dict(tp_partial=True, tp_local_in=True)
+                specs[f"{p}/norm/scale"] = Spec(TP_AXIS)
+            elif isinstance(mod, SLSTM):
+                roles[f"{p}/w_in"] = self._gathered(f"{p}/w_in", mod.w_in)
+            elif cfg is not None and re.search(r"(attn|xattn)$", p):
+                q_split = cfg.num_heads % tp == 0
+                kv_split = cfg.num_kv_heads % tp == 0
+                kv_gather = not kv_split and not self.attn_kv_replicated
+                if not q_split:
+                    roles[f"{p}/wq"] = self._gathered(f"{p}/wq", mod.wq)
+                for lin in ("wk", "wv"):
+                    role = (self._gathered(f"{p}/{lin}", getattr(mod, lin))
+                            if kv_gather or not q_split else {})
+                    roles[f"{p}/{lin}"] = dict(role, tp_partial=q_split and (
+                        kv_gather or self.attn_kv_replicated))
+        return roles, specs
 
     def _keep_tp_blocks(self, model, rank: int):
         from repro_torch.core.sparse_linear import SparseLinear
         from repro_torch.models.layers import Embedding
         from repro_torch.models.moe import MoE
-        from repro_torch.models.ssm import Mamba2
+        from repro_torch.models.ssm import MLSTM, Mamba2
 
         tp, axis = self.tp, TP_AXIS
         cfg = getattr(model, "cfg", None)
         specs = self.param_specs(model)
+        roles, mixer_specs = self._roles(model, cfg)
         handled = set()
         # where each tensor of the placed model is split: dotted name ->
-        # (its split dim, or None; whether it is a slice of a shard stack)
-        placement = {}
+        # (its split dim, or None; whether it is a slice of a shard stack);
+        # the RowMap of a dim placed by one; the whole tensors whose
+        # gradient each rank holds in part
+        placement, rows_of, partial = {}, {}, set()
 
         def keep(mod, attr, spec, name):
             setattr(mod, attr, nn.Parameter(
                 _block(getattr(mod, attr).data, spec, rank, tp, axis),
                 requires_grad=False))
-            placement[name] = (spec.index(axis), False)
+            d = _spec_dim(spec)
+            placement[name] = (d, False)
+            if isinstance(spec[d], RowMap):
+                rows_of[name] = spec[d]
+
+        def set_role(mod, p, sharded):
+            role = roles.get(p, {})
+            kind = role.get("tp_kind", self.linear_kind(p))
+            mod.tp_kind, mod.tp_sharded = kind, sharded
+            mod.tp_rows = role.get("tp_rows")
+            # a column block left whole keeps its block of the output
+            mod.tp_partial = role.get("tp_partial", False) or (
+                kind == "col" and not sharded)
+            mod.tp_local_in = role.get("tp_local_in", False)
 
         for name, mod in list(model.named_modules()):
             p = path_of(name)
             dotted = f"{name}." if name else ""
+            # a map whose rank-local part is one block places its tensors
+            # as a plain split
+            rows = roles.get(p, {}).get("tp_rows")
+            mapped = None if rows is None or rows.is_block else rows
             if isinstance(mod, PackedWeight):
-                new, sharded = self._local_packed(mod, specs[p], rank)
-                new.tp_kind, new.tp_sharded = self.linear_kind(p), sharded
-                new.tp_gather = self._gathers(p, cfg)
+                new, sharded = self._local_packed(mod, specs[p], rank, mapped)
+                set_role(new, p, sharded)
                 _set_module(model, name, new)
                 for c, spec in specs[p].items():
-                    if mod.shard_axis is not None:
+                    if mapped is not None:
+                        # a block node's rows, re-blocked: its float tensors
+                        # (values, scales) by their blocks
+                        if mod.layout == LAYOUT_BLOCK and c not in (
+                                "values", "scales"):
+                            continue
+                        placement[dotted + c] = (0, False)
+                        rows_of[dotted + c] = mapped if \
+                            mod.layout != LAYOUT_BLOCK else BlockRowMap(
+                                [(n // new.block_geom[0], k)
+                                 for n, k in mapped],
+                                mod.block_geom[0], new.block_geom[0])
+                    elif mod.shard_axis is not None:
                         placement[dotted + c] = (None, True)
                     elif axis in spec:
                         placement[dotted + c] = (spec.index(axis), False)
+                    if new.tp_partial and not sharded:
+                        partial.add(dotted + c)
                 handled.add(p)
             elif isinstance(mod, SparseLinear):
                 spec = specs[f"{p}/w"]
-                mod.tp_kind = self.linear_kind(p)
-                mod.tp_sharded = axis in spec
-                mod.tp_gather = self._gathers(p, cfg)
-                if mod.tp_sharded:
+                if mapped is not None:
+                    spec = Spec(mapped, None)
+                sharded = axis in spec or mapped is not None
+                set_role(mod, p, sharded)
+                if sharded:
                     self._check_whole_groups(mod, spec, name)
                     keep(mod, "w", spec, dotted + "w")
+                elif mod.tp_partial:
+                    partial.add(dotted + "w")
                 handled.add(f"{p}/w")
             elif isinstance(mod, Embedding):
                 spec = specs[f"{p}/table"]
@@ -364,13 +514,24 @@ class ShardingPlan:
                         keep(mod, attr, spec, dotted + attr)
                         mod.tp_sharded = True
                     handled.add(f"{p}/{attr}")
-            elif isinstance(mod, Mamba2):
-                # the scan runs whole on every rank (in_proj's output
-                # gathered): its per-channel and per-head tensors stay
-                # whole where the rule table would split them
+            elif isinstance(mod, (Mamba2, MLSTM)):
+                # split by heads (its tensors per _roles), or whole on every
+                # rank where the rule table would split them
+                own = {n[len(p) + 1:]: s for n, s in mixer_specs.items()
+                       if n.startswith(f"{p}/")}
+                for n, spec in own.items():
+                    owner, attr = ((mod.norm, "scale") if n == "norm/scale"
+                                   else (mod, n))
+                    keep(owner, attr, spec, dotted + n.replace("/", "."))
+                    if owner is mod.norm:
+                        owner.tp_sharded = True
+                if isinstance(mod, MLSTM) and own:
+                    partial.add(dotted + "conv_w")
                 handled.update(f"{p}/{n}" for n in ("conv_w", "A_log", "D",
                                                     "dt_bias"))
         model.tp_placement = placement
+        model.tp_row_maps = rows_of
+        model.tp_partial_grads = partial
         left = [p for p, s in specs.items() if p not in handled
                 and not isinstance(s, dict) and axis in s]
         if left:
@@ -384,7 +545,7 @@ class ShardingPlan:
         (``layers.linear_sparsity`` aligns M to K / 16), or its mask would
         straddle the ranks."""
         cfg = lin.sparsity
-        if cfg is None or spec.index(TP_AXIS) != 1:
+        if cfg is None or _spec_dim(spec) != 1:
             return
         k = lin.w.shape[1] // self.tp
         if k % cfg.m:
@@ -393,10 +554,21 @@ class ShardingPlan:
                 f"features over tp={self.tp} does not hold whole groups of "
                 f"M={cfg.m} ({cfg.pattern_name()})")
 
-    def _local_packed(self, pw: PackedWeight, specs: dict, rank: int):
+    def _local_packed(self, pw: PackedWeight, specs: dict, rank: int,
+                      rows=None):
         """(this rank's PackedWeight, whether it holds a block) of ``pw``
-        under its ``specs``."""
+        under its ``specs``, or its output rows of the RowMap ``rows``
+        (``core.sparsity.select_rows``)."""
         tp, axis = self.tp, TP_AXIS
+        if rows is not None:
+            # a block node is re-blocked alike on every rank: at the gcd of
+            # its block_r and every rank's pieces
+            nb = None if pw.layout != LAYOUT_BLOCK else math.gcd(
+                pw.block_geom[0], *(v for r in range(tp)
+                                    for s, n, _ in rows.pieces(r, tp)
+                                    for v in (s, n)))
+            return select_rows(pw, [(s, n) for s, n, _ in
+                                    rows.pieces(rank, tp)], block_r=nb), True
         if pw.shard_axis is not None:            # renumbered: row-parallel
             loc = shard_slice(pw, rank)
             tensors = {n: getattr(loc, n).clone() for n in specs}
@@ -430,7 +602,7 @@ class ShardingPlan:
 
     # -- decode state -------------------------------------------------------
 
-    def decode_state_specs(self, state, *, num_kv_heads: int):
+    def decode_state_specs(self, state, cfg, *, num_kv_heads: int):
         """Spec tree of a decode state: every KV tensor (under a ``k``,
         ``v``, ``global_k`` or ``global_v`` key: dense caches (L, B, S, Hkv,
         Dh), paged arenas (L, Np, P, Hkv, Dh), ring buffers, the hybrid's
@@ -438,11 +610,18 @@ class ShardingPlan:
         ``model`` when the head count divides tp, as the JAX package splits
         axis 3 of its 5-D ones; under ``pp`` a dense cache also splits its
         layer axis over ``pipe`` (each stage holds its layers' caches).
-        Everything else (positions, ring slot positions, block tables, the
-        recurrent states, the encoder's output) is whole."""
+        The recurrent states of the mixers that ``cfg`` (the model's config)
+        splits by heads (:func:`mixer_split`, as the placement does) split
+        too: Mamba2's ``h`` (..., B, H, P, N) by heads and its ``conv``
+        window (..., B, K - 1, C) by the rank's x channels with B's and C's
+        whole (a ``RowMap``); mLSTM's ``C``, ``n`` and ``m`` by heads.
+        Everything else (positions, ring slot
+        positions, block tables, the conv window of xm, sLSTM's state, the
+        encoder's output) is whole."""
         shard_heads = self.tp > 1 and num_kv_heads % self.tp == 0
+        mixer = self._mixer_state_parts(cfg)
 
-        def one(leaf, kv):
+        def one(leaf, kv, part):
             if not isinstance(leaf, torch.Tensor):
                 return leaf
             parts = [None] * leaf.ndim
@@ -451,33 +630,52 @@ class ShardingPlan:
                     parts[-2] = TP_AXIS
                 if self.pp > 1 and leaf.ndim == 5:
                     parts[0] = PP_AXIS
+            if part is not None:
+                parts[part[0]] = part[1]
             return Spec(*parts)
 
-        def walk(node, kv=False):
+        def walk(node, kv=False, parts=None):
             if isinstance(node, dict):
-                return {k: walk(v, kv or k in _KV_KEYS) for k, v in
-                        node.items()}
-            return one(node, kv)
+                return {k: walk(v, kv or k in _KV_KEYS,
+                                (parts or {}).get(k, mixer.get(k)))
+                        for k, v in node.items()}
+            return one(node, kv, parts)
 
         return walk(state)
 
-    def shard_decode_state(self, make, device, mesh, *, num_kv_heads: int):
+    def _mixer_state_parts(self, cfg) -> dict:
+        """``{state key: {leaf key: (axis, spec part)}}`` of the recurrent
+        states of ``cfg``'s mixers split by heads under this plan."""
+        split = mixer_split(cfg, self.tp)
+        if split is None:
+            return {}
+        if split.kind == "mamba2":
+            _, chans = split.mamba2_rows()
+            mamba = {"h": (-3, TP_AXIS), "conv": (-1, chans)}
+            return {"ssm": mamba, "ssm_tail": mamba}
+        return {"mlstm": {"C": (-3, TP_AXIS), "n": (-2, TP_AXIS),
+                          "m": (-1, TP_AXIS)}}
+
+    def shard_decode_state(self, make, device, mesh, cfg, *,
+                           num_kv_heads: int):
         """This rank's block of a fresh decode state per
-        :meth:`decode_state_specs`, allocated at its local shape: the whole
-        state is never built.  ``make(device=...)`` builds the whole fresh
-        state (``model.init_decode_state`` with its arguments bound); it
-        runs on the meta device for the shapes, dtypes and the non-tensor
-        leaves.  Every element of a fresh leaf holds one value, which its
-        block is filled with: the models say which
-        (``models.families.STATE_FILL``: a ring's empty slots, the xLSTM
-        stabilisers; else 0).  Without a mesh: ``make(device=device)``."""
+        :meth:`decode_state_specs` (``cfg``: the model's config), allocated
+        at its local shape: the whole state is
+        never built.  ``make(device=...)`` builds the whole fresh state
+        (``model.init_decode_state`` with its arguments bound); it runs on
+        the meta device for the shapes, dtypes and the non-tensor leaves.
+        Every element of a fresh leaf holds one value, which its block is
+        filled with: the models say which (``models.families.STATE_FILL``:
+        a ring's empty slots, the xLSTM stabilisers; else 0).  Without a
+        mesh: ``make(device=device)``."""
         from repro_torch.models.families import STATE_FILL
 
         if mesh is None:
             return make(device=device)
         whole = make(device="meta")
         ctx = self.context(mesh)
-        specs = self.decode_state_specs(whole, num_kv_heads=num_kv_heads)
+        specs = self.decode_state_specs(whole, cfg,
+                                        num_kv_heads=num_kv_heads)
         degree = {TP_AXIS: ctx.tp, PP_AXIS: ctx.pp}
 
         def walk(node, spec, name=None):
@@ -485,8 +683,9 @@ class ShardingPlan:
                 return {k: walk(v, spec[k], k) for k, v in node.items()}
             if not isinstance(node, torch.Tensor):
                 return node
-            shape = [n // degree.get(ax, 1) for n, ax in zip(node.shape,
-                                                               spec)]
+            shape = [ax.local_size(ctx.tp) if isinstance(ax, RowMap)
+                     else n // degree.get(ax, 1)
+                     for n, ax in zip(node.shape, spec)]
             return torch.full(shape, STATE_FILL.get(name, 0),
                               dtype=node.dtype, device=device)
 
@@ -533,12 +732,21 @@ class TrainLayout:
 
     Built by :meth:`ShardingPlan.place_for_training` from the placed
     model's record of its splits (``model.tp_placement``: dotted name ->
-    (split dim, slice of a shard stack)).  A tensor is *split over tp* when
-    the rank holds a block of it (its gradient's squares are summed over
-    tp in the global norm; whole, equal on every tp rank, otherwise).  Its
-    ZeRO-1 dim is the one ``partitioning.opt_state_specs`` puts ``data`` on
-    for the rank's block (the largest whole dim the dp degree divides), or
-    None: then its moments are whole on every dp rank."""
+    (split dim, slice of a shard stack); ``model.tp_row_maps``: the
+    ``RowMap`` of a dim a mixer's rows are placed by;
+    ``model.tp_partial_grads``: the whole tensors each rank reads only in
+    part).  A tensor is *split over tp*
+    when the rank holds a block of it (its gradient's squares are summed
+    over tp in the global norm; whole, equal on every tp rank, otherwise).
+    Its ZeRO-1 dim is the one ``partitioning.opt_state_specs`` puts
+    ``data`` on for the rank's block (the largest whole dim the dp degree
+    divides), or None: then its moments are whole on every dp rank.
+
+    One rule for the gradients over tp: a tensor every rank holds whole
+    but reads only in part (``tp_partial``; the ``whole`` pieces of a
+    RowMap: Mamba2's B / C rows and channels) has a partial gradient on
+    each rank, summed over tp (:meth:`sum_partial_`); a tensor used whole
+    by math every rank runs alike has its whole gradient already."""
 
     def __init__(self, ctx, model):
         from repro_torch.sharding.partitioning import opt_state_specs
@@ -546,6 +754,8 @@ class TrainLayout:
 
         self.ctx = ctx
         self.placement = dict(getattr(model, "tp_placement", {}))
+        self.rows = dict(getattr(model, "tp_row_maps", {}))
+        self.partial = set(getattr(model, "tp_partial_grads", ()))
         shapes = {n: tuple(t.shape) for n, t in train_params(model).items()}
         specs = {}
         for n, shape in shapes.items():
@@ -562,6 +772,15 @@ class TrainLayout:
     def split(self, name: str) -> bool:
         """Whether this rank holds a block of ``name`` (not all of it)."""
         return self.ctx.tp > 1 and name in self.placement
+
+    def _whole_pieces(self, name: str, t: torch.Tensor):
+        """Views of ``t``, this rank's part of ``name``, at the ``whole``
+        pieces of its RowMap (the positions every tp rank holds alike)."""
+        rows = self.rows.get(name)
+        if rows is None or self.ctx.tp == 1:
+            return []
+        d = self.placement[name][0]
+        return [t.narrow(d, s, n) for s, n in rows.local_whole(self.ctx.tp)]
 
     def local_rows(self, batch: dict) -> dict:
         """This dp rank's rows of a global batch (every rank makes the same
@@ -586,6 +805,30 @@ class TrainLayout:
 
     # -- collectives ---------------------------------------------------------
 
+    def sum_partial_(self, grads: dict) -> dict:
+        """The gradients each rank holds in part (``tp_partial`` tensors, a
+        RowMap's ``whole`` pieces) summed over tp, in place, in one float32
+        all-reduce."""
+        if self.ctx.tp == 1:
+            return grads
+        views = []
+        for n, g in grads.items():
+            if g is None:
+                continue
+            if n in self.partial:
+                views.append(g)
+            else:
+                views.extend(self._whole_pieces(n, g))
+        if views:
+            flat = torch.cat([v.reshape(-1).to(torch.float32)
+                              for v in views])
+            self.ctx.all_reduce(flat)
+            off = 0
+            for v in views:
+                v.copy_(flat[off:off + v.numel()].view(v.shape))
+                off += v.numel()
+        return grads
+
     def mean_grads_(self, grads: dict) -> dict:
         """Each gradient's mean over dp, in place (every dp rank then holds
         the whole mean; the update reads its ZeRO-1 block of it)."""
@@ -597,11 +840,20 @@ class TrainLayout:
     def global_norm(self, grads: dict) -> torch.Tensor:
         """The whole model's gradient norm: the squares of split tensors
         summed over tp, those of whole tensors (equal on every tp rank)
-        counted once."""
-        split = [g.to(torch.float32).square().sum()
-                 for n, g in grads.items() if self.split(n)]
-        whole = [g.to(torch.float32).square().sum()
-                 for n, g in grads.items() if not self.split(n)]
+        counted once, and a RowMap's ``whole`` pieces once."""
+        split, whole = [], []
+        for n, g in grads.items():
+            sq = g.to(torch.float32).square().sum()
+            if not self.split(n):
+                whole.append(sq)
+                continue
+            pieces = [v.to(torch.float32).square().sum()
+                      for v in self._whole_pieces(n, g)]
+            if pieces:      # counted once: off the summed part
+                once = torch.stack(pieces).sum()
+                sq = sq - once
+                whole.append(once)
+            split.append(sq)
         dev = next(iter(grads.values())).device
         total = torch.zeros((), dtype=torch.float32, device=dev)
         if split:
@@ -611,12 +863,21 @@ class TrainLayout:
         return torch.sqrt(total)
 
     def tp_max(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The max of the 0-d ``t`` over the tp ranks holding blocks of
-        ``name`` (``t`` itself for a whole tensor)."""
+        """The elementwise max of ``t`` over the tp ranks holding blocks of
+        ``name`` (``t`` itself for a whole tensor): a 0-d amax, or the (O,
+        1) per-row amax of a row-parallel weight."""
         if not self.split(name):
             return t
         import torch.distributed as dist
         return self.ctx.all_reduce(t.clone(), op=dist.ReduceOp.MAX)
+
+    def row_amax(self, name: str, amax: torch.Tensor) -> torch.Tensor:
+        """The per-row amax of ``name`` over the whole row: its max over tp
+        for a row-parallel weight (the contraction dim split), else
+        ``amax`` (fake quantization's per-row int8 scale)."""
+        if self.split(name) and self.placement[name] == (1, False):
+            return self.tp_max(name, amax)
+        return amax
 
     def gather_updated_(self, params: dict):
         """Every dp rank's updated ZeRO-1 blocks into ``params``, in place
@@ -628,13 +889,42 @@ class TrainLayout:
 
     def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The whole tensor of which ``t`` is this rank's tp block (exact
-        gather; a shard stack's slices stacked), on every tp rank."""
+        gather; a shard stack's slices stacked; a RowMap's pieces put in
+        place, its ``whole`` pieces once), on every tp rank."""
         if not self.split(name):
             return t
         d, stacked = self.placement[name]
         if stacked:
             return self.ctx.gather(t[None], 0)
-        return self.ctx.gather(t, d)
+        rows = self.rows.get(name)
+        if rows is None:
+            return self.ctx.gather(t, d)
+        own = t.clone()
+        if self.ctx.tp_rank:
+            for v in self._whole_pieces(name, own):
+                v.zero_()
+        shape = list(t.shape)
+        shape[d] = rows.size
+        full = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        full.index_copy_(d, rows.index(self.ctx.tp_rank, self.ctx.tp,
+                                       t.device), own)
+        full = self.ctx.all_reduce(full)
+        if isinstance(rows, BlockRowMap):
+            return rows.unreblocked(full)
+        return full
+
+    def _coord(self, rank=None) -> dict:
+        """{``model``: tp index, ``data``: dp index} of this rank, or of the
+        global ``rank`` of the mesh (dp row-major over ``pod`` x
+        ``data``)."""
+        if rank is None:
+            return {TP_AXIS: self.ctx.tp_rank, DP_AXIS: self.ctx.dp_rank}
+        grid = self.ctx.mesh.mesh
+        at = dict(zip(self.ctx.mesh.mesh_dim_names,
+                      [int(i) for i in (grid == rank).nonzero()[0]]))
+        return {TP_AXIS: at.get(TP_AXIS, 0),
+                DP_AXIS: at.get("pod", 0) * self.ctx.data
+                + at.get(DP_AXIS, 0)}
 
     def gather_whole_to(self, name: str, t: torch.Tensor, dst: int,
                         moment: bool = False):
@@ -670,16 +960,22 @@ class TrainLayout:
         dist.gather(host, blocks, dst=dst, group=group)
         if not me:
             return None
-        degree = self._degree()
-        shape = ([1] if isinstance(spec, StackSpec) else []) + list(host.shape)
-        whole = torch.empty([n * degree.get(ax, 1)
-                             for n, ax in zip(shape, spec)], dtype=host.dtype)
-        names = list(self.ctx.mesh.mesh_dim_names)
+        whole = torch.empty(self.whole_shape(name, host.shape, moment),
+                            dtype=host.dtype)
         for r, b in zip(ranks, blocks):
-            coord = dict(zip(names, [int(i) for i in
-                                     (grid == r).nonzero()[0]]))
-            self.block_of(name, whole, moment, coord).copy_(b)
+            spec_put(whole, spec, self._coord(r), self._degree(), b, name)
         return whole
+
+    def whole_shape(self, name: str, shape, moment: bool = False) -> list:
+        """The whole leaf's shape of a block of ``shape``."""
+        spec = self.spec(name, len(shape), moment)
+        degree = self._degree()
+        lead = [1] if isinstance(spec, StackSpec) else []
+        out = [ax.size if isinstance(ax, RowMap) else n * degree.get(ax, 1)
+               for n, ax in zip(lead + list(shape), spec)]
+        if spec and isinstance(spec[0], BlockRowMap):
+            return spec[0].whole_shape(out)
+        return out
 
     def whole_tree(self, tree: dict, dst: int = 0) -> dict:
         """A training state ``{"params": {name: block}, "opt": AdamWState,
@@ -709,12 +1005,13 @@ class TrainLayout:
 
     def spec(self, name: str, ndim: int, moment: bool = False) -> Spec:
         """``name``'s spec as this rank holds it, ``ndim`` its block's
-        rank: its split dim over ``model`` (a shard stack's slice: a
-        :class:`StackSpec`), and with ``moment`` its ZeRO-1 dim over
-        ``data``."""
+        rank: its split dim over ``model`` (a RowMap where its rows follow
+        one; a shard stack's slice: a :class:`StackSpec`), and with
+        ``moment`` its ZeRO-1 dim over ``data``."""
         d, stacked = self.placement.get(name, (None, False))
         split = self.split(name)
-        parts = [TP_AXIS if split and not stacked and i == d else None
+        part = self.rows.get(name, TP_AXIS)
+        parts = [part if split and not stacked and i == d else None
                  for i in range(ndim)]
         z = self.zero_dim.get(name) if moment else None
         if z is not None:
@@ -727,12 +1024,12 @@ class TrainLayout:
                  coord: dict = None):
         """The block of the whole leaf ``whole`` (a tensor or a numpy
         array, as a checkpoint holds it) that this rank holds (:meth:`spec`),
-        or the mesh coordinate ``coord`` ({mesh dim name: index}): a view."""
+        or the mesh coordinate ``coord`` ({``model``: tp index, ``data``: dp
+        index}): a view (a copy along a RowMap dim)."""
         stacked = self.split(name) and self.placement[name][1]
         spec = self.spec(name, whole.ndim - int(stacked), moment)
-        if coord is None:
-            coord = {TP_AXIS: self.ctx.tp_rank, DP_AXIS: self.ctx.dp_rank}
-        return spec_block(whole, spec, coord, self._degree(), name)
+        return spec_block(whole, spec, coord or self._coord(),
+                          self._degree(), name)
 
     def state_specs(self, tree: dict) -> dict:
         """The spec tree of a training state ``{"params", "opt", ...}`` as

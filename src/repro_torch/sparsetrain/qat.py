@@ -32,10 +32,19 @@ def validate_qat(qdtype, granularity: str = "per_row"):
 
 
 def fake_quant_params(params: dict, sparsity: dict,
-                      granularity: str = "per_row") -> dict:
+                      granularity: str = "per_row", *,
+                      row_amax=None) -> dict:
     """Fake-quantize every sparse weight (the names in ``sparsity``) of a
-    masked parameter dict."""
+    masked parameter dict.  ``row_amax(name, amax)`` (a training layout's
+    ``TrainLayout.row_amax``) turns a rank's per-row amax of a weight whose
+    rows it holds in part into the whole row's."""
+    def amax_of(name):
+        if row_amax is None or granularity != "per_row":
+            return None
+        return lambda amax: row_amax(name, amax)
+
     return {name: (fake_quant_weight(p, m=sparsity[name].m,
-                                     granularity=granularity)
+                                     granularity=granularity,
+                                     amax_reduce=amax_of(name))
                    if name in sparsity else p)
             for name, p in params.items()}

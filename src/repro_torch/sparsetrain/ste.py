@@ -45,10 +45,15 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
     return _SteRound.apply(x)
 
 
-def amax_scale(w: torch.Tensor, dim, keepdim: bool = True) -> torch.Tensor:
+def amax_scale(w: torch.Tensor, dim, keepdim: bool = True,
+               amax_reduce=None) -> torch.Tensor:
     """``amax / 127`` over ``dim`` with the quantizer's zero-row guard
-    (all-zero units get scale 1/127 so the divide stays finite)."""
+    (all-zero units get scale 1/127 so the divide stays finite).
+    ``amax_reduce`` maps the amax first (a row split over ranks: its max
+    over them)."""
     amax = w.to(torch.float32).abs().amax(dim=dim, keepdim=keepdim)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     return torch.where(amax > _EPS, amax, torch.ones_like(amax)) / QMAX
 
 
@@ -66,16 +71,18 @@ def fake_quant(w: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_weight(w: torch.Tensor, *, m: int = 0,
-                      granularity: str = "per_row") -> torch.Tensor:
+                      granularity: str = "per_row",
+                      amax_reduce=None) -> torch.Tensor:
     """Fake-quantize a (…, O, K) dense weight on the grid its packed form
-    will serve at: ``per_row`` scales over the whole contraction dim K;
+    will serve at: ``per_row`` scales over the whole contraction dim K
+    (``amax_reduce``: the row's amax over the ranks holding parts of it);
     ``per_group`` needs the sparsity group size ``m`` and scales per (row,
     M-group), the units ``quant.amax_scales`` uses on the packed layout."""
     if granularity not in GRANULARITIES:
         raise ValueError(f"unknown granularity {granularity!r}; expected "
                          f"one of {GRANULARITIES}")
     if granularity == "per_row":
-        return fake_quant(w, amax_scale(w, dim=-1))
+        return fake_quant(w, amax_scale(w, dim=-1, amax_reduce=amax_reduce))
     if m <= 0:
         raise ValueError("per_group fake quantization needs the sparsity "
                          "group size m")

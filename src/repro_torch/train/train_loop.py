@@ -31,8 +31,12 @@ model (its ``train_params`` are those blocks) and gives the step's
 rows of the global batch (every rank is handed the same one) and splits
 them into the microbatches; the loss runs under the plan's sharding
 context (Megatron's collectives under autograd, the experts
-expert-parallel); the gradients are averaged over dp (replicated tensors'
-gradients are whole on every tp rank and are not summed over tp); AdamW
+expert-parallel); the gradients a rank holds in part (whole tensors each
+rank reads only in part: ``TrainLayout.sum_partial_``) are summed over tp,
+and every gradient is averaged over dp (replicated tensors used whole have
+whole gradients on every tp rank and are not summed); fake quantization's
+per-row scale of a row-parallel weight is the max over the whole row (an
+all-reduce of MAX over tp); AdamW
 updates this rank's ZeRO-1 blocks (``adamw.init(..., layout=
 step.layout)`` allocates them) and gathers the updated blocks; the loss
 and metrics are the global batch's.  The reference's ``jax.jit`` with
@@ -135,10 +139,6 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
     inner_policy = policy.replace(mode="dense") if use_premask else policy
     layout = ctx = None
     if plan is not None and plan.device_degree() > 1:
-        if fake_quant is not None and plan.tp > 1:
-            raise NotImplementedError(
-                "fake quantization under tp > 1: a row-parallel weight's "
-                "per-row int8 scale spans the ranks")
         layout = plan.place_for_training(model, plan_mesh(plan, model))
         ctx = layout.ctx
     sparsity = sparse_weights(model)
@@ -176,8 +176,9 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
                 fwd_params = dict(params)
             if fake_quant is not None:
                 from repro_torch.sparsetrain import qat
-                fwd_params = qat.fake_quant_params(fwd_params, sparsity,
-                                                   qat_granularity)
+                fwd_params = qat.fake_quant_params(
+                    fwd_params, sparsity, qat_granularity,
+                    row_amax=None if layout is None else layout.row_amax)
         # the masking is straight-through: the gradient of the loss at the
         # masked (and fake-quantized) tensors IS the dense parameters'
         leaves = {n: t.detach().requires_grad_(True)
@@ -208,6 +209,7 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *,
                        for k in metricses[0]}
         del leaves
         if layout is not None:       # the global batch's
+            layout.sum_partial_(grads)
             layout.mean_grads_(grads)
             loss = ctx.dp_mean_(loss.clone())
             metrics = {k: ctx.dp_mean_(v.clone()) for k, v in metrics.items()}

@@ -224,6 +224,26 @@ MOE_D, MOE_X, MOE_CAPACITY = 64, (4, 8, 64), 64
 PIPE = dict(num_mb=4, mb=2, d=16)
 
 
+def family_batch(cfg, b=2, t=16, seed=0):
+    """A training batch of ``cfg``'s family, made with numpy from ``seed``:
+    tokens and targets (B, T) int32, and the stub frontends' inputs as the
+    reference's ``launch.train.add_frontend_inputs`` shapes them
+    (``patch_embeds`` (B, P, D), ``frames`` (B, T / divisor, D), float32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t), dtype=np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (b, t),
+                                     dtype=np.int32)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, t // cfg.encoder_seq_divisor, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def train_batches(vocab, n=TRAIN_STEPS, shape=TRAIN_BATCH):
     """The steps' global batches, made with numpy from the step's index."""
     import numpy as np
@@ -238,26 +258,31 @@ def train_batches(vocab, n=TRAIN_STEPS, shape=TRAIN_BATCH):
 
 
 def run_steps(model, vocab, *, plan=None, microbatches=2, compression=None,
-              first=0, steps=TRAIN_STEPS, opt_state=None, mode="masked"):
-    """``steps`` masked train steps of ``model`` (batches ``first`` on) under
-    ``plan`` (None: one rank).  Returns (per-step [loss, grad_norm, aux],
-    params, opt state, the step)."""
+              first=0, steps=TRAIN_STEPS, opt_state=None, mode="masked",
+              batches=None, fake_quant=None):
+    """``steps`` masked train steps of ``model`` (batches ``first`` on, of
+    :func:`train_batches` unless ``batches`` are given) under ``plan``
+    (None: one rank).  Returns (per-step [loss, grad_norm, aux], params,
+    opt state, the step)."""
     from repro_torch.core.sparse_linear import ExecPolicy
     from repro_torch.optim import adamw
     from repro_torch.train.train_loop import make_train_step, train_params
 
     opt_cfg = adamw.AdamWConfig(**STEP_KW, compression=compression)
     step = make_train_step(model, opt_cfg, num_microbatches=microbatches,
-                           plan=plan, policy=ExecPolicy(mode=mode))
+                           plan=plan, policy=ExecPolicy(mode=mode),
+                           fake_quant=fake_quant)
     params = train_params(model)
     fresh = adamw.init(opt_cfg, params, layout=step.layout)
     opt = fresh if opt_state is None else opt_state._replace(
         compression=fresh.compression)
     metrics = []
-    for i, b in enumerate(train_batches(vocab, first + steps)[first:]):
+    if batches is None:
+        batches = train_batches(vocab, first + steps)
+    for i, b in enumerate(batches[first:first + steps]):
         params, opt, m = step(params, opt, b, first + i)
         metrics.append([float(m["loss"]), float(m["grad_norm"]),
-                        float(m["aux"])])
+                        float(m.get("aux", 0.0))])
     return metrics, params, opt, step
 
 
@@ -413,6 +438,211 @@ def train_legs(rank, nprocs, init, args):
     out["whole_groups"] = whole_groups_leg()
     out["seq_shard"] = seq_shard_leg(args["tree"])
     out["census"] = census_collectives_leg(args["tree"])
+    out["families"] = family_train_legs(args["families"], args["ckpt_dir"])
+    out["block"] = block_train_leg(args["families"]["hybrid"],
+                                   args["ckpt_dir"])
+    out["pod"] = pod_legs(args["tree"])
+    return out
+
+
+# every family, the head fallbacks and fake quantization trained under tp 2 x
+# dp 2: leg -> (arch, config overrides, plan keywords, step keywords)
+FAMILY_TRAIN = {
+    "hybrid": ("zamba2_7b", {}, {}, {}),
+    "xlstm": ("xlstm_125m", {}, {}, {}),
+    "vision": ("internvl2_1b", {}, {}, {}),
+    "encdec": ("seamless_m4t_medium", {}, {}, {}),
+    "kv1": ("stablelm_3b", {"num_kv_heads": 1}, {}, {}),
+    "kv_replicated": ("stablelm_3b", {}, {"attn_kv_replicated": True}, {}),
+    "fake_quant": ("stablelm_3b", {}, {}, {"fake_quant": "int8"}),
+}
+FAMILY_STEPS = 2
+
+
+def family_train_cfg(leg, cfg):
+    """``cfg`` (either package's reduced config of the leg's arch) with the
+    leg's overrides, in float32 compute."""
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               **FAMILY_TRAIN[leg][1])
+
+
+def family_train_batches(cfg):
+    """The leg's global batches (8 x 16, the frontends' inputs too)."""
+    return [family_batch(cfg, b=TRAIN_BATCH[0], t=TRAIN_BATCH[1], seed=i)
+            for i in range(FAMILY_STEPS)]
+
+
+def family_train_legs(trees, ckpt_dir):
+    """Each leg's masked steps under ``ShardingPlan(tp=2, dp=2, **plan
+    keywords)`` from the JAX package's weights: the metrics, the whole
+    parameters and moments gathered on rank 0, what each rank holds, and
+    for the hybrid the state saved from the world and restored by
+    ``elastic_restore`` under ``ShardingPlan(tp=2)`` on the first two
+    ranks (:func:`hybrid_restore_leg`)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import from_jax_params
+    from repro_torch.core.sparse_linear import gathers_output
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    for leg, tree in trees.items():
+        arch, _, plan_kw, step_kw = FAMILY_TRAIN[leg]
+        cfg = family_train_cfg(leg, get_arch(arch).reduced())
+        plan = ShardingPlan(tp=2, dp=2, **plan_kw)
+        model = from_jax_params(tree, cfg, device="cpu")
+        metrics, params, opt, step = run_steps(
+            model, cfg.vocab_size, plan=plan, steps=FAMILY_STEPS,
+            batches=family_train_batches(cfg), **step_kw)
+        lay = step.layout
+        state = {"params": params, "opt": opt}
+        whole = lay.whole_tree(state)
+        res = {"metrics": metrics, "rows": sorted(lay.rows),
+               "partial": sorted(lay.partial),
+               "held": sum(t.nbytes for t in params.values()),
+               "gathered": sorted(n for n, m in model.named_modules()
+                                  if gathers_output(m))}
+        if leg == "hybrid":
+            ckpt.save(state, ckpt_dir + "_hybrid", FAMILY_STEPS, plan=plan,
+                      layout=lay)
+            res["restored"] = hybrid_restore_leg(tree, cfg,
+                                                 ckpt_dir + "_hybrid")
+        if whole["params"] is not None:
+            res["whole_params"] = _np(whole["params"])
+            res["whole_m"] = _np(whole["opt"].m)
+            res["whole_v"] = _np(whole["opt"].v)
+        out[leg] = res
+    return out
+
+
+def block_train_leg(tree, ckpt_dir):
+    """The hybrid leg packed in the ``block`` layout and fine-tuned
+    (``mode="packed"``) under ``ShardingPlan(tp=2, dp=2)``: its Mamba2
+    ``in_proj`` nodes re-blocked by heads (``partitioning.BlockRowMap``).
+    The metrics, the whole parameters and moments gathered on rank 0, the
+    leaves placed by a BlockRowMap and the renumbered shard stacks, and the
+    state saved from the world and restored under ``ShardingPlan(tp=2)``
+    (:func:`hybrid_restore_leg`)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.sharding.partitioning import BlockRowMap
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = family_train_cfg("hybrid", get_arch("zamba2_7b").reduced())
+    plan = ShardingPlan(tp=2, dp=2)
+    model = pack_tree(from_jax_params(tree, cfg, device="cpu"),
+                      layout="block")
+    metrics, params, opt, step = run_steps(
+        model, cfg.vocab_size, plan=plan, steps=FAMILY_STEPS,
+        batches=family_train_batches(cfg), mode="packed")
+    lay = step.layout
+    state = {"params": params, "opt": opt}
+    whole = lay.whole_tree(state)
+    d = ckpt_dir + "_block"
+    ckpt.save(state, d, FAMILY_STEPS, plan=plan, layout=lay)
+    res = {"metrics": metrics,
+           "reblocked": sorted(n for n, r in lay.rows.items()
+                               if isinstance(r, BlockRowMap)),
+           "stacks": sorted(n for n in params
+                            if lay.split(n) and lay.placement[n][1]),
+           "restored": hybrid_restore_leg(tree, cfg, d, layout="block")}
+    if whole["params"] is not None:
+        res["whole_params"] = _np(whole["params"])
+        res["whole_m"] = _np(whole["opt"].m)
+    return res
+
+
+def hybrid_restore_leg(tree, cfg, directory, layout=None):
+    """The hybrid leg's saved state (its model packed in ``layout`` if
+    given) restored by ``elastic_restore`` under ``ShardingPlan(tp=2)`` on
+    the first two ranks (a smaller mesh, whose row-mapped leaves take their
+    rows of the whole leaf): each rank's parameters and moments, and the
+    spec of every leaf; None on the other ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.pack_tree import pack_tree
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.train.fault_tolerance import elastic_restore
+    from repro_torch.train.train_loop import train_params
+
+    small = ShardingPlan(tp=2)
+    mesh = small.make_mesh()
+    got = None
+    if mesh.get_coordinate() is not None:
+        model = from_jax_params(tree, cfg, device="cpu")
+        if layout is not None:
+            model = pack_tree(model, layout=layout)
+        lay = small.place_for_training(model, mesh)
+        params = train_params(model)
+        template = {"params": params, "opt": adamw.init(
+            adamw.AdamWConfig(**STEP_KW), params, layout=lay)}
+        specs = lay.state_specs(template)
+        state = elastic_restore(template, directory, FAMILY_STEPS, mesh,
+                                specs)
+        got = {"params": _np(state["params"]), "m": _np(state["opt"].m),
+               "specs": specs["params"]}
+    dist.barrier()
+    return got
+
+
+# a pod 2 x data 1 x model 2 mesh: dp over pod x data
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+POD_ROWS = 4
+
+
+def pod_legs(tree):
+    """Reduced stablelm_3b on the pod mesh: one masked train step (tp 2,
+    dp 2 over pod x data) from the JAX package's weights, and one served
+    decode tick of ``POD_ROWS`` slots (each dp rank its rows) against the
+    same tick of one whole model in this rank, without a context."""
+    import torch
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding.context import make_context, use_mesh
+    from repro_torch.sharding.plan import ShardingPlan
+
+    cfg = torch_cfg()
+    mesh = make_test_mesh(*POD_MESH)
+    plan = ShardingPlan(tp=2, dp=2)
+    model = from_jax_params(tree, cfg, device="cpu")
+    plan.place_for_training(model, mesh)
+    model.train_mesh = mesh
+    metrics, _, _, step = run_steps(model, cfg.vocab_size, plan=plan,
+                                    steps=1)
+    ctx = step.context
+    out = {"metrics": metrics, "dp": (ctx.dp, ctx.dp_rank),
+           "tp_rank": ctx.tp_rank}
+
+    tokens = torch.arange(1, POD_ROWS + 1).reshape(POD_ROWS, 1)
+    policy = ExecPolicy(mode="dense")
+    whole = from_jax_params(tree, cfg, device="cpu")
+    with torch.no_grad():
+        want, _ = whole.decode_step(
+            whole.init_decode_state(POD_ROWS, 8, dtype=torch.float32),
+            tokens, policy=policy)
+    served = from_jax_params(tree, cfg, device="cpu")
+    ShardingPlan(tp=2).shard_params(served, mesh)
+    sctx = make_context(mesh, num_kv_heads=cfg.num_kv_heads,
+                        num_heads=cfg.num_heads)
+    per = POD_ROWS // sctx.dp
+    rows = slice(sctx.dp_rank * per, (sctx.dp_rank + 1) * per)
+    state = ShardingPlan(tp=2).shard_decode_state(
+        lambda device: served.init_decode_state(per, 8, dtype=torch.float32,
+                                                 device=device),
+        "cpu", mesh, num_kv_heads=cfg.num_kv_heads, cfg=cfg)
+    with torch.no_grad(), use_mesh(sctx):
+        got, _ = served.decode_step(state, tokens[rows], policy=policy)
+    out["tick_rows"] = (rows.start, rows.stop)
+    out["tick_gap"] = float((got - want[rows]).abs().max())
+    out["tick_tokens"] = (got.argmax(-1).flatten().tolist(),
+                          want[rows].argmax(-1).flatten().tolist())
+    out["cache_heads"] = state["caches"]["k"].shape[-2]
     return out
 
 
@@ -614,7 +844,7 @@ def family_legs(rank, nprocs, init, trees, batches):
     from repro_torch import obs
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import from_jax_params
-    from repro_torch.core.sparse_linear import ExecPolicy
+    from repro_torch.core.sparse_linear import ExecPolicy, gathers_output
     from repro_torch.launch.pack_tree import pack_tree
     from repro_torch.launch.serve import run_serve
     from repro_torch.sharding.context import use_mesh
@@ -655,8 +885,7 @@ def family_legs(rank, nprocs, init, trees, batches):
             out[f"{leg}_prefill"] = logits.numpy()
         out[f"{leg}_state"] = state_held(eng.state)
         out[f"{leg}_gathered"] = sorted(
-            n for n, m in eng.model.named_modules()
-            if getattr(m, "tp_gather", False))
+            n for n, m in eng.model.named_modules() if gathers_output(m))
     return out
 
 
@@ -796,7 +1025,7 @@ def census_collectives_leg(tree):
         ctx = make_context(mesh, **kw)
         state = plan.shard_decode_state(
             lambda device: model.init_decode_state(3, 8, device=device),
-            device, mesh, num_kv_heads=cfg.num_kv_heads)
+            device, mesh, cfg, num_kv_heads=cfg.num_kv_heads)
         tokens = torch.ones((3, 1), dtype=torch.int64, device=device)
 
         def step(state, tokens):

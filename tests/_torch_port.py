@@ -14,6 +14,8 @@ from repro.models.families import build_model as jax_build_model
 from repro_torch.configs.base import get_arch as torch_get_arch
 from repro_torch.convert import from_jax_params
 
+from _torch_dist_worker import family_batch  # noqa: F401  (jax-free)
+
 
 def jax_tree_to_numpy(tree):
     """The JAX package's parameter tree with numpy leaves, ``Static`` and
@@ -118,24 +120,6 @@ def family_pair(arch, **overrides):
     overrides = {"compute_dtype": "float32", **overrides}
     return (dataclasses.replace(jax_get_arch(arch).reduced(), **overrides),
             dataclasses.replace(torch_get_arch(arch).reduced(), **overrides))
-
-
-def family_batch(cfg, b=2, t=16, seed=0):
-    """A training batch of ``cfg``'s family, made with numpy from ``seed``:
-    tokens and targets (B, T) int32, and the stub frontends' inputs as the
-    reference's ``launch.train.add_frontend_inputs`` shapes them
-    (``patch_embeds`` (B, P, D), ``frames`` (B, T / divisor, D), float32)."""
-    rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, t), dtype=np.int32),
-             "targets": rng.integers(0, cfg.vocab_size, (b, t),
-                                     dtype=np.int32)}
-    if cfg.frontend == "vision":
-        batch["patch_embeds"] = rng.standard_normal(
-            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
-    if cfg.family == "audio":
-        batch["frames"] = rng.standard_normal(
-            (b, t // cfg.encoder_seq_divisor, cfg.d_model)).astype(np.float32)
-    return batch
 
 
 def torch_batch(batch):

@@ -326,18 +326,19 @@ def test_renumbered_model_serves_meshless(packed_pair):
     assert out[0] == out[1] and len(out[0]) == 5
 
 
-def test_decode_state_specs():
+def test_decode_state_specs(packed_pair):
+    _, tcfg, _, _, _ = packed_pair
     plan = ShardingPlan(tp=2)
     state = {"caches": {"kind": "full", "k": torch.zeros(2, 3, 8, 4, 5),
                         "v": torch.zeros(2, 3, 8, 4, 5)},
              "pos": torch.zeros(3)}
-    specs = plan.decode_state_specs(state, num_kv_heads=4)
+    specs = plan.decode_state_specs(state, tcfg, num_kv_heads=4)
     assert specs["caches"]["k"] == Spec(None, None, None, "model", None)
     assert specs["pos"] == Spec(None) and specs["caches"]["kind"] == "full"
     assert ShardingPlan(tp=2).decode_state_specs(
-        state, num_kv_heads=3)["caches"]["v"] == Spec(*[None] * 5)
+        state, tcfg, num_kv_heads=3)["caches"]["v"] == Spec(*[None] * 5)
     assert ShardingPlan(pp=2).decode_state_specs(
-        state, num_kv_heads=4)["caches"]["k"][0] == "pipe"
+        state, tcfg, num_kv_heads=4)["caches"]["k"][0] == "pipe"
 
 
 class _OneDimMesh:
@@ -372,7 +373,7 @@ def test_shard_decode_state_allocates_the_local_block(packed_pair):
                                            **kw, **k)
 
         local = ShardingPlan(tp=2).shard_decode_state(
-            make, "cpu", _OneDimMesh(), num_kv_heads=hkv)
+            make, "cpu", _OneDimMesh(), tcfg, num_kv_heads=hkv)
         assert made == ["meta"]
         for name in ("k", "v"):
             want = list(whole["caches"][name].shape)
@@ -387,7 +388,7 @@ def test_shard_decode_state_allocates_the_local_block(packed_pair):
         assert torch.equal(local["pos"], whole["pos"])
     # without a mesh: the whole state, made on the device
     st = ShardingPlan(tp=2).shard_decode_state(
-        lambda **k: model.init_decode_state(2, 16, **k), "cpu", None,
+        lambda **k: model.init_decode_state(2, 16, **k), "cpu", None, tcfg,
         num_kv_heads=hkv)
     assert st["caches"]["k"].shape[3] == hkv
 

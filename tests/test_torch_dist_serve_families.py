@@ -42,13 +42,17 @@ from repro_torch.sharding.plan import ShardingPlan
 TOL = dict(rtol=1e-4, atol=1e-4)
 LEGS = list(w.FAMILY_LEGS)
 SPEC_LEGS = [leg for leg in LEGS if leg.startswith("spec")]
-# the column-parallel projections whose output each rank gathers, by leg
+# the column-parallel projections whose output each rank gathers, by leg:
+# the mixers split by heads gather only mLSTM's xm (``up``'s first half)
+# and sLSTM's input
 GATHERED = {
     "moe": set(), "swa": set(), "spec": set(), "spec_paged": set(),
-    "hybrid": {"mamba.in_proj"}, "vision": {"patch_proj"},
+    "hybrid": set(), "vision": {"patch_proj"},
     "encdec": {"frame_proj"}, "encdec_paged": {"frame_proj"},
-    "xlstm": {"blk.up", "blk.wq", "blk.wk", "blk.wv", "blk.w_in"},
-    "local_global": {"attn.wk", "attn.wv"}, "kv1": {"attn.wk", "attn.wv"},
+    "xlstm": {"blk.up", "blk.w_in"},
+    # reduced gemma3's one KV head: wk / wv of one 32-row block, which does
+    # not split, run whole on every rank (nothing gathered)
+    "local_global": set(), "kv1": {"attn.wk", "attn.wv"},
     "heads3": {"attn.wq", "attn.wk", "attn.wv"},
 }
 
@@ -148,8 +152,10 @@ def test_each_rank_holds_its_block(world, leg):
 
 @pytest.mark.parametrize("leg", LEGS)
 def test_gathered_projections(world, leg):
-    """The column-parallel projections whose output a rank gathers: the
-    mixers' and frontends' inputs and the heads that do not split."""
+    """The column-parallel projections whose output a rank gathers: mLSTM's
+    xm and sLSTM's input, the frontends' inputs and the heads that do not
+    split, where their rows split (Mamba2's ``in_proj`` and mLSTM's ``wq``
+    / ``wk`` / ``wv`` are split by heads and not gathered)."""
     _, _, ranks = world
     got = {".".join(n.split(".")[-2:]) for n in ranks[0][f"{leg}_gathered"]}
     assert got == GATHERED[leg]
@@ -161,8 +167,11 @@ def test_gathered_projections(world, leg):
 def test_decode_state_is_split_where_the_heads_divide(world, leg):
     """Every KV tensor of a rank's state holds half the KV heads when they
     divide tp (full caches, rings, gemma3's global caches, the hybrid's
-    shared-block caches) and all of them when they do not; every other
-    tensor is whole."""
+    shared-block caches) and all of them when they do not; the recurrent
+    states of the mixers split by heads hold half the heads (Mamba2's
+    ``h``, mLSTM's ``C``, ``n``, ``m``) and Mamba2's conv window half its x
+    channels beside all of B's and C's; every other tensor is whole (the
+    conv window of mLSTM's xm, sLSTM's state)."""
     from repro_torch.models.families import build_model
 
     _, tcfg = _leg_pair(leg)
@@ -171,14 +180,22 @@ def test_decode_state_is_split_where_the_heads_divide(world, leg):
         device="meta"))
     kv = tcfg.num_kv_heads
     local = kv // 2 if kv % 2 == 0 else kv
+    halve = {"h": -3, "C": -3, "n": -2, "m": -1}
     _, _, ranks = world
     for r in ranks:
         held = r[f"{leg}_state"]
         assert held.keys() == whole.keys()
         for path, shape in whole.items():
-            if path.split("/")[-1] in ("k", "v", "global_k", "global_v"):
-                shape = (*shape[:-2], local, shape[-1])
-            assert held[path] == shape, (path, held[path], shape)
+            top, key = path.split("/")[0], path.split("/")[-1]
+            shape = list(shape)
+            if key in ("k", "v", "global_k", "global_v"):
+                shape[-2] = local
+            elif top in ("ssm", "ssm_tail", "mlstm") and key in halve:
+                shape[halve[key]] //= 2
+            elif top in ("ssm", "ssm_tail") and key == "conv":
+                di = tcfg.ssm.expand * tcfg.d_model
+                shape[-1] = di // 2 + 2 * tcfg.ssm.state_dim
+            assert held[path] == tuple(shape), (path, held[path], shape)
 
 
 @pytest.mark.parametrize("leg", w.PREFILL_LEGS)
@@ -265,8 +282,11 @@ def test_family_specs_match_jax(arch):
 
 def test_decode_state_specs_windowed_and_recurrent():
     """Every KV tensor (dense, ring, 6-D local ring, global caches) splits
-    its head axis when the heads divide tp; ring positions, recurrent
-    states and the encoder's output stay whole."""
+    its head axis when the heads divide tp; ring positions, the recurrent
+    states of a config whose mixers do not split (gemma3's: none) and the
+    encoder's output stay whole."""
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch("gemma3_1b").reduced()
     plan = ShardingPlan(tp=2)
     z = torch.zeros
     state = {"caches": {"kind": "local_global",
@@ -279,7 +299,7 @@ def test_decode_state_specs_windowed_and_recurrent():
                         "global_v": z(2, 3, 16, 4, 5)},
              "ssm": {"h": z(2, 3, 3, 4, 4, 5), "conv": z(2, 3, 3, 3, 4)},
              "enc_out": z(3, 4, 8), "pos": z(3)}
-    specs = plan.decode_state_specs(state, num_kv_heads=4)
+    specs = plan.decode_state_specs(state, cfg, num_kv_heads=4)
     c = specs["caches"]
     assert c["local"]["k"] == Spec(None, None, None, None, "model", None)
     assert c["tail"]["v"] == Spec(None, None, None, "model", None)
@@ -288,7 +308,7 @@ def test_decode_state_specs_windowed_and_recurrent():
               specs["enc_out"]):
         assert all(a is None for a in s)
     # heads that do not divide: everything whole
-    whole = plan.decode_state_specs(state, num_kv_heads=3)
+    whole = plan.decode_state_specs(state, cfg, num_kv_heads=3)
     assert all(a is None for a in whole["caches"]["local"]["k"])
 
 
@@ -310,10 +330,12 @@ class _OneDimMesh:
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_shard_decode_state_keeps_the_fresh_values(arch):
     """Every architecture's state allocated at its local shape from the
-    meta device holds the fresh state's values (``STATE_FILL``: -1 in ring
-    slot positions, the xLSTM stabilisers at -1e30; zeros elsewhere), so a
-    state leaf that starts elsewhere and is missing there fails here."""
+    meta device (the mixers' states split by heads too) holds the fresh
+    state's values (``STATE_FILL``: -1 in ring slot positions, the xLSTM
+    stabilisers at -1e30; zeros elsewhere), so a state leaf that starts
+    elsewhere and is missing there fails here."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.launch.dryrun import local_shape
     from repro_torch.models.families import build_model
 
     cfg = get_arch(arch).reduced()
@@ -321,9 +343,9 @@ def test_shard_decode_state_keeps_the_fresh_values(arch):
     whole = model.init_decode_state(2, 16, dtype=torch.float32)
     local = ShardingPlan(tp=2).shard_decode_state(
         lambda **k: model.init_decode_state(2, 16, dtype=torch.float32, **k),
-        "cpu", _OneDimMesh(), num_kv_heads=cfg.num_kv_heads)
+        "cpu", _OneDimMesh(), num_kv_heads=cfg.num_kv_heads, cfg=cfg)
     specs = ShardingPlan(tp=2).decode_state_specs(
-        whole, num_kv_heads=cfg.num_kv_heads)
+        whole, num_kv_heads=cfg.num_kv_heads, cfg=cfg)
 
     def walk(a, b, spec, path=""):
         if isinstance(a, dict):
@@ -332,8 +354,7 @@ def test_shard_decode_state_keeps_the_fresh_values(arch):
                 walk(a[k], b[k], spec[k], f"{path}/{k}")
         elif isinstance(a, torch.Tensor):
             assert b.dtype == a.dtype and b.device.type == "cpu", path
-            assert list(b.shape) == [n // (2 if ax else 1) for n, ax
-                                     in zip(a.shape, spec)], path
+            assert b.shape == local_shape(a.shape, spec, {"model": 2}), path
             lo, hi = a.min(), a.max()
             assert lo == hi and (b == lo).all(), path
         else:

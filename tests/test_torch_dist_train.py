@@ -20,20 +20,27 @@ MoE model's step and the reference's MoE test through the expert-parallel
 path; ``pipeline_apply`` over four stages; ``compressed_psum_int8``; the
 meshes of ``launch/mesh.py``; a row block that does not hold whole
 groups; batch 1 decoded with its KV cache split by position over data = 2
-(``seq_shard_cache``) against one rank's whole-cache decode; and the
-dry-run census's collectives of a decode step under tp 2 against what the
-real context counted.
+(``seq_shard_cache``) against one rank's whole-cache decode; the dry-run
+census's collectives of a decode step under tp 2 against what the real
+context counted; every family, the head fallbacks and int8 fake
+quantization trained under tp 2 x dp 2 against the JAX package's
+single-device step and the port's one rank, the hybrid's state restored
+under tp 2 (its row-mapped leaves), the hybrid packed in the ``block``
+layout and fine-tuned by its re-blocked rows; and a pod 2 x data 1 x
+model 2 mesh's step and tick.
 
 Tolerances, float32 throughout: against the JAX package the reference's
 own (loss 1e-3, parameters rtol / atol 5e-3; the MoE test rtol / atol
 2e-2); against the port's one rank, loss and grad_norm relative 1e-5 (the
 sums run in another order over the ranks), parameters within 2 x lr x
 steps (AdamW's first steps are about lr x sign(g), and a gradient near 0
-may flip under another order), the MoE path and the pipeline 1e-5;
-compression, checkpoints and restores bit for bit.
+may flip under another order), the MoE path and the pipeline 1e-5; the
+family legs' AdamW moments norm-wise 1e-5 (v 2e-5) and their updates
+:data:`UPDATE_REL`; compression, checkpoints and restores bit for bit.
 """
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -325,7 +332,10 @@ def world(tmp_path_factory):
     one["moe_metrics"] = w.run_steps(build_model(mcfg, device="cpu", seed=0),
                                      mcfg.vocab_size, microbatches=4)[0]
     rng = np.random.default_rng(11)
+    fam_models = {leg: _family_jax(leg) for leg in w.FAMILY_TRAIN}
     args = {"tree": tree, "comp": _comp_grads(),
+            "families": {leg: jax_tree_to_numpy(m[2])
+                         for leg, m in fam_models.items()},
             "ckpt_dir": str(tmp_path_factory.mktemp("dist_ckpt")),
             "moe": _moe_args(),
             "pipe": {"w": rng.standard_normal(
@@ -337,9 +347,82 @@ def world(tmp_path_factory):
                          (w.PIPE["num_mb"], w.PIPE["mb"], w.PIPE["d"])
                      ).astype(np.float32)},
             "psum_x": rng.standard_normal((4, 64)).astype(np.float32)}
-    ranks = spawn_world(w.train_legs, 4, (args,), timeout_s=300)
-    return {"jax": (jmetrics, jp), "one": one, "ranks": ranks, "args": args,
-            "cfg": tcfg}
+    # the ranks train while this process runs the JAX package's and the
+    # port's one-rank steps of the family legs
+    got = {}
+
+    def ranks():
+        try:
+            got["ranks"] = spawn_world(w.train_legs, 4, (args,),
+                                       timeout_s=300)
+        except Exception as e:       # raised again below
+            got["error"] = e
+
+    thread = threading.Thread(target=ranks)
+    thread.start()
+    try:
+        families = {leg: _family_single(leg, *m)
+                    for leg, m in fam_models.items()}
+        block = _block_single(*fam_models["hybrid"])
+    finally:
+        thread.join()
+    if "error" in got:
+        raise got["error"]
+    return {"jax": (jmetrics, jp), "one": one, "ranks": got["ranks"],
+            "args": args, "cfg": tcfg, "families": families, "block": block}
+
+
+def _family_jax(leg):
+    """(JAX config, port config, JAX model, its params) of a family leg."""
+    from _torch_port import family_pair
+    arch = w.FAMILY_TRAIN[leg][0]
+    jcfg, tcfg = (w.family_train_cfg(leg, c) for c in family_pair(arch))
+    jmodel, jparams = jax_model_and_params(jcfg)
+    return jcfg, tcfg, jparams, jmodel
+
+
+def _family_single(leg, jcfg, tcfg, jparams, jmodel):
+    """The JAX package's single-device steps of a family leg and the port's
+    one-rank steps, from the same weights and numpy batches: {"start":
+    named params before the steps, "jax": (metrics, named params, named
+    moments m, v), "one": (metrics, params, m, v)}."""
+    step_kw = w.FAMILY_TRAIN[leg][3]
+    jc = jadamw.AdamWConfig(**w.STEP_KW)
+    jstep = jax.jit(jmake_train_step(jmodel, jc, num_microbatches=2,
+                                     **step_kw))
+    jp, jo, jmetrics = jparams, jadamw.init(jc, jparams), []
+    batches = w.family_train_batches(tcfg)
+    for i, b in enumerate(batches):
+        jp, jo, m = jstep(jp, jo, {k: jnp.asarray(v) for k, v in b.items()},
+                          i)
+        jmetrics.append((float(m["loss"]), float(m["grad_norm"])))
+    metrics, params, opt, _ = w.run_steps(
+        to_torch_model(jparams, tcfg), tcfg.vocab_size,
+        steps=w.FAMILY_STEPS, batches=batches, **step_kw)
+
+    def np_(d):
+        return {n: t.numpy().copy() for n, t in d.items()}
+
+    return {"start": family_named(jparams),
+            "jax": (jmetrics, family_named(jp), family_named(jo.m),
+                    family_named(jo.v)),
+            "one": (metrics, np_(params), np_(opt.m), np_(opt.v))}
+
+
+def _block_single(jcfg, tcfg, jparams, jmodel):
+    """The port's one-rank packed fine-tuning steps of the hybrid leg in the
+    ``block`` layout, from the same weights and batches as the world's:
+    {"start": params before, "one": (metrics, params, moments m)}."""
+    from repro_torch.launch.pack_tree import pack_tree
+
+    model = pack_tree(to_torch_model(jparams, tcfg), layout="block")
+    start = {n: p.numpy().copy() for n, p in train_params(model).items()}
+    metrics, params, opt, _ = w.run_steps(
+        model, tcfg.vocab_size, steps=w.FAMILY_STEPS,
+        batches=w.family_train_batches(tcfg), mode="packed")
+    return {"start": start, "one": (
+        metrics, {n: p.numpy().copy() for n, p in params.items()},
+        {n: t.numpy().copy() for n, t in opt.m.items()})}
 
 
 def _moe_args():
@@ -646,3 +729,227 @@ def test_census_collectives_equal_the_real_context(world):
         assert leg["census_ring_bytes"] == 2 * leg["real"][1]
         assert leg["names"] == ["ShardingContext.gather_tp",
                                 "ShardingContext.reduce_tp"]
+
+
+# ---------------------------------------------------------------------------
+# every family, the head fallbacks and fake quantization under tp 2 x dp 2;
+# a pod mesh
+# ---------------------------------------------------------------------------
+
+# the update AdamW applies, m / (sqrt(v) + eps), divides a gradient's rounding
+# by eps where the gradient is near 0: another order of the sums moves such
+# elements by up to lr, so a leaf's update is held norm-wise at UPDATE_REL
+# (a wrong sign, a missed sum or no update is off by about 1 or more); the
+# moments, linear in each step's clipped gradient (v in its square), hold
+# every gradient at REL (v at 2 REL)
+UPDATE_REL = 1e-2
+
+
+def _norm_rel(got, want):
+    """||got - want|| / ||want|| over a leaf (0 where both are 0)."""
+    den = np.linalg.norm(want.ravel())
+    num = np.linalg.norm((got - want).ravel())
+    return 0.0 if num == 0 else num / max(den, 1e-30)
+
+
+@pytest.mark.parametrize("leg", list(w.FAMILY_TRAIN))
+def test_family_step_matches_jax_and_one_rank(world, leg):
+    """A family leg's masked steps under tp 2 x dp 2 (the mixers split by
+    heads, the frontends, cross-attention, one KV head gathered, wk / wv
+    replicated, int8 fake quantization with the whole row's scale): loss
+    and grad_norm relative 1e-5 at every step on every rank against the JAX
+    package's single-device step and the port's one rank; of every leaf,
+    gathered whole on rank 0, the AdamW moments m and v (each step's
+    gradients) norm-wise within 1e-5 / 2e-5 of the one rank's and no
+    further from the JAX package's than the one rank's are plus that, and
+    the update the steps made within :data:`UPDATE_REL` likewise."""
+    fam = world["families"][leg]
+    (jmetrics, jparams, jm, jv), (ometrics, oparams, om, ov) = \
+        fam["jax"], fam["one"]
+    for r in world["ranks"]:
+        got = r["families"][leg]["metrics"]
+        assert len(got) == w.FAMILY_STEPS
+        for g, j, o in zip(got, jmetrics, ometrics):
+            for want in (j, o):
+                assert _rel(g[0], want[0]) < REL and \
+                    _rel(g[1], want[1]) < REL, (leg, g, want)
+    r0 = world["ranks"][0]["families"][leg]
+    whole, start = r0["whole_params"], fam["start"]
+    assert whole.keys() == oparams.keys() <= jparams.keys()
+    for n in whole:
+        upd = {k: p[n] - start[n] for k, p in (("tp", whole), ("one", oparams),
+                                                ("jax", jparams))}
+        for got, one, ref, bound in ((r0["whole_m"][n], om[n], jm[n], REL),
+                                     (r0["whole_v"][n], ov[n], jv[n],
+                                      2 * REL),
+                                     (upd["tp"], upd["one"], upd["jax"],
+                                      UPDATE_REL)):
+            assert _norm_rel(got, one) <= bound, (n, _norm_rel(got, one))
+            assert _norm_rel(got, ref) <= _norm_rel(one, ref) + bound, \
+                (n, _norm_rel(got, ref), _norm_rel(one, ref))
+        assert np.abs(upd["tp"]).max() > 0, n
+
+
+def test_family_legs_place_what_they_exercise(world):
+    """What each leg holds: Mamba2's ``in_proj`` and ``conv_w`` by their
+    row maps and nothing gathered; mLSTM's ``up`` by its row map, ``w_if``
+    and ``conv_w`` read in part (their gradients summed over tp), only
+    ``up`` and sLSTM's ``w_in`` gathered; one KV head gathered; wk / wv
+    replicated read in part; every rank less than the whole model."""
+    legs = world["ranks"][0]["families"]
+    h = legs["hybrid"]
+    assert "layers.0.mamba.in_proj.w" in h["rows"]
+    assert "layers.0.mamba.conv_w" in h["rows"] and h["gathered"] == []
+    x = legs["xlstm"]
+    assert "periods.0.mlstm.0.blk.up.w" in x["rows"]
+    assert {"periods.0.mlstm.0.blk.w_if.w",
+            "periods.0.mlstm.0.blk.conv_w"} <= set(x["partial"])
+    assert {n.rsplit(".", 1)[-1] for n in x["gathered"]} == {"up", "w_in"}
+    assert {n.rsplit(".", 2)[-2] + "." + n.rsplit(".", 1)[-1]
+            for n in legs["kv1"]["gathered"]} == {"attn.wk", "attn.wv"}
+    assert "layers.0.attn.wk.w" in legs["kv_replicated"]["partial"]
+    for leg, got in legs.items():
+        whole = sum(p.nbytes for p in got["whole_params"].values())
+        assert 0 < got["held"] < whole, leg
+
+
+def test_hybrid_world_checkpoint_restores_whole(world):
+    """The hybrid leg's state saved from the world (rank 0 writes whole
+    leaves, the row-mapped ``in_proj`` and ``conv_w`` put together by their
+    maps, B / C once): a one-process restore reads it bit-equal to the
+    parameters and moments gathered on rank 0, and to the leaves' shapes
+    of a whole model."""
+    fam = world["families"]["hybrid"]
+    r0 = world["ranks"][0]["families"]["hybrid"]
+    from repro_torch.configs.base import get_arch
+    tcfg = w.family_train_cfg("hybrid", get_arch("zamba2_7b").reduced())
+    params = train_params(build_model(tcfg, device="cpu", seed=1))
+    template = {"params": params, "opt": adamw.init(
+        adamw.AdamWConfig(**w.STEP_KW), params)}
+    got = ckpt.restore(template, world["args"]["ckpt_dir"] + "_hybrid",
+                       w.FAMILY_STEPS)
+    assert got["params"].keys() == fam["one"][1].keys()
+    for n, t in got["params"].items():
+        np.testing.assert_array_equal(t.numpy(), r0["whole_params"][n])
+    for n, t in got["opt"].m.items():
+        np.testing.assert_array_equal(t.numpy(), r0["whole_m"][n])
+
+
+def _tp_block(whole, spec, tp_rank, tp=2):
+    """The block of the numpy leaf ``whole`` that tp rank ``tp_rank`` holds
+    under ``spec`` (written out here, not through the port's own
+    ``spec_block``): a ``model`` dim its ``tp_rank``-th of tp equal runs; a
+    row map's dim, segment by segment, all of a ``whole`` segment and its
+    run of any other (a block node's map over its blocks of ``nb``
+    rows); a shard stack's slice without its stack dim."""
+    if spec and hasattr(spec[0], "block_r"):
+        # a re-blocked block node's rows: (RB, A, block_r, ...) read as
+        # blocks of nb rows, then the map's blocks
+        f = spec[0].block_r // spec[0].nb
+        rb, a, rest = whole.shape[0], whole.shape[1], whole.shape[3:]
+        whole = whole.reshape(rb, a, f, spec[0].nb, *rest).swapaxes(
+            1, 2).reshape(rb * f, a, spec[0].nb, *rest)
+    for d, part in enumerate(spec):
+        if part == "model":
+            k = whole.shape[d] // tp
+            whole = np.take(whole, range(tp_rank * k, (tp_rank + 1) * k),
+                            axis=d)
+        elif part is not None:
+            idx, off = [], 0
+            for n, kind in part:
+                k = n if kind == "whole" else n // tp
+                first = off if kind == "whole" else off + tp_rank * k
+                idx.extend(range(first, first + k))
+                off += n
+            assert off == whole.shape[d]
+            whole = np.take(whole, idx, axis=d)
+    if isinstance(spec, tpart.StackSpec):
+        assert whole.shape[0] == 1
+        whole = whole[0]
+    return whole
+
+
+def test_hybrid_state_restores_under_a_smaller_plan(world):
+    """The hybrid leg's state saved from the tp 2 x dp 2 world, restored by
+    ``elastic_restore`` under ``ShardingPlan(tp=2)`` on the first two
+    ranks: every leaf, the row-mapped ``in_proj`` and ``conv_w`` too, is
+    bit-equal to its rows of the whole leaf gathered on rank 0 (B / C
+    whole on both ranks); the other ranks restore nothing."""
+    r0 = world["ranks"][0]["families"]["hybrid"]
+    small = [r for r in world["ranks"]
+             if r["families"]["hybrid"]["restored"] is not None]
+    assert [r["rank"] for r in small] == [0, 1]
+    for r in small:
+        got = r["families"]["hybrid"]["restored"]
+        specs = got["specs"]
+        assert any(isinstance(p, tuple) for p in
+                   specs["layers.0.mamba.in_proj.w"])
+        for key, whole in (("params", r0["whole_params"]),
+                           ("m", r0["whole_m"])):
+            assert got[key].keys() == whole.keys()
+            for n, t in got[key].items():
+                np.testing.assert_array_equal(
+                    t, _tp_block(whole[n], specs[n], r["rank"]), err_msg=n)
+
+
+def test_block_packed_hybrid_trains_by_reblocked_rows(world):
+    """The hybrid leg packed in the ``block`` layout and fine-tuned under tp
+    2 x dp 2: its Mamba2 ``in_proj`` nodes re-blocked by heads (a
+    ``BlockRowMap``: 8-row blocks of the 16-row ones, B / C whole); loss
+    and grad_norm relative 1e-5 of the port's one rank at every step on
+    every rank; every leaf, gathered whole on rank 0 (the re-blocked rows
+    put back in their blocks), its moment m norm-wise within 1e-5 and its
+    update within :data:`UPDATE_REL` of the one rank's, but the renumbered
+    row-parallel shard stacks, whose slots are not the one rank's (their
+    gradients: ``test_packed_step_grads_match_one_rank``); the state saved
+    from the world and restored by ``elastic_restore`` under tp 2 on the
+    first two ranks bit-equal to its rows of the whole leaves."""
+    blk = world["block"]
+    ometrics, oparams, om = blk["one"]
+    for r in world["ranks"]:
+        got = r["block"]
+        assert "layers.0.mamba.in_proj.values" in got["reblocked"]
+        for g, want in zip(got["metrics"], ometrics):
+            assert _rel(g[0], want[0]) < REL and _rel(g[1], want[1]) < REL, \
+                (g, want)
+    r0 = world["ranks"][0]["block"]
+    assert r0["whole_params"].keys() == oparams.keys()
+    assert r0["stacks"] and r0["reblocked"]
+    for n, p in r0["whole_params"].items():
+        if n in r0["stacks"]:
+            continue
+        assert _norm_rel(r0["whole_m"][n], om[n]) <= REL, n
+        assert _norm_rel(p - blk["start"][n], oparams[n] - blk["start"][n]) \
+            <= UPDATE_REL, n
+    small = [r for r in world["ranks"] if r["block"]["restored"] is not None]
+    assert [r["rank"] for r in small] == [0, 1]
+    for r in small:
+        got = r["block"]["restored"]
+        spec = got["specs"]["layers.0.mamba.in_proj.values"]
+        assert (spec[0].block_r, spec[0].nb) == (16, 8)
+        for key, whole in (("params", r0["whole_params"]),
+                           ("m", r0["whole_m"])):
+            for n, t in got[key].items():
+                np.testing.assert_array_equal(
+                    t, _tp_block(whole[n], got["specs"][n], r["rank"]),
+                    err_msg=n)
+
+
+def test_pod_mesh_step_and_tick_match_one_rank(world):
+    """A pod 2 x data 1 x model 2 mesh: dp over pod x data (the rank's dp
+    index row-major), one masked step against the port's one-rank first
+    step (loss and grad_norm relative 1e-5), and one decode tick of each
+    dp rank's slots against one whole model's (logits 1e-5, tokens equal,
+    the KV heads split)."""
+    one = world["one"]["metrics"][0]
+    for r in world["ranks"]:
+        pod = r["pod"]
+        assert pod["dp"] == (2, r["rank"] // 2) and pod["tp_rank"] == \
+            r["rank"] % 2
+        got = pod["metrics"][0]
+        assert _rel(got[0], one[0]) < REL and _rel(got[1], one[1]) < REL
+        assert pod["tick_rows"] == (2 * (r["rank"] // 2),
+                                    2 * (r["rank"] // 2) + 2)
+        assert pod["tick_gap"] <= 1e-5
+        assert pod["tick_tokens"][0] == pod["tick_tokens"][1]
+        assert pod["cache_heads"] == world["cfg"].num_kv_heads // 2

@@ -12,17 +12,23 @@ against the JAX package's.
 * ``decode_state_specs``: equal to the reference's (``launch/dryrun.py``)
   on those meshes for every arch at ``decode_32k`` and, where it applies,
   ``long_500k`` (full widths; shapes only).
+* The mixers split by heads on an abstract mesh: the placement's row maps
+  of reduced zamba2 and xlstm at tp 2 and tp 16, and their decode-state
+  specs against the reference's where they agree (the leaves where they
+  differ are named, with their bytes).
 * The CLI: one packed decode cell in a process of its own prints one record
   with the reference's keys and H100 roofs, with no ``jax`` loaded; a
-  ``--multi-pod`` cell gives an ``error`` record naming the ``pod``
-  refusal; ``benchmarks/torch_roofline.py`` and ``benchmarks/torch_run.py``
-  read a written JSONL.
+  ``--multi-pod`` cell gives a record of dp 32 over pod x data (no
+  ``error``); ``benchmarks/torch_roofline.py`` and
+  ``benchmarks/torch_run.py`` read a written JSONL, an error record
+  included.
 
 Spec entries are compared with a one-name tuple read as the name, as
 ``PartitionSpec`` means it.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +47,7 @@ from repro.sharding import partitioning as jpart
 
 from _torch_port import STACKED_KEYS, family_pair
 from repro_torch.configs import base as tbase
+from repro_torch.core.sparse_linear import gathers_output
 from repro_torch.launch import dryrun
 from repro_torch.launch.pack_tree import pack_tree_shapes
 from repro_torch.launch.specs import meta_model
@@ -203,6 +210,120 @@ def test_decode_state_specs_match_jax(arch, shape, jdryrun):
 
 
 # ---------------------------------------------------------------------------
+# the mixers split by heads: placement and decode-state specs
+# ---------------------------------------------------------------------------
+
+# the leaves (top key / leaf key) whose specs differ from the reference's
+# probe rule, by (arch, tp), and why: Mamba2's h split by heads (the probe:
+# by P), its conv window by the rank's x channels with B / C whole (the
+# probe: a block of all channels); mLSTM's C by heads (the probe: by dh),
+# its xm conv window whole (the probe: by channels); sLSTM whole (the
+# probe: by heads or dh); at tp 16 the 4 KV heads of reduced zamba2's
+# shared block and the 4 heads of reduced xlstm do not divide, so those
+# leaves stay whole (the probe: by dh)
+_MAMBA = {"ssm/h", "ssm/conv", "ssm_tail/h", "ssm_tail/conv"}
+_SLSTM = {"slstm/c", "slstm/n", "slstm/h", "slstm/m"}
+DIFFER = {("zamba2_7b", 2): _MAMBA,
+          ("zamba2_7b", 16): _MAMBA | {"attn/k", "attn/v"},
+          ("xlstm_125m", 2): {"mlstm/C", "mlstm/conv"} | _SLSTM,
+          ("xlstm_125m", 16): {"mlstm/C", "mlstm/n", "mlstm/conv"}
+          | _SLSTM}
+# the leaves split by heads where the probe splits another dim of the
+# same size: the same bytes
+SAME_BYTES = {("zamba2_7b", 2): {"ssm/h", "ssm_tail/h"},
+              ("zamba2_7b", 16): {"ssm/h", "ssm_tail/h"},
+              ("xlstm_125m", 2): {"mlstm/C"}, ("xlstm_125m", 16): set()}
+
+
+def _mixer_setup(arch, tp):
+    from repro_torch.sharding.plan import ShardingPlan
+    jcfg, tcfg = family_pair(arch)
+    model = meta_model(tcfg)
+    mesh = CensusMesh((1, tp), ("data", "model"))
+    ShardingPlan(tp=tp).shard_params(model, mesh)
+    return jcfg, tcfg, model, mesh
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_125m"])
+def test_mixer_row_maps_on_an_abstract_mesh(arch, tp):
+    """Reduced zamba2 (16 Mamba2 heads) splits by heads at tp 2 and 16:
+    ``in_proj``'s rows are z, x split, B / C whole, dt split, ``conv_w``'s
+    channels x split and B / C whole, nothing gathered.  Reduced xlstm (4
+    heads): at tp 2 ``up``'s xm rows gathered and z split, ``wq`` / ``wk`` /
+    ``wv`` the rank's heads; at tp 16 the heads do not divide and the mixer
+    runs whole (``up``, ``wq``, ``wk``, ``wv`` gathered, no row map)."""
+    _, cfg, model, _ = _mixer_setup(arch, tp)
+    d, s = cfg.d_model, cfg.ssm
+    di = 2 * d
+    if arch == "zamba2_7b":
+        heads, n = di // s.head_dim, s.state_dim
+        mamba = model.layers[0].mamba
+        assert model.tp_row_maps["layers.0.mamba.in_proj.w"] == tpart.RowMap(
+            (di, "split"), (di, "split"), (2 * n, "whole"), (heads, "split"))
+        assert model.tp_row_maps["layers.0.mamba.conv_w"] == tpart.RowMap(
+            (di, "split"), (2 * n, "whole"))
+        assert tuple(mamba.in_proj.w.shape) == (
+            2 * di // tp + 2 * n + heads // tp, d)
+        assert tuple(mamba.conv_w.shape) == (s.conv_dim, di // tp + 2 * n)
+        assert mamba.A_log.shape[0] == heads // tp
+        assert not gathers_output(mamba.in_proj) and mamba.norm.tp_sharded
+        return
+    blk = model.periods[0].mlstm[0].blk
+    if tp == 2:
+        assert model.tp_row_maps["periods.0.mlstm.0.blk.up.w"] == tpart.RowMap(
+            (di, "gather"), (di, "split"))
+        assert tuple(blk.up.w.shape) == (di, d)
+        assert [gathers_output(getattr(blk, n)) for n in ("wq", "wk",
+                                                          "wv")] == [False] * 3
+        assert blk.w_if.tp_partial and blk.norm.tp_sharded
+    else:
+        assert not model.tp_row_maps
+        assert [gathers_output(getattr(blk, n)) for n in ("up", "wq", "wk",
+                                                          "wv")] == [True] * 4
+        assert not getattr(blk.norm, "tp_sharded", False)
+
+
+@pytest.mark.parametrize("tp", [2, 16])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "xlstm_125m"])
+def test_mixer_state_specs_against_jax(arch, tp, jdryrun):
+    """The decode state as a rank holds it (``dryrun.local_state_specs``)
+    against the reference's probe specs on a (1, tp) mesh: equal on every
+    leaf but :data:`DIFFER`'s; a split by heads holds the same bytes as the
+    probe's split (:data:`SAME_BYTES`), Mamba2's conv window the B / C
+    channels more."""
+    from repro_torch.sharding.plan import ShardingPlan
+    jcfg, tcfg, model, mesh = _mixer_setup(arch, tp)
+    shape = tbase.ShapeConfig("c", 16, 2, "decode")
+    got, whole = dryrun.local_state_specs(model, shape, mesh,
+                                          ShardingPlan(tp=tp),
+                                          seq_shard=False)
+    want, _ = jdryrun.decode_state_specs(
+        jbuild_model(jcfg), jbase.ShapeConfig("c", 16, 2, "decode"),
+        AbstractMesh((1, tp), ("data", "model")), seq_shard=False)
+    degree = {"data": 1, "model": tp}
+    differ = set()
+    for top, sub in whole.items():
+        if not isinstance(sub, dict):
+            continue
+        for key, leaf in sub.items():
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            g, j = got[top][key], want[top][key]
+            if _norm(g) == _norm(tuple(j)):
+                continue
+            differ.add(f"{top}/{key}")
+            mine = dryrun.local_shape(leaf.shape, g, degree)
+            ref = dryrun.local_shape(leaf.shape, _norm(tuple(j)), degree)
+            if f"{top}/{key}" in SAME_BYTES[arch, tp]:
+                assert math.prod(mine) == math.prod(ref), (top, key)
+            elif top.startswith("ssm") and key == "conv":
+                assert mine[-1] - ref[-1] == \
+                    2 * tcfg.ssm.state_dim * (tp - 1) // tp
+    assert differ == DIFFER[arch, tp]
+
+
+# ---------------------------------------------------------------------------
 # the CLI and the roofline table
 # ---------------------------------------------------------------------------
 
@@ -221,7 +342,8 @@ print("MODULES", json.dumps(bad))
 def cli_records():
     argvs = [["--arch", "stablelm_3b", "--shape", "decode_32k", "--packed"],
              ["--arch", "stablelm_3b", "--shape", "decode_32k",
-              "--multi-pod"]]
+              "--multi-pod"],
+             ["--arch", "stablelm_3b", "--shape", "decode_32k"]]
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-c", _CLI.format(argvs=repr(argvs)[1:-1] + ",")],
@@ -237,7 +359,7 @@ def cli_records():
 def test_cli_prints_one_record_with_the_reference_keys(cli_records):
     recs, mods = cli_records
     assert mods == []
-    assert len(recs) == 2
+    assert len(recs) == 3
     r = recs[0]
     assert RECORD_KEYS <= set(r)
     assert (r["arch"], r["shape"], r["mesh"], r["kind"], r["packed"]) == (
@@ -260,26 +382,36 @@ def test_cli_prints_one_record_with_the_reference_keys(cli_records):
 
 
 def test_cli_records_the_pod_refusal(cli_records):
+    """The ``--multi-pod`` cell, once refused, is a record: dp 32 over pod x
+    data, so a rank holds half the decode state of the (16, 16) mesh's
+    rank and runs the same collectives over ``model``."""
     recs, _ = cli_records
-    r = recs[1]
-    assert set(r) == {"arch", "shape", "mesh", "error"}
-    assert r["mesh"] == "pod2x16x16"
-    assert r["error"].startswith("NotImplementedError: ")
-    assert "'pod'" in r["error"]
+    r, flat = recs[1], recs[2]
+    assert "error" not in r and RECORD_KEYS <= set(r)
+    assert (r["mesh"], flat["mesh"]) == ("pod2x16x16", "pod16x16")
+    assert 2 * r["memory_analysis"]["state_bytes"] == \
+        flat["memory_analysis"]["state_bytes"]
+    assert r["collectives"]["all-reduce"]["count"] == \
+        flat["collectives"]["all-reduce"]["count"]
 
 
 def test_roofline_reads_the_census_jsonl(cli_records, tmp_path, capsys):
     from benchmarks import torch_roofline, torch_run
 
     recs, _ = cli_records
+    # beside the CLI's records, an error record as the CLI writes one for a
+    # cell that raises
+    failed = {"arch": "stablelm_3b", "shape": "train_4k",
+              "mesh": "pod16x16", "error": "NotImplementedError: a cell"}
     path = tmp_path / "torch_dryrun.jsonl"
-    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs + [failed]))
     rows = torch_roofline.run(verbose=True, path=str(path))
     out = capsys.readouterr().out
     assert [name for name, _, _ in rows] == [
+        "roofline_stablelm_3b_decode_32k",
         "roofline_stablelm_3b_decode_32k_packed"]
-    assert rows[0][2] == "dominant=" + recs[0]["roofline"]["dominant"]
-    assert "1 cells with errors" in out and "pod" in out
+    assert rows[1][2] == "dominant=" + recs[0]["roofline"]["dominant"]
+    assert "1 cells with errors" in out and "train_4k" in out
     assert torch_run.main(["--device", "cpu", "--roofline",
                            str(path)]) == 0
     out = capsys.readouterr().out

@@ -87,6 +87,44 @@ def test_mamba2_seq_matches(mamba, t, chunk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MIX)
 
 
+def test_mamba2_seq_gradients_stay_finite_where_the_decay_overflows(mamba):
+    """A chunk of 64 steps with dt about 20 a step: above the diagonal the
+    chunk's log decay reaches +1,260 and its exp overflows.  The outputs
+    equal the reference's; the port masks before the exp, so every
+    gradient is finite, where the reference's ``where`` after the exp gives
+    nan (0 x inf in the backward; a forward-identical difference, filed in
+    ROADMAP Queue 3)."""
+    import copy
+    params, port = mamba
+    params = dict(params, dt_bias=jnp.full_like(params["dt_bias"], 20.0),
+                  A_log=jnp.zeros_like(params["A_log"]))
+    port = copy.deepcopy(port)
+    port.dt_bias.data.fill_(20.0)
+    port.A_log.data.zero_()
+    x = _inputs(64, seed=3)
+    cot = np.random.default_rng(4).standard_normal(x.shape).astype(
+        np.float32)
+
+    def jloss(p, xx):
+        y = jssm.apply_mamba2_seq(p, xx, chunk=64, **MAMBA)
+        return (y * cot).sum(), y
+
+    (_, jy), (jg, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                             has_aux=True)(params,
+                                                           jnp.asarray(x))
+    leaves = {"conv_w": port.conv_w, "A_log": port.A_log,
+              "dt_bias": port.dt_bias, "D": port.D}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = tssm.apply_mamba2_seq(port, xt, chunk=64, **MAMBA)
+    grads = torch.autograd.grad((y * torch.from_numpy(cot)).sum(),
+                                [*leaves.values(), xt])
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **MIX)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert not np.isfinite(np.asarray(jgx)).all()
+
+
 def test_mamba2_steps_match_and_write_the_state_in_place(mamba):
     params, port = mamba
     x = _inputs(4, seed=1)
