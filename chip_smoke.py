@@ -42,8 +42,14 @@ unless all of them held:
                 a_max > G, duplicates and every cluster size; K1's and K3's
                 bulk row-tile body at Bx <= 8 (K3 with per-row and per-group
                 scales; chunk counts, one-row and ragged tiles, a ring of
-                row chunks larger than shared memory, duplicates) while Bx >
-                8 and an x tile larger than shared memory take the gather
+                row chunks larger than shared memory, duplicates) while an
+                x tile larger than shared memory takes the gather body;
+                K1's and K3's wide body at Bx > 8 with bfloat16 x (the
+                three shapes at Bx in {9, 20, 32, 37, 256}, K3 with both
+                scale units, duplicates, rows per CTA 1, 7, 53, 128 (40
+                where 128 rows' pairs do not fit) and x
+                tiles of 32, 64, 128, 6912 x 2560 8:128 at 2048 rows, x of
+                16,384 columns in chunks) while float32 x keeps the gather
                 body;
               * draft tiers: K1, K3 (per-row and per-group scales), K2 and K4
                 on the prefix views ``[..., :t]`` of the stored tensors (the
@@ -108,12 +114,14 @@ unless all of them held:
               new tokens each.  Counted from reset to drain: one capture of
               the prefill chunk and one of the decode step; the wrappers
               launch the mode's kernel 7 x 32 x 2 times for each program
-              (warm-up + capture; the chunk's x of 32 rows on the gather
-              body, the step's on its serving body), nothing else; chunks
+              (warm-up + capture; the chunk's x of 32 rows on K1 / K3's
+              wide body or K2 / K4's gather body, the step's on its serving
+              body), nothing else; chunks
               dispatched = sum of ceil(len / 32).  A second pass on the
               same engine gives TTFT per request and prompt tokens/s;
-              profiled windows show 224 gather-body launches of the kernel
-              per chunk replay and 224 serving-body launches per decode
+              profiled windows show 224 prefill-body launches of the kernel
+              (wide for xwT, gather for block) per chunk replay and 224
+              serving-body launches per decode
               replay on the device, with device time, busy share and the
               kernels that take it; the page gather is timed alone; the
               dense engine ingests the same prompts token by token for
@@ -144,8 +152,9 @@ unless all of them held:
               replay on the device, and each captured program's logits
               bit-equal to its
               eager program's under ``auto``; then
-              ``autotune_packed_tree(model, 32)`` tunes the gather bodies a
-              prefill chunk runs (its selected settings held to the plain
+              ``autotune_packed_tree(model, 32)`` tunes the bodies a prefill
+              chunk runs (K1 / K3's wide body: rows per CTA and x tile;
+              K2 / K4's gather body) (its selected settings held to the plain
               version as at 4 rows), and a chunk's device time is profiled
               under the default and the tuned params in turns; the last
               chunk's logits under the tuned params lie within 5e-2
@@ -172,8 +181,16 @@ unless all of them held:
               as is the launch floor: an empty kernel at K1's and K3's bulk
               grids and an empty cluster launch at K2's, timed the same way.
    7p       — K1-K4 at x of 32 rows, as a prefill chunk launches them, each
-              asserted to run its gather body: the same timing rows
-              (``prefill_bx32`` of each kernel in the ``kernels`` line).
+              asserted to run its prefill body (K1 and K3: the wide body,
+              their gather body timed beside it through the measurement
+              hooks; K2 and K4: the gather body), K3 with per-row and
+              per-group scales: the same timing rows (``prefill_bx32`` of
+              each kernel in the ``kernels`` line, ``gather_ms`` the gather
+              body's time per layer).
+   7b       — K1 and K3 (per-row scales) at 2048 rows of x on 6912 x 2560
+              at 8:128 on the wide body, the gather body beside it, with
+              bound and ``torch.matmul`` (``wide_bx2048`` in the
+              ``kernels`` line).
    7s       — K1-K4 with their weights stored at 8:16, reading the prefix
               of t in {8, 6, 4} pairs a group, x of 4 and of 32 rows: a
               draft-tier launch against the full tier's, per layer, with the
@@ -538,6 +555,20 @@ MAIN_SHAPES = [("wq/wk/wv/wo", 2560, 2560, 5, 80),
 LAYER_MIX = {"wq/wk/wv/wo": 4, "gate/up": 2, "down": 1}   # launches per layer
 REDUCED_SHAPE = ("reduced", 256, 128, 2, 16)
 BATCHES = (1, 4, 37, 256)
+# K1 / K3 at the widths of a prefill: the wide body's case (phase 3)
+WIDE_BATCHES = (9, 20, 32, 37, 256)
+
+
+def xwt_rule(bx, k, m, x_dtype):
+    """The body K1 and K3 must take for ``bx`` rows of ``x_dtype``
+    activations at contraction ``k`` and group width ``m``, weights of the
+    main path (16-byte aligned, rows of pairs that fit): ``bulk`` at Bx <=
+    8, ``wide`` for more rows of bfloat16 x whose rows and groups are whole
+    16-byte vectors, ``gather`` otherwise (float32 x, M = 1)."""
+    if bx <= 8:
+        return "bulk"
+    return ("wide" if str(x_dtype).endswith("bfloat16") and k % 8 == 0
+            and m % 8 == 0 else "gather")
 
 
 def log(msg):
@@ -648,17 +679,21 @@ def check_kernels(gen):
 
     def run_xwt(label, o, k, n, m, batches, *, duplicates=False, main=False,
                 rows_per_block=None, values_dtype=torch.float32, expect=None,
-                tunables=(), lanes=(), by_terms=False):
+                tunables=(), lanes=(), by_terms=False, wide_tunables=(),
+                dtypes=("float32", "bfloat16"), q8=True):
         """K1 and K3 (per-row and per-group scales) on one random packed
-        weight.  Each must take the body ``expect`` names (None: ``bulk`` at
-        Bx <= 8 where x's tile takes at most half a block's shared memory and
-        K3's int8 rows and per-group scale rows are 16-byte multiples,
-        ``gather`` at Bx > 8, either between); ``tunables``: keyword
+        weight.  Each must take the body ``expect`` names (a body, or
+        {x dtype: body}; None: ``bulk`` at Bx <= 8 where x's tile takes at
+        most half a block's shared memory and K3's int8 rows and per-group
+        scale rows are 16-byte multiples, either between; at Bx > 8
+        :func:`xwt_rule`'s ``wide`` or ``gather``); ``tunables``: keyword
         arguments of the bulk body (rows per CTA, chunks), each through the
         measurement hooks; ``lanes``: K3's slot lanes per row, each forced
         at the default tile (the tunables' tiles reach the launcher's own
-        choice of 8 or 16); ``by_terms``: the float32 tolerance grows with
-        the products an output sums (``compare``)."""
+        choice of 8 or 16); ``wide_tunables``: keyword arguments of the wide
+        body (rows per CTA, x tile); ``by_terms``: the float32 tolerance
+        grows with the products an output sums (``compare``); ``q8``: K3
+        too."""
         cfg = SparsityConfig(n, m)
         g = k // m
         terms = g * n if by_terms else 0
@@ -667,18 +702,21 @@ def check_kernels(gen):
         vals, idx = make_packed(o, k, n, m, gen, duplicates=duplicates)
         vals = vals.to(values_dtype)
         for bx in batches:
-            for dtype in ("float32", "bfloat16"):
+            for dtype in dtypes:
                 x = torch.randn((bx, k), generator=gen, device=gen.device)
                 x = x.to(getattr(torch, dtype))
+                want_x = (expect.get(dtype) if isinstance(expect, dict)
+                          else expect)
                 what = (f"{label} O={o} K={k} {n}:{m} Bx={bx} x={dtype}"
                         + (" duplicates" if duplicates else "")
                         + (f" rows_per_block={rows_per_block}"
                            if rows_per_block else ""))
                 body = xwt_body(x, vals, idx, m, duplicates=duplicates)
                 tile = 8 if duplicates else 1 << (bx - 1).bit_length()
-                want_body = expect or (
-                    "gather" if bx > 8 else "bulk" if tile * k
-                    * x.element_size() <= BULK_SMEM_BYTES // 2 else body)
+                want_body = want_x or (
+                    xwt_rule(bx, k, m, x.dtype) if bx > 8 else "bulk"
+                    if tile * k * x.element_size() <= BULK_SMEM_BYTES // 2
+                    else body)
                 if body != want_body:
                     raise AssertionError(f"{what}: K1 would take its {body} "
                                          "body")
@@ -696,7 +734,13 @@ def check_kernels(gen):
                                         duplicates=duplicates, **tun),
                             want, dtype, f"{what} bulk {tun}", main,
                             terms)
-                for per_group in (False, True):
+                for tun in wide_tunables if body == "wide" else ():
+                    compare("demm_xwT",
+                            demm_xwT_on("wide", x, vals, idx, cfg,
+                                        duplicates=duplicates, **tun),
+                            want, dtype, f"{what} wide {tun}", main,
+                            terms)
+                for per_group in (False, True) if q8 else ():
                     q, scales = make_q8(o, g, n, per_group, gen)
                     if duplicates:
                         q[0] = 0
@@ -704,9 +748,10 @@ def check_kernels(gen):
                     body = xwt_body(x, q, idx, m, duplicates=duplicates,
                                     scales=scales)
                     spans = (g * n) % 16 == 0 and (g % 4 == 0 or not per_group)
-                    want_body = expect or (
-                        "gather" if bx > 8 else "bulk" if spans and tile * k
-                        * x.element_size() <= BULK_SMEM_BYTES // 2 else body)
+                    want_body = want_x or (
+                        xwt_rule(bx, k, m, x.dtype) if bx > 8 else "bulk"
+                        if spans and tile * k * x.element_size()
+                        <= BULK_SMEM_BYTES // 2 else body)
                     if body != want_body:
                         raise AssertionError(f"{what_q}: K3 would take its "
                                              f"{body} body")
@@ -724,6 +769,12 @@ def check_kernels(gen):
                                 demm_xwT_q8_on("bulk", x, q, idx, scales, cfg,
                                                duplicates=duplicates, **tun),
                                 want, dtype, f"{what_q} bulk {tun}", main,
+                                terms)
+                    for tun in wide_tunables if body == "wide" else ():
+                        compare("demm_xwT_q8",
+                                demm_xwT_q8_on("wide", x, q, idx, scales, cfg,
+                                               duplicates=duplicates, **tun),
+                                want, dtype, f"{what_q} wide {tun}", main,
                                 terms)
 
     def run_block(what, pw, batches, main=False, paper_b=False,
@@ -837,8 +888,31 @@ def check_kernels(gen):
             tunables=[dict(chunks=4), dict(rows_per_block=7)],
             lanes=BULK_LANES)
     # x tile larger than a block's shared memory: the gather body's group
-    # loop runs in chunks (and the bulk body does not take it)
-    run_xwt("chunked", 520, 16384, 8, 128, (8, 13), expect="gather")
+    # loop runs in chunks (and the bulk body does not take it; the wide body
+    # takes bfloat16 x of 13 rows, in chunks of x's columns of its own)
+    run_xwt("chunked", 520, 16384, 8, 128, (8,), expect="gather")
+    run_xwt("chunked", 520, 16384, 8, 128, (13,),
+            expect={"float32": "gather", "bfloat16": "wide"})
+    # the wide body (Bx > 8, bfloat16 x) at the three main shapes, K3 with
+    # both scale units, as a prefill chunk (32), a whole-sequence prefill
+    # and ragged tiles launch it; its tunables (rows per CTA: one, ragged,
+    # a CTA's most; x tile) and duplicates; 8:128 at 2048 rows (the
+    # paper's example, several tiles split over CTAs along x)
+    from repro_torch.kernels.demm_xwT import wide_plan
+    for label, o, k, n, m in MAIN_SHAPES:
+        run_xwt(label + " wide", o, k, n, m, WIDE_BATCHES,
+                dtypes=("bfloat16",), main=True)
+        # a CTA's most rows (128) where their decoded pairs fit
+        most = 128 if wide_plan(37, o, k // m, m, n, rows=128) else 40
+        run_xwt(label + " wide tunables", o, k, n, m, (20, 37),
+                dtypes=("bfloat16",), wide_tunables=[
+                    dict(rows_per_block=r, tile=t)
+                    for r, t in ((1, 32), (7, 64), (most, 128), (53, None),
+                                 (None, 64))])
+        run_xwt(label + " wide", o, k, n, m, (9, 37), duplicates=True,
+                dtypes=("bfloat16",))
+    run_xwt("wide 8:128", 6912, 2560, 8, 128, (2048,), dtypes=("bfloat16",),
+            wide_tunables=[dict(tile=32), dict(rows_per_block=96)])
     # non-default tiles, ragged against O
     run_xwt("tiles", 1000, 2560, 5, 80, (4,), rows_per_block=8)
     run_xwt("tiles", 1000, 2560, 5, 80, (3,), rows_per_block=72)
@@ -970,8 +1044,8 @@ def check_kernels(gen):
     for t in (6, 1):
         run_tier_inf(2560, 2560, 8, 16, t, fns, gen)
         n_cases += 1
-    for name, want in (("demm_xwT", {"bulk", "gather"}),
-                       ("demm_xwT_q8", {"bulk", "gather"}),
+    for name, want in (("demm_xwT", {"bulk", "wide", "gather"}),
+                       ("demm_xwT_q8", {"bulk", "wide", "gather"}),
                        ("demm_block_spmm", {"cluster", "gather"}),
                        ("demm_spmm", {"tiled", "gather"}),
                        ("demm_block_spmm_q8", {"cluster", "gather"})):
@@ -997,8 +1071,10 @@ def run_tier(label, o, k, n, m, t, batches, fns, gen, compare, bodies, *,
     """K1, K3 (per-row and per-group scales), K2 and K4 on a draft tier:
     the first ``t`` of the ``n`` pairs stored per group, read in place.
     Each launch must take the body the full tier takes (bulk / cluster at
-    Bx <= 8, gather at Bx = 37; the bulk and cluster bodies copy the
-    stored spans) and hold against the plain version on the same views.
+    Bx <= 8; at Bx = 37 K1 / K3's wide body for bfloat16 x, else gather;
+    the bulk and cluster bodies copy the stored spans, the wide body
+    decodes the prefix) and hold against the plain version on the same
+    views.
     ``duplicates``: slots 0 and 1 of every group on one column (inside the
     prefix) and slots t-1 and t (across its edge)."""
     import torch
@@ -1037,7 +1113,7 @@ def run_tier(label, o, k, n, m, t, batches, fns, gen, compare, bodies, *,
                     + (" duplicates" if duplicates else ""))
             body = xwt_body(x, v, i, m, duplicates=duplicates)
             if body != xwt_body(x, vals, idx, m, duplicates=duplicates) or \
-                    body != ("gather" if bx > 8 else "bulk"):
+                    body != xwt_rule(bx, k, m, x.dtype):
                 raise AssertionError(f"{what}: K1 would take its {body} "
                                      "body")
             before = kern.body_launches[body]
@@ -1097,7 +1173,8 @@ def run_tier_inf(o, k, n, m, t, fns, gen):
     """K1, K3 (per-row and per-group scales), K2 and K4 on a draft tier
     whose prefix slots name columns 0..t-1 of their group and whose slots
     past it columns m-n+t..m-1, where x holds inf: on every body (Bx 1
-    and 4, bulk / cluster; 37, gather) the output must be finite and
+    and 4, bulk / cluster; 37, K1 / K3's wide in bfloat16, gather) the
+    output must be finite and
     bit-equal to the output on x without the inf, since a slot past the
     prefix is not multiplied."""
     import torch
@@ -1187,6 +1264,8 @@ def device_kernel_of(name: str):
     q8 = "Int8" in head
     if "xwt_bulk_kernel" in head:
         return ("demm_xwT_q8" if q8 else "demm_xwT"), "bulk"
+    if "xwt_wide_kernel" in head:
+        return ("demm_xwT_q8" if q8 else "demm_xwT"), "wide"
     if "xwt_kernel" in head:
         return ("demm_xwT_q8" if q8 else "demm_xwT"), "gather"
     if "block_cluster_kernel" in head:
@@ -1639,8 +1718,9 @@ def profile_ticks(model, cfg, label, ticks=5, eager=False):
 
 PAGED = dict(num_slots=4, max_len=512, page_size=16, prefill_chunk=32)
 PAGED_REQUESTS, PAGED_NEW = 8, 16
-# the body each serving kernel runs in a prefill chunk: x of 32 rows
-PREFILL_BODY = "gather"
+# the body each serving kernel runs in a prefill chunk: x of 32 bfloat16 rows
+PREFILL_BODY = {"demm_xwT": "wide", "demm_xwT_q8": "wide",
+                "demm_block_spmm": "gather", "demm_block_spmm_q8": "gather"}
 
 
 def paged_prompts(vocab, n=PAGED_REQUESTS, seed=11, lo=40, hi=400,
@@ -1812,7 +1892,8 @@ def paged_windows(engine, cfg, expect):
     torch.cuda.synchronize()
     chunk_ms = 1e3 * (time.perf_counter() - t0) / 4
     pre = replay_window(engine, 1, (4, 0), engine.prefill._graph,
-                        {(expect, PREFILL_BODY): per}, "prefill window")
+                        {(expect, PREFILL_BODY[expect]): per},
+                        "prefill window")
     while not engine._decode_mask.all():
         engine.step()
     for _ in range(2):
@@ -1960,11 +2041,13 @@ def paged_full_width(model, cfg, mode, expect):
                              " (7 x layers x (warm-up + capture) of each of "
                              "the two programs, nothing else)")
     serving = SERVING_BODY[expect]
-    if expect in body_counts and body_counts[expect] != {
-            PREFILL_BODY: 2 * per, serving: 2 * per}:
+    if expect in body_counts and {
+            b: n for b, n in body_counts[expect].items() if n} != {
+            PREFILL_BODY[expect]: 2 * per, serving: 2 * per}:
         raise AssertionError(f"{expect} launches by body "
                              f"{body_counts[expect]}: expected {2 * per} "
-                             f"gather (prefill), {2 * per} {serving}")
+                             f"{PREFILL_BODY[expect]} (prefill), {2 * per} "
+                             f"{serving}")
     decode_ticks = int(engine._m_disp_decode.value)
     # the second pass: both programs captured
     n0 = len(engine.completed)
@@ -2320,8 +2403,9 @@ def paged_auto(model, cfg, mode, expect):
     want = {name: 0 for name in KERNELS}
     want[expect] = 4 * per
     serving = SERVING_BODY[expect]
-    if counts != want or (expect in body_counts and body_counts[expect]
-                          != {PREFILL_BODY: 2 * per, serving: 2 * per}):
+    if counts != want or (expect in body_counts and {
+            b: n for b, n in body_counts[expect].items() if n}
+            != {PREFILL_BODY[expect]: 2 * per, serving: 2 * per}):
         raise AssertionError(f"paged auto: launch counts {counts}, by body "
                              f"{body_counts}: expected {want}")
     if decode["miss"] or not decode["hit"]:
@@ -2370,7 +2454,7 @@ def chunk_turns(model, cfg, expect, default):
     for name in ("default", "tuned", "tuned", "default"):
         window = replay_window(engines[name], 1, (4, 0),
                                engines[name].prefill._graph,
-                               {(expect, PREFILL_BODY): per},
+                               {(expect, PREFILL_BODY[expect]): per},
                                f"chunk window ({name})")
         ms[name].append(window["device_ms"] / 4)
         share[name].append(window["demm_records_share"])
@@ -2434,7 +2518,8 @@ def tune_full_width(model, cfg, mode, expect, *, layout, quantize, kw):
     entry["tune_s_bx32"] = time.time() - t0
     entry["bx32_vs_plain"] = check_selected(model, res32,
                                             PAGED["prefill_chunk"], mode)
-    if {r["body"] for r in entry["bx32"]} != {"gather"}:
+    if {r["body"] for r in entry["bx32"]} != {
+            PREFILL_BODY[expect]}:
         raise AssertionError(f"{mode}: Bx = 32 bodies "
                              f"{[r['body'] for r in entry['bx32']]}")
     with graphs_kept():
@@ -2716,7 +2801,7 @@ def spec_counted(engine, cfg, expect, paged):
         serving = SERVING_BODY[expect]
         want_b = {serving: 2 * per * steps}
         if paged:
-            want_b[PREFILL_BODY] = 2 * per
+            want_b[PREFILL_BODY[expect]] = 2 * per
         got_b = {k: v for k, v in bodies[expect].items() if v}
         if got_b != want_b:
             raise AssertionError(f"{expect} launches by body {got_b}: "
@@ -3025,8 +3110,8 @@ def step_bodies(model, bx=4, modules=None, check=True):
     wrappers' own selection (``demm_xwT.xwt_body`` with K3's scales,
     ``demm_block_spmm.block_body``, ``demm_q8.block_q8_body``) on its
     weight, x in the compute dtype; and, with ``check``, each checked
-    against the rule as this script states it: K1 and K3 on their bulk
-    body at Bx <= 8; K2 and K4 on their cluster body where a group's M
+    against the rule as this script states it: K1 and K3 on the body
+    :func:`xwt_rule` names; K2 and K4 on their cluster body where a group's M
     activations are a 16-byte multiple, else (M = 1: gemma3's 1:1
     projections) on their gather body.  (A rank's slice of a weight may
     fall to a gather body: phase 16 reads the bodies unchecked and reports
@@ -3059,7 +3144,7 @@ def step_bodies(model, bx=4, modules=None, check=True):
             body = xwt_body(x, pw.values, pw.indices, m,
                             duplicates=pw.has_duplicates,
                             scales=pw.scales if pw.qdtype else None)
-            rule = "bulk" if bx <= 8 else "gather"
+            rule = xwt_rule(bx, k, m, dtype)
         if check and body != rule:
             raise AssertionError(
                 f"{name} at ({o}, {k}) {pw.cfg.pattern_name()}, Bx = {bx}: "
@@ -3264,8 +3349,10 @@ def prefill_gap(model, cfg, kernel, rtol=None, tokens=PREFILL_TOKENS,
                 per_prefill=None, bound=None, seed=5):
     """11e: ``model.prefill`` of one prompt of ``tokens`` tokens (drawn
     from ``seed``; 600: the
-    projections at 600 rows, every launch on its gather body,
-    7 x layers of ``kernel``, or ``per_prefill`` {(kernel, body): n}),
+    projections at 600 rows, every launch on the body the rule gives
+    (:func:`step_bodies` at ``tokens`` rows: K1's wide body for bfloat16 x,
+    gather for float32 x or M = 1), or ``per_prefill`` {(kernel, body):
+    n}),
     against the dense engine fed the same tokens
     one by one (a captured step per token; its logits after the last one).
     Returns (the relative L2 gap of the last logits over the true vocab,
@@ -3288,8 +3375,8 @@ def prefill_gap(model, cfg, kernel, rtol=None, tokens=PREFILL_TOKENS,
             {"tokens": torch.from_numpy(prompt).to(DEVICE)[None]},
             policy=policy)
         got = logits[0, 0, :cfg.vocab_size].float().cpu().numpy()
-    launched = check_step_counts(kernel, per_prefill or {
-        (kernel, "gather"): 7 * cfg.num_layers}, 1, f"{cfg.name} prefill")
+    launched = check_step_counts(kernel, per_prefill or step_bodies(
+        model, bx=tokens), 1, f"{cfg.name} prefill")
     if state["pos"].tolist() != [0]:
         raise AssertionError("prefill's decode state is not fresh")
     engine = ServeEngine(model, ServeConfig(num_slots=1, max_len=tokens + 8),
@@ -3653,7 +3740,7 @@ def train_grads(gen):
                         body = xwt_body(x, pw.values, pw.indices, m,
                                         duplicates=False,
                                         scales=pw.scales)
-                        rule = "bulk" if bx <= 8 else "gather"
+                        rule = xwt_rule(bx, x.shape[1], m, x.dtype)
                     elif kernel == "demm_block_spmm":
                         body = block_body(pw.active_groups, pw.values,
                                           pw.indices, x.T, m)
@@ -4018,17 +4105,18 @@ def family_cfg(arch, **over):
                                                   **over})
 
 
-def decode_step_bodies(model, check=True):
+def decode_step_bodies(model, check=True, bx=4):
     """{(kernel, body): launches} of one decode step of the packed family
     ``model`` (:func:`step_bodies` of the modules the step runs: an
     encoder-decoder's encoder does not run in decode, and the hybrid's one
-    shared block runs once a period)."""
-    per = step_bodies(model, modules=(model.dec_layers
-                                      if hasattr(model, "dec_layers")
-                                      else model), check=check)
+    shared block runs once a period); ``bx``: the step's rows (a prefill's
+    tokens)."""
+    per = step_bodies(model, bx=bx, modules=(model.dec_layers
+                                             if hasattr(model, "dec_layers")
+                                             else model), check=check)
     if hasattr(model, "shared"):
         n_periods = model.layout(model.cfg)[1]
-        for kb, n in step_bodies(model, modules=model.shared,
+        for kb, n in step_bodies(model, bx=bx, modules=model.shared,
                                  check=check).items():
             per[kb] += (n_periods - 1) * n
     return per
@@ -4193,7 +4281,8 @@ def family_paged():
 
 def family_prefill():
     """13d: zamba2 and xlstm at full width: ``prefill`` of a 200-token
-    prompt (every packed projection once at 200 rows, on the gather body)
+    prompt (every packed projection once at 200 rows: K1's wide body in
+    bfloat16, its gather body in float32)
     against the dense engine fed the same tokens one by one, the
     reference's own invariant (``tests/test_models_smoke.py``): last logits
     within :data:`FAMILY_PREFILL_GAP_BF16` (relative L2) in bfloat16
@@ -4208,20 +4297,24 @@ def family_prefill():
     for arch in RECURRENT_FAMILIES:
         cfg = family_cfg(arch)
         model = pack_tree(build_model(cfg, device=DEVICE, seed=0))
-        gather = {("demm_xwT", "gather"): FAMILY_STEP_LAUNCHES[arch]}
+        bodies = decode_step_bodies(model, bx=FAMILY_PREFILL_TOKENS)
+        if sum(bodies.values()) != FAMILY_STEP_LAUNCHES[arch]:
+            raise AssertionError(f"{arch} prefill: bodies {bodies}, expected "
+                                 f"{FAMILY_STEP_LAUNCHES[arch]} launches")
         t0 = time.time()
         gaps, launches = [], 0
         for seed in FAMILY_PREFILL_SEEDS:
             gap, n = prefill_gap(model, cfg, "demm_xwT",
                                  tokens=FAMILY_PREFILL_TOKENS,
-                                 per_prefill=gather,
+                                 per_prefill=bodies,
                                  bound=FAMILY_PREFILL_GAP_BF16, seed=seed)
             gaps.append(gap)
             launches += n
         model.cfg = cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         gap32, n = prefill_gap(model, cfg32, "demm_xwT", rtol=1e-3,
                                tokens=FAMILY_PREFILL_TOKENS,
-                               per_prefill=gather,
+                               per_prefill=decode_step_bodies(
+                                   model, bx=FAMILY_PREFILL_TOKENS),
                                seed=FAMILY_PREFILL_SEEDS[0])
         report[arch] = {"tokens": FAMILY_PREFILL_TOKENS,
                         "seeds": list(FAMILY_PREFILL_SEEDS),
@@ -6836,11 +6929,12 @@ def shape_inputs(label, o, k, n, m, gen, bx=4):
     return x, vals, idx, q, scales, meta
 
 
-def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
+def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=(), extra=None):
     """K1 and K3 as the main path launches them, K3 with each of the
     ``scales`` ({"per_row": (O,), "per_group": (O, G)}); with the sweep on,
     both kernels' bulk-body tunables (rows per CTA, chunks) and their gather
-    body, K3's also at the gather body's rows per block ``sweep``.  (A
+    body, K3's also at the gather body's rows per block ``sweep``;
+    ``extra``: more variants of both, as ``timed_entry`` takes them.  (A
     checkout from before the duplicate repair has no ``duplicates`` flag:
     its one instantiation is the main path's; one from before K3's bulk
     body has no K3 hook and runs the gather body.)"""
@@ -6860,7 +6954,7 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
     r = ring((vals, idx), w_bytes)
 
     def k1(v, i, body=None, **kw):
-        if body is None and "chunks" not in kw:
+        if body is None and not {"chunks", "tile"} & kw.keys():
             return demm_xwT(x, v, i, cfg, **main, **kw)
         return kx.demm_xwT_on(body, x, v, i, cfg, **main, **kw)
 
@@ -6870,6 +6964,8 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
             "bulk_rows_ms": {str(n): {"rows_per_block": n} for n in BULK_ROWS},
             "bulk_chunks_ms": {str(c): {"chunks": c} for c in BULK_CHUNKS},
             "gather_body_ms": {"default": {"body": "gather"}}}
+    if extra:
+        variants = {**(variants or {}), **extra}
     out["demm_xwT"] = [timed_entry(
         {**meta, "body": kx.xwt_body(x, vals, idx, cfg.m, **main)
          if hasattr(kx, "xwt_body") else "gather"},
@@ -6879,12 +6975,12 @@ def time_xwt(x, vals, idx, q, scales, cfg, meta, *, sweep=()):
     has_bulk = hasattr(kq, "demm_xwT_q8_on")
 
     def k3(v, i, sc, body=None, **kw):
-        if body is None and not {"chunks", "lanes"} & kw.keys():
+        if body is None and not {"chunks", "lanes", "tile"} & kw.keys():
             return demm_xwT_q8(x, v, i, sc, cfg, **main, **kw)
         return kq.demm_xwT_q8_on(body, x, v, i, sc, cfg, **main, **kw)
 
     if sweep and has_bulk:
-        variants = {**variants, "bulk_lanes_ms": {
+        variants = {**variants, **(extra or {}), "bulk_lanes_ms": {
             str(n): {"lanes": n} for n in BULK_LANES}, "gather_body_ms": {
             "default": {"body": "gather"},
             **{f"rows_per_block={n}": {"body": "gather", "rows_per_block": n}
@@ -6992,27 +7088,128 @@ def library_ms(x, dense):
     return time_ring([lambda wt=wt: torch.matmul(x, wt) for wt in wr])[0]
 
 
-def time_gather_bodies(label, o, k, n, m, gen, bx=32):
+def time_prefill_bodies(label, o, k, n, m, gen, bx=32):
     """K1-K4 at one projection shape with x of ``bx`` rows (bf16), as a
-    prefill chunk launches them: every one of them on its gather body (the
-    bulk and cluster bodies take at most 8 rows), K3 with per-row scales as
-    served.  Rows as :func:`time_shape`'s, with the library yardstick."""
+    prefill chunk launches them: K1 and K3 on their wide body, their gather
+    body timed beside it through the measurement hooks
+    (``gather_body_ms``), K2 and K4 on their gather body (the bulk and
+    cluster bodies take at most 8 rows), K3 with per-row scales as served
+    and with per-group scales.  Rows as :func:`time_shape`'s, with the
+    library yardstick."""
     from repro_torch.core.sparsity import SparsityConfig
 
     cfg = SparsityConfig(n, m)
     x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen,
                                                  bx=bx)
-    out = time_xwt(x, vals, idx, q, {"per_row": scales["per_row"]}, cfg,
-                   meta)
+    out = time_xwt(x, vals, idx, q, scales, cfg, meta,
+                   extra={"gather_body_ms": {"default": {"body": "gather"}}})
     dense, blocks = time_block(x, vals, idx, cfg, meta)
     out.update(blocks)
     lib = library_ms(x, dense)
-    for entries in out.values():
+    for name, entries in out.items():
         for e in entries:
             e["library_ms"] = lib
-            if e["body"] != "gather":
-                raise AssertionError(f"{label} at Bx = {bx}: {e['body']} "
-                                     "body, expected the gather body")
+            if e["body"] != PREFILL_BODY[name]:
+                raise AssertionError(f"{label} {name} at Bx = {bx}: "
+                                     f"{e['body']} body, expected "
+                                     f"{PREFILL_BODY[name]}")
+    return out
+
+
+# the paper's example at prefill width (benchmarks/torch_run.py's shape)
+WIDE_BIG = ("6912x2560 8:128", 6912, 2560, 8, 128, 2048)
+
+
+def time_wide_big(gen):
+    """K1 and K3 (per-row scales) on the wide body at 2048 rows of bf16 x
+    on 6912 x 2560 at 8:128, the gather body beside them through the
+    measurement hooks, with bound and the library yardstick: {kernel:
+    row}."""
+    from repro_torch.core.sparsity import SparsityConfig
+
+    label, o, k, n, m, bx = WIDE_BIG
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, q, scales, meta = shape_inputs(label, o, k, n, m, gen,
+                                                 bx=bx)
+    out = time_xwt(x, vals, idx, q, {"per_row": scales["per_row"]}, cfg,
+                   meta,
+                   extra={"gather_body_ms": {"default": {"body": "gather"}}})
+    from repro_torch.core.sparsity import unpack
+    lib = library_ms(x, unpack(vals, idx, cfg, (o, k)))
+    rows = {}
+    for name, entries in out.items():
+        e = entries[0]
+        if e["body"] != "wide":
+            raise AssertionError(f"{label} {name} at Bx = {bx}: {e['body']} "
+                                 "body, expected wide")
+        e["library_ms"] = lib
+        e["gather_ms"] = e.pop("gather_body_ms")["default"]
+        rows[name] = e
+    return rows
+
+
+# builds of the wide body in pieces (--wide-pieces): the library's, one
+# without the products, one without reading a packed byte
+WIDE_PIECES = (("full", ""), ("no products", "-DDEMM_WIDE_NO_PRODUCTS"),
+               ("no pairs", "-DDEMM_WIDE_NO_PAIRS"))
+
+
+def wide_piece_times():
+    """Device ms of the wide body of the library this process built (its
+    flags from ``$REPRO_TORCH_NVCC_FLAGS``): K1 and K3 (per-row scales) per
+    stablelm_3b layer at Bx = 32, K1 on 6912 x 2560 8:128 at Bx = 2048
+    (graph replays of a ring larger than L2)."""
+    import torch
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.kernels.demm_q8 import demm_xwT_q8_on
+    from repro_torch.kernels.demm_xwT import demm_xwT_on
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    out = {"k1_bx32_layer_ms": 0.0, "k3_bx32_layer_ms": 0.0}
+    for label, o, k, n, m in MAIN_SHAPES:
+        cfg = SparsityConfig(n, m)
+        x, vals, idx, q, scales, _ = shape_inputs(label, o, k, n, m, gen,
+                                                  bx=32)
+        r = ring((vals, idx), vals.nbytes + idx.nbytes)
+        out["k1_bx32_layer_ms"] += LAYER_MIX[label] * time_ring(
+            [lambda v=v, i=i: demm_xwT_on("wide", x, v, i, cfg,
+                                          duplicates=False)
+             for v, i in r])[0]
+        sc = scales["per_row"]
+        r = ring((q, idx, sc), q.nbytes + idx.nbytes + sc.nbytes)
+        out["k3_bx32_layer_ms"] += LAYER_MIX[label] * time_ring(
+            [lambda v=v, i=i, sc=sc: demm_xwT_q8_on(
+                "wide", x, v, i, sc, cfg, duplicates=False)
+             for v, i, sc in r])[0]
+    label, o, k, n, m, bx = WIDE_BIG
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _, _, _ = shape_inputs(label, o, k, n, m, gen, bx=bx)
+    r = ring((vals, idx), vals.nbytes + idx.nbytes)
+    out["k1_bx2048_ms"] = time_ring(
+        [lambda v=v, i=i: demm_xwT_on("wide", x, v, i, cfg, duplicates=False)
+         for v, i in r])[0]
+    return out
+
+
+def wide_pieces():
+    """The wide body timed in pieces: each build of :data:`WIDE_PIECES` in
+    its own process and library (the flags are part of the library's
+    hash), in turns the builds in order, then in reverse order.  {piece:
+    [rows]}."""
+    import subprocess
+    out = {}
+    order = list(WIDE_PIECES) + list(reversed(WIDE_PIECES))
+    for name, flags in order:
+        env = dict(os.environ)
+        env["REPRO_TORCH_NVCC_FLAGS"] = " ".join(
+            f for f in (env.get("REPRO_TORCH_NVCC_FLAGS", ""), flags) if f)
+        res = subprocess.run([sys.executable, __file__, "--piece-times"],
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"piece {name}: {res.stderr[-2000:]}")
+        out.setdefault(name, []).append(
+            json.loads(res.stdout.strip().splitlines()[-1]))
     return out
 
 
@@ -7162,7 +7359,8 @@ def tier_times(gen, tiers=(8, 6, 4)):
 
 def launch_floor():
     """An empty kernel launched at K1's and K3's bulk grid (about one CTA
-    per SM, as ``csrc/demm_xwt_bulk.cuh`` sizes it) and at K2's cluster grid
+    per SM, as ``csrc/demm_xwt_bulk.cuh`` sizes it), at their wide grid at
+    Bx = 32 (``demm_xwT.wide_plan``) and at K2's cluster grid
     (a cluster of ``cl_auto_csize`` CTAs per row block), each with the
     dynamic shared memory the kernel asks for at Bx = 4 bf16, timed by the
     same graph replay as the kernels: what a launch of that shape costs
@@ -7181,7 +7379,9 @@ def launch_floor():
                 torch.cuda.current_stream().cuda_stream), "demm_empty")
         return call
 
-    out = {"demm_xwT": {}, "demm_xwT_q8": {}, "demm_block_spmm": {}}
+    from repro_torch.kernels.demm_xwT import wide_plan
+    out = {"demm_xwT": {}, "demm_xwT_q8": {}, "demm_block_spmm": {},
+           "demm_xwT_wide_bx32": {}}
     for label, o, k, n, m in MAIN_SHAPES:
         g, bx, block_r = k // m, 4, 128
         rows = -(-o // sms)
@@ -7198,6 +7398,10 @@ def launch_floor():
         grids = {"demm_xwT": (-(-o // rows), 512, 1, smem1),
                  "demm_xwT_q8": (-(-o // rows), 512, 1, smem3),
                  "demm_block_spmm": (rb * csize, 256, csize, smem2)}
+        plan = wide_plan(32, o, g, m, n, sms=sms)       # the prefill chunk's
+        grids["demm_xwT_wide_bx32"] = (
+            -(-o // plan["rows"]) * plan["split"] * plan["xsplit"], 512,
+            plan["split"], plan["smem"])
         for name, (blocks, threads, cs, smem) in grids.items():
             ms = time_ring([empty(blocks, threads, cs, smem)] * 64)[0]
             out[name][label] = {"blocks": blocks, "threads": threads,
@@ -7362,11 +7566,22 @@ def main(argv=None) -> int:
                     help="development aid: time K1-K5 of the checkout at DIR "
                          "against this one's, in turns, and stop; prints no "
                          "result line")
+    ap.add_argument("--wide-pieces", action="store_true",
+                    help="development aid: after phase 3, time K1 / K3's "
+                         "prefill bodies (7p, 7b) and the wide body built "
+                         "without its products and without reading its "
+                         "pairs, each build in its own process, and stop; "
+                         "prints no result line")
     ap.add_argument("--times-of", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--piece-times", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.time()
     if args.times_of:
         print(json.dumps(times_of(args.times_of)), flush=True)
+        return 0
+    if args.piece_times:
+        print(json.dumps(wide_piece_times()), flush=True)
         return 0
 
     import torch
@@ -7412,6 +7627,22 @@ def main(argv=None) -> int:
 
     if args.stop_after is not None and args.stop_after <= 3:
         log(f"stopped after phase 3 as asked ({time.time() - t_start:.1f} s)")
+        return 0
+
+    if args.wide_pieces:
+        t0 = time.time()
+        for shape in MAIN_SHAPES:
+            for name, entries in time_prefill_bodies(*shape, gen).items():
+                for entry in entries:
+                    log(f"[7p prefill Bx=32] {name} {json.dumps(entry)}")
+        for name, e in time_wide_big(gen).items():
+            log(f"[7b wide Bx=2048] {name} {json.dumps(e)}")
+        log(f"[7p/7b] {time.time() - t0:.1f} s")
+        t0 = time.time()
+        for name, rows in wide_pieces().items():
+            log(f"[wide pieces] {name}: {json.dumps(rows)}")
+        log(f"[wide pieces] {time.time() - t0:.1f} s; {smi}; stopped as "
+            f"asked ({time.time() - t_start:.1f} s)")
         return 0
 
 
@@ -7691,12 +7922,35 @@ def main(argv=None) -> int:
             for entry in entries:
                 per_kernel[name].append(entry)
                 log(f"[7 times] {name} {json.dumps(entry)}")
-    gather32 = {name: [] for name in KERNELS[:4]}
+    prefill32 = {name: [] for name in KERNELS[:4]}
     for shape in MAIN_SHAPES:
-        for name, entries in time_gather_bodies(*shape, gen).items():
+        for name, entries in time_prefill_bodies(*shape, gen).items():
             for entry in entries:
-                gather32[name].append(entry)
-                log(f"[7p gather Bx=32] {name} {json.dumps(entry)}")
+                prefill32[name].append(entry)
+                log(f"[7p prefill Bx=32] {name} {json.dumps(entry)}")
+    log("[7p prefill Bx=32] kernel | scales | body | ms per layer | gather "
+        "body ms | bound ms | library ms")
+    for name in KERNELS[:4]:
+        for unit in ("per_row", "per_group"):
+            rows = [e for e in prefill32[name]
+                    if e.get("scales", "per_row") == unit]
+            if name != "demm_xwT_q8" and unit == "per_group":
+                continue
+            per = {key: sum(LAYER_MIX[e["shape"]] * e[key] for e in rows)
+                   for key in ("ms", "bound_ms", "library_ms")}
+            gath = (sum(LAYER_MIX[e["shape"]] * e["gather_body_ms"]["default"]
+                        for e in rows) if rows[0].get("gather_body_ms")
+                    else per["ms"])
+            log(f"[7p prefill Bx=32] {name} | {unit} | {rows[0]['body']} | "
+                f"{per['ms']:.4f} | {gath:.4f} | {per['bound_ms']:.4f} | "
+                f"{per['library_ms']:.4f}")
+    t0 = time.time()
+    big = time_wide_big(gen)
+    for name, e in big.items():
+        log(f"[7b wide Bx=2048] {name} {WIDE_BIG[0]}: wide {e['ms']:.4f} ms, "
+            f"gather {e['gather_ms']:.4f}, bound {e['bound_ms']:.4f} "
+            f"({e['bound_by']}), library {e['library_ms']:.4f}, plain "
+            f"{e['plain_ms']:.3f}; {time.time() - t0:.1f} s; {smi}")
     t0 = time.time()
     tier_rows, tier_layer = tier_times(gen)
     for r in tier_rows:
@@ -7744,7 +7998,7 @@ def main(argv=None) -> int:
                            source_wide=csrc + "demm_spmm_tc.cu")
                for name, (src, replaces, work) in sources.items()]
     for entry in kernels:
-        rows = gather32.get(entry["name"])
+        rows = prefill32.get(entry["name"])
         if rows is None:
             continue
         # the paged engine: wrapper launches over its counted pass, and the
@@ -7768,12 +8022,29 @@ def main(argv=None) -> int:
             if r["kernel"] == entry["name"]) + (
             windowed["h2o_danube_1_8b"]["launches"]
             if entry["name"] == "demm_xwT" else 0)
+        # the prefill chunk's body at Bx = 32, per layer (K3: per-row
+        # scales as served; per_group beside it), and K1 / K3's gather body
+        # at the same shapes
+        served = [e for e in rows if e.get("scales", "per_row") == "per_row"]
         entry["prefill_bx32"] = {
-            "body": "gather", **{key: sum(LAYER_MIX[e["shape"]] * e[key]
-                                          for e in rows)
-                                 for key in ("ms", "plain_ms", "bound_ms",
-                                             "library_ms")},
+            "body": PREFILL_BODY[entry["name"]],
+            **{key: sum(LAYER_MIX[e["shape"]] * e[key] for e in served)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "shapes": rows}
+        if served[0].get("gather_body_ms"):
+            entry["prefill_bx32"]["gather_ms"] = sum(
+                LAYER_MIX[e["shape"]] * e["gather_body_ms"]["default"]
+                for e in served)
+        per_group = [e for e in rows if e.get("scales") == "per_group"]
+        if per_group:
+            entry["prefill_bx32"]["per_group"] = {
+                key: sum(LAYER_MIX[e["shape"]] * e[key] for e in per_group)
+                for key in ("ms", "bound_ms", "library_ms")}
+            entry["prefill_bx32"]["per_group"]["gather_ms"] = sum(
+                LAYER_MIX[e["shape"]] * e["gather_body_ms"]["default"]
+                for e in per_group)
+        if entry["name"] in big:
+            entry["wide_bx2048"] = big[entry["name"]]
     # phase 12's launches: the forwards under autograd (12a, the remat
     # check's K1 launches included) and the trained checkpoints served
     # (12b: K1, 12c: K3 and K4)

@@ -29,7 +29,7 @@ SOURCES = ("demm_xwt.cu", "demm_xwt_q8.cu", "demm_block_spmm.cu",
            "demm_block_spmm_q8.cu", "demm_spmm_tc.cu")
 HEADERS = ("demm_xwt_common.cuh", "demm_block_spmm_common.cuh",
            "hopper_async.cuh", "demm_block_cluster.cuh", "demm_spmm_tc.cuh",
-           "demm_xwt_bulk.cuh")
+           "demm_xwt_bulk.cuh", "demm_xwt_wide.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -118,8 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # pointers and the stream are c_void_p: without argtypes ctypes would
     # pass them as 32-bit ints and cut the addresses
-    lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 14, p]
-    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 15, p]
+    lib.demm_xwt_launch.argtypes = [p, p, p, p, *[i] * 15, p]
+    lib.demm_xwt_q8_launch.argtypes = [p, p, p, p, p, *[i] * 16, p]
     lib.demm_block_spmm_launch.argtypes = [p, p, p, p, p, *[i] * 8, *[ll] * 7,
                                            *[i] * 7, p]
     lib.demm_block_spmm_q8_launch.argtypes = [p, p, p, p, p, p, *[i] * 9,

@@ -40,6 +40,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// Announce `bytes` of bulk copies to come on `bar`, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 // Spin until the phase of parity `parity` has completed.  A phase that never
 // completes (a copy that was never issued, a miscounted arrival) traps after
 // about ten seconds of clock, so the launch fails with an error instead of

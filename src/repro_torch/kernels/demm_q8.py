@@ -7,7 +7,9 @@ plain PyTorch versions, for both packed layouts.
   (``demm_xwT.xwt_body`` given the scales) it runs K1's bulk-copy row-tile
   body (``csrc/demm_xwt_bulk.cuh``): about one CTA per SM, each requesting
   its rows' int8 values, indices and per-group scales with bulk copies at
-  entry, x staged once per CTA; otherwise K1's gather body.
+  entry, x staged once per CTA; at wider bfloat16 x K1's wide body
+  (``csrc/demm_xwt_wide.cuh``), each pair's scaled weight decoded once per
+  launch into shared memory; otherwise K1's gather body.
 * :func:`demm_block_spmm_q8` — ``C = A_q8 @ B`` from the two-level block
   layout; replaces ``demm_block_spmm_q8_pallas`` of the same module; CUDA
   source ``csrc/demm_block_spmm_q8.cu``.  At serving batch
@@ -49,6 +51,9 @@ from repro_torch.kernels.demm_block_spmm import (
 )
 from repro_torch.kernels.demm_xwT import (
     _DTYPE_CODE,
+    BODY_CODE,
+    WIDE_TILES,
+    check_body,
     check_xwT_args,
     raise_on_launch_error,
     round_to,
@@ -97,7 +102,8 @@ def demm_xwT_q8(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
 
     A CUDA tensor launches the hand-written kernel (the body
     ``demm_xwT.xwt_body`` names given the scales: K1's bulk row-tile body at
-    serving batch, its gather body otherwise) or raises; a CPU tensor takes
+    serving batch, its wide body at wider bfloat16 x, its gather body
+    otherwise) or raises; a CPU tensor takes
     :func:`demm_xwT_q8_plain`, and only because it lies on the CPU.
     ``duplicates`` and ``rows_per_block`` as for ``demm_xwT``.
     """
@@ -112,27 +118,27 @@ def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
                    duplicates: bool = True,
                    rows_per_block: Optional[int] = None,
                    chunks: Optional[int] = None,
-                   lanes: Optional[int] = None) -> torch.Tensor:
-    """:func:`demm_xwT_q8` on a named body (``"bulk"``, only where
-    ``xwt_body`` picks it, or ``"gather"``; ``None``: the chosen one) and the
-    bulk body's ``chunks`` (row chunks per CTA; left open, the whole tile, or
-    a ring where it does not fit) and ``lanes`` (slot lanes per row, 8 or
-    16; left open, 8 where a chunk holds more than 32 rows, so that one
-    pass of the CTA's 512 threads takes them) — a measurement hook for
+                   lanes: Optional[int] = None,
+                   tile: Optional[int] = None) -> torch.Tensor:
+    """:func:`demm_xwT_q8` on a named body (``"bulk"`` or ``"wide"``, only
+    where ``xwt_body`` picks it, or ``"gather"``; ``None``: the chosen one),
+    the bulk body's ``chunks`` (row chunks per CTA; left open, the whole
+    tile, or a ring where it does not fit) and ``lanes`` (slot lanes per
+    row, 8 or 16; left open, 8 where a chunk holds more than 32 rows, so
+    that one pass of the CTA's 512 threads takes them) and the wide body's
+    ``tile`` (x rows per tile, 32, 64 or 128) — a measurement hook for
     timing one body against the other and the tunables (``chip_smoke.py
-    --sweep``), not a serving entry point.  A launch counts on
-    ``demm_xwT_q8.launches`` and by body on
+    --sweep``), and the tuner's way to a tunable, not a serving entry point.
+    A launch counts on ``demm_xwT_q8.launches`` and by body on
     ``demm_xwT_q8.body_launches``."""
     bx, k, o, g, ne, pitch = check_xwT_args(x, values, indices, cfg,
                                             (torch.int8,))
     _check_scales(scales, x, ((o,), (o, g)))
     chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates,
                       scales=scales)
-    if body not in (None, "bulk", "gather"):
-        raise ValueError(f"body must be 'bulk' or 'gather', got {body!r}")
-    if body == "bulk" and chosen != "bulk":
-        raise ValueError("the bulk body does not take these arguments "
-                         "(xwt_body)")
+    check_body(body, chosen)
+    if tile not in (None, *WIDE_TILES):
+        raise ValueError(f"tile must be one of {WIDE_TILES}, got {tile!r}")
     if lanes not in (None, 8, 16):
         raise ValueError(f"lanes must be 8 or 16, got {lanes!r}")
     if not x.is_cuda:
@@ -146,8 +152,8 @@ def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
         scales.data_ptr(), y.data_ptr(), bx, k, o, g, cfg.m, ne, pitch,
         _DTYPE_CODE[x.dtype], 1 if scales.ndim == 1 else g,
         int(bool(duplicates)), int(rows_per_block or 0),
-        int((body or chosen) == "bulk"), int(chunks or 0), int(lanes or 0),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        BODY_CODE[body or chosen], int(chunks or 0), int(lanes or 0),
+        int(tile or 0), x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt_q8")
     demm_xwT_q8.launches += 1
     demm_xwT_q8.body_launches[body or chosen] += 1
@@ -155,7 +161,7 @@ def demm_xwT_q8_on(body: Optional[str], x: torch.Tensor,
 
 
 demm_xwT_q8.launches = 0     # kernel launches (not plain-version calls)
-demm_xwT_q8.body_launches = {"bulk": 0, "gather": 0}    # the same, by body
+demm_xwT_q8.body_launches = {"bulk": 0, "wide": 0, "gather": 0}  # by body
 
 
 def demm_block_spmm_q8_plain(active_groups: torch.Tensor,

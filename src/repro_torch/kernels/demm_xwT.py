@@ -4,18 +4,23 @@ its plain PyTorch version.
 Replaces the TPU kernel ``demm_xwT_pallas`` (``kernels/demm_spmm.py`` of the
 JAX package).  The CUDA source is ``csrc/demm_xwt.cu``; on an H100 the work
 at decode batch sizes is one pass over the packed bytes, so device-memory
-bandwidth bounds it.  Two bodies, picked by :func:`xwt_body`:
+bandwidth bounds it.  Three bodies, picked by :func:`xwt_body`:
 
 * ``bulk`` (``csrc/demm_xwt_bulk.cuh``) at serving batch (Bx <= 8): about
   one CTA per SM, each owning a tile of consecutive output rows whose values
   and indices — one contiguous span each — it requests with bulk copies at
   entry, x staged once per CTA with 16-byte loads while the copies are in
   flight;
-* ``gather`` (``csrc/demm_xwt_common.cuh``) otherwise: many small blocks,
-  each staging its x tile in shared memory, warps striding over a row's
-  ``{value, index}`` pairs, coalesced.
+* ``wide`` (``csrc/demm_xwt_wide.cuh``) at wider bfloat16 x (Bx > 8: every
+  prefill chunk, whole-sequence prefill, the packed training forward):
+  about one CTA per SM, each decoding its rows' pairs once into shared
+  memory and walking x's row tiles of 32-128 rows over them, x staged in
+  chunks of groups;
+* ``gather`` (``csrc/demm_xwt_common.cuh``) otherwise (float32 x, shapes
+  the others refuse): many small blocks, each staging its x tile in shared
+  memory, warps striding over a row's ``{value, index}`` pairs, coalesced.
 
-Semantics shared by both bodies and :func:`demm_xwT_plain` (those of the TPU
+Semantics shared by the bodies and :func:`demm_xwT_plain` (those of the TPU
 kernel's scatter matrix):
 
 * ``y[b, o] = Σ_g Σ_t S[o, g, t] · x[b, g·M + t]`` with ``S[o, g, t]`` the
@@ -177,6 +182,23 @@ def demm_xwT_plain(x: torch.Tensor, values: torch.Tensor,
 BULK_MAX_BX = 8
 BULK_HEAD_BYTES = 128
 BULK_SMEM_BYTES = 232448
+# The wide body's (``csrc/demm_xwt_wide.cuh``; the same test): the fewest x
+# rows, the x tile and its columns a chunk of groups may hold (one 8 x 8
+# block per thread), its threads, the x rows a lane holds, the items (and
+# rows) of a CTA, the most parts a row's pairs are split in, the most CTAs
+# along x's tiles and along K (a cluster), the widest K an entry's 16-bit
+# column reaches, the bytes before the entries (the pairs' mbarrier).
+WIDE_MIN_BX = 9
+WIDE_CHUNK_ELEMS = 32768
+WIDE_THREADS = 512
+WIDE_LANE_ROWS = 8
+WIDE_MAX_ITEMS = 128
+WIDE_MAX_PARTS = 8
+WIDE_MAX_XSPLIT = 4
+WIDE_MAX_SPLIT = 2
+WIDE_MAX_K = 65536
+WIDE_HEAD_BYTES = 16
+WIDE_TILES = (32, 64, 128)
 
 
 def _x_tile(bx: int) -> int:
@@ -185,16 +207,165 @@ def _x_tile(bx: int) -> int:
     return next(t for t in (1, 2, 4, 8) if bx <= t) if bx <= 8 else 8
 
 
+def wide_tile(bx: int) -> int:
+    """The wide body's x tile for ``bx`` rows (``wide_auto_tile``): the
+    smallest of 32, 64, 128 that covers them, 128 beyond."""
+    return next((t for t in WIDE_TILES if bx <= t), WIDE_TILES[-1])
+
+
+def wide_slots(tile: int) -> int:
+    """Item slots of a CTA at an x tile of ``tile`` rows (``wide_slots``):
+    ``tile / 8`` lanes an item."""
+    return WIDE_THREADS * WIDE_LANE_ROWS // tile
+
+
+def wide_parts(rows: int, tile: int) -> int:
+    """Items per row of a CTA of ``rows`` rows (``wide_parts``): the count
+    in 1..8 whose items fill the item slots' passes best, fewer on a tie,
+    at most 128 items."""
+    nslots = wide_slots(tile)
+    best, best_frac = 1, (0, 1)
+    for p in range(1, WIDE_MAX_PARTS + 1):
+        items = rows * p
+        if items > WIDE_MAX_ITEMS:
+            break
+        slots = -(-items // nslots) * nslots
+        if items * best_frac[1] > best_frac[0] * slots:
+            best, best_frac = p, (items, slots)
+    return best
+
+
+def _window(nbytes: int) -> int:
+    """The 16-byte-aligned window that holds any ``nbytes`` consecutive
+    bytes (``wide_window``)."""
+    return (-(-nbytes // 16) + 1) * 16
+
+
+def _row_scales(scale_cols: int, groups: int) -> int:
+    return 0 if scale_cols == 0 else 1 if scale_cols == 1 else groups
+
+
+def wide_raw_row_bytes(lr: int, value_size: int, nscales: int) -> int:
+    """One row's copied windows: ``lr`` indices, ``lr`` values of
+    ``value_size`` bytes and ``nscales`` scales (``wide_raw_row_bytes``)."""
+    return (_window(lr * 4) + _window(lr * value_size)
+            + (_window(nscales * 4) if nscales else 0))
+
+
+def _wide_fixed_bytes(tile: int, rows: int, split: int, gn: int) -> int:
+    """The pairs' mbarrier, the entries (4 bytes a read slot, an odd count
+    a row, rounded to 16) and the cluster's inbox (half the rows' sums,
+    rounded to 16)."""
+    dec = -(-rows * (gn | 1) * 4 // 16) * 16
+    inbox = -(-((rows + 1) // 2) * (tile + 1) * 4 // 16) * 16 if split > 1 \
+        else 0
+    return WIDE_HEAD_BYTES + dec + inbox
+
+
+def wide_smem_bytes(tile: int, rows: int, parts: int, split: int, gn: int,
+                    cols: int, raw_row: int) -> int:
+    """Dynamic shared memory of a wide launch at the least room
+    (``wide_smem_bytes``): the mbarrier, the entries and the cluster's
+    inbox, then a room for a round's pairs (at least one row's,
+    ``raw_row``), two x stages of ``cols`` columns or the parts' sums,
+    whichever is largest."""
+    room = max(2 * cols * tile * 2, parts * rows * (tile + 1) * 4, raw_row)
+    return _wide_fixed_bytes(tile, rows, split, gn) + room
+
+
+def _wide_stage_plan(tile, rows, split, g, m, ne, pitch, value_size,
+                     scale_cols, budget):
+    """``wide_plan`` in the header: {parts, chunk_groups, batch_rows,
+    smem}, or None."""
+    if not (1 <= rows <= WIDE_MAX_ITEMS and 1 <= split <= WIDE_MAX_SPLIT
+            and split <= g):
+        return None
+    gmax = -(-g // split)
+    gn = gmax * ne
+    parts = wide_parts(rows, tile)
+    cg = min(WIDE_CHUNK_ELEMS // (tile * m), gmax)
+    raw_row = wide_raw_row_bytes(gmax * pitch, value_size,
+                                 _row_scales(scale_cols, gmax))
+    while cg >= 1 and wide_smem_bytes(tile, rows, parts, split, gn, cg * m,
+                                      raw_row) > budget:
+        cg -= 1
+    if cg < 1:
+        return None
+    fixed = _wide_fixed_bytes(tile, rows, split, gn)
+    room = wide_smem_bytes(tile, rows, parts, split, gn, cg * m,
+                           raw_row) - fixed
+    if room < raw_row * rows:
+        room = min(raw_row * rows, (budget - fixed) & ~15)
+    return {"parts": parts, "chunk_groups": cg,
+            "batch_rows": min(room // raw_row, rows), "smem": fixed + room}
+
+
+def wide_plan(bx: int, o: int, g: int, m: int, ne: int, *,
+              pitch: Optional[int] = None, value_size: int = 4,
+              scale_cols: int = 0, tile: int = 0, rows: int = 0,
+              sms: int = 132,
+              budget: int = BULK_SMEM_BYTES) -> Optional[dict]:
+    """The wide launcher's plan (``wide_auto_grid`` and ``wide_plan``) on a
+    card of ``sms`` SMs and ``budget`` bytes of shared memory a block, for
+    values of ``value_size`` bytes and K3's ``scale_cols`` (1 per row, G
+    per group; 0 for K1): rows per CTA, CTAs along K (``split``, a
+    cluster) and along x, parts, groups per chunk, rows per decode round
+    and the shared memory; None where it refuses.  ``tile`` / ``rows``: the
+    tunables (0: left open; given rows, no cluster).  The autotuner counts
+    shared memory with it."""
+    tile = tile or wide_tile(bx)
+    pitch = pitch or ne
+    xs_top = min(-(-bx // tile), WIDE_MAX_XSPLIT)
+    sp_top = min(g, WIDE_MAX_SPLIT)
+
+    def plan(r, split, xsplit):
+        st = _wide_stage_plan(tile, r, split, g, m, ne, pitch, value_size,
+                              scale_cols, budget)
+        return st and {**st, "rows": r, "split": split, "xsplit": xsplit,
+                       "tile": tile}
+
+    rows = min(rows, o)
+    if rows > 0:
+        return plan(rows, 1, min(max(sms // -(-o // rows), 1), xs_top))
+    for prod in range(xs_top * sp_top, 0, -1):
+        for sp in range(1, sp_top + 1):
+            if prod % sp or prod // sp > xs_top:
+                continue
+            found = plan(max(min(-(-o * prod // sms), o), 1), sp, prod // sp)
+            if found:
+                return found
+    r = min(-(-o // sms), WIDE_MAX_ITEMS)
+    while r > 1 and plan(r, 1, 1) is None:
+        r = -(-r // 2)
+    return plan(r, 1, 1)
+
+
+def wide_fits(bx: int, k: int, g: int, ne: int, x_size: int,
+              value_size: int = 4, scale_cols: int = 0) -> bool:
+    """The wide body's shape rule (``wide_takes`` and ``wide_plan`` at one
+    row): bfloat16 x of more than 8 rows, x's rows and each group (M
+    columns) 16-byte multiples, K within an entry's 16-bit column, one
+    group of the x tile within a chunk, and one row's entries, copied pairs
+    and two one-group x stages within a block's shared memory."""
+    m = k // g
+    tile = wide_tile(bx)
+    return (x_size == 2 and bx >= WIDE_MIN_BX and k % 8 == 0 and m % 8 == 0
+            and k <= WIDE_MAX_K and tile * m <= WIDE_CHUNK_ELEMS
+            and _wide_stage_plan(tile, 1, 1, g, m, ne, ne, value_size,
+                                 scale_cols, BULK_SMEM_BYTES) is not None)
+
+
 def xwt_body_of(bx: int, k: int, g: int, ne: int, x_size: int,
                 value_size: int, scale_bytes: int = 0,
                 duplicates: bool = True) -> str:
     """:func:`xwt_body`'s rule on shapes and element sizes alone (operands
     taken 16-byte aligned): ``bx`` rows of x of ``x_size`` bytes each
     activation, ``g`` groups of ``ne`` pairs a row (the stored pitch: a
-    tier view's rows are copied whole), values of
-    ``value_size`` bytes, ``scale_bytes`` staged scales a row (K3's per-group
-    scales, ``4·G``; 0 otherwise).  The autotuner reads a problem's body
-    here, without tensors."""
+    tier view's rows are copied whole by the bulk body; the wide body
+    decodes only the read slots, so the stored pitch is the larger count),
+    values of ``value_size`` bytes, ``scale_bytes`` staged scales a row
+    (K3's per-group scales, ``4·G``; 0 otherwise).  The autotuner reads a
+    problem's body here, without tensors."""
     pairs = g * ne
     tile = 8 if duplicates else _x_tile(bx)
     x_bytes = -(-k // 16) * 16 * tile * x_size  # K in whole 16-column blocks
@@ -204,6 +375,9 @@ def xwt_body_of(bx: int, k: int, g: int, ne: int, x_size: int,
             and (pairs * value_size) % 16 == 0 and (pairs * 4) % 16 == 0
             and scale_bytes % 16 == 0 and fits):
         return "bulk"
+    if wide_fits(bx, k, g, ne, x_size, value_size,
+                 g if scale_bytes else 1 if value_size == 1 else 0):
+        return "wide"
     return "gather"
 
 
@@ -218,9 +392,13 @@ def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     16-byte multiples; every array the bulk copies read 16-byte aligned; and
     the transposed x tile (the widest tile with ``duplicates``) beside two
     rows of pairs and their staged scales within a block's shared memory —
-    ``"gather"`` otherwise.  This is the one statement of the rule
+    else ``"wide"`` for bfloat16 x of more than 8 rows whose rows and groups
+    are 16-byte multiples, x 16-byte aligned, where one row's decoded pairs
+    fit beside two one-group x stages (:func:`wide_fits`; the pairs and
+    scales are read element by element, so no rule on them) — else
+    ``"gather"``.  This is the one statement of the rule
     (:func:`xwt_body_of` on the shapes, a tier view's at its stored pitch):
-    the CUDA launchers only refuse what the bulk body cannot take."""
+    the CUDA launchers only refuse what their bodies cannot take."""
     bx, k = x.shape
     g, ne = values.shape[1], prefix_pitch(values, "values")
     staged = [] if scales is None or scales.ndim == 1 else [scales]
@@ -229,7 +407,25 @@ def xwt_body(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     if body == "bulk" and all(t.data_ptr() % 16 == 0
                               for t in (x, values, indices, *staged)):
         return "bulk"
+    if body == "wide" and x.data_ptr() % 16 == 0:
+        return "wide"
     return "gather"
+
+
+# the C launchers' body codes
+BODY_CODE = {"gather": 0, "bulk": 1, "wide": 2}
+
+
+def check_body(body: Optional[str], chosen: str) -> None:
+    """A named body (the measurement hooks' ``body``) must be one the
+    launchers know, and ``bulk`` / ``wide`` only where :func:`xwt_body`
+    picks them; ``gather`` takes anything."""
+    if body not in (None, *BODY_CODE):
+        raise ValueError(f"body must be 'bulk', 'wide' or 'gather', got "
+                         f"{body!r}")
+    if body in ("bulk", "wide") and chosen != body:
+        raise ValueError(f"the {body} body does not take these arguments "
+                         "(xwt_body)")
 
 
 def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
@@ -245,7 +441,7 @@ def demm_xwT(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     ``duplicates=False`` promises that no group holds two non-zero slots at
     one index (``PackedWeight.has_duplicates``) and launches the kernel
     without its summing search.  ``rows_per_block`` (output rows per thread
-    block of either body) is the kernel's tunable; left open, the launcher
+    block of any body) is the kernel's tunable; left open, the launcher
     sizes it to the card.
     """
     return demm_xwT_on(None, x, values, indices, cfg, duplicates=duplicates,
@@ -256,22 +452,23 @@ def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
                 indices: torch.Tensor, cfg: SparsityConfig, *,
                 duplicates: bool = True,
                 rows_per_block: Optional[int] = None,
-                chunks: Optional[int] = None) -> torch.Tensor:
-    """:func:`demm_xwT` on a named body (``"bulk"``, only where
-    :func:`xwt_body` picks it, or ``"gather"``; ``None``: the chosen one) and
-    the bulk body's ``chunks`` (row chunks per CTA, each with its own
-    barrier; left open, the whole tile, or a ring where it does not fit) —
-    a measurement hook for timing one body against the other and the chunk
-    counts (``chip_smoke.py --sweep``), not a serving entry point.  A launch
-    counts on ``demm_xwT.launches``."""
+                chunks: Optional[int] = None,
+                tile: Optional[int] = None) -> torch.Tensor:
+    """:func:`demm_xwT` on a named body (``"bulk"`` or ``"wide"``, only
+    where :func:`xwt_body` picks it, or ``"gather"``; ``None``: the chosen
+    one), the bulk body's ``chunks`` (row chunks per CTA, each with its own
+    barrier; left open, the whole tile, or a ring where it does not fit) and
+    the wide body's ``tile`` (x rows per tile, 32, 64 or 128; left open,
+    :func:`wide_tile`) — a measurement hook for timing one body against the
+    other and the tunables (``chip_smoke.py --sweep``), and the tuner's way
+    to a tunable, not a serving entry point.  A launch counts on
+    ``demm_xwT.launches``."""
     bx, k, o, g, ne, pitch = check_xwT_args(x, values, indices, cfg,
                                             (torch.float32, torch.bfloat16))
     chosen = xwt_body(x, values, indices, cfg.m, duplicates=duplicates)
-    if body not in (None, "bulk", "gather"):
-        raise ValueError(f"body must be 'bulk' or 'gather', got {body!r}")
-    if body == "bulk" and chosen != "bulk":
-        raise ValueError("the bulk body does not take these arguments "
-                         "(xwt_body)")
+    check_body(body, chosen)
+    if tile not in (None, *WIDE_TILES):
+        raise ValueError(f"tile must be one of {WIDE_TILES}, got {tile!r}")
     if not x.is_cuda:
         return demm_xwT_plain(x, values, indices, cfg)
     from repro_torch.kernels._build import load_library
@@ -282,8 +479,8 @@ def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), y.data_ptr(),
         bx, k, o, g, cfg.m, ne, pitch, _DTYPE_CODE[x.dtype],
         _DTYPE_CODE[values.dtype], int(bool(duplicates)),
-        int(rows_per_block or 0), int((body or chosen) == "bulk"),
-        int(chunks or 0),
+        int(rows_per_block or 0), BODY_CODE[body or chosen],
+        int(chunks or 0), int(tile or 0),
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_launch_error(code, "demm_xwt")
     demm_xwT.launches += 1
@@ -292,4 +489,4 @@ def demm_xwT_on(body: Optional[str], x: torch.Tensor, values: torch.Tensor,
 
 
 demm_xwT.launches = 0     # kernel launches (not plain-version calls)
-demm_xwT.body_launches = {"bulk": 0, "gather": 0}    # the same, by body
+demm_xwT.body_launches = {"bulk": 0, "wide": 0, "gather": 0}  # the same, by body

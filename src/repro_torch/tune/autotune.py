@@ -177,6 +177,14 @@ def _block_gather_smem(p: Problem, a_max: int, cd: int, budget: int) -> int:
     return tile(min(chunk, a_max)) + red
 
 
+def _wide_scale_cols(p: Problem) -> int:
+    """K3's scale columns as the wide body copies them: G per group, 1 per
+    row; 0 for K1."""
+    if not p.quantized:
+        return 0
+    return p.groups if p.group_scales else 1
+
+
 def smem_bytes(problem: Problem, variant: str,
                params: Dict[str, int],
                budget: int = DEFAULT_SMEM_BUDGET) -> int:
@@ -184,6 +192,7 @@ def smem_bytes(problem: Problem, variant: str,
     for, counted as its launcher counts it (``demm_xwT.xwt_body_of``:
     ``BULK_SMEM_BYTES``, the x tile, the rows of pairs in flight; the
     stage plans of ``csrc/demm_xwt_bulk.cuh::bulk_plan``,
+    ``demm_xwt_wide.cuh::wide_plan`` (``demm_xwT.wide_plan``),
     ``demm_block_cluster.cuh::cl_plan``, ``demm_spmm_tc.cuh::tc_smem_bytes``
     and the gather bodies' staging).  Where the launcher would refuse for
     want of room, the least it would need — which exceeds ``budget``.  The
@@ -216,6 +225,16 @@ def smem_bytes(problem: Problem, variant: str,
             stages = min(avail // (per * row_bytes), _BULK_MAX_STAGES,
                          nchunks)
         return fixed + stages * per * row_bytes
+    if body == "wide":
+        from repro_torch.kernels.demm_xwT import wide_plan
+        plan = wide_plan(p.rows, p.out, g, m, ne, value_size=p.v_bytes,
+                         scale_cols=_wide_scale_cols(p),
+                         tile=params.get("tile") or 0,
+                         rows=params.get("rows_per_block") or 0,
+                         sms=H100_SMS, budget=budget)
+        if plan is not None:
+            return plan["smem"]
+        return budget + 1
     if body == "cluster":
         bt = 8 if p.duplicates else _x_tile(p.rows)
         lanes = _THREADS // p.block_r
@@ -269,6 +288,16 @@ def geometry_refusal(problem: Problem, variant: str,
             and p.op not in ("xwT", "xwT_q8")
             and (rows > _THREADS or _THREADS % rows)):
         return f"rows_per_block {rows} does not divide {_THREADS} threads"
+    if body == "wide":
+        from repro_torch.kernels.demm_xwT import (WIDE_CHUNK_ELEMS,
+                                                  WIDE_MAX_ITEMS, WIDE_TILES)
+        tile = params.get("tile")
+        if tile is not None and (tile not in WIDE_TILES
+                                 or tile * p.sparsity[1] > WIDE_CHUNK_ELEMS):
+            return (f"tile {tile} not one of {WIDE_TILES} with tile x M <= "
+                    f"{WIDE_CHUNK_ELEMS}")
+        if rows is not None and rows > WIDE_MAX_ITEMS:
+            return f"rows_per_block {rows} > {WIDE_MAX_ITEMS} (wide body)"
     if params.get("chunks", 1) < 1:
         return f"chunks {params['chunks']} < 1"
     if params.get("lanes", 8) not in (8, 16):
@@ -317,6 +346,28 @@ def estimate_us(problem: Problem, params: Dict[str, int]) -> float:
         lanes = params.get("lanes") or (8 if chunk_rows > 32 else 16)
         passes = chunks * -(-chunk_rows // (_BULK_THREADS // lanes))
         w_bytes, x_bytes = rows * row_bytes, p.k * _tile_of(p) * p.x_bytes
+    elif body == "wide":
+        from repro_torch.kernels.demm_xwT import wide_plan, wide_slots
+        plan = wide_plan(p.rows, p.out, g, m, ne, value_size=p.v_bytes,
+                         scale_cols=_wide_scale_cols(p),
+                         tile=params.get("tile") or 0,
+                         rows=params.get("rows_per_block") or 0,
+                         sms=H100_SMS) or {"rows": 1, "xsplit": 1, "split": 1,
+                                           "tile": 32, "parts": 1}
+        rows, xs, tile = plan["rows"], plan["xsplit"], plan["tile"]
+        sp = plan["split"]
+        ctas = -(-p.out // rows) * sp * xs
+        x_rows = -(-(-(-p.rows // tile)) // xs) * tile   # x rows a CTA walks
+        w_bytes = rows * row_bytes // sp
+        x_bytes = x_rows * p.k * p.x_bytes // sp
+        # the products on the CUDA cores, about 32 multiply-adds a clock an
+        # SM (a 2-byte shared read and a conversion each), at its slots'
+        # fill, counted as passes of 0.5 us
+        items = rows * plan["parts"]
+        nslots = wide_slots(tile)
+        fill = items / (-(-items // nslots) * nslots)
+        passes = (rows * g * ne // sp) * x_rows / (32 * 1755.0) / fill \
+            / _PASS_US
     elif body == "cluster":
         rb = p.out // p.block_r
         cs = params.get("cluster_size") or _cl_auto_csize(rb, p.a_max)

@@ -38,7 +38,8 @@ selects it.
 
 The ``cuda`` variants' tunables are those of the body the problem's shape
 selects (:func:`cuda_body`, the wrappers' own rules): the bulk row-tile body
-of K1/K3 (``rows_per_block``, ``chunks``, K3's ``lanes``), the gather bodies
+of K1/K3 (``rows_per_block``, ``chunks``, K3's ``lanes``), their wide body
+(``rows_per_block``, ``tile``: x rows per tile), the gather bodies
 of K1-K4 (``rows_per_block``), the cluster body of K2/K4 (``cluster_size``)
 and K5's tiled body (``tile_n`` x ``warpgroups`` = its ``tile``, and
 ``stages``).  The default params ``{}`` leave every tunable to the wrapper's
@@ -285,6 +286,8 @@ BULK_ROWS = (8, 12, 16, 20, 24, 32, 40, 53, 64)
 BULK_CHUNKS = (1, 2, 4, 16)
 BULK_LANES = (8, 16)
 XWT_GATHER_ROWS = (8, 16, 24, 32, 48, 64)
+WIDE_ROWS = (8, 16, 20, 32, 40, 53, 64, 96, 128)
+WIDE_TILES = (32, 64, 128)
 BLOCK_GATHER_ROWS = (8, 16, 32, 64, 128)     # must divide the 256 threads
 CLUSTER_SIZES = (1, 2, 4, 8)
 TC_TILE_N = (128, 256)
@@ -295,8 +298,8 @@ TC_STAGES = (2, 3, 4)
 def cuda_body(p: Problem) -> str:
     """The body the op's CUDA wrapper picks for this problem, by the
     wrappers' own shape rules with every operand taken 16-byte aligned (the
-    port's allocations are): ``"bulk"`` / ``"gather"`` for ``xwT`` and
-    ``xwT_q8``, ``"cluster"`` / ``"gather"`` for the block ops (B = xᵀ of a
+    port's allocations are): ``"bulk"`` / ``"wide"`` / ``"gather"`` for
+    ``xwT`` and ``xwT_q8``, ``"cluster"`` / ``"gather"`` for the block ops (B = xᵀ of a
     contiguous x), ``"tiled"`` / ``"gather"`` for ``spmm`` (B (K, Cd)
     contiguous)."""
     m, ne = p.sparsity[1], p.cfg.n_effective
@@ -326,6 +329,9 @@ def cuda_param_space(p: Problem) -> Dict[str, Tuple[int, ...]]:
         if p.op == "xwT_q8":
             space["lanes"] = BULK_LANES
         return space
+    if body == "wide":
+        return {"rows_per_block": tuple(r for r in WIDE_ROWS if r <= p.out)
+                or (p.out,), "tile": WIDE_TILES}
     if body == "cluster":
         return {"cluster_size": CLUSTER_SIZES}
     if body == "tiled":
@@ -380,7 +386,8 @@ def _register_builtin_variants():
     cuda("xwT", lambda x, values, indices, cfg, w_shape, **params:
          demm_xwT_on(None, x, values, indices, cfg, **params),
          "hand-written CUDA kernel (csrc/demm_xwt.cu): the bulk row-tile "
-         "body at serving batch, else the gather body")
+         "body at serving batch, the wide body at wider bfloat16 x, else the "
+         "gather body")
     reference("xwT_q8",
               lambda x, values, indices, scales, cfg, w_shape, **_:
               demm_xwT_q8_plain(x, values, indices, scales, cfg),

@@ -365,20 +365,180 @@ def test_xwt_q8_bulk_body_tunables(card, n, m, o, g, per_group, kw):
 
 @pytest.mark.parametrize("per_group", [False, True])
 @pytest.mark.parametrize("bx", [9, 37])
-def test_xwt_q8_wide_batch_takes_the_gather_body(card, bx, per_group):
-    """Beyond serving batch K3 keeps the gather body, and says so."""
+def test_xwt_q8_wide_batch_takes_the_wide_body(card, bx, per_group):
+    """Beyond serving batch K3 takes the wide body for bfloat16 x and the
+    gather body for float32 x, and says so."""
     n, m, o, g = 5, 80, 2560, 32
     cfg = SparsityConfig(n, m)
-    x, q, idx, scales = _q8_inputs(card, n, m, o, g, bx, torch.bfloat16,
-                                   per_group, False, seed=bx)
-    assert xwt_body(x, q, idx, m, duplicates=False, scales=scales) == "gather"
-    before = dict(demm_xwT_q8.body_launches)
-    got = demm_xwT_q8(x, q, idx, scales, cfg, duplicates=False)
+    for dtype, body in ((torch.bfloat16, "wide"), (torch.float32, "gather")):
+        x, q, idx, scales = _q8_inputs(card, n, m, o, g, bx, dtype,
+                                       per_group, False, seed=bx)
+        assert xwt_body(x, q, idx, m, duplicates=False, scales=scales) == body
+        before = dict(demm_xwT_q8.body_launches)
+        got = demm_xwT_q8(x, q, idx, scales, cfg, duplicates=False)
+        torch.cuda.synchronize()
+        assert demm_xwT_q8.body_launches == {**before,
+                                             body: before[body] + 1}
+        torch.testing.assert_close(
+            got, demm_xwT_q8_plain(x, q, idx, scales, cfg), **TOL[dtype])
+
+
+# Bx of a prefill: ragged tiles of 32, a chunk, 64 and 128 tiles, several
+# tiles split over CTAs along x
+WIDE_BX = [9, 20, 32, 37, 64, 100, 256, 1030]
+
+
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bx", WIDE_BX)
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES)
+def test_xwt_wide_body_matches_plain_version(card, n, m, o, g, bx, vdtype):
+    """K1's wide body at the widths of a prefill, as the main path launches
+    it (no summing search), float32 and bfloat16 values."""
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, bx, torch.bfloat16,
+                              seed=o + bx)
+    vals = vals.to(vdtype)
+    assert xwt_body(x, vals, idx, m, duplicates=False) == "wide"
+    before = dict(demm_xwT.body_launches)
+    got = demm_xwT(x, vals, idx, cfg, duplicates=False)
     torch.cuda.synchronize()
-    assert demm_xwT_q8.body_launches == {**before,
-                                         "gather": before["gather"] + 1}
+    assert demm_xwT.body_launches["wide"] == before["wide"] + 1
+    torch.testing.assert_close(got, demm_xwT_plain(x, vals, idx, cfg),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("duplicates", [False, True])
+@pytest.mark.parametrize("per_group", [False, True])
+@pytest.mark.parametrize("bx", [9, 32, 100])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES)
+def test_xwt_q8_wide_body_matches_plain_version(card, n, m, o, g, bx,
+                                                per_group, duplicates):
+    """K3 on the wide body, per-row and per-group scales (each weight
+    round(q x round(scale)) decoded once), as the main path launches it and
+    with the summing instantiation."""
+    cfg = SparsityConfig(n, m)
+    x, q, idx, scales = _q8_inputs(card, n, m, o, g, bx, torch.bfloat16,
+                                   per_group, duplicates, seed=o + bx)
+    assert xwt_body(x, q, idx, m, duplicates=duplicates,
+                    scales=scales) == "wide"
+    before = dict(demm_xwT_q8.body_launches)
+    got = demm_xwT_q8(x, q, idx, scales, cfg, duplicates=duplicates)
+    torch.cuda.synchronize()
+    assert demm_xwT_q8.body_launches["wide"] == before["wide"] + 1
     torch.testing.assert_close(got, demm_xwT_q8_plain(x, q, idx, scales, cfg),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("bx", [9, 37, 130])
+def test_xwt_wide_body_sums_duplicates(card, bx):
+    """Every slot of a group on one column, standard-normal values (their
+    bfloat16 sums round) and an all-padded row: the wide body folds them
+    as the plain version rounds them, with every tunable."""
+    n, m, o, g = 5, 80, 300, 8
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, bx, torch.bfloat16, seed=bx)
+    idx = idx[..., :1].expand(o, g, n).contiguous()
+    vals[0] = 0
+    idx[0] = 0
+    assert xwt_body(x, vals, idx, m) == "wide"
+    want = demm_xwT_plain(x, vals, idx, cfg)
+    for kw in ({}, dict(tile=32), dict(tile=128), dict(rows_per_block=7)):
+        torch.testing.assert_close(demm_xwT_on("wide", x, vals, idx, cfg,
+                                               **kw),
+                                   want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tile=32), dict(tile=64), dict(tile=128), dict(rows_per_block=1),
+    dict(rows_per_block=7), dict(rows_per_block=40, tile=128),
+    dict(rows_per_block=20, tile=64)],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("bx", [32, 300])
+@pytest.mark.parametrize("n,m,o,g", BODY_SHAPES[:3])
+def test_xwt_wide_body_tunables(card, n, m, o, g, bx, kw):
+    """Every tunable of the wide body, K1 and K3 (per-group scales): x
+    tiles of 32, 64, 128 rows (ragged, several a CTA), one-row, ragged and
+    wide row tiles (with CTAs along x at 300 rows)."""
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, bx, torch.bfloat16, seed=g)
+    got = demm_xwT_on("wide", x, vals, idx, cfg, duplicates=False, **kw)
+    torch.testing.assert_close(got, demm_xwT_plain(x, vals, idx, cfg),
+                               **TOL[torch.bfloat16])
+    _, q, _, scales = _q8_inputs(card, n, m, o, g, bx, torch.bfloat16, True,
+                                 False, seed=g)
+    got = demm_xwT_q8_on("wide", x, q, idx, scales, cfg, duplicates=False,
+                         **kw)
+    torch.testing.assert_close(got, demm_xwT_q8_plain(x, q, idx, scales, cfg),
+                               **TOL[torch.bfloat16])
+
+
+def test_xwt_wide_body_rows_up_to_its_limit(card):
+    """A CTA of 128 rows (its most) where their decoded pairs fit; where
+    they do not (K = 6912: 128 x 432 entries) the launcher refuses before
+    launching, as ``demm_xwT.wide_plan`` says, and the card launches on."""
+    from repro_torch.kernels.demm_xwT import LaunchRefused, wide_plan
+    for (n, m, o, g), fits in ((BODY_SHAPES[0], True),
+                               (BODY_SHAPES[2], False)):
+        cfg = SparsityConfig(n, m)
+        x, vals, idx, _ = _inputs(card, n, m, o, g, 300, torch.bfloat16,
+                                  seed=g)
+        assert (wide_plan(300, o, g, m, n, rows=128) is not None) == fits
+        if fits:
+            torch.testing.assert_close(
+                demm_xwT_on("wide", x, vals, idx, cfg, duplicates=False,
+                            rows_per_block=128),
+                demm_xwT_plain(x, vals, idx, cfg), **TOL[torch.bfloat16])
+        else:
+            with pytest.raises(LaunchRefused):
+                demm_xwT_on("wide", x, vals, idx, cfg, duplicates=False,
+                            rows_per_block=128)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bx", [20, 37])
+def test_xwt_wide_body_multiplies_no_slot_past_the_prefix(card, bx):
+    """A draft tier's prefix on the wide body: slots past it name columns
+    where x holds inf, and the output is finite and bit-equal to the one
+    without the inf (K1, K3 with both scale units)."""
+    n, m, o, g, t = 8, 16, 512, 40, 5
+    k = g * m
+    cfg = SparsityConfig(t, m)
+    gen = torch.Generator(device=card).manual_seed(bx)
+    cols = torch.tensor([s if s < t else m - n + s for s in range(n)],
+                        dtype=torch.int32, device=card)
+    idx = cols.expand(o, g, n).contiguous()
+    vals = torch.randn((o, g, n), generator=gen, device=card)
+    q = torch.randint(-127, 128, (o, g, n), generator=gen, device=card,
+                      dtype=torch.int32).to(torch.int8)
+    x = torch.randn((bx, k), generator=gen, device=card).to(torch.bfloat16)
+    x_inf = x.clone()
+    tail = (torch.arange(g, device=card)[:, None] * m
+            + torch.arange(m - n + t, m, device=card)).reshape(-1)
+    x_inf[:, tail] = float("inf")
+    v, i, qv = vals[..., :t], idx[..., :t], q[..., :t]
+    assert xwt_body(x, v, i, m, duplicates=False) == "wide"
+    calls = [lambda x: demm_xwT(x, v, i, cfg, duplicates=False)]
+    for shape in ((o,), (o, g)):
+        sc = torch.rand(shape, generator=gen, device=card) * 0.02 + 1e-3
+        calls.append(lambda x, sc=sc: demm_xwT_q8(x, qv, i, sc, cfg,
+                                                  duplicates=False))
+    for call in calls:
+        want, got = call(x), call(x_inf)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, want)
+    torch.testing.assert_close(calls[0](x), demm_xwT_plain(x, v, i, cfg),
+                               **TOL[torch.bfloat16])
+
+
+def test_xwt_wide_body_is_deterministic(card):
+    """No atomics: the same launch twice gives the same bits."""
+    n, m, o, g = 5, 80, 6912, 32
+    cfg = SparsityConfig(n, m)
+    x, vals, idx, _ = _inputs(card, n, m, o, g, 300, torch.bfloat16, seed=3)
+    a = demm_xwT(x, vals, idx, cfg, duplicates=False)
+    b = demm_xwT(x, vals, idx, cfg, duplicates=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16])
@@ -753,8 +913,9 @@ def test_paged_preemption_on_the_card_keeps_the_tokens(card):
 def test_paged_wrappers_count_warmup_and_capture_on_their_bodies(card,
                                                                  layout):
     """The wrappers count the warm-up and the capture of each program only,
-    whatever the prompts: 7 x layers x 2 for the chunk (x of 16 rows: the
-    gather body) and 7 x layers x 2 for the step (the serving body)."""
+    whatever the prompts: 7 x layers x 2 for the chunk (x of 16 bfloat16
+    rows: K1's wide body, K2's gather body) and 7 x layers x 2 for the step
+    (the serving body)."""
     from repro_torch.kernels.demm_block_spmm import demm_block_spmm
     from repro_torch.kernels.demm_xwT import demm_xwT
 
@@ -762,6 +923,7 @@ def test_paged_wrappers_count_warmup_and_capture_on_their_bodies(card,
                               dtype="bfloat16")
     kern = demm_xwT if layout == "xwT" else demm_block_spmm
     serving = "bulk" if layout == "xwT" else "cluster"
+    prefill = "wide" if layout == "xwT" else "gather"
     per = 7 * cfg.num_layers * 2
     for lengths in ((4, 9), (40, 33, 17)):
         before = kern.launches
@@ -772,7 +934,7 @@ def test_paged_wrappers_count_warmup_and_capture_on_their_bodies(card,
         eng, _, _ = _paged_collect(model, cfg, backend="cuda",
                                    prompts=prompts)
         assert kern.launches - before == 2 * per
-        assert kern.body_launches["gather"] - by_body["gather"] == per
+        assert kern.body_launches[prefill] - by_body[prefill] == per
         assert kern.body_launches[serving] - by_body[serving] == per
         assert eng.prefill.dispatches == sum(-(-n // 16) for n in lengths)
 
@@ -949,7 +1111,8 @@ def test_tuned_is_no_slower_than_the_default(card, tune_cache, op, rows):
 
 
 @pytest.mark.parametrize("op,rows", [
-    ("xwT", 4), ("xwT", 32), ("xwT_q8", 4), ("xwT_q8", 32), ("xwT_block", 4),
+    ("xwT", 4), ("xwT", 32), ("xwT", 300), ("xwT_q8", 4), ("xwT_q8", 32),
+    ("xwT_q8", 300), ("xwT_block", 4),
     ("xwT_block", 32), ("xwT_block_q8", 4), ("xwT_block_q8", 32), ("spmm", 4),
     ("spmm", 256)])
 @pytest.mark.parametrize("o,k,n,m", [(2560, 2560, 5, 80), (2560, 6912, 3, 48)])
@@ -1085,8 +1248,9 @@ def test_tier_prefix_kernels_match_plain_versions(card, n, m, o, k, bx,
                                                   dtype):
     """K1, K3 (per-row and per-group scales), K2 and K4 on the prefix views
     ``[..., :t]`` of the stored tensors: no copy (the operand's data_ptr is
-    the full tier's), the full tier's body (bulk / cluster at Bx <= 8,
-    gather above), the plain version's result on the same views."""
+    the full tier's), the full tier's body (bulk / cluster at Bx <= 8; K1 /
+    K3's wide body above for bfloat16 x, else gather), the plain version's
+    result on the same views."""
     g = k // m
     x, vals, idx, gen = _inputs(card, n, m, o, g, bx, dtype, seed=n + bx)
     dense = unpack(vals, idx, SparsityConfig(n, m), (o, k))

@@ -45,6 +45,7 @@ from repro_torch.kernels.demm_xwT import (demm_xwT, demm_xwT_plain,
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 BF16_SAME_ROUNDING = dict(rtol=1e-5, atol=1e-5)
+F32W = dict(rtol=1e-4, atol=1e-4)     # the wide widths' float32 sums
 
 
 def _bf16_tol(rows):
@@ -124,6 +125,123 @@ def test_xwT_plain_bf16_vs_interpret_kernel(n, m, o, g, bx, duplicates):
     np.testing.assert_array_equal(
         demm_xwT_plain(_t(x, torch.bfloat16), _t(values, torch.bfloat16),
                        _t(indices), tcfg).numpy(), got)
+
+
+# the wide body's widths: (n, m, O, G, Bx), M a multiple of 8
+WIDE_SHAPES = [(5, 80, 21, 3, 16), (3, 48, 17, 4, 37), (8, 16, 12, 6, 64)]
+
+
+def _tier(values, indices, t):
+    """The prefix views ``[..., :t]`` of the stored pairs (a draft tier)."""
+    return _t(values)[..., :t], _t(indices)[..., :t]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["plain", "duplicates", "tier"])
+@pytest.mark.parametrize("n,m,o,g,bx", WIDE_SHAPES)
+def test_xwT_plain_at_wide_widths_vs_interpret_kernel(n, m, o, g, bx, kind,
+                                                      dtype):
+    """K1's plain version (what the wide body is held to on the card) and
+    the Pallas kernel in interpret mode at the widths of a prefill chunk
+    and beyond, with duplicate indices and on a draft tier's prefix
+    (``t = n - 1`` of ``n`` stored slots: the kernel gets the prefix
+    copied, the plain version the prefix view)."""
+    values, indices = _packed(n, m, o, g, seed=n * m + bx,
+                              duplicates=kind == "duplicates", exact=False)
+    x = np.random.default_rng(bx + 7).standard_normal(
+        (bx, g * m)).astype(np.float32)
+    xt = _t(x, getattr(torch, dtype))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    if kind == "tier":
+        t = n - 1
+        tv, ti = _tier(values, indices, t)
+        jcfg, tcfg = jsp.SparsityConfig(t, m), tsp.SparsityConfig(t, m)
+        kv, ki = np.ascontiguousarray(values[..., :t]), \
+            np.ascontiguousarray(indices[..., :t])
+    else:
+        tv, ti = _t(values), _t(indices)
+        jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+        kv, ki = values, indices
+    got = demm_xwT_plain(xt, tv, ti, tcfg).numpy()
+    kern = demm_xwT_pallas(jnp.asarray(x, jdt), jnp.asarray(kv),
+                           jnp.asarray(ki), jcfg, interpret=True)
+    assert got.shape == (bx, o) and got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(kern),
+                               **(BF16 if dtype == "bfloat16" else F32W))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["per_row", "per_group",
+                                  "duplicates per_group", "tier per_row"])
+@pytest.mark.parametrize("n,m,o,g,bx", WIDE_SHAPES)
+def test_xwT_q8_plain_at_wide_widths_vs_interpret_kernel(n, m, o, g, bx,
+                                                         kind, dtype):
+    """K3's plain version and the Pallas kernel in interpret mode at the
+    wide body's widths, per-row and per-group scales, duplicates and a
+    tier prefix."""
+    values, indices = _packed(n, m, o, g, seed=n + m + bx,
+                              duplicates=kind.startswith("duplicates"))
+    q, scales = _quantized(values, kind.endswith("per_group"), seed=o + bx)
+    x = np.random.default_rng(bx + 8).standard_normal(
+        (bx, g * m)).astype(np.float32)
+    xt = _t(x, getattr(torch, dtype))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    if kind.startswith("tier"):
+        t = n - 1
+        tq, ti = _tier(q, indices, t)
+        jcfg, tcfg = jsp.SparsityConfig(t, m), tsp.SparsityConfig(t, m)
+        kq, ki = np.ascontiguousarray(q[..., :t]), \
+            np.ascontiguousarray(indices[..., :t])
+    else:
+        tq, ti = _t(q), _t(indices)
+        jcfg, tcfg = jsp.SparsityConfig(n, m), tsp.SparsityConfig(n, m)
+        kq, ki = q, indices
+    got = demm_xwT_q8_plain(xt, tq, ti, _t(scales), tcfg).numpy()
+    kern = demm_xwT_q8_pallas(jnp.asarray(x, jdt), jnp.asarray(kq),
+                              jnp.asarray(ki), jnp.asarray(scales), jcfg,
+                              interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern),
+                               **(BF16 if dtype == "bfloat16" else F32W))
+
+
+def test_wide_plan_fits_and_fills_the_card():
+    """The wide launcher's plan as ``demm_xwT.wide_plan`` mirrors it: at
+    the main path's shapes one wave of CTAs, at Bx <= 64 clusters of two
+    along K each of about 2 O / 132 rows whose pairs are decoded in one
+    round, CTAs split along x's tiles at Bx = 2048 with more rows each,
+    every plan
+    within a block's shared memory and the item slots' registers; a rows
+    tunable past a CTA's 128 rows refused."""
+    from repro_torch.kernels import demm_xwT as kx
+    for o, k, n, m in ((2560, 2560, 5, 80), (6912, 2560, 5, 80),
+                       (2560, 6912, 3, 48), (6912, 2560, 8, 128)):
+        g = k // m
+        for bx in (9, 32, 37, 64, 256, 2048):
+            for vsize, scols in ((4, 0), (2, 0), (1, 1), (1, g)):
+                plan = kx.wide_plan(bx, o, g, m, n, value_size=vsize,
+                                    scale_cols=scols)
+                assert plan is not None
+                assert plan["smem"] <= kx.BULK_SMEM_BYTES
+                assert 1 <= plan["rows"] * plan["parts"] <= kx.WIDE_MAX_ITEMS
+                assert plan["tile"] == kx.wide_tile(bx)
+                assert plan["chunk_groups"] * m * plan["tile"] <= \
+                    kx.WIDE_CHUNK_ELEMS
+                assert 1 <= plan["batch_rows"] <= plan["rows"]
+                ctas = -(-o // plan["rows"]) * plan["split"] * plan["xsplit"]
+                assert ctas <= 132
+                if bx <= 64:
+                    assert plan["xsplit"] == 1 and plan["split"] == 2
+                    assert plan["rows"] == -(-2 * o // 132)
+                    assert plan["batch_rows"] == plan["rows"]
+        big = kx.wide_plan(2048, o, g, m, n)
+        assert big["xsplit"] > 1 and big["rows"] > -(-o // 132)
+    assert kx.wide_plan(32, 2560, 32, 80, 5, rows=129) is None
+    # given rows, no cluster
+    assert kx.wide_plan(32, 2560, 32, 80, 5, rows=20)["split"] == 1
+    # items fill the slots: 128 of 4 lanes at a tile of 32, 64 at 64
+    assert kx.wide_slots(32) == 128 and kx.wide_slots(128) == 32
+    assert kx.wide_parts(20, 32) == 6 and kx.wide_parts(39, 32) == 3
+    assert kx.wide_parts(53, 64) == 1 and kx.wide_parts(105, 32) == 1
 
 
 def _quantized(values, per_group, seed):
@@ -580,6 +698,35 @@ def test_body_choice_limits_match_the_launchers():
     q8 = (CSRC / "demm_xwt_q8.cu").read_text()
     assert "Int8BulkWeights<XT, false>" in q8       # scale_cols == 1
     assert "Int8BulkWeights<XT, true>" in q8        # scale_cols == G
+    # the wide body: its limits, the rule wide_takes states and the plan's
+    # fit test, as xwt_body_of / wide_plan state them
+    wide = "demm_xwt_wide.cuh"
+    assert kx.WIDE_MIN_BX == _header_constant("kWideMinBx", wide)
+    assert kx.WIDE_CHUNK_ELEMS == _header_constant("kWideChunkElems", wide)
+    for name, const in (("WIDE_THREADS", "kWideThreads"),
+                        ("WIDE_LANE_ROWS", "kWideLaneRows"),
+                        ("WIDE_MAX_ITEMS", "kWideMaxItems"),
+                        ("WIDE_MAX_PARTS", "kWideMaxParts"),
+                        ("WIDE_MAX_XSPLIT", "kWideMaxXsplit"),
+                        ("WIDE_MAX_SPLIT", "kWideMaxSplit"),
+                        ("WIDE_HEAD_BYTES", "kWideHeadBytes"),
+                        ("WIDE_MAX_K", "kWideMaxK")):
+        assert getattr(kx, name) == _header_constant(const, wide), name
+    text = (CSRC / wide).read_text()
+    takes = text[text.index("inline bool wide_takes"):]
+    takes = takes[:takes.index("\n}\n")]
+    assert "g.bx >= kWideMinBx" in takes
+    assert "g.k % 8 == 0 && g.m % 8 == 0" in takes
+    assert "g.k <= kWideMaxK" in takes
+    assert "bt * g.m <= kWideChunkElems" in takes
+    assert "reinterpret_cast<uintptr_t>(x) % 16 == 0" in takes
+    assert "bx <= 32 ? 32 : bx <= 64 ? 64 : 128" in text     # wide_auto_tile
+    assert tuple(kx.WIDE_TILES) == (32, 64, 128)
+    # bfloat16 x only: the float32 instantiation refuses the wide body
+    for src in ("demm_xwt.cu", "demm_xwt_q8.cu"):
+        body = (CSRC / src).read_text()
+        assert "std::is_same<XT, __nv_bfloat16>::value" in body
+        assert "if (body == 2)" in body
 
 
 def test_launch_refusal_is_not_a_cuda_error():
@@ -716,8 +863,40 @@ _XWT_BODY_CASES = [
     ("float32 x, bf16 values", 4, 2560, 80, 5,
      dict(xdtype=torch.float32, vdtype=torch.bfloat16), False, "bulk"),
     ("duplicates (the widest tile)", 1, 2560, 80, 5, {}, True, "bulk"),
-    ("Bx=9 (too wide)", 9, 2560, 80, 5, {}, False, "gather"),
-    ("Bx=37", 37, 2560, 80, 5, {}, False, "gather"),
+    # above 8 rows of bfloat16 x: the wide body (too wide for the bulk one)
+    ("Bx=9 (too wide)", 9, 2560, 80, 5, {}, False, "wide"),
+    ("Bx=37", 37, 2560, 80, 5, {}, False, "wide"),
+    ("wide Bx=16", 16, 2560, 80, 5, {}, False, "wide"),
+    ("wide Bx=20", 20, 2560, 80, 5, {}, False, "wide"),
+    ("wide Bx=32 (a prefill chunk)", 32, 2560, 80, 5, {}, False, "wide"),
+    ("wide Bx=32 K=6912", 32, 6912, 48, 3, {}, False, "wide"),
+    ("wide Bx=2048 8:128", 2048, 2560, 128, 8, {}, False, "wide"),
+    ("wide duplicates", 37, 2560, 80, 5, {}, True, "wide"),
+    ("wide bf16 values", 32, 2560, 80, 5, dict(vdtype=torch.bfloat16),
+     False, "wide"),
+    # the pairs are read element by element: no 16-byte rule on them
+    ("wide: a row of pairs not 16-byte multiples (G x Ne = 30)", 37, 480,
+     80, 5, {}, False, "wide"),
+    ("wide: x tile beyond shared memory is chunked (K=16384)", 13, 16384,
+     128, 8, {}, False, "wide"),
+    ("float32 x at Bx=37: the gather body", 37, 2560, 80, 5,
+     dict(xdtype=torch.float32), False, "gather"),
+    ("float32 x at Bx=2048", 2048, 2560, 128, 8,
+     dict(xdtype=torch.float32), False, "gather"),
+    ("Bx=37, x not 16-byte aligned", 37, 2560, 80, 5, dict(offset=1), False,
+     "gather"),
+    ("Bx=37, groups not 16-byte multiples (M=12)", 37, 36, 12, 4, {}, False,
+     "gather"),
+    ("Bx=37, M=1 (1:1 projections)", 37, 1152, 1, 1, {}, False, "gather"),
+    ("Bx=200, one group of the x tile beyond a chunk (M=512)", 200, 4096,
+     512, 8, {}, False, "gather"),
+    ("Bx=32, one row of pairs beyond shared memory", 32, 65536, 16, 16, {},
+     False, "gather"),
+    # an entry holds its column in 16 bits
+    ("wide: K=65536, the widest an entry reaches", 32, 65536, 128, 1, {},
+     False, "wide"),
+    ("Bx=32, K=69632: beyond an entry's 16-bit column", 32, 69632, 128, 1,
+     {}, False, "gather"),
     ("x tile beyond shared memory (K=16384, Bx=8)", 8, 16384, 128, 8, {},
      False, "gather"),
     ("float32 x, K=8192: one row fits, the duplicates tile does not", 1,
@@ -796,8 +975,20 @@ _XWT_Q8_BODY_CASES = [
      dict(xdtype=torch.float32), False, "bulk"),
     ("duplicates (the widest tile) per group", 1, 6912, 48, 3, True, {},
      True, "bulk"),
-    ("Bx=9 (too wide)", 9, 2560, 80, 5, False, {}, False, "gather"),
-    ("Bx=37 per group", 37, 2560, 80, 5, True, {}, False, "gather"),
+    ("Bx=9 (too wide)", 9, 2560, 80, 5, False, {}, False, "wide"),
+    ("Bx=37 per group", 37, 2560, 80, 5, True, {}, False, "wide"),
+    ("wide Bx=32 per row", 32, 2560, 80, 5, False, {}, False, "wide"),
+    ("wide Bx=32 K=6912 per group", 32, 6912, 48, 3, True, {}, False,
+     "wide"),
+    ("wide Bx=2048 per row", 2048, 2560, 128, 8, False, {}, False, "wide"),
+    ("wide duplicates per group", 20, 6912, 48, 3, True, {}, True, "wide"),
+    # the wide body reads the scales element by element
+    ("wide: per-group scales not 16-byte aligned", 37, 2560, 80, 5, True,
+     dict(scale_offset=1), False, "wide"),
+    ("wide: int8 values, G x Ne = 20 bytes", 37, 320, 80, 5, False, {},
+     False, "wide"),
+    ("float32 x at Bx=37 per group", 37, 2560, 80, 5, True,
+     dict(xdtype=torch.float32), False, "gather"),
     # G x Ne = 20: 80 bytes of float32 values (K1 takes the bulk body), 20
     # of int8
     ("int8 values: G x Ne = 20 is 20 bytes", 4, 320, 80, 5, False, {},

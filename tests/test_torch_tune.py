@@ -106,8 +106,8 @@ def test_platform_comes_from_the_operands_device(where, want):
 
 
 @pytest.mark.parametrize("op,rows,body", [
-    ("xwT", 4, "bulk"), ("xwT", 32, "gather"), ("xwT_q8", 8, "bulk"),
-    ("xwT_q8", 9, "gather"), ("xwT_block", 4, "cluster"),
+    ("xwT", 4, "bulk"), ("xwT", 32, "wide"), ("xwT_q8", 8, "bulk"),
+    ("xwT_q8", 9, "wide"), ("xwT_block", 4, "cluster"),
     ("xwT_block", 32, "gather"), ("xwT_block_q8", 1, "cluster"),
     ("spmm", 4, "gather"), ("spmm", 256, "tiled")])
 def test_cuda_body_follows_the_wrappers_rules(op, rows, body):
@@ -150,6 +150,7 @@ def test_param_space_holds_the_bodys_tunables(op):
         body = tune.cuda_body(p)
         want = {"bulk": {"rows_per_block", "chunks"}
                 | ({"lanes"} if op == "xwT_q8" else set()),
+                "wide": {"rows_per_block", "tile"},
                 "gather": {"rows_per_block"}, "cluster": {"cluster_size"},
                 "tiled": {"tile_n", "warpgroups", "stages"}}[body]
         assert set(space) == want
